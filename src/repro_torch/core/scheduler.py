@@ -1,0 +1,241 @@
+"""Algorithm 2: Lyapunov drift-plus-penalty client scheduling (twin of
+``repro/core/scheduler.py``).
+
+Per round and client, Theorem 2 gives the interior candidate
+
+    A      = V lam ell |h|^2 ln2 / (N0 B Z)            (one power of ln 2:
+                                                        the corrected Eq. 16,
+                                                        docs/paper_map.md)
+    P_int  = N0/|h|^2 * ( (A/4) W0(sqrt(A/4))^-2 - 1 ) clipped to [0, Pmax]
+    q      = rsqrt( lam ell N / rate + (N/V) Z P )     clipped to [q_floor, 1]
+                                                        (Eq. 17)
+
+and the boundary candidate P = Pmax; the one with the finite, lower
+drift-plus-penalty objective is kept. Every expression below keeps the
+reference's op order so float32 results agree to a few ulp.
+
+Scalars enter as a :class:`SolveCoeffs` bundle folded on the host in
+float64 and rounded once to float32. The functions accept the bundle as
+Python floats or as 0-d float32 tensors on the lanes' device (engines
+convert it once per run with :func:`as_operands`); inside, every scalar
+becomes a 0-d tensor so each division is a true IEEE division on every
+device (a CUDA tensor divided by a Python scalar is computed as a product
+with the reciprocal, one rounding more).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.channel import (ChannelConfig, _rayleigh_apply,
+                                      _rayleigh_draw)
+from repro_torch.core.lambertw import lambertw0
+
+_LN2 = 0.6931471805599453
+_EPS = 1e-12
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """Hyper-parameters of Algorithm 2."""
+
+    n_clients: int
+    model_bits: float                   # ell: bits per model transmission
+    lam: float = 10.0                   # lambda: comm-time vs bound trade-off
+    V: float = 1000.0                   # Lyapunov penalty weight
+    q_floor: float = 1e-5               # numerical floor to keep q in (0,1]
+    guarantee_one: bool = True          # force >=1 participant per round
+
+
+class SolveCoeffs(NamedTuple):
+    """Scalar operands of the Theorem-2 solve, in the reference's field
+    order (the fused kernel's operand vector depends on it)."""
+
+    a_coef: float    # V lam ell ln2 / (N0 B): Eq. 16 argument scale
+    n0: float        # N0
+    bw: float        # B
+    p_max: float     # Pmax
+    lle_n: float     # lam ell N      (Eq. 17 rate term)
+    n_over_v: float  # N / V          (Eq. 17 queue term)
+    q_floor: float   # numerical floor keeping q in (0, 1]
+    n: float         # N
+    lle: float       # lam ell        (objective comm term)
+    v: float         # V
+    p_bar: float     # Pbar
+
+
+def _f32(x: float) -> float:
+    """Round a host float64 to the nearest float32, kept as a Python float."""
+    return float(np.float32(x))
+
+
+def solve_coeffs(cfg: SchedulerConfig, ch: ChannelConfig) -> SolveCoeffs:
+    """Fold (cfg, ch) into the solve's scalar operands (host, f64 -> f32)."""
+    return SolveCoeffs(
+        a_coef=_f32(cfg.V * cfg.lam * cfg.model_bits * _LN2
+                    / (ch.noise_power * ch.bandwidth_hz)),
+        n0=_f32(ch.noise_power), bw=_f32(ch.bandwidth_hz),
+        p_max=_f32(ch.p_max),
+        lle_n=_f32(cfg.lam * cfg.model_bits * cfg.n_clients),
+        n_over_v=_f32(cfg.n_clients / cfg.V), q_floor=_f32(cfg.q_floor),
+        n=_f32(cfg.n_clients), lle=_f32(cfg.lam * cfg.model_bits),
+        v=_f32(cfg.V), p_bar=_f32(ch.p_bar))
+
+
+def as_operands(c, like: torch.Tensor):
+    """``c``'s fields as 0-d float32 tensors on ``like``'s device (fields
+    already there pass through untouched)."""
+    return type(c)(*(x if isinstance(x, torch.Tensor)
+                     and x.device == like.device
+                     else like.new_full((), float(x)) for x in c))
+
+
+def coeff_rate(gains, power, c) -> torch.Tensor:
+    """Shannon rate bw log2(1 + g P / n0) over a bundle with ``bw``/``n0``."""
+    return c.bw * torch.log2(1.0 + gains * power / c.n0)
+
+
+def _objective_c(q, p, gains, z, c: SolveCoeffs):
+    """Per-client drift-plus-penalty objective f(q, P) of Eq. (15)."""
+    rate = coeff_rate(gains, p, c)
+    y0 = torch.reciprocal(c.n * q) + c.lle * q / torch.clamp_min(rate, _EPS)
+    return c.v * y0 + z * (p * q - c.p_bar)
+
+
+def _q_eq17_c(p, gains, z, c: SolveCoeffs):
+    """Eq. (17) for a given power; clipped into [q_floor, 1]."""
+    rate = coeff_rate(gains, p, c)
+    inv_sq = c.lle_n / torch.clamp_min(rate, _EPS) + c.n_over_v * z * p
+    q = torch.rsqrt(torch.clamp_min(inv_sq, _EPS))
+    return torch.clamp_max(torch.maximum(q, c.q_floor), 1.0)
+
+
+def solve_candidates_coeffs(gains: torch.Tensor, z: torch.Tensor, c):
+    """Both Theorem-2 candidates and the keep-interior mask:
+    ``(q_int, p_int, q_bnd, p_bnd, use_int)``."""
+    gains = gains.to(torch.float32)
+    z = z.to(torch.float32)
+    c = as_operands(c, gains)
+    zs = torch.clamp_min(z, _EPS)  # Z = 0 -> huge A -> boundary wins
+    a = c.a_coef * gains / zs
+    w = lambertw0(torch.sqrt(a / 4.0))
+    p_int = c.n0 / gains * (a / (4.0 * torch.clamp_min(w * w, _EPS)) - 1.0)
+    p_int = torch.minimum(torch.clamp_min(p_int, 0.0), c.p_max)
+    q_int = _q_eq17_c(p_int, gains, z, c)
+    p_bnd = c.p_max.expand(gains.shape)
+    q_bnd = _q_eq17_c(p_bnd, gains, z, c)
+    f_int = _objective_c(q_int, p_int, gains, z, c)
+    f_bnd = _objective_c(q_bnd, p_bnd, gains, z, c)
+    use_int = torch.isfinite(f_int) & (f_int <= f_bnd)
+    return q_int, p_int, q_bnd, p_bnd, use_int
+
+
+def solve_round_coeffs(gains: torch.Tensor, z: torch.Tensor,
+                       c) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Theorem-2 solve from a coefficient bundle: -> (q, P), each (N,)."""
+    q_int, p_int, q_bnd, p_bnd, use_int = solve_candidates_coeffs(gains, z,
+                                                                  c)
+    return (torch.where(use_int, q_int, q_bnd),
+            torch.where(use_int, p_int, p_bnd))
+
+
+def solve_round(gains: torch.Tensor, z: torch.Tensor, cfg: SchedulerConfig,
+                ch: ChannelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vectorized Theorem-2 solve from the configs (the stitched path)."""
+    return solve_round_coeffs(gains, z, solve_coeffs(cfg, ch))
+
+
+def update_queues_z(z: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+                    ch) -> torch.Tensor:
+    """Eq. (9): max(Z + P q - Pbar, 0). ``ch`` needs a ``p_bar`` field (a
+    ChannelConfig or a coefficient bundle)."""
+    return torch.clamp_min(z + p * q - ch.p_bar, 0.0)
+
+
+def force_one(sel: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """An empty selection becomes the client of largest q (the first one on
+    ties, as ``jnp.argmax``): paper Section VI's fallback."""
+    forced = torch.zeros_like(sel).scatter_(0, torch.argmax(q).reshape(1),
+                                            True)
+    return torch.where(sel.any(), sel, forced)
+
+
+def selection_from_uniform(u: torch.Tensor, q: torch.Tensor,
+                           guarantee_one: bool = True) -> torch.Tensor:
+    """I_n = [u_n < q_n], with :func:`force_one` if ``guarantee_one``."""
+    sel = u < q
+    return force_one(sel, q) if guarantee_one else sel
+
+
+# --------------------------------------------------------------------------
+# The M-matched uniform baseline (paper Section VI).
+# --------------------------------------------------------------------------
+
+class UniformCoeffs(NamedTuple):
+    """Scalar operands of the uniform baseline (host floats, f32-exact)."""
+
+    m_avg: float   # matched average participation M
+    q_val: float   # clip(M / N, 0, 1): the reported q
+    pn: float      # Pbar * N: numerator of P = Pbar N / M'
+    n: int         # N: M' is clipped into [1, N]
+
+
+def uniform_coeffs(n_clients: int, m_avg: float,
+                   ch: ChannelConfig) -> UniformCoeffs:
+    """Host-folded operands of :func:`uniform_decide` (f64 folds, f32)."""
+    return UniformCoeffs(m_avg=_f32(m_avg),
+                         q_val=min(max(_f32(m_avg / n_clients), 0.0), 1.0),
+                         pn=_f32(ch.p_bar * n_clients), n=int(n_clients))
+
+
+def uniform_draw_m(take_hi: torch.Tensor, m_avg: float,
+                   n_clients: int) -> torch.Tensor:
+    """The round's subset size M' = floor(M) or ceil(M), clipped into
+    [1, N]; a 0-d int64 tensor on ``take_hi``'s device."""
+    return torch.clamp(take_hi.long() + math.floor(m_avg), 1, n_clients)
+
+
+def uniform_decide(raw, c: UniformCoeffs):
+    """The uniform baseline on pre-drawn raws {"take": (), "scores": (N,)}:
+    the M' highest scores are selected, q = M/N, P = Pbar N / M'."""
+    scores = raw["scores"]
+    take_hi = raw["take"] < (c.m_avg - math.floor(c.m_avg))
+    m = uniform_draw_m(take_hi, c.m_avg, c.n)
+    thresh = torch.sort(scores, descending=True).values.gather(
+        0, (m - 1).reshape(1))
+    sel = scores >= thresh
+    q = torch.full(scores.shape, c.q_val, dtype=torch.float32,
+                   device=scores.device)
+    p = torch.div(scores.new_full((), c.pn, dtype=torch.float32),
+                  torch.clamp_min(m, 1).to(torch.float32))
+    return sel, q, p.expand(scores.shape).contiguous()
+
+
+def estimate_avg_selected(generator, sigmas: torch.Tensor,
+                          cfg: SchedulerConfig, ch: ChannelConfig,
+                          rounds: int = 500, *,
+                          raws: torch.Tensor = None) -> torch.Tensor:
+    """Monte-Carlo estimate of M = E[sum_n q_n] under Algorithm 2 on i.i.d.
+    Rayleigh gains, discarding the first 20% as burn-in (queues start at 0).
+
+    The channel uniforms come from ``generator`` (a ``torch.Generator`` on
+    ``sigmas``' device), or from ``raws``, a (rounds, N) tensor (tests
+    replay the reference's draws; ``generator`` may then be None).
+    """
+    n, device = sigmas.shape[0], sigmas.device
+    c = as_operands(solve_coeffs(cfg, ch), sigmas)
+    z = torch.zeros((n,), dtype=torch.float32, device=device)
+    sums = []
+    for r in range(rounds):
+        raw = (raws[r] if raws is not None
+               else _rayleigh_draw(generator, n, device))
+        gains, _ = _rayleigh_apply(raw, None, sigmas, ch)
+        q, p = solve_round_coeffs(gains, z, c)
+        z = update_queues_z(z, q, p, c)
+        sums.append(q.sum())
+    return torch.stack(sums[rounds // 5:]).mean()

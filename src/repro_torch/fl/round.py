@@ -1,0 +1,92 @@
+"""Federated rounds, Algorithm 1 (twin of the simulation half of
+``repro/fl/round.py``).
+
+The <= ``m_cap`` selected participants each run I local SGD steps from the
+global model, then the server forms the q-weighted aggregate
+
+    x <- (1/N) sum_{i in sel} (1/q_i) y_i                 (Algorithm 1, l.7)
+
+or its variance-reduced delta form. Participants train together under
+``torch.func.vmap`` (one batched program, no per-participant loop); this is
+plain PyTorch, no kernel of this repository.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_wire_dtype(name: str) -> torch.dtype:
+    """``SimConfig.wire_dtype`` -> torch dtype (delta-aggregation wire)."""
+    if name not in WIRE_DTYPES:
+        raise ValueError(f"unknown wire_dtype {name!r} "
+                         f"(want one of {sorted(WIRE_DTYPES)})")
+    return WIRE_DTYPES[name]
+
+
+def local_sgd(loss_fn: Callable, params: dict, batches, gamma: float,
+              steps: int) -> dict:
+    """I plain SGD steps (Algorithm 1, lines 4-6); ``batches`` =
+    (inputs, labels) with a leading ``steps`` axis."""
+    grad_fn = torch.func.grad(loss_fn)
+    inputs, labels = batches
+    for s in range(steps):
+        g = grad_fn(params, (inputs[s], labels[s]))
+        params = {k: w - gamma * g[k] for k, w in params.items()}
+    return params
+
+
+def train_participants(loss_fn: Callable, params: dict, inputs, labels,
+                       gamma: float, steps: int) -> dict:
+    """:func:`local_sgd` for every participant at once: inputs/labels carry
+    a leading participant axis; returns params with that axis."""
+    return torch.func.vmap(
+        lambda x, y: local_sgd(loss_fn, params, (x, y), gamma, steps))(
+            inputs, labels)
+
+
+def pack_participants(sel: torch.Tensor, m_cap: int):
+    """The first ``m_cap`` selected clients, ascending, zero-filled past the
+    selection count: ``(sel_idx, sel_valid)``. A stable sort of the
+    not-selected flag puts the selected indices first in order, without a
+    host synchronisation (``nonzero`` would need one)."""
+    order = torch.sort((~sel).to(torch.uint8), stable=True).indices
+    if order.shape[0] < m_cap:
+        order = torch.cat([order, order.new_zeros(m_cap - order.shape[0])])
+    sel_valid = torch.arange(m_cap, device=sel.device) < sel.sum()
+    return torch.where(sel_valid, order[:m_cap], 0), sel_valid
+
+
+def sample_batches(idx: torch.Tensor, client_images, client_labels,
+                   sel_idx):
+    """The participants' local minibatches from pre-drawn (m_cap, steps,
+    batch) per-client example indices ``idx``."""
+    rows = sel_idx[:, None, None]
+    return client_images[rows, idx], client_labels[rows, idx]
+
+
+def masked_aggregate(params: dict, updated: dict, sel_valid, q_sel,
+                     n_clients: int, aggregation: str = "paper",
+                     wire_dtype=torch.float32) -> dict:
+    """Algorithm 1 line 7 over the materialized participants (leading axis
+    m_cap), masked by ``sel_valid`` and weighted by 1/(N q). ``delta``:
+    x + sum (w (y - x)) with each weighted delta cast to ``wire_dtype``
+    before the sum (the quantity a deployment puts on the wire)."""
+    w = (sel_valid.to(torch.float32) / torch.clamp_min(q_sel, 1e-9)
+         / q_sel.new_full((), n_clients))
+
+    def weight(y):
+        return w.reshape((-1,) + (1,) * (y.ndim - 1))
+
+    if aggregation == "delta":
+        return {k: x + (((updated[k] - x[None]) * weight(updated[k]))
+                        .to(wire_dtype).sum(0).to(torch.float32))
+                for k, x in params.items()}
+    if aggregation != "paper":
+        raise ValueError(f"unknown aggregation {aggregation!r} "
+                         f"(want 'paper'|'delta')")
+    return {k: (y * weight(y)).sum(0) for k, y in updated.items()}

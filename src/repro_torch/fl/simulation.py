@@ -1,0 +1,48 @@
+"""End-to-end wireless-FL simulation entry points (twin of
+``repro/fl/simulation.py``).
+
+``run_simulation`` runs the port's engine (``fl/engine.py``);
+``match_uniform_m`` sets the uniform baseline's matched participation M.
+The reference's legacy per-round loop engine is not ported: the port's
+parity reference is the JAX package itself (tests/test_torch_engine.py).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.scheduler import SchedulerConfig, estimate_avg_selected
+from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.fl.engine import Draws, SimConfig, run_simulation_scan
+
+__all__ = ["SimConfig", "run_simulation", "match_uniform_m"]
+
+
+def run_simulation(draws: Optional[Draws], params: dict,
+                   ds: FederatedDataset, sim: SimConfig,
+                   scfg: SchedulerConfig, ch: ChannelConfig,
+                   sigmas: torch.Tensor, *,
+                   keep_selection: bool = False) -> Dict[str, np.ndarray]:
+    """History dict: round, comm_time (cumulative s), test_acc, avg_power,
+    n_selected. ``draws`` (None: seeded by ``sim.seed``) takes the place of
+    the reference's PRNG key; the run's device is the dataset's."""
+    return run_simulation_scan(draws, params, ds, sim, scfg, ch, sigmas,
+                               keep_selection=keep_selection)
+
+
+def match_uniform_m(generator, sigmas: torch.Tensor, scfg: SchedulerConfig,
+                    ch: ChannelConfig, rounds: int = 300,
+                    channel: str = "rayleigh", *,
+                    raws: torch.Tensor = None) -> float:
+    """Algorithm 2's average participation M (Monte Carlo over ``rounds``
+    rounds of i.i.d. Rayleigh gains), for the M-matched uniform baseline
+    (paper Section VI). ``raws`` replays (rounds, N) channel uniforms."""
+    if channel != "rayleigh":
+        raise NotImplementedError(
+            f"channel {channel!r} is not ported yet (ROADMAP §A item 7)")
+    return float(estimate_avg_selected(generator, sigmas, scfg, ch, rounds,
+                                       raws=raws))

@@ -1,0 +1,56 @@
+"""Argument checks and ctypes plumbing shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def check_lanes(kernel: str, dtype: torch.dtype, like: torch.Tensor,
+                **lanes):
+    """Each named lane is a contiguous ``dtype`` tensor with ``like``'s
+    shape and device; ``like`` itself must be 1-D and non-empty."""
+    if like.ndim != 1 or like.shape[0] < 1:
+        raise ValueError(f"{kernel}: lanes must be 1-D and non-empty, got "
+                         f"shape {tuple(like.shape)}")
+    for name, x in lanes.items():
+        if x.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, got "
+                            f"{x.dtype}")
+        if x.shape != like.shape or x.device != like.device:
+            raise ValueError(f"{kernel}: {name} is {tuple(x.shape)} on "
+                             f"{x.device}, want {tuple(like.shape)} on "
+                             f"{like.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def host_f32(kernel: str, values, n: int) -> ctypes.Array:
+    """``n`` scalars as a host float32 array for the C interface."""
+    values = [float(v) for v in values]
+    if len(values) != n:
+        raise ValueError(f"{kernel}: want {n} scalars, got {len(values)}")
+    return (ctypes.c_float * n)(*values)
+
+
+def ptr(x) -> ctypes.c_void_p:
+    """A tensor's device pointer, or NULL for None."""
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+
+def stream_of(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, as a C pointer."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on_error(kernel: str, code: int):
+    """Raise when the C side reported a failed launch."""
+    if code != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError "
+                           f"{code}")
+
+
+def unsupported_device(kernel: str, device: torch.device):
+    raise ValueError(f"{kernel}: tensors on {device}; the kernel runs on "
+                     f"CUDA and its plain version on the CPU")

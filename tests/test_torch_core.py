@@ -1,0 +1,230 @@
+"""The port's core math against the JAX reference on the same inputs:
+Lambert-W, the Theorem-2 solve (coefficient and config forms), the host
+coefficient folds, sigmas and the Rayleigh apply, the queue update and
+guarantee-one selection, the uniform baseline, the matched-M estimate, and
+the fixed-association accounting reduce."""
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+from test_torch_reference import reference  # noqa: E402
+
+from repro_torch.core import channel as pc  # noqa: E402
+from repro_torch.core import lambertw as pl  # noqa: E402
+from repro_torch.core import scheduler as ps  # noqa: E402
+from repro_torch.fl import sharding as psh  # noqa: E402
+from repro_torch.fl.decision import decision_coeffs  # noqa: E402
+
+N = 257
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return reference()
+
+
+def configs(lib, n=100, lam=10.0):
+    ch = lib.channel.ChannelConfig(n_clients=n)
+    cfg = lib.scheduler.SchedulerConfig(n_clients=n, model_bits=32 * 555178.0,
+                                        lam=lam, V=1000.0)
+    return cfg, ch
+
+
+def port_configs(n=100, lam=10.0):
+    return (ps.SchedulerConfig(n_clients=n, model_bits=32 * 555178.0, lam=lam,
+                               V=1000.0),
+            pc.ChannelConfig(n_clients=n))
+
+
+def random_states(n, seed):
+    rng = np.random.default_rng(seed)
+    gains = np.exp(rng.standard_normal(n) * 2.0).astype(np.float32)
+    z = (np.abs(rng.standard_normal(n)) * 50.0).astype(np.float32)
+    return gains, z
+
+
+def boundary_states(n):
+    """Branch-boundary lanes: gains at the clip bounds, Z = 0 exactly (the
+    Z floor), huge queues (the P = Pmax boundary)."""
+    lo, hi = pc.ChannelConfig(n_clients=100).gain_bounds()
+    reps = -(-n // 6)
+    gains = np.tile(np.array([lo, hi, 1.0, 1e-3, 1e3, 37.0], np.float32),
+                    reps)[:n]
+    z = np.tile(np.array([0.0, 0.0, 1e4, 5.0, 0.0, 1e-6], np.float32),
+                reps)[:n]
+    return gains, z
+
+
+def test_lambertw0_grid(ref):
+    """W0 on [0, 1e12]: the port's four Halley steps against the
+    reference's; rtol 2e-6 (a few float32 ulp: exp/log differ by an ulp
+    between XLA and PyTorch), atol 1e-12 near 0."""
+    z = np.concatenate([[0.0, 1e-30, 0.5, 1.0, 2.718282, np.e, 10.0],
+                        np.logspace(-8, 12, 400)]).astype(np.float32)
+    want = np.asarray(ref.lambertw.lambertw0(ref.jnp.asarray(z)))
+    got = pl.lambertw0(torch.from_numpy(z)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-12)
+    # and it is W0: w e^w = z to float32 round-off
+    w = got.astype(np.float64)
+    np.testing.assert_allclose(w * np.exp(w), z, rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.parametrize("states", ["random", "boundary"])
+@pytest.mark.parametrize("form", ["coeffs", "configs"])
+def test_solve_matches_reference(ref, states, form):
+    """q at rtol 1e-5 / atol 1e-6 and P at rtol 1e-5 / atol 1e-3 — the
+    reference's own kernel-vs-oracle tolerances
+    (tests/test_scheduler_solve_pallas.py)."""
+    gains, z = (random_states(N, 0) if states == "random"
+                else boundary_states(N))
+    cfg, ch = configs(ref)
+    pcfg, pch = port_configs()
+    g_j, z_j = ref.jnp.asarray(gains), ref.jnp.asarray(z)
+    g_t, z_t = torch.from_numpy(gains), torch.from_numpy(z)
+    if form == "coeffs":
+        want = ref.scheduler.solve_round_coeffs(
+            g_j, z_j, ref.scheduler.solve_coeffs(cfg, ch))
+        got = ps.solve_round_coeffs(g_t, z_t, ps.solve_coeffs(pcfg, pch))
+    else:
+        want = ref.scheduler.solve_round(g_j, z_j, cfg, ch)
+        got = ps.solve_round(g_t, z_t, pcfg, pch)
+    q, p = (x.numpy() for x in got)
+    assert np.isfinite(q).all() and np.isfinite(p).all()
+    np.testing.assert_allclose(q, np.asarray(want[0]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(p, np.asarray(want[1]), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,lam", [(100, 10.0), (100, 100.0), (3597, 10.0)])
+def test_host_folds_bit_equal(ref, n, lam):
+    """SolveCoeffs, AccountCoeffs and UniformCoeffs: every leaf bit-equal
+    to the reference's float64 -> float32 fold."""
+    cfg, ch = configs(ref, n, lam)
+    pcfg, pch = port_configs(n, lam)
+    want = ref.decision.decision_coeffs(cfg, ch)
+    got = decision_coeffs(pcfg, pch)
+    for w, g in zip(list(want.solve) + list(want.acct),
+                    list(got.solve) + list(got.acct)):
+        assert np.float32(g) == np.float32(w) and float(np.float32(g)) == g
+    m = 7.31
+    uw = ref.scheduler.uniform_coeffs(n, m, ch)
+    ug = ps.uniform_coeffs(n, m, pch)
+    assert [np.float32(x) for x in ug[:3]] == [np.float32(x) for x in uw[:3]]
+    assert ug.n == int(uw.n)
+
+
+@pytest.mark.parametrize("n", [7, 100, 3597])
+def test_sigmas_and_rayleigh_apply(ref, n):
+    """Sigma tables exact; gains = clip(-2 sigma^2 log u) at rtol 1e-6
+    (one float32 log, an ulp apart between XLA and PyTorch)."""
+    for name in ("homogeneous_sigmas", "heterogeneous_sigmas"):
+        want = np.asarray(getattr(ref.channel, name)(n))
+        got = getattr(pc, name)(n, device="cpu").numpy()
+        np.testing.assert_array_equal(got, want)
+    sig = ref.channel.heterogeneous_sigmas(n)
+    raw = ref.channel._rayleigh_draw(ref.jax.random.PRNGKey(n), n)
+    cfg = ref.channel.ChannelConfig(n_clients=n)
+    want, _ = ref.channel._rayleigh_apply(raw, None, sig, cfg)
+    got, _ = pc.make_channel("rayleigh", torch.tensor(np.array(sig)),
+                             pc.ChannelConfig(n_clients=n)).apply(
+        torch.tensor(np.array(raw)), None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    lo, hi = cfg.gain_bounds()
+    assert (got.numpy() >= np.float32(lo)).all()
+    assert (got.numpy() <= np.float32(hi)).all()
+
+
+def test_channel_rate_and_queue_update(ref):
+    """Eq. 8 rate at rtol 1e-6 (one log2) and the Eq. 9 update at rtol
+    1e-6 / atol 1e-6."""
+    gains, z = random_states(N, 1)
+    p = np.random.default_rng(2).uniform(0, 100, N).astype(np.float32)
+    q = np.random.default_rng(3).uniform(0, 1, N).astype(np.float32)
+    cfg, ch = configs(ref)
+    _, pch = port_configs()
+    want = ref.channel.channel_rate(gains, p, ch)
+    got = pc.channel_rate(torch.from_numpy(gains), torch.from_numpy(p), pch)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    want = ref.scheduler.update_queues_z(z, q, p, ch)
+    got = ps.update_queues_z(*(torch.from_numpy(x) for x in (z, q, p)), pch)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["draw", "none_drawn", "tie"])
+def test_selection_from_uniform(ref, case):
+    """Bernoulli selection exact; an empty draw forces the argmax of q, the
+    FIRST maximal lane on ties in both frameworks."""
+    rng = np.random.default_rng(4)
+    q = rng.uniform(0.01, 0.5, 50).astype(np.float32)
+    u = rng.uniform(0, 1, 50).astype(np.float32)
+    if case != "draw":
+        u[:] = 0.99
+    if case == "tie":
+        q[[7, 21, 40]] = 0.75
+    want = np.asarray(ref.scheduler.selection_from_uniform(u, q))
+    got = ps.selection_from_uniform(torch.from_numpy(u),
+                                    torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "tie":
+        assert np.flatnonzero(got).tolist() == [7]
+
+
+@pytest.mark.parametrize("m_avg", [0.3, 3.0, 7.6, 19.9, 25.0])
+def test_uniform_decide(ref, m_avg):
+    """The uniform baseline's exact ops (floor/ceil, sort threshold, one
+    division) agree bit for bit, M' clipped into [1, N]."""
+    n = 20
+    _, ch = configs(ref, n)
+    _, pch = port_configs(n)
+    key = ref.jax.random.PRNGKey(int(m_avg * 10))
+    for k in ref.jax.random.split(key, 4):
+        raw = ref.policies._draw_uniform(k, n)
+        want = ref.scheduler.uniform_decide(
+            raw, ref.scheduler.uniform_coeffs(n, m_avg, ch))
+        got = ps.uniform_decide(
+            {k: torch.as_tensor(np.array(v)) for k, v in raw.items()},
+            ps.uniform_coeffs(n, m_avg, pch))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_match_uniform_m(ref):
+    """The matched-M Monte Carlo on the reference's own channel draws:
+    rtol 1e-5 (a mean of float32 sums of q)."""
+    n, rounds = 40, 60
+    cfg, ch = configs(ref, n)
+    pcfg, pch = port_configs(n)
+    sig = ref.channel.heterogeneous_sigmas(n)
+    key = ref.jax.random.PRNGKey(5)
+    want = ref.simulation.match_uniform_m(key, sig, cfg, ch, rounds=rounds)
+    # estimate_avg_selected draws draw_gains(k) for k in split(key, rounds)
+    raws = np.stack([np.asarray(ref.channel._rayleigh_draw(k, n))
+                     for k in ref.jax.random.split(key, rounds)])
+    from repro_torch.fl.simulation import match_uniform_m
+    got = match_uniform_m(None, torch.tensor(np.array(sig)), pcfg, pch,
+                          rounds=rounds, raws=torch.from_numpy(raws))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 95, 96, 97, 3597])
+def test_blocked_total(ref, n):
+    """The 96-block partials + left fold: rtol 1e-6 against the reference
+    (the in-block sums may associate differently); stacked contributions
+    fold independently; the padded length matches."""
+    rng = np.random.default_rng(n)
+    contrib = rng.exponential(1.0, (2, n)).astype(np.float32)
+    want = [float(ref.sharding.blocked_total(ref.jnp.asarray(c)))
+            for c in contrib]
+    got = psh.blocked_total(torch.from_numpy(contrib)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert psh.padded_len(n) == ref.sharding.padded_len(n)
+    # the fold is a left fold over the block partials, in block order
+    parts = psh.block_partials(
+        torch.nn.functional.pad(torch.from_numpy(contrib[0]),
+                                (0, (-n) % 96)), 96).numpy()
+    acc = np.float32(0.0) + parts[0]
+    for x in parts[1:]:
+        acc = np.float32(acc + x)
+    assert got[0] == acc
