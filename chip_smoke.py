@@ -6,13 +6,17 @@
 Phases; any failure exits non-zero before the result line is printed:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together), timing the build;
-3. hold each kernel against its plain PyTorch version on the card, at
-   N in {1, 100, 1025, 3597, 1048576}, with and without masks: q at
-   rtol 1e-5 / atol 1e-6, P and the other power-like outputs at
-   rtol 1e-5 / atol 1e-3, tc at rtol 1e-5, ``sel`` exact where
-   |u - q| > 1e-6;
+2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, started together), timing the build and printing
+   each kernel's registers and spills from ``ptxas``;
+3. hold each kernel against its plain PyTorch version on the card: the
+   solve and the fused decision at N in {1, 100, 1025, 3597, 1048576},
+   with and without masks (q at rtol 1e-5 / atol 1e-6, P and the other
+   power-like outputs at rtol 1e-5 / atol 1e-3, tc at rtol 1e-5, ``sel``
+   exact where |u - q| > 1e-6), and the bucket-batched fused decision at
+   (B, N) in {(1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384)}
+   with and without ``valid``, heterogeneous operand rows, bit for bit
+   (tolerance 0);
 4. drive the main path at full width through ``run_simulation``: the
    paper's CIFAR-10 configuration (100 clients, 500 examples each, 2000
    test images, CNN 32/64/120, lambda 10, m_cap 32, I = 10, batch 32),
@@ -23,11 +27,22 @@ Phases; any failure exits non-zero before the result line is printed:
    kernel, and all three must select the same clients in every round;
 5. profile one more fused run (``torch.profiler``): device time by op
    and the device's busy share;
-6. time each kernel and its plain version with CUDA events: device time
-   at the main path's N = 100 (L2 warm, as the rounds leave it) and at
-   N = 2^20 (L2 flushed before each call), and at N = 100 also the time
-   per call with the host's share, calls back to back; beside the least
-   time the card needs for the same work.
+6. the scheduler service at full width: the demo's deployment mix
+   (``service/demo.py::DEFAULT_MIX``: 1,020 tenants, 92,400 clients,
+   buckets 32/128/512) under ``solver="stitched"`` and ``"cuda_fused"`` on
+   the same seeded request stream (warmup, 6 full flushes, 20 flushes of
+   64 random tenants). Same selections in every decision; the fused run
+   launches the bucket-batched kernel once per ``proposed`` group and no
+   other kernel; snapshot/restore/replay and evict/reload bitwise; a
+   homogeneous 64-tenant bucket under ``"cuda"`` launches the solve
+   kernel once per group; flush times per solver, and a profile of two
+   fused flushes (device time against host time);
+7. time each kernel and its plain version with CUDA events: device time
+   at the engine's N = 100 and the service's bucket shapes (L2 warm, as
+   the rounds leave it) and at N = 2^20 or (64, 16384) (L2 flushed
+   before each call), the time per call with the host's share at the
+   warm shapes, calls back to back; beside the least time the card needs
+   for the same work.
 
 Prints one JSON line per kernel set (``{"kernels": [...]}``), then, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -49,6 +64,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 CHECK_SIZES = (1, 100, 1025, 3597, 1 << 20)
 ROUNDS = 5
+# The bucket-batched kernel's (B, N) checks; (1024, 32) and (512, 128) are
+# the service's proposed groups at full width, (64, 16384) a cold large one.
+BATCHED_SHAPES = ((1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384))
+SERVICE_FULL_FLUSHES = 6
+SERVICE_PARTIAL_FLUSHES = 20
+SERVICE_PARTIAL_SIZE = 64
 
 
 def fail(msg: str) -> int:
@@ -138,6 +159,62 @@ def check_kernels(torch, scfg, ch, ops):
     return err
 
 
+def batched_lanes(torch, b, n, seed, device):
+    """(B, N) solver states as :func:`lanes` makes them, a ragged ``valid``
+    mask and B heterogeneous operand rows (each its own V, lam, ell,
+    Pmax, as the service's tenants), on ``device``."""
+    import numpy as np
+
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.fl.decision import decision_coeffs
+    from repro_torch.kernels.decision_fused import pack_decision_operands
+    gains, z, u, _ = lanes(torch, b * n, seed, device)
+    rng = np.random.default_rng(seed)
+    n_real = torch.from_numpy(rng.integers(1, n + 1, b)).to(device)
+    valid = torch.arange(n, device=device) < n_real[:, None]
+    rows = []
+    for _ in range(b):
+        m = int(rng.integers(1, 500))
+        co = decision_coeffs(
+            SchedulerConfig(n_clients=m,
+                            model_bits=float(rng.uniform(1e5, 1e7)),
+                            lam=float(rng.uniform(0.5, 30.0)),
+                            V=float(rng.uniform(10.0, 1e4))),
+            ChannelConfig(n_clients=m, p_max=float(rng.uniform(20.0, 150.0))))
+        rows.append(pack_decision_operands(co.solve, co.acct))
+    ops = torch.stack(rows).to(device)
+    return (gains.view(b, n), z.view(b, n), u.view(b, n), valid, ops)
+
+
+def check_batched(torch):
+    """The bucket-batched kernel against its plain version, bit for bit."""
+    from repro_torch.kernels.decision_fused import (
+        decision_fused_batched, decision_fused_batched_plain)
+    err = 0.0
+    for b, n in BATCHED_SHAPES:
+        gains, z, u, valid, ops = batched_lanes(torch, b, n, b * n, "cuda")
+        for masked in (False, True):
+            v = valid if masked else None
+            got = decision_fused_batched(gains, z, u, ops, valid=v)
+            want = decision_fused_batched_plain(gains, z, u, ops, v)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("sel", "q", "P", "Z'", "tc", "pq"), got,
+                                  want):
+                e = float((x.float() - y.float()).abs().max())
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"batched ({b}, {n}) valid={masked} {name}: not "
+                        f"bitwise equal to the plain version (max |d| {e})")
+                err = max(err, e)
+            for out in got[1:]:
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"batched ({b}, {n}): non-finite")
+        print(f"batched kernel equals its plain version at (B, N) = "
+              f"({b}, {n})", flush=True)
+    return err
+
+
 # --------------------------------------------------------------------------
 # Phase 4: the main path at full width.
 # --------------------------------------------------------------------------
@@ -150,8 +227,6 @@ def main_path(torch):
     from repro_torch.data.synthetic import make_cifar10_like
     from repro_torch.fl.simulation import (SimConfig, match_uniform_m,
                                            run_simulation)
-    from repro_torch.kernels.decision_fused import decision_fused
-    from repro_torch.kernels.scheduler_solve import scheduler_solve
     from repro_torch.models.registry import make_model
 
     # full float32 convolutions and products, as the reference computes
@@ -181,15 +256,13 @@ def main_path(torch):
                               ("hidden", CONFIG.cnn.hidden)))
 
     def run(label, **kw):
-        scheduler_solve.launches = 0
-        decision_fused.launches = 0
+        reset_counts()
         t = time.perf_counter()
         hist = run_simulation(None, params, ds, SimConfig(**base, **kw),
                               scfg, ch, sig, keep_selection=True)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        counts = {"scheduler_solve": scheduler_solve.launches,
-                  "decision_fused": decision_fused.launches}
+        counts = read_counts()
         comm = hist["comm_time"]
         if not (comm.shape == (2,) and (comm > 0).all()
                 and (np.diff(comm) >= 0).all()
@@ -208,9 +281,9 @@ def main_path(torch):
     fused, c_fused = run("proposed/cuda_fused")
     solve, c_solve = run("proposed/cuda", solver="cuda")
     plain, c_plain = run("proposed/stitched", solver="stitched")
-    if not (c_fused == {"scheduler_solve": 0, "decision_fused": ROUNDS}
-            and c_solve == {"scheduler_solve": ROUNDS, "decision_fused": 0}
-            and c_plain == {"scheduler_solve": 0, "decision_fused": 0}):
+    if not (c_fused == launch_counts(decision_fused=ROUNDS)
+            and c_solve == launch_counts(scheduler_solve=ROUNDS)
+            and c_plain == launch_counts()):
         raise AssertionError("the runs did not launch the kernels of their "
                              f"paths: {c_fused} {c_solve} {c_plain}")
     for label, other in (("cuda", solve), ("stitched", plain)):
@@ -232,6 +305,316 @@ def main_path(torch):
           f"{ROUNDS} rounds: {saving:.1%}", flush=True)
     return ({"scheduler_solve": c_solve["scheduler_solve"],
              "decision_fused": c_fused["decision_fused"]}, run)
+
+
+# --------------------------------------------------------------------------
+# Phase 6: the scheduler service at full width.
+# --------------------------------------------------------------------------
+
+def counters():
+    from repro_torch.kernels.decision_fused import (decision_fused,
+                                                    decision_fused_batched)
+    from repro_torch.kernels.scheduler_solve import scheduler_solve
+    return {"scheduler_solve": scheduler_solve,
+            "decision_fused": decision_fused,
+            "decision_fused_batched": decision_fused_batched}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def launch_counts(**nonzero):
+    """The three kernels' counts: 0 but for ``nonzero``."""
+    return dict({k: 0 for k in counters()}, **nonzero)
+
+
+def percentile(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def service_stream(tenants, seed, full, partial, size):
+    """The request stream, made once on the host: ``full`` flushes of
+    every tenant, then ``partial`` flushes of ``size`` random tenants."""
+    import numpy as np
+
+    from repro_torch.service.demo import demo_request
+    rng = np.random.default_rng(seed)
+    flushes = [[demo_request(rng, *t) for t in tenants] for _ in range(full)]
+    for _ in range(partial):
+        pick = sorted(rng.choice(len(tenants), size, replace=False))
+        flushes.append([demo_request(rng, *tenants[i]) for i in pick])
+    return flushes
+
+
+def make_service(solver):
+    """A service on the card holding the demo mix at scale 1.0."""
+    import numpy as np
+
+    from repro_torch.service import SchedulerService
+    from repro_torch.service.demo import register_demo_tenants
+    svc = SchedulerService(solver=solver)
+    tenants = register_demo_tenants(svc, np.random.default_rng(0))
+    return svc, tenants
+
+
+def drive(torch, svc, flushes, full):
+    """Serve ``flushes``; per flush the responses, host seconds of the
+    submits and of the flush, and the kernel launches it made; a snapshot
+    after each full flush, and the log mark after the third."""
+    out = dict(resp=[], submit_s=[], flush_s=[], launches=[], snaps=[])
+    for f, reqs in enumerate(flushes):
+        before = read_counts()
+        t0 = time.perf_counter()
+        for name, gains, raw in reqs:
+            svc.submit(name, gains, raw=raw)
+        t1 = time.perf_counter()
+        resp = svc.flush()   # ends in one synchronisation
+        t2 = time.perf_counter()
+        after = read_counts()
+        out["resp"].append(resp)
+        out["submit_s"].append(t1 - t0)
+        out["flush_s"].append(t2 - t1)
+        out["launches"].append({k: after[k] - before[k] for k in after})
+        if f < full:
+            out["snaps"].append(svc.snapshot())
+        if f == full // 2 - 1:
+            out["mid"] = (svc.snapshot(), len(svc.log))
+    torch.cuda.synchronize()
+    return out
+
+
+def max_diffs(a, b):
+    """Largest |d| of q, P, t_comm, power over matched decisions, after
+    checking that every decision selects the same clients."""
+    import numpy as np
+    d = dict(q=0.0, p=0.0, t_comm=0.0, power=0.0)
+    for ra, rb in zip(a, b):
+        if set(ra) != set(rb):
+            raise AssertionError("the solvers served different tenants")
+        for name, x in ra.items():
+            y = rb[name]
+            if not np.array_equal(x.sel, y.sel) or x.n_sel != y.n_sel:
+                raise AssertionError(f"{name}: stitched and cuda_fused "
+                                     "selected different clients")
+            for k in d:
+                diff = np.abs(np.asarray(getattr(x, k), np.float64)
+                              - np.asarray(getattr(y, k), np.float64))
+                d[k] = max(d[k], float(np.max(diff)))
+    return d
+
+
+def snaps_equal(a, b):
+    import numpy as np
+    return set(a) == set(b) and all(
+        np.array_equal(x, y) for k in a for x, y in zip(a[k], b[k]))
+
+
+def service_path(torch):
+    """The service's main path over the demo mix. Returns the fused run's
+    launch counts, its launches per full flush, a timing summary and the
+    fused service with its full flushes."""
+    import numpy as np
+
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.service import RequestLog, SchedulerService
+    from repro_torch.service.demo import demo_request
+
+    full = SERVICE_FULL_FLUSHES
+    runs, tenants = {}, None
+    for solver in ("stitched", "cuda_fused"):
+        svc, tenants = make_service(solver)
+        if solver == "stitched":
+            flushes = service_stream(tenants, 1, full,
+                                     SERVICE_PARTIAL_FLUSHES,
+                                     SERVICE_PARTIAL_SIZE)
+        t0 = time.perf_counter()
+        svc.warmup(1024)
+        warm_s = time.perf_counter() - t0
+        reset_counts()
+        run = drive(torch, svc, flushes, full)
+        run["counts"] = read_counts()
+        run["svc"], run["warm_s"] = svc, warm_s
+        runs[solver] = run
+        print(f"service/{solver}: {len(tenants)} tenants, "
+              f"{sum(n for _, n, _ in tenants)} clients, warmup "
+              f"{warm_s:.2f} s, launches {run['counts']}", flush=True)
+    st, fu = runs["stitched"], runs["cuda_fused"]
+    d = max_diffs(st["resp"], fu["resp"])
+    dz = 0.0
+    for a, b in zip(st["snaps"], fu["snaps"]):
+        for k in a:
+            dz = max(dz, float(np.max(np.abs(a[k].z - b[k].z))))
+    print(f"service: stitched and cuda_fused selected the same clients in "
+          f"all {sum(len(r) for r in fu['resp'])} decisions; max |d| "
+          f"q {d['q']:.3g} P {d['p']:.3g} t_comm {d['t_comm']:.3g} power "
+          f"{d['power']:.3g} Z {dz:.3g}", flush=True)
+    # the kernel equals its plain version bit for bit, and the fused step
+    # sums the same summands in the same order as the stitched one
+    if max(dz, *d.values()) != 0.0:
+        raise AssertionError("stitched and cuda_fused decisions or Z are "
+                             "not bitwise equal")
+
+    n_prop = {k.as_string() for k in fu["svc"].store.buckets()
+              if k.policy == "proposed"}
+    if st["counts"] != {k: 0 for k in st["counts"]}:
+        raise AssertionError(f"stitched launched kernels: {st['counts']}")
+    for f, got in enumerate(fu["launches"]):
+        names = {r_name for r_name in fu["resp"][f]}
+        groups = {fu["svc"].store.spec(nm).bucket.as_string() for nm in names}
+        want = launch_counts(decision_fused_batched=len(groups & n_prop))
+        if got != want:
+            raise AssertionError(f"cuda_fused flush {f} launched {got}, "
+                                 f"want {want}")
+    per_full = {c["decision_fused_batched"] for c in fu["launches"][:full]}
+    if len(per_full) != 1:
+        raise AssertionError(f"full flushes launched the batched kernel "
+                             f"{sorted(per_full)} times")
+    per_full = per_full.pop()
+    print(f"service: every cuda_fused flush launched the batched kernel "
+          f"once per proposed group ({per_full} per full flush) and no "
+          f"other kernel", flush=True)
+
+    # snapshot mid-stream -> fresh service -> replay the tail: bitwise
+    svc = fu["svc"]
+    snap, mark = fu["mid"]
+    fresh, _ = make_service("cuda_fused")
+    fresh.restore(snap)
+    tail = RequestLog()
+    tail.entries = svc.log.entries[mark:]
+    tail.replay(fresh, restore=False)
+    if not snaps_equal(svc.snapshot(), fresh.snapshot()):
+        raise AssertionError("replay from the mid-stream snapshot is not "
+                             "bitwise equal to the live state")
+    # evict + reload: the tenant's state and the next decisions bitwise
+    name = svc.evict_lru()
+    before = fresh.tenant_state(name)
+    svc.reload(name)
+    after = svc.tenant_state(name)
+    if not all(np.array_equal(x, y) for x, y in zip(before, after)):
+        raise AssertionError(f"evict/reload changed {name}'s state")
+    again = service_stream(tenants, 2, 1, 0, 0)[0]
+    outs = [drive(torch, s, [again], 1)["resp"][0]
+            for s in (svc, fresh)]
+    for nm, x in outs[0].items():
+        if not all(np.array_equal(a, b) for a, b in zip(x, outs[1][nm])):
+            raise AssertionError(f"{nm}: decision after evict/reload differs")
+    print(f"service: replay of {len(tail)} logged groups from the "
+          f"mid-stream snapshot and evict/reload of {name} are bitwise",
+          flush=True)
+
+    # solver="cuda": a configuration-homogeneous 64-tenant N = 100 bucket
+    scfg = SchedulerConfig(n_clients=100, model_bits=32 * 555178.0, lam=10.0)
+    ch = ChannelConfig(n_clients=100)
+    homo = {}
+    rng = np.random.default_rng(4)
+    reqs = [[demo_request(rng, f"h{i}", 100, "proposed") for i in range(64)]
+            for _ in range(3)]
+    for solver in ("cuda", "stitched"):
+        hs = SchedulerService(solver=solver)
+        for i in range(64):
+            hs.add_tenant(f"h{i}", scfg, ch)
+        reset_counts()
+        homo[solver] = drive(torch, hs, reqs, 0)
+    want = [launch_counts(scheduler_solve=1)] * len(reqs)
+    if homo["cuda"]["launches"] != want:
+        raise AssertionError(f"cuda: launches {homo['cuda']['launches']}")
+    near = 0
+    for ra, rb, fl in zip(homo["cuda"]["resp"], homo["stitched"]["resp"],
+                          reqs):
+        for nm, _, u in fl:
+            far = np.abs(u - rb[nm].q) > 1e-6
+            near += int((~far).sum())
+            if not np.array_equal(ra[nm].sel[far], rb[nm].sel[far]):
+                raise AssertionError(f"cuda vs stitched: {nm} selects "
+                                     "differently")
+    print(f"service/cuda: homogeneous 64-tenant bucket, the solve kernel "
+          f"once per group, same selections as stitched ({near} lanes "
+          f"within 1e-6 of q left out)", flush=True)
+
+    summary = {}
+    for solver, run in runs.items():
+        for mode, sl in (("full", slice(0, full)),
+                         ("partial", slice(full, None))):
+            fl, sb = run["flush_s"][sl], run["submit_s"][sl]
+            summary[f"{solver}/{mode}"] = dict(
+                flush_p50_ms=percentile(fl, 50) * 1e3,
+                flush_p99_ms=percentile(fl, 99) * 1e3,
+                submit_p50_ms=percentile(sb, 50) * 1e3)
+    for key, row in summary.items():
+        print(f"service {key}: flush p50 {row['flush_p50_ms']:.2f} ms p99 "
+              f"{row['flush_p99_ms']:.2f} ms, submits p50 "
+              f"{row['submit_p50_ms']:.2f} ms", flush=True)
+    return fu["counts"], per_full, summary, (fu["svc"], flushes[:full])
+
+
+def flush_split(svc, flushes):
+    """Host time of full flushes split into the submits, the groups'
+    dispatch (staging, the copy and the step's launches) and the rest of
+    ``flush`` (its one synchronisation, the pulls and the Decisions),
+    medians in ms."""
+    import numpy as np
+    orig, spent = svc._dispatch_group, []
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = orig(*args)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    svc._dispatch_group = timed
+    rows = []
+    try:
+        for reqs in flushes:
+            spent.clear()
+            t0 = time.perf_counter()
+            for name, gains, raw in reqs:
+                svc.submit(name, gains, raw=raw)
+            t1 = time.perf_counter()
+            svc.flush()
+            t2 = time.perf_counter()
+            rows.append((t1 - t0, sum(spent), t2 - t1 - sum(spent)))
+    finally:
+        svc._dispatch_group = orig
+    med = np.median(np.asarray(rows), axis=0) * 1e3
+    split = dict(submit_ms=float(med[0]), dispatch_ms=float(med[1]),
+                 sync_pull_ms=float(med[2]))
+    print(f"full cuda_fused flush, host split (median of {len(rows)}): "
+          f"submits {split['submit_ms']:.2f} ms, group dispatch "
+          f"{split['dispatch_ms']:.2f} ms, sync + pulls + decisions "
+          f"{split['sync_pull_ms']:.2f} ms", flush=True)
+    return split
+
+
+def profile_flushes(torch, svc, flushes):
+    """Two fused full flushes under torch.profiler: device kernel time
+    against the host's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for reqs in flushes[:2]:
+            for name, gains, raw in reqs:
+                svc.submit(name, gains, raw=raw)
+            svc.flush()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[0] for r in rows)
+    print(f"profile of 2 full cuda_fused flushes: wall {wall_ms:.1f} ms, "
+          f"kernels {busy:.3f} ms ({busy / wall_ms:.2%} of wall, "
+          f"{sum(r[1] for r in rows)} device ops); top:", flush=True)
+    for ms, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"  {ms:10.4f} ms {count:7d}x  {key[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=busy)
 
 
 # --------------------------------------------------------------------------
@@ -262,7 +645,7 @@ def profile_rounds(torch, run):
 
 
 # --------------------------------------------------------------------------
-# Phase 6: timings.
+# Phase 7: timings.
 # --------------------------------------------------------------------------
 
 def time_calls(torch, fn, iters=200):
@@ -316,11 +699,19 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/decision_fused.cu",
         replaces="src/repro/kernels/decision_fused.py:151",
         bytes_per_lane=33, ops_per_lane=SOLVE_OPS + 15),
+    # 12 B read + 1 B valid + 21 B written per lane, and each row's 14
+    # float32 operands read once
+    "decision_fused_batched": dict(
+        source="src/repro_torch/kernels/csrc/decision_fused.cu",
+        replaces="src/repro/kernels/decision_fused.py:208",
+        bytes_per_lane=34, bytes_per_row=56, ops_per_lane=SOLVE_OPS + 15),
 }
 
 
-def bound(spec, n):
-    t_bytes = spec["bytes_per_lane"] * n / HBM_BYTES_PER_S * 1e3
+def bound(spec, n, rows=0):
+    t_bytes = ((spec["bytes_per_lane"] * n
+                + spec.get("bytes_per_row", 0) * rows)
+               / HBM_BYTES_PER_S * 1e3)
     t_ops = spec["ops_per_lane"] * n / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
@@ -355,6 +746,26 @@ def timings(torch, scfg, ch, ops):
                 row.update(call_ms=time_calls(torch, kernel),
                            plain_call_ms=time_calls(torch, plain))
             out[(name, n)] = row
+    from repro_torch.kernels.decision_fused import (
+        decision_fused_batched, decision_fused_batched_plain)
+    for b, n in BATCHED_SHAPES[2:]:
+        gains, z, u, valid, bops = batched_lanes(torch, b, n, 11, "cuda")
+        cold = (b, n) == BATCHED_SHAPES[-1]
+
+        def kernel():
+            return decision_fused_batched(gains, z, u, bops, valid=valid)
+
+        def plain():
+            return decision_fused_batched_plain(gains, z, u, bops, valid)
+
+        t, by = bound(KERNELS["decision_fused_batched"], b * n, b)
+        row = dict(shape=[b, n], n=b * n, ms=time_device(torch, kernel, cold),
+                   plain_ms=time_device(torch, plain, cold), bound_ms=t,
+                   bound_by=by, l2="cold" if cold else "warm")
+        if not cold:
+            row.update(call_ms=time_calls(torch, kernel),
+                       plain_call_ms=time_calls(torch, plain, iters=50))
+        out[("decision_fused_batched", (b, n))] = row
     return out
 
 
@@ -384,19 +795,27 @@ def main() -> int:
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {name}: {line.strip()}", flush=True)
 
     ch, scfg = CONFIG.channel(), CONFIG.scheduler(lam=10.0)
     co = decision_coeffs(scfg, ch)
     ops = pack_decision_operands(co.solve, co.acct)
     err = check_kernels(torch, scfg, ch, ops)
+    err["decision_fused_batched"] = check_batched(torch)
     launches, run = main_path(torch)
     profile_rounds(torch, run)
+    (svc_counts, per_full, svc_summary,
+     (svc, full_flushes)) = service_path(torch)
+    svc_profile = dict(flush_split(svc, full_flushes),
+                       **profile_flushes(torch, svc, full_flushes))
+    launches["decision_fused_batched"] = svc_counts["decision_fused_batched"]
     times = timings(torch, scfg, ch, ops)
 
     rows = []
-    for name, spec in KERNELS.items():
+    for name in ("scheduler_solve", "decision_fused"):
+        spec = KERNELS[name]
         small = times[(name, scfg.n_clients)]
         large = times[(name, 1 << 20)]
         rows.append({
@@ -409,6 +828,19 @@ def main() -> int:
             "library_ms": None, "call_ms": small["call_ms"],
             "plain_call_ms": small["plain_call_ms"],
             "large": dict(n=1 << 20, **large)})
+    spec = KERNELS["decision_fused_batched"]
+    main_shape, *others = BATCHED_SHAPES[2:]
+    rows.append({
+        "name": "decision_fused_batched", "route": "cuda",
+        "source": spec["source"], "replaces": spec["replaces"],
+        "launches": launches["decision_fused_batched"],
+        "launches_per_full_flush": per_full,
+        "max_abs_err": err["decision_fused_batched"], "library_ms": None,
+        **times[("decision_fused_batched", main_shape)],
+        "other_shapes": [times[("decision_fused_batched", sh)]
+                         for sh in others]})
+    print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Paper core: wireless channel, Lambert-W, the Algorithm-2 scheduler, and
-the policies of the main path (proposed, uniform)."""
+the ported policies (proposed, uniform, greedy_channel)."""
 
 from repro_torch.core.channel import (ChannelConfig, channel_rate,
                                       heterogeneous_sigmas,

@@ -6,10 +6,12 @@ policy's pre-drawn randomness (the reference's ``POLICY_DRAWS`` raws):
 
 * ``proposed`` — Algorithm 2: Theorem-2 solve, Bernoulli selection from
   (N,) uniforms, Eq. (9) queue update;
-* ``uniform`` — the paper's M-matched uniform baseline, P = Pbar N / M'.
+* ``uniform`` — the paper's M-matched uniform baseline, P = Pbar N / M';
+* ``greedy_channel`` — the top-M instantaneous channels, P = Pbar N / M
+  (biased: q is the realized indicator; it draws no randomness).
 
-The reference's other policies (greedy_channel, proportional_gain,
-update_aware, aoi_capped) are ROADMAP §A item 2.
+The reference's other policies (proportional_gain, update_aware,
+aoi_capped) are ROADMAP §A item 2.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.scheduler import (SchedulerConfig, selection_from_uniform,
+from repro_torch.core.scheduler import (SchedulerConfig, greedy_coeffs,
+                                        greedy_decide, selection_from_uniform,
                                         solve_round_coeffs, solve_coeffs,
                                         uniform_coeffs, uniform_decide,
                                         update_queues_z)
@@ -69,14 +72,25 @@ def _make_uniform(scfg: SchedulerConfig, ch: ChannelConfig, m_avg,
     return step
 
 
+def _make_greedy(scfg: SchedulerConfig, ch: ChannelConfig, m_avg,
+                 solve_fn, coeffs) -> PolicyStep:
+    c = greedy_coeffs(scfg.n_clients, m_avg, ch)
+
+    def step(raw, gains, st: PolicyState):
+        sel, q, p = greedy_decide(gains, c)
+        return sel, q, p, PolicyState(st.z, st.aux, st.t + 1)
+
+    return step
+
+
 # name -> (builder, needs matched M?)
 POLICIES = {
     "proposed": (_make_proposed, False),
     "uniform": (_make_uniform, True),
+    "greedy_channel": (_make_greedy, True),
 }
 # The reference's policies that this port does not have yet.
-NOT_PORTED = ("greedy_channel", "proportional_gain", "update_aware",
-              "aoi_capped")
+NOT_PORTED = ("proportional_gain", "update_aware", "aoi_capped")
 
 
 def draw_selection_uniform(generator: torch.Generator, n: int,
@@ -92,8 +106,23 @@ def _draw_uniform(generator: torch.Generator, n: int, device) -> dict:
             "scores": torch.rand((n,), generator=generator, device=device)}
 
 
+def _draw_greedy(generator: torch.Generator, n: int, device) -> tuple:
+    return ()  # deterministic given the gains
+
+
 POLICY_DRAWS = {"proposed": draw_selection_uniform,
-                "uniform": _draw_uniform}
+                "uniform": _draw_uniform,
+                "greedy_channel": _draw_greedy}
+
+# Pad fills of each policy's raws along a padded client axis (the
+# reference's ``fl/client_shard.py::POLICY_RAW_PAD``): proposed pads its
+# selection uniforms with 2.0 (never < q <= 1), uniform its scores with
+# -1.0 (below every real score in [0, 1)).
+POLICY_RAW_PAD = {
+    "proposed": 2.0,
+    "uniform": {"take": 0.0, "scores": -1.0},
+    "greedy_channel": (),
+}
 
 
 def _lookup(name: str):
@@ -106,20 +135,28 @@ def _lookup(name: str):
     return POLICIES[name]
 
 
+def policy_aux_init(name: str, n_clients: int,
+                    device="cuda") -> torch.Tensor:
+    """A policy's initial (N,) aux scratch (zeros for every ported
+    policy)."""
+    _lookup(name)
+    return torch.zeros((n_clients,), dtype=torch.float32, device=device)
+
+
 def init_policy_state(name: str, n_clients: int,
                       device="cuda") -> PolicyState:
-    """Fresh state: zero queues, zero aux, round 0."""
-    _lookup(name)
-    zeros = torch.zeros((n_clients,), dtype=torch.float32, device=device)
-    return PolicyState(z=zeros, aux=zeros.clone(),
-                       t=torch.zeros((), dtype=torch.int32, device=device))
+    """Fresh state: zero queues, the policy's aux, round 0."""
+    return PolicyState(
+        z=torch.zeros((n_clients,), dtype=torch.float32, device=device),
+        aux=policy_aux_init(name, n_clients, device),
+        t=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def make_policy(name: str, scfg: SchedulerConfig, ch: ChannelConfig, *,
                 m_avg: float = 0.0, solve_fn=None,
                 coeffs=None) -> PolicyStep:
     """Bind a policy to its configuration. ``m_avg`` is the matched M the
-    uniform baseline needs (> 0); ``solve_fn``/``coeffs`` only concern
+    baselines need (> 0); ``solve_fn``/``coeffs`` only concern
     ``proposed``."""
     builder, needs_m = _lookup(name)
     if needs_m and not m_avg > 0.0:

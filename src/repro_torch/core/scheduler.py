@@ -26,7 +26,6 @@ with the reciprocal, one rounding more).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -159,10 +158,11 @@ def update_queues_z(z: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
 
 def force_one(sel: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """An empty selection becomes the client of largest q (the first one on
-    ties, as ``jnp.argmax``): paper Section VI's fallback."""
-    forced = torch.zeros_like(sel).scatter_(0, torch.argmax(q).reshape(1),
-                                            True)
-    return torch.where(sel.any(), sel, forced)
+    ties, as ``jnp.argmax``): paper Section VI's fallback. Works row by row
+    over the last axis, so a (B, N) bucket batch takes one set of ops."""
+    forced = torch.zeros_like(sel).scatter_(
+        -1, torch.argmax(q, dim=-1, keepdim=True), True)
+    return torch.where(sel.any(-1, keepdim=True), sel, forced)
 
 
 def selection_from_uniform(u: torch.Tensor, q: torch.Tensor,
@@ -173,16 +173,27 @@ def selection_from_uniform(u: torch.Tensor, q: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# The M-matched uniform baseline (paper Section VI).
+# The M-matched uniform and greedy top-M baselines (paper Section VI).
+#
+# Their coefficient bundles hold Python numbers for one tenant, or (B,)
+# tensors, one entry per row of a (B, N) bucket batch (the service); the
+# decisions then work row by row over the last axis in one set of ops.
 # --------------------------------------------------------------------------
 
 class UniformCoeffs(NamedTuple):
-    """Scalar operands of the uniform baseline (host floats, f32-exact)."""
+    """Scalar operands of the uniform baseline (f32-exact)."""
 
     m_avg: float   # matched average participation M
     q_val: float   # clip(M / N, 0, 1): the reported q
     pn: float      # Pbar * N: numerator of P = Pbar N / M'
     n: int         # N: M' is clipped into [1, N]
+
+
+class GreedyCoeffs(NamedTuple):
+    """Scalar operands of the greedy top-M channel baseline."""
+
+    m: int         # M
+    pn: float      # Pbar * N
 
 
 def uniform_coeffs(n_clients: int, m_avg: float,
@@ -193,27 +204,68 @@ def uniform_coeffs(n_clients: int, m_avg: float,
                          pn=_f32(ch.p_bar * n_clients), n=int(n_clients))
 
 
-def uniform_draw_m(take_hi: torch.Tensor, m_avg: float,
-                   n_clients: int) -> torch.Tensor:
+def greedy_coeffs(n_clients: int, m_avg: float,
+                  ch: ChannelConfig) -> GreedyCoeffs:
+    """Host-folded operands of :func:`greedy_decide`."""
+    return GreedyCoeffs(m=max(1, int(round(m_avg))),
+                        pn=_f32(ch.p_bar * n_clients))
+
+
+def _per_row(c, like: torch.Tensor):
+    """``c``'s fields as tensors of ``like``'s leading shape on its device:
+    a number becomes a 0-d tensor (int64 or float32) broadcast over it, a
+    (B,) column of the service passes through."""
+    return type(c)(*(torch.as_tensor(x, device=like.device).expand(
+        like.shape[:-1]) for x in c))
+
+
+def uniform_draw_m(take_hi: torch.Tensor, m_avg: torch.Tensor,
+                   n_clients: torch.Tensor) -> torch.Tensor:
     """The round's subset size M' = floor(M) or ceil(M), clipped into
-    [1, N]; a 0-d int64 tensor on ``take_hi``'s device."""
-    return torch.clamp(take_hi.long() + math.floor(m_avg), 1, n_clients)
+    [1, N]; an int64 tensor of ``take_hi``'s shape and device."""
+    m = torch.clamp_min(take_hi.long() + torch.floor(m_avg), 1)
+    return torch.minimum(m.long(), n_clients.long())
+
+
+def _top_m(score: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """score >= the m-th largest score of its row (every tie kept)."""
+    thresh = torch.sort(score, dim=-1, descending=True).values.gather(
+        -1, (m - 1).unsqueeze(-1))
+    return score >= thresh
+
+
+def _fill(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor of ``like``'s shape holding one value per row."""
+    return value.to(torch.float32).unsqueeze(-1).expand(
+        like.shape).contiguous()
+
+
+def _p_over_m(pn: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Pbar N / max(M', 1) in float32, an IEEE division per row."""
+    return torch.div(pn.to(torch.float32),
+                     torch.clamp_min(m, 1).to(torch.float32))
 
 
 def uniform_decide(raw, c: UniformCoeffs):
-    """The uniform baseline on pre-drawn raws {"take": (), "scores": (N,)}:
-    the M' highest scores are selected, q = M/N, P = Pbar N / M'."""
+    """The uniform baseline on pre-drawn raws {"take": (...), "scores":
+    (..., N)}: the M' highest scores are selected, q = M/N,
+    P = Pbar N / M'. Pad lanes must score below every real score."""
     scores = raw["scores"]
-    take_hi = raw["take"] < (c.m_avg - math.floor(c.m_avg))
+    c = _per_row(c, scores)
+    take_hi = raw["take"] < (c.m_avg - torch.floor(c.m_avg))
     m = uniform_draw_m(take_hi, c.m_avg, c.n)
-    thresh = torch.sort(scores, descending=True).values.gather(
-        0, (m - 1).reshape(1))
-    sel = scores >= thresh
-    q = torch.full(scores.shape, c.q_val, dtype=torch.float32,
-                   device=scores.device)
-    p = torch.div(scores.new_full((), c.pn, dtype=torch.float32),
-                  torch.clamp_min(m, 1).to(torch.float32))
-    return sel, q, p.expand(scores.shape).contiguous()
+    return (_top_m(scores, m), _fill(c.q_val, scores),
+            _fill(_p_over_m(c.pn, m), scores))
+
+
+def greedy_decide(gains: torch.Tensor, c: GreedyCoeffs):
+    """Top-M instantaneous channels: sel = gains >= the M-th largest gain,
+    q the realized indicator, P = Pbar N / M. Pad gains must lie below
+    every real (clipped-positive) gain."""
+    c = _per_row(c, gains)
+    m = c.m.long()
+    sel = _top_m(gains, m)
+    return sel, sel.to(torch.float32), _fill(_p_over_m(c.pn, m), gains)
 
 
 def estimate_avg_selected(generator, sigmas: torch.Tensor,

@@ -14,9 +14,10 @@ account (twin of ``repro/fl/decision.py``).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.policies import PolicyState
@@ -56,27 +57,56 @@ def decision_coeffs(scfg: SchedulerConfig,
                           acct=account_coeffs(scfg, ch))
 
 
-def _account(gains, sel, q, p, acct):
-    """TDMA comm time sum_{selected} ell / rate (Eq. 8) and expected power
-    sum P q, folded together through the fixed-association reduce."""
-    acct = as_operands(acct, gains)
-    rate = coeff_rate(gains, p, acct)
-    contrib = torch.where(sel, acct.ell / torch.clamp_min(rate, 1e-9), 0.0)
-    t_comm, power = blocked_total(torch.stack([contrib, p * q])).unbind(0)
+def _fit_account_axis(contrib: torch.Tensor, acct_len: Optional[int]):
+    """Slice or zero-pad a padded client axis to the tenant's accounting
+    length ``acct_len`` (= ``padded_len(n_real)``), so the blocked reduce
+    associates exactly as an unpadded (n_real,) reduce does. The adjusted
+    lanes are exact zeros, which change no block partial."""
+    if acct_len is None:
+        return contrib
+    n = contrib.shape[-1]
+    if n >= acct_len:
+        return contrib[..., :acct_len]
+    return F.pad(contrib, (0, acct_len - n))
+
+
+def account_totals(contrib: torch.Tensor, pq: torch.Tensor,
+                   acct_len: Optional[int] = None):
+    """The round's comm time and expected power: both summand lanes cut to
+    ``acct_len`` and folded together through the fixed-association
+    reduce. Works row by row over the last axis."""
+    both = _fit_account_axis(torch.stack([contrib, pq]), acct_len)
+    t_comm, power = blocked_total(both).unbind(0)
     return t_comm, power
 
 
-def decision_step(policy_step, acct: AccountCoeffs, raw, gains, pol_state):
+def _account(gains, sel, q, p, acct, valid=None, acct_len=None):
+    """TDMA comm time sum_{selected} ell / rate (Eq. 8) and expected power
+    sum P q (over ``valid`` lanes)."""
+    acct = as_operands(acct, gains)
+    rate = coeff_rate(gains, p, acct)
+    contrib = torch.where(sel, acct.ell / torch.clamp_min(rate, 1e-9), 0.0)
+    pq = p * q if valid is None else torch.where(valid, p * q, 0.0)
+    return account_totals(contrib, pq, acct_len)
+
+
+def decision_step(policy_step, acct: AccountCoeffs, raw, gains, pol_state,
+                  *, valid=None, acct_len: Optional[int] = None):
     """Policy step + accounting: ``(sel, q, p, t_comm, power, n_sel,
     pol_state')``.
 
     ``policy_step(raw, gains, state)`` is any policy of the registry;
-    ``raw`` is its pre-drawn randomness. ``acct`` may hold floats or 0-d
-    tensors on the lanes' device.
+    ``raw`` is its pre-drawn randomness. ``acct`` may hold floats or
+    tensors on the lanes' device that broadcast against them (the
+    service's (B, 1) per-row columns).
+
+    ``valid`` / ``acct_len`` are the service's bucket-padding hooks: a
+    boolean mask of real (non-pad) lanes, which gates the expected-power
+    summand, and the tenant's accounting length. Engines pass neither.
     """
     sel, q, p, pol_state = policy_step(raw, gains, pol_state)
-    t_comm, power = _account(gains, sel, q, p, acct)
-    return sel, q, p, t_comm, power, sel.sum(), pol_state
+    t_comm, power = _account(gains, sel, q, p, acct, valid, acct_len)
+    return sel, q, p, t_comm, power, sel.sum(-1), pol_state
 
 
 def make_fused_decision(scfg: SchedulerConfig, co: DecisionCoeffs):
@@ -89,18 +119,22 @@ def make_fused_decision(scfg: SchedulerConfig, co: DecisionCoeffs):
     (N,) selection uniforms, and ``acct`` (None: ``co.acct``) feeds the
     accounting. As in the reference, the comm-time and power summands are
     refolded here from the kernel's (sel, q, p), so the totals are the
-    stitched path's expressions on the final selection.
+    stitched path's expressions on the final selection. ``valid`` masks
+    the kernel's q to 0 before selection and gates the power summand, as
+    the reference's population path uses it.
     """
     ops = pack_decision_operands(co.solve, co.acct)
 
-    def fused_decision(policy_step, acct, u, gains, pol_state):
+    def fused_decision(policy_step, acct, u, gains, pol_state, *,
+                       valid=None, acct_len: Optional[int] = None):
         del policy_step
-        sel, q, p, z_new, _tc, _pq = decision_fused(gains, pol_state.z, u,
-                                                    ops)
+        sel, q, p, z_new, _tc, _pq = decision_fused(
+            gains, pol_state.z, u, ops, active=valid, valid=valid)
         if scfg.guarantee_one:
             sel = force_one(sel, q)
         t_comm, power = _account(gains, sel, q, p,
-                                 co.acct if acct is None else acct)
+                                 co.acct if acct is None else acct, valid,
+                                 acct_len)
         st = PolicyState(z_new, pol_state.aux, pol_state.t + 1)
         return sel, q, p, t_comm, power, sel.sum(), st
 

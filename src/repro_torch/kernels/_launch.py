@@ -8,12 +8,12 @@ import torch
 
 
 def check_lanes(kernel: str, dtype: torch.dtype, like: torch.Tensor,
-                **lanes):
+                ndim: int = 1, **lanes):
     """Each named lane is a contiguous ``dtype`` tensor with ``like``'s
-    shape and device; ``like`` itself must be 1-D and non-empty."""
-    if like.ndim != 1 or like.shape[0] < 1:
-        raise ValueError(f"{kernel}: lanes must be 1-D and non-empty, got "
-                         f"shape {tuple(like.shape)}")
+    shape and device; ``like`` itself must be ``ndim``-D and non-empty."""
+    if like.ndim != ndim or like.numel() < 1:
+        raise ValueError(f"{kernel}: lanes must be {ndim}-D and non-empty, "
+                         f"got shape {tuple(like.shape)}")
     for name, x in lanes.items():
         if x.dtype != dtype:
             raise TypeError(f"{kernel}: {name} must be {dtype}, got "

@@ -190,6 +190,63 @@ def test_uniform_decide(ref, m_avg):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("m_avg", [1.0, 3.4, 7.6, 20.0])
+def test_greedy_decide(ref, m_avg):
+    """The greedy top-M baseline's exact ops (sort threshold, indicator q,
+    one division) agree bit for bit, ties at the threshold kept."""
+    n = 20
+    _, ch = configs(ref, n)
+    _, pch = port_configs(n)
+    rng = np.random.default_rng(int(m_avg * 10))
+    for _ in range(4):
+        gains = rng.exponential(1.0, n).astype(np.float32) + 1e-3
+        gains[[3, 11]] = gains[5]  # a tie that may sit at the threshold
+        want = ref.scheduler.greedy_decide(
+            gains, ref.scheduler.greedy_coeffs(n, m_avg, ch))
+        got = ps.greedy_decide(torch.from_numpy(gains),
+                               ps.greedy_coeffs(n, m_avg, pch))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    gc, gr = ps.greedy_coeffs(n, m_avg, pch), ref.scheduler.greedy_coeffs(
+        n, m_avg, ch)
+    assert gc.m == int(gr.m) and np.float32(gc.pn) == gr.pn
+
+
+def test_row_batched_baselines_equal_per_row():
+    """force_one, uniform_decide and greedy_decide on a (B, N) batch with
+    per-row (B,) coefficients equal the same calls row by row, exactly
+    (the service's stitched rows rest on it)."""
+    n, rows = 30, 6
+    rng = np.random.default_rng(9)
+    m_avgs = [0.4, 2.0, 3.7, 9.5, 29.9, 30.0]
+    uni = [ps.uniform_coeffs(n, m, pc.ChannelConfig(n_clients=n,
+                                                    p_bar=1.0 + i))
+           for i, m in enumerate(m_avgs)]
+    gre = [ps.greedy_coeffs(n, m, pc.ChannelConfig(n_clients=n,
+                                                   p_bar=0.5 + i))
+           for i, m in enumerate(m_avgs)]
+    scores = torch.from_numpy(rng.uniform(0, 1, (rows, n)).astype(np.float32))
+    take = torch.from_numpy(rng.uniform(0, 1, rows).astype(np.float32))
+    gains = torch.from_numpy(rng.exponential(1.0, (rows, n))
+                             .astype(np.float32))
+    q = torch.from_numpy(rng.uniform(0, 1, (rows, n)).astype(np.float32))
+    sel = q > 0.97
+    sel[1] = False  # an empty row: the fallback
+    stack = lambda cs: type(cs[0])(*(torch.tensor(  # noqa: E731
+        [float(x) for x in col], dtype=torch.float32) for col in zip(*cs)))
+    got_u = ps.uniform_decide({"take": take, "scores": scores}, stack(uni))
+    got_g = ps.greedy_decide(gains, stack(gre))
+    got_f = ps.force_one(sel, q)
+    for r in range(rows):
+        want_u = ps.uniform_decide({"take": take[r], "scores": scores[r]},
+                                   uni[r])
+        want_g = ps.greedy_decide(gains[r], gre[r])
+        for g, w in zip(got_u + got_g, want_u + want_g):
+            assert torch.equal(g[r], w), r
+        assert torch.equal(got_f[r], ps.force_one(sel[r], q[r]))
+    assert got_f[1].sum() == 1
+
+
 def test_match_uniform_m(ref):
     """The matched-M Monte Carlo on the reference's own channel draws:
     rtol 1e-5 (a mean of float32 sums of q)."""

@@ -1,14 +1,20 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version on the same device tensors, and the engine's cuda / cuda_fused
-paths launching them. Marked ``cuda``; every test skips when PyTorch sees
-no CUDA device (decided in a fixture, never at import). Run on a GPU with
+version on the same device tensors, the engine's cuda / cuda_fused paths
+launching them, and the scheduler service's cuda_fused path against its
+stitched one. Marked ``cuda``; every test skips when PyTorch sees no CUDA
+device (decided in a fixture, never at import). Run on a GPU with
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda \
+        tests/test_torch_cuda.py
 
 Tolerances as on the CPU: q rtol 1e-5 / atol 1e-6, power-like outputs
 rtol 1e-5 / atol 1e-3, tc rtol 1e-5, ``sel`` exact where |u - q| > 1e-6.
+The bucket-batched fused kernel is held to its plain version bit for bit
+(the same IEEE ops in the same order, no contraction), and the service's
+cuda_fused and stitched paths select the same clients.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,12 +24,16 @@ from repro_torch.data.synthetic import make_cifar10_like
 from repro_torch.fl.decision import decision_coeffs
 from repro_torch.fl.simulation import SimConfig, run_simulation
 from repro_torch.kernels.decision_fused import (decision_fused,
+                                                decision_fused_batched,
+                                                decision_fused_batched_plain,
                                                 decision_fused_plain,
                                                 pack_decision_operands)
 from repro_torch.kernels.scheduler_solve import (scheduler_solve,
                                                  scheduler_solve_plain,
                                                  solve_scalars)
 from repro_torch.models.registry import make_model
+from repro_torch.service import SchedulerService
+from repro_torch.service.demo import demo_request, register_demo_tenants
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +129,50 @@ def test_engine_paths_launch_their_kernels(cuda):
     for solver in ("cuda", "stitched"):
         assert (hist[solver]["selected"]
                 == hist["cuda_fused"]["selected"]).all()
+
+
+BATCHED_SHAPES = [(1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n", BATCHED_SHAPES)
+def test_decision_fused_batched_kernel_equals_plain(cuda, b, n, masked):
+    gains, z, u, _ = lanes(b * n, cuda)
+    gains, z, u = gains.view(b, n), z.view(b, n), u.view(b, n)
+    g = torch.Generator(device=cuda).manual_seed(b)
+    valid = (torch.arange(n, device=cuda)
+             < torch.randint(1, n + 1, (b, 1), generator=g, device=cuda))
+    v = valid if masked else None
+    rows = [pack_decision_operands(*decision_coeffs(
+        SchedulerConfig(n_clients=n, model_bits=1e5 * (1 + r % 97),
+                        lam=0.5 + r % 30, V=10.0 + 37.0 * r),
+        ChannelConfig(n_clients=n, p_max=20.0 + r % 130)))
+        for r in range(b)]
+    bops = torch.stack(rows).to(cuda)
+    before = decision_fused_batched.launches
+    got = decision_fused_batched(gains, z, u, bops, valid=v)
+    assert decision_fused_batched.launches == before + 1
+    want = decision_fused_batched_plain(gains, z, u, bops, v)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_service_fused_flush_matches_stitched(cuda):
+    """One flush of a demo-mix slice: cuda_fused launches the batched
+    kernel once per proposed group and selects what stitched selects."""
+    decisions, launches = {}, {}
+    for solver in ("cuda_fused", "stitched"):
+        svc = SchedulerService(solver=solver, device=cuda)
+        rng = np.random.default_rng(0)
+        tenants = register_demo_tenants(svc, rng, scale=0.05)
+        before = decision_fused_batched.launches
+        for name, n, policy in tenants:
+            _, gains, raw = demo_request(rng, name, n, policy)
+            svc.submit(name, gains, raw=raw)
+        decisions[solver] = svc.flush()
+        launches[solver] = decision_fused_batched.launches - before
+    assert launches == {"cuda_fused": 2, "stitched": 0}
+    for name, d in decisions["stitched"].items():
+        f = decisions["cuda_fused"][name]
+        assert np.array_equal(d.sel, f.sel)
+        np.testing.assert_allclose(f.q, d.q, rtol=1e-5, atol=1e-6)

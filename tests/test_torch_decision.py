@@ -1,7 +1,8 @@
 """The decision layer against the reference on the reference's own draws:
 the stitched ``decision_step`` (proposed and uniform) and the fused
 ``make_fused_decision`` against their JAX twins (the fused one against the
-interpret-mode Pallas kernel), and stitched against fused inside the port.
+interpret-mode Pallas kernel), also with the service's ``valid`` /
+``acct_len`` bucket hooks, and stitched against fused inside the port.
 
 Tolerances: t_comm, power, q and Z' at rtol 1e-5 (atol 1e-6 on q, 1e-3 on
 power-like values, the reference's kernel-test tolerances); n_sel exact;
@@ -135,3 +136,55 @@ def test_fused_equals_stitched_in_port(n, case):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     if case == "none_drawn":
         assert int(a[5]) == 1 and bool(a[0][torch.argmax(a[1])])
+
+
+@pytest.mark.parametrize("n,width", [(100, 128), (400, 512)])
+@pytest.mark.parametrize("fused", [False, True])
+def test_bucket_hooks_match_reference(ref, n, width, fused):
+    """The ``valid`` / ``acct_len`` hooks on a padded client axis: real
+    lanes first, pad lanes with u = 2.0; the accounting cut or zero-padded
+    to padded_len(n) (192 > 128 pads, 480 < 512 cuts). The fused form also
+    masks q to 0 on invalid lanes, as the reference's does."""
+    cfg, ch, pcfg, pch = setup(ref, n)
+    gains, st, pst = states(ref, width, n + width)
+    valid = np.arange(width) < n
+    acct_len = ref.sharding.padded_len(n)
+    co = ref.decision.decision_coeffs(cfg, ch)
+    pco = decision_coeffs(pcfg, pch)
+    t = torch.from_numpy
+    if fused:
+        # the reference draws u from the key; its q is 0 on invalid lanes
+        key = ref.jax.random.PRNGKey(n)
+        u = np.array(ref.policies.draw_selection_uniform(key, width))
+        want = ref.decision.make_fused_decision(cfg, co, interpret=True)(
+            None, None, key, gains, st, valid=valid, acct_len=acct_len)
+        got = make_fused_decision(pcfg, pco)(None, None, t(u), t(gains), pst,
+                                             valid=t(valid),
+                                             acct_len=acct_len)
+    else:
+        # the service's proposed core: the uniforms arrive as raws
+        u = np.random.default_rng(n).uniform(0, 1, width).astype(np.float32)
+        u[n:] = 2.0
+        core = ref.policies.fence_step(
+            lambda k, g, s: _ref_proposed(ref, u, g, s, co.solve, cfg))
+        want = ref.decision.decision_step(core, co.acct, None, gains, st,
+                                          valid=valid, acct_len=acct_len)
+        got = decision_step(make_policy("proposed", pcfg, pch,
+                                        coeffs=pco.solve),
+                            pco.acct, t(u), t(gains), pst, valid=t(valid),
+                            acct_len=acct_len)
+    far = np.abs(u - np.asarray(want[1])) > 1e-6
+    assert far.all()
+    assert_decision_close(got, want, u)
+    assert not got[0][n:].any()
+
+
+def _ref_proposed(ref, u, gains, st, c, cfg):
+    """The reference's proposed core on given uniforms (its service's
+    ``_proposed_core``)."""
+    sch = ref.scheduler
+    q, p = sch.solve_round_coeffs(gains, st.z, c)
+    sel = sch.selection_from_uniform(ref.jnp.asarray(u), q,
+                                     cfg.guarantee_one)
+    z = sch.update_queues_z(st.z, q, p, c)
+    return sel, q, p, st._replace(z=z, t=st.t + 1)
