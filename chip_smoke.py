@@ -6,7 +6,7 @@
 Phases; any failure exits non-zero before the result line is printed:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together), timing the build and printing
    each kernel's registers and spills from ``ptxas``;
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -16,7 +16,11 @@ Phases; any failure exits non-zero before the result line is printed:
    exact where |u - q| > 1e-6), and the bucket-batched fused decision at
    (B, N) in {(1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384)}
    with and without ``valid``, heterogeneous operand rows, bit for bit
-   (tolerance 0);
+   (tolerance 0); and the SSD scan (K4, through ``ops.ssd``, which pads)
+   at (b, S, H, P, N) = (1, 100, 2, 32, 16) chunk 32, (2, 384, 24, 64,
+   128) and the prefill shape (4, 2048, 24, 64, 128) chunk 128, from a
+   zero and a random state (y rtol 1e-4 / atol 2e-4, the final state
+   rtol 1e-4 / atol 2e-5: float32 sums in another order);
 4. drive the main path at full width through ``run_simulation``: the
    paper's CIFAR-10 configuration (100 clients, 500 examples each, 2000
    test images, CNN 32/64/120, lambda 10, m_cap 32, I = 10, batch 32),
@@ -42,15 +46,30 @@ Phases; any failure exits non-zero before the result line is printed:
    the rounds leave it) and at N = 2^20 or (64, 16384) (L2 flushed
    before each call), the time per call with the host's share at the
    warm shapes, calls back to back; beside the least time the card needs
-   for the same work.
+   for the same work;
+8. Mamba-2 (``mamba2-130m``, full width: 24 layers, d_model 768, 129 M
+   random float32 parameters from a seed) on the card: with the counts at
+   0, a forward at batch 4 x 2048 and ``launch/serve.py::generate``
+   (prompt 2000, padded to 2048 inside the scan, 64 greedy tokens); K4
+   must launch once per layer in each (24 + 24) and no other kernel;
+   prefill plus teacher-forced decode reproduce the forward's logits
+   (< 2e-4, decode launching no K4); a batch-1, S-256 forward on the card
+   (kernel path) against the same weights' forward on the CPU (plain path)
+   at rtol 1e-4 / atol 1e-4; forward ms, prefill s, decode ms per token, a
+   profile of one forward and 16 decode steps, and K4's device time at the
+   prefill shape beside its plain version's and its bound.
 
-Prints one JSON line per kernel set (``{"kernels": [...]}``), then, last,
+TF32 is off for every product and convolution in every phase.
+
+Prints the service's and Mamba's JSON lines, the card line, one JSON line
+of the kernels (``{"kernels": [...]}``), then, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -229,9 +248,6 @@ def main_path(torch):
                                            run_simulation)
     from repro_torch.models.registry import make_model
 
-    # full float32 convolutions and products, as the reference computes
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     n = CONFIG.n_clients
     ch, scfg = CONFIG.channel(), CONFIG.scheduler(lam=10.0)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -315,9 +331,11 @@ def counters():
     from repro_torch.kernels.decision_fused import (decision_fused,
                                                     decision_fused_batched)
     from repro_torch.kernels.scheduler_solve import scheduler_solve
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"scheduler_solve": scheduler_solve,
             "decision_fused": decision_fused,
-            "decision_fused_batched": decision_fused_batched}
+            "decision_fused_batched": decision_fused_batched,
+            "ssd_scan": ssd_scan}
 
 
 def reset_counts():
@@ -330,7 +348,7 @@ def read_counts():
 
 
 def launch_counts(**nonzero):
-    """The three kernels' counts: 0 but for ``nonzero``."""
+    """Every kernel's count: 0 but for ``nonzero``."""
     return dict({k: 0 for k in counters()}, **nonzero)
 
 
@@ -769,6 +787,268 @@ def timings(torch, scfg, ch, ops):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 8: Mamba-2 (mamba2-130m) scoring and serving at full width.
+# --------------------------------------------------------------------------
+
+# (b, S, H, P, N, chunk) of the SSD checks: the reference tests' padded
+# shape, a mid shape, and the prefill shape at batch 4 x 2048.
+SSD_SHAPES = ((1, 100, 2, 32, 16, 32), (2, 384, 24, 64, 128, 128),
+              (4, 2048, 24, 64, 128, 128))
+# y, then the final state: float32 sums in another order than the plain
+# version's (as on the CPU, tests/test_torch_ssd.py)
+SSD_TOL = (dict(rtol=1e-4, atol=2e-4), dict(rtol=1e-4, atol=2e-5))
+MAMBA_BATCH, MAMBA_SEQ, MAMBA_PROMPT, MAMBA_GEN = 4, 2048, 2000, 64
+# prefill + decode against the teacher-forced forward (the bound of the
+# reference's tests/test_arch_smoke.py::test_decode_matches_forward), and
+# the card's forward against the CPU's plain forward
+DECODE_TOL = 2e-4
+CPU_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def ssd_lanes(torch, b, s, h, p, n, seed):
+    """SSD inputs drawn as the reference's kernel tests draw them:
+    dt = softplus(N(0,1)) * 0.2, a = -exp(N(0,1)); x, B, C standard
+    normal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    dt = torch.nn.functional.softplus(randn(b, s, h)) * 0.2
+    return (randn(b, s, h, p), dt, -torch.exp(randn(h)), randn(b, s, n),
+            randn(b, s, n))
+
+
+def check_ssd(torch):
+    """K4 (through ``ops.ssd``, which pads) against its plain chunked
+    version on the same padded inputs, from a zero and a random state."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    err = 0.0
+    for b, s, h, p, n, chunk in SSD_SHAPES:
+        x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, s)
+        for h0 in (None, torch.randn((b, h, n, p), device="cuda")):
+            y, h_final = ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0,
+                                 return_state=True)
+            xp, dtp, bmp, cmp = ops.pad_to_chunk(chunk, x, dt, bm, cm)
+            y0, h0_final = ssd_chunked_ref(xp, dtp, a, bmp, cmp, chunk=chunk,
+                                           h0=h0)
+            torch.cuda.synchronize()
+            tag = (f"ssd_scan {(b, s, h, p, n)} chunk {chunk} "
+                   f"h0={h0 is not None}")
+            e = max(compare(torch, f"{tag} y", y, y0[:, :s], **SSD_TOL[0]),
+                    compare(torch, f"{tag} state", h_final, h0_final,
+                            **SSD_TOL[1]))
+            if not (torch.isfinite(y).all() and torch.isfinite(h_final).all()):
+                raise AssertionError(f"{tag}: non-finite output")
+            err = max(err, e)
+        print(f"ssd_scan agrees with its plain version at {(b, s, h, p, n)}, "
+              f"chunk {chunk}", flush=True)
+    return err
+
+
+
+def mamba_path(torch):
+    """mamba2-130m at full width with random weights: a forward at batch
+    4 x 2048 and ``generate`` (prompt 2000, 64 new tokens), with the
+    counts at 0 before and read after; decode against the forward; the
+    card's forward against the CPU's plain one. Returns the K4 launches
+    and a summary."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = get_config("mamba2-130m")
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    tokens, labels = make_token_stream(
+        torch.Generator(device="cuda").manual_seed(1), MAMBA_BATCH,
+        MAMBA_SEQ, cfg.vocab_size)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"mamba2-130m: {n_params} parameters on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    batch = M.Batch(tokens=tokens, labels=labels)
+    prompt = M.Batch(tokens=tokens[:, :MAMBA_PROMPT])
+
+    # the main path: a forward, then generate; counts from 0
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, _ = M.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    first_forward_s = time.perf_counter() - t0
+    per_forward = read_counts()
+    out = generate(params, prompt, cfg, MAMBA_GEN)
+    counts = read_counts()
+    per_generate = counts["ssd_scan"] - per_forward["ssd_scan"]
+    if per_forward != launch_counts(ssd_scan=cfg.n_layers) or (
+            counts != launch_counts(ssd_scan=2 * cfg.n_layers)):
+        raise AssertionError(f"mamba: K4 launches {per_forward} per forward "
+                             f"and {per_generate} per generate, want "
+                             f"{cfg.n_layers} each and no other kernel")
+    if not (logits.shape == (MAMBA_BATCH, MAMBA_SEQ, cfg.vocab_size)
+            and torch.isfinite(logits).all()):
+        raise AssertionError(f"mamba: bad logits {tuple(logits.shape)}")
+    gen = out.tokens
+    if not (gen.shape == (MAMBA_BATCH, MAMBA_GEN) and int(gen.min()) >= 0
+            and int(gen.max()) < cfg.vocab_size):
+        raise AssertionError(f"mamba: bad tokens {tuple(gen.shape)}")
+    loss = float(M.loss_fn(params, batch, cfg))
+    if not 0.0 < loss < 2 * math.log(cfg.vocab_size):
+        raise AssertionError(f"mamba: loss {loss}")
+    print(f"mamba forward {tuple(tokens.shape)}: K4 launched "
+          f"{per_forward['ssd_scan']} times (first call "
+          f"{first_forward_s * 1e3:.1f} ms), loss {loss:.4f} (ln V = "
+          f"{math.log(cfg.vocab_size):.4f}); generate: prompt "
+          f"{MAMBA_PROMPT}, {MAMBA_GEN} tokens, K4 {per_generate} launches, "
+          f"prefill {out.prefill_s:.3f} s, decode "
+          f"{out.decode_s / MAMBA_GEN * 1e3:.2f} ms/token", flush=True)
+
+    # prefill + teacher-forced decode reproduce the forward's logits
+    reset_counts()
+    lg, st = M.prefill(params, prompt, cfg, MAMBA_SEQ)
+    after_prefill = read_counts()["ssd_scan"]
+    errs = [float((lg[:, 0] - logits[:, MAMBA_PROMPT - 1]).abs().max())]
+    for t in range(MAMBA_PROMPT, MAMBA_SEQ - 1):
+        lg, st = M.decode_step(params, tokens[:, t:t + 1], st, cfg)
+        errs.append(float((lg[:, 0] - logits[:, t]).abs().max()))
+    if (read_counts()["ssd_scan"] != after_prefill
+            or after_prefill != cfg.n_layers):
+        raise AssertionError("mamba: decode launched K4, or prefill did not "
+                             "launch it once per layer")
+    if not max(errs) < DECODE_TOL:
+        raise AssertionError(f"mamba: decode vs forward {max(errs)}")
+    print(f"mamba: prefill + {len(errs) - 1} decode steps match the forward's "
+          f"logits, max |d| {max(errs):.3g} (< {DECODE_TOL}); decode "
+          f"launched no K4", flush=True)
+
+    # the card's kernel path against the CPU's plain path, same weights
+    small = tokens[:1, :256]
+    on_card, _ = M.forward(params, M.Batch(tokens=small), cfg)
+    cpu_params = copy.deepcopy(params).to("cpu")
+    on_cpu, _ = M.forward(cpu_params, M.Batch(tokens=small.cpu()), cfg)
+    cpu_err = compare(torch, "mamba forward card vs CPU", on_card.cpu(),
+                      on_cpu, **CPU_TOL)
+    print(f"mamba: forward (1, 256) on the card vs the CPU's plain forward: "
+          f"max |d| {cpu_err:.3g} (|logit| up to "
+          f"{float(on_cpu.abs().max()):.3g})", flush=True)
+    del cpu_params, on_cpu
+
+    fwd_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        M.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    again = generate(params, prompt, cfg, MAMBA_GEN)
+    summary = dict(
+        config=cfg.name, n_params=n_params, batch=MAMBA_BATCH,
+        seq=MAMBA_SEQ, prompt=MAMBA_PROMPT, generated=MAMBA_GEN,
+        loss=loss, forward_ms=sorted(fwd_ms)[1],
+        prefill_s=[out.prefill_s, again.prefill_s],
+        decode_ms_per_token=[out.decode_s / MAMBA_GEN * 1e3,
+                             again.decode_s / MAMBA_GEN * 1e3],
+        decode_vs_forward_max_abs=max(errs), card_vs_cpu_max_abs=cpu_err,
+        sample_output=gen[0, :16].tolist())
+    summary["profile"] = profile_mamba(torch, params, batch, prompt, cfg)
+    return dict(launches=counts["ssd_scan"],
+                per_forward=per_forward["ssd_scan"],
+                per_generate=per_generate), summary
+
+
+def profile_mamba(torch, params, batch, prompt, cfg):
+    """One forward and 16 decode steps under torch.profiler: device time by
+    kernel, K4's share and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+    out = {}
+    _, st = M.prefill(params, prompt, cfg, MAMBA_SEQ)
+    nxt = prompt.tokens[:, -1:]
+
+    def decode16():
+        s = st
+        for _ in range(16):
+            _, s = M.decode_step(params, nxt, s, cfg)
+
+    for label, fn in (("forward", lambda: M.forward(params, batch, cfg)),
+                      ("decode16", decode16)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(r[0] for r in rows)
+        k4 = sum(r[0] for r in rows if "ssd_scan" in r[2])
+        print(f"profile of mamba {label}: wall {wall_ms:.1f} ms, kernels "
+              f"{busy:.2f} ms ({busy / wall_ms:.1%} of wall), K4 {k4:.2f} ms "
+              f"({k4 / max(busy, 1e-9):.1%} of kernels), "
+              f"{sum(r[1] for r in rows)} device ops; top:", flush=True)
+        top = sorted(rows, reverse=True)[:8]
+        for ms, count, key in top:
+            print(f"  {ms:10.3f} ms {count:6d}x  {key[:90]}", flush=True)
+        out[label] = dict(wall_ms=wall_ms, device_ms=busy, k4_ms=k4,
+                          device_ops=sum(r[1] for r in rows),
+                          top=[[key[:60], ms, count] for ms, count, key
+                               in top[:5]])
+    return out
+
+
+def ssd_bound(b, s, h, p, n, chunk, with_state):
+    """Least time of one K4 call: bytes (inputs read once, outputs written
+    once) at HBM rate, against the float32 operations the function needs
+    (C.B^T once per (batch, chunk) over the causal triangle; per (batch,
+    head, chunk) the decay weights, m @ x over the triangle, the
+    inter-chunk product and the state update) at the float32 rate."""
+    nc = s // chunk
+    tri = chunk * (chunk + 1) // 2
+    n_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                   + (b * h * n * p if with_state else 0))
+    scores = 2 * tri * n                          # per (batch, chunk)
+    per_head = (6 * chunk + 1                     # g, lc, exp(lc), B weights
+                + 6 * tri                         # decay, min, exp, where, m
+                + 2 * tri * p                     # m @ x
+                + chunk * n + 2 * chunk * n * p   # (C exp(lc)) @ state
+                + chunk * p                       # y = intra + inter
+                + chunk * n + 2 * chunk * n * p   # (B bw)^T @ x
+                + 2 * n * p)                      # carry * state + update
+    ops_ = b * nc * scores + b * h * nc * per_head
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, ops_)
+
+
+def time_ssd(torch):
+    """K4 and its plain version at the prefill shape (with the final
+    state), device ms by CUDA events."""
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    b, s, h, p, n, chunk = SSD_SHAPES[-1]
+    x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, 5)
+    t, by, n_bytes, n_ops = ssd_bound(b, s, h, p, n, chunk, True)
+    row = dict(
+        shape=[b, s, h, p, n], chunk=chunk,
+        ms=time_device(torch, lambda: ssd_scan(
+            x, dt, a, bm, cm, chunk=chunk, return_state=True), False),
+        plain_ms=time_device(torch, lambda: ssd_chunked_ref(
+            x, dt, a, bm, cm, chunk=chunk), False, iters=5),
+        bound_ms=t, bound_by=by, bytes=n_bytes, flops=n_ops)
+    print(f"ssd_scan at {row['shape']}: {row['ms']:.3f} ms device, plain "
+          f"{row['plain_ms']:.3f} ms, bound {t:.4f} ms ({by}; "
+          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)", flush=True)
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -779,6 +1059,10 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail(f"{ROOT} holds no src/repro_torch: run from a checkout")
     sys.path.insert(0, str(ROOT / "src"))
+    # full float32 products and convolutions in every phase and every plain
+    # version, as the reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs.cifar10_cnn import CONFIG
     from repro_torch.fl.decision import decision_coeffs
     from repro_torch.kernels import _build
@@ -804,6 +1088,7 @@ def main() -> int:
     ops = pack_decision_operands(co.solve, co.acct)
     err = check_kernels(torch, scfg, ch, ops)
     err["decision_fused_batched"] = check_batched(torch)
+    err["ssd_scan"] = check_ssd(torch)
     launches, run = main_path(torch)
     profile_rounds(torch, run)
     (svc_counts, per_full, svc_summary,
@@ -812,6 +1097,8 @@ def main() -> int:
                        **profile_flushes(torch, svc, full_flushes))
     launches["decision_fused_batched"] = svc_counts["decision_fused_batched"]
     times = timings(torch, scfg, ch, ops)
+    mamba_launches, mamba = mamba_path(torch)
+    ssd_time = time_ssd(torch)
 
     rows = []
     for name in ("scheduler_solve", "decision_fused"):
@@ -839,8 +1126,17 @@ def main() -> int:
         **times[("decision_fused_batched", main_shape)],
         "other_shapes": [times[("decision_fused_batched", sh)]
                          for sh in others]})
+    rows.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:72",
+        "launches": mamba_launches["launches"],
+        "launches_per_forward": mamba_launches["per_forward"],
+        "launches_per_generate": mamba_launches["per_generate"],
+        "max_abs_err": err["ssd_scan"], "library_ms": None, **ssd_time})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
+    print(json.dumps({"mamba": mamba}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,36 @@
-"""Paper experiment configurations."""
+"""Configurations: the paper's experiment (``cifar10_cnn.py``) and the
+architecture registry (twin of ``repro/configs/__init__.py``).
+
+``ARCH_IDS`` lists the reference's 10 assigned architectures.
+``get_config(name)`` returns the full-size ``ModelConfig`` of the one the
+port runs so far, ``mamba2-130m``; the nine others raise
+``NotImplementedError`` (ROADMAP §A item 10). Every config has
+``reduced()`` for CPU tests.
+"""
+
+from __future__ import annotations
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_IDS = [
+    "mamba2-130m",
+    "jamba-v0.1-52b",
+    "chatglm3-6b",
+    "llama-3.2-vision-11b",
+    "kimi-k2-1t-a32b",
+    "yi-6b",
+    "mixtral-8x22b",
+    "granite-20b",
+    "minicpm-2b",
+    "seamless-m4t-large-v2",
+]
+
+
+def get_config(name: str) -> ModelConfig:
+    if name == "mamba2-130m":
+        from repro_torch.configs.mamba2_130m import CONFIG
+        return CONFIG
+    if name in ARCH_IDS:
+        raise NotImplementedError(f"arch {name!r} is not ported yet "
+                                  "(ROADMAP §A item 10)")
+    raise KeyError(f"unknown arch '{name}'; known: {sorted(ARCH_IDS)}")

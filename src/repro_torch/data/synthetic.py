@@ -2,9 +2,10 @@
 
 The layout is the reference's: images (N, per_client, H, W, C) float32,
 labels (N, per_client) (int64 here, PyTorch's index type), and a common
-test split. Tensors live on the run's device. :func:`from_numpy` carries
-the reference's generated arrays across (parity tests); the makers draw
-their own on a ``torch.Generator`` (standalone runs).
+test split; :func:`make_token_stream` makes an LM batch. Tensors live on
+the run's device. :func:`from_numpy` carries the reference's generated
+arrays across (parity tests); the makers draw their own on a
+``torch.Generator`` (standalone runs).
 """
 
 from __future__ import annotations
@@ -77,3 +78,13 @@ def make_cifar10_like(generator: torch.Generator, n_clients: int = 100,
     return FederatedDataset(client_images=imgs, client_labels=labels,
                             test_images=_render(generator, tmpl, tl),
                             test_labels=tl, n_classes=n_classes)
+
+
+def make_token_stream(generator: torch.Generator, batch: int, seq: int,
+                      vocab: int, device="cuda"):
+    """Synthetic LM batch (twin of the reference's ``make_token_stream``):
+    uniform tokens (B, S) int64 and next-token labels, the tokens rolled by
+    one. ``generator`` must live on ``device``."""
+    tokens = torch.randint(0, vocab, (batch, seq), generator=generator,
+                           device=device)
+    return tokens, torch.roll(tokens, -1, dims=1)

@@ -1,2 +1,4 @@
 """Hand-written CUDA kernels for Hopper, each with its plain PyTorch
-version (used for CPU tensors and as the on-card reference)."""
+version (used for CPU tensors and as the on-card reference):
+``scheduler_solve``, ``decision_fused`` (single-vector and bucket-batched)
+and ``ssd_scan`` (Mamba-2's chunked SSD, reached through ``ops.ssd``)."""

@@ -1,0 +1,55 @@
+"""SSD entry points of the model zoo (twin of the SSD part of
+``repro/kernels/ops.py``).
+
+``ssd`` pads S to a multiple of the chunk and runs :func:`ssd_scan`: the
+CUDA kernel for CUDA tensors, its plain version for CPU tensors. Unlike the
+reference's ``ssd``, it takes an initial state and returns the final one
+on request, so the full-sequence forward and the serving prefill both go
+through it. ``ssd_decode_step`` is plain PyTorch, as it is jnp in the
+reference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+
+def pad_to_chunk(chunk: int, x, dt, bm, cm):
+    """x, dt, B, C padded with zeros along S to a multiple of ``chunk``.
+    Padded steps have dt = 0, so they leave the state unchanged."""
+    pad = (-x.shape[1]) % chunk
+    if not pad:
+        return x, dt, bm, cm
+    return (F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)),
+            F.pad(bm, (0, 0, 0, pad)), F.pad(cm, (0, 0, 0, pad)))
+
+
+def ssd(x, dt, a, bm, cm, *, chunk: int = 128, h0=None,
+        return_state: bool = False):
+    """Chunked SSD over x (b, S, H, P) for any S: pads to a chunk multiple
+    and cuts y back to S. Returns y, or (y, h_final) with
+    ``return_state``."""
+    s = x.shape[1]
+    x, dt, bm, cm = pad_to_chunk(chunk, x, dt, bm, cm)
+    out = ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=h0,
+                   return_state=return_state)
+    if return_state:
+        return out[0][:, :s], out[1]
+    return out[:, :s]
+
+
+def ssd_decode_step(h, xt, dtt, a, bt, ct):
+    """Single-token SSD recurrence for serving.
+
+    h (b, H, N, P) carried state; xt (b, H, P); dtt (b, H); a (H,); bt / ct
+    (b, N). Returns (y_t (b, H, P), new h).
+    """
+    decay = torch.exp(dtt.float() * a.float()[None, :])
+    upd = torch.einsum("bn,bh,bhp->bhnp", bt.float(), dtt.float(),
+                       xt.float())
+    h = decay[..., None, None] * h + upd
+    y = torch.einsum("bn,bhnp->bhp", ct.float(), h)
+    return y.to(xt.dtype), h

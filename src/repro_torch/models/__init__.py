@@ -1,1 +1,1 @@
-"""Models that federate (the paper's CNN)."""
+"""Models: the paper's CNN (federated) and the model zoo's Mamba-2 LM."""

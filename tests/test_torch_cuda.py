@@ -11,13 +11,18 @@ Tolerances as on the CPU: q rtol 1e-5 / atol 1e-6, power-like outputs
 rtol 1e-5 / atol 1e-3, tc rtol 1e-5, ``sel`` exact where |u - q| > 1e-6.
 The bucket-batched fused kernel is held to its plain version bit for bit
 (the same IEEE ops in the same order, no contraction), and the service's
-cuda_fused and stitched paths select the same clients.
+cuda_fused and stitched paths select the same clients. The SSD scan
+against its plain chunked version at the smoke's shapes: y rtol 1e-4 /
+atol 2e-4, the final state rtol 1e-4 / atol 2e-5, as on the CPU (float32
+sums in other orders; both sides full float32, TF32 off); mamba2-130m's
+forward and prefill launch it once per layer (24), decode never.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.channel import ChannelConfig, heterogeneous_sigmas
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.data.synthetic import make_cifar10_like
@@ -28,9 +33,12 @@ from repro_torch.kernels.decision_fused import (decision_fused,
                                                 decision_fused_batched_plain,
                                                 decision_fused_plain,
                                                 pack_decision_operands)
+from repro_torch.kernels.ref import ssd_chunked_ref
 from repro_torch.kernels.scheduler_solve import (scheduler_solve,
                                                  scheduler_solve_plain,
                                                  solve_scalars)
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import model as M
 from repro_torch.models.registry import make_model
 from repro_torch.service import SchedulerService
 from repro_torch.service.demo import demo_request, register_demo_tenants
@@ -46,6 +54,9 @@ KW = dict(n=100, v=1000.0, lam=10.0, ell=32 * 555178.0, bandwidth=22e6,
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # full float32 products in the plain versions, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -176,3 +187,63 @@ def test_service_fused_flush_matches_stitched(cuda):
         f = decisions["cuda_fused"][name]
         assert np.array_equal(d.sel, f.sel)
         np.testing.assert_allclose(f.q, d.q, rtol=1e-5, atol=1e-6)
+
+
+# (b, S, H, P, N, chunk): the padded reference-test shape, a mid shape and
+# mamba2-130m's prefill shape at batch 4 x 2048
+SSD_SHAPES = [(1, 128, 2, 32, 16, 32), (2, 384, 24, 64, 128, 128),
+              (4, 2048, 24, 64, 128, 128)]
+
+
+def ssd_lanes(b, s, h, p, n, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    dt = torch.nn.functional.softplus(randn(b, s, h)) * 0.2
+    return (randn(b, s, h, p), dt, -torch.exp(randn(h)), randn(b, s, n),
+            randn(b, s, n))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk, with_h0):
+    x, dt, a, bm, cm = ssd_lanes(b, s, h, p, n, cuda)
+    h0 = torch.randn((b, h, n, p), device=cuda) if with_h0 else None
+    before = ssd_scan.launches
+    y, h_final = ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=h0,
+                          return_state=True)
+    y_only = ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    assert ssd_scan.launches == before + 2
+    y0, h0_final = ssd_chunked_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y0, rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(h_final, h0_final, rtol=1e-4, atol=2e-5)
+    assert torch.equal(y_only, y)
+
+
+def test_ssd_scan_rejects_other_dtypes(cuda):
+    x, dt, a, bm, cm = ssd_lanes(1, 32, 2, 32, 16, cuda)
+    with pytest.raises(TypeError):
+        ssd_scan(x.double(), dt, a, bm, cm, chunk=32)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, a, bm.cpu(), cm, chunk=32)
+
+
+def test_mamba_launches_ssd_scan_per_layer(cuda):
+    """mamba2-130m at full width (24 layers), batch 1 x 256: one launch
+    per layer in the forward and in the prefill, none in decode."""
+    cfg = get_config("mamba2-130m")
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (1, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    ssd_scan.launches = 0
+    logits, _ = M.forward(params, M.Batch(tokens=tok), cfg)
+    assert ssd_scan.launches == cfg.n_layers == 24
+    _, st = M.prefill(params, M.Batch(tokens=tok[:, :200]), cfg, 256)
+    assert ssd_scan.launches == 48
+    for t in range(200, 204):
+        lg, st = M.decode_step(params, tok[:, t:t + 1], st, cfg)
+        assert float((lg[:, 0] - logits[:, t]).abs().max()) < 2e-4
+    assert ssd_scan.launches == 48

@@ -57,7 +57,11 @@ def reference() -> types.SimpleNamespace:
                  sharding="fl.sharding", simulation="fl.simulation",
                  decision_fused="kernels.decision_fused",
                  scheduler_solve="kernels.scheduler_solve",
-                 cnn="models.cnn", registry="models.registry")
+                 cnn="models.cnn", registry="models.registry",
+                 config="models.config", mamba="models.mamba",
+                 model="models.model", ops="kernels.ops", ref="kernels.ref",
+                 ssd_scan="kernels.ssd_scan", configs="configs",
+                 serve="launch.serve")
     mods = {k: importlib.import_module(f"repro.{v}") for k, v in names.items()}
     return types.SimpleNamespace(jax=jax, jnp=jnp, **mods)
 
