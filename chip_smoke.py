@@ -20,7 +20,13 @@ Phases; any failure exits non-zero before the result line is printed:
    at (b, S, H, P, N) = (1, 100, 2, 32, 16) chunk 32, (2, 384, 24, 64,
    128) and the prefill shape (4, 2048, 24, 64, 128) chunk 128, from a
    zero and a random state (y rtol 1e-4 / atol 2e-4, the final state
-   rtol 1e-4 / atol 2e-5: float32 sums in another order);
+   rtol 1e-4 / atol 2e-5: float32 sums in another order); and flash
+   attention (K5) at the reference tests' shapes (S = 200, windows 128
+   and 32, D = 128 bidirectional, bfloat16), Sq != Sk both ways, a
+   non-causal window, and yi-6b's (BH, S, D) = (128, 2048, 128) causal
+   (2e-5 in float32, 2e-2 in bfloat16, the reference tests' own), each
+   also with the masked key tiles run instead of skipped (the same
+   bits);
 4. drive the main path at full width through ``run_simulation``: the
    paper's CIFAR-10 configuration (100 clients, 500 examples each, 2000
    test images, CNN 32/64/120, lambda 10, m_cap 32, I = 10, batch 32),
@@ -57,12 +63,22 @@ Phases; any failure exits non-zero before the result line is printed:
    (kernel path) against the same weights' forward on the CPU (plain path)
    at rtol 1e-4 / atol 1e-4; forward ms, prefill s, decode ms per token, a
    profile of one forward and 16 decode steps, and K4's device time at the
-   prefill shape beside its plain version's and its bound.
+   prefill shape beside its plain version's and its bound;
+9. dense GQA attention (``yi-6b``, full width: 32 layers, d_model 4096,
+   32 query heads sharing 4 KV heads of 128, d_ff 11008, untied head,
+   6.06 B random float32 parameters from a seed) the same way, after the
+   Mamba model is freed: K5 must launch 32 times per forward and 32 per
+   prefill (one per layer), never in decode, and no other kernel; the
+   card-against-CPU forward runs the embedding, the first 2 layers and
+   the head; then K5's device time at (128, 2048, 128) causal beside its
+   plain version's, its bound and PyTorch's
+   ``scaled_dot_product_attention`` (the yardstick; the port never calls
+   it).
 
 TF32 is off for every product and convolution in every phase.
 
-Prints the service's and Mamba's JSON lines, the card line, one JSON line
-of the kernels (``{"kernels": [...]}``), then, last,
+Prints the service's, Mamba's and yi's JSON lines, the card line, one
+JSON line of the kernels (``{"kernels": [...]}``), then, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -330,12 +346,14 @@ def main_path(torch):
 def counters():
     from repro_torch.kernels.decision_fused import (decision_fused,
                                                     decision_fused_batched)
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.scheduler_solve import scheduler_solve
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"scheduler_solve": scheduler_solve,
             "decision_fused": decision_fused,
             "decision_fused_batched": decision_fused_batched,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan,
+            "flash_attention_bhsd": flash_attention_bhsd}
 
 
 def reset_counts():
@@ -788,7 +806,7 @@ def timings(torch, scfg, ch, ops):
 
 
 # --------------------------------------------------------------------------
-# Phase 8: Mamba-2 (mamba2-130m) scoring and serving at full width.
+# Phases 8 and 9: mamba2-130m and yi-6b scoring and serving at full width.
 # --------------------------------------------------------------------------
 
 # (b, S, H, P, N, chunk) of the SSD checks: the reference tests' padded
@@ -798,7 +816,25 @@ SSD_SHAPES = ((1, 100, 2, 32, 16, 32), (2, 384, 24, 64, 128, 128),
 # y, then the final state: float32 sums in another order than the plain
 # version's (as on the CPU, tests/test_torch_ssd.py)
 SSD_TOL = (dict(rtol=1e-4, atol=2e-4), dict(rtol=1e-4, atol=2e-5))
-MAMBA_BATCH, MAMBA_SEQ, MAMBA_PROMPT, MAMBA_GEN = 4, 2048, 2000, 64
+# (BH, Sq, Sk, D, causal, window, bfloat16) of the flash attention checks:
+# tests/test_kernels.py's six shapes, Sq != Sk both ways, a non-causal
+# window, yi-6b's prefill shape in generate (batch 4 x 32 heads, prompt
+# 2000, hd 128: a ragged last tile) and its forward shape (2048; last, as
+# time_flash times it)
+FLASH_SHAPES = ((2, 256, 256, 64, True, None, False),
+                (1, 200, 200, 64, True, None, False),
+                (2, 384, 384, 64, True, 128, False),
+                (3, 64, 64, 128, False, None, False),
+                (2, 256, 256, 64, True, None, True),
+                (1, 128, 128, 32, True, 32, False),
+                (2, 100, 300, 64, True, None, False),
+                (2, 150, 130, 128, True, 40, False),
+                (2, 256, 256, 64, False, 48, True),
+                (128, 2000, 2000, 128, True, None, False),
+                (128, 2048, 2048, 128, True, None, False))
+# the reference tests' own tolerances (tests/test_kernels.py)
+FLASH_TOL = {False: 2e-5, True: 2e-2}
+LM_BATCH, LM_SEQ, LM_PROMPT, LM_GEN = 4, 2048, 2000, 64
 # prefill + decode against the teacher-forced forward (the bound of the
 # reference's tests/test_arch_smoke.py::test_decode_matches_forward), and
 # the card's forward against the CPU's plain forward
@@ -848,32 +884,73 @@ def check_ssd(torch):
     return err
 
 
+def flash_lanes(torch, bh, sq, sk, d, bf16, seed):
+    """q, k, v standard normal, as the reference's kernel tests draw
+    them, in float32 or bfloat16."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return [torch.randn((bh, s, d), generator=g, device="cuda").to(dtype)
+            for s in (sq, sk, sk)]
 
-def mamba_path(torch):
-    """mamba2-130m at full width with random weights: a forward at batch
-    4 x 2048 and ``generate`` (prompt 2000, 64 new tokens), with the
-    counts at 0 before and read after; decode against the forward; the
-    card's forward against the CPU's plain one. Returns the K4 launches
-    and a summary."""
+
+def check_flash(torch):
+    """K5 against its plain version, and with the masked key tiles run
+    instead of skipped (the same bits)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.ref import flash_attention_ref
+    err = 0.0
+    for bh, sq, sk, d, causal, window, bf16 in FLASH_SHAPES:
+        q, k, v = flash_lanes(torch, bh, sq, sk, d, bf16, sq)
+        out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+        every = flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                     skip_tiles=False)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tag = (f"flash_attention {(bh, sq, sk, d)} causal={causal} "
+               f"window={window} {q.dtype}")
+        tol = FLASH_TOL[bf16]
+        err = max(err, compare(torch, tag, out.float(), want.float(), tol,
+                               tol))
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{tag}: non-finite output")
+        if not torch.equal(out, every):
+            raise AssertionError(f"{tag}: skipping the masked tiles changed "
+                                 "the result")
+        print(f"{tag} agrees with its plain version (max |d| "
+              f"{float((out.float() - want.float()).abs().max()):.3g}); "
+              "skipping masked tiles is exact", flush=True)
+    return err
+
+
+def lm_path(torch, arch, kernel, cpu_layers=None):
+    """``arch`` at full width with random weights: a forward at batch
+    4 x 2048 and ``generate`` (prompt 2000, 64 new tokens), with the counts
+    at 0 before and read after; ``kernel`` must launch once per layer in
+    each and no other kernel may; prefill plus teacher-forced decode
+    against the forward, decode launching nothing; the card's forward
+    against the CPU's plain one at batch 1 x 256 on the first
+    ``cpu_layers`` layers (all by default) and the full head. Returns the
+    launches and a summary."""
     import copy
+    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
-    cfg = get_config("mamba2-130m")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = M.init_params(torch.Generator(device="cuda").manual_seed(0),
                            cfg)
     tokens, labels = make_token_stream(
-        torch.Generator(device="cuda").manual_seed(1), MAMBA_BATCH,
-        MAMBA_SEQ, cfg.vocab_size)
+        torch.Generator(device="cuda").manual_seed(1), LM_BATCH, LM_SEQ,
+        cfg.vocab_size)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"mamba2-130m: {n_params} parameters on the card in "
+    print(f"{arch}: {n_params} parameters on the card in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     batch = M.Batch(tokens=tokens, labels=labels)
-    prompt = M.Batch(tokens=tokens[:, :MAMBA_PROMPT])
+    prompt = M.Batch(tokens=tokens[:, :LM_PROMPT])
 
     # the main path: a forward, then generate; counts from 0
     reset_counts()
@@ -882,61 +959,67 @@ def mamba_path(torch):
     torch.cuda.synchronize()
     first_forward_s = time.perf_counter() - t0
     per_forward = read_counts()
-    out = generate(params, prompt, cfg, MAMBA_GEN)
+    out = generate(params, prompt, cfg, LM_GEN)
     counts = read_counts()
-    per_generate = counts["ssd_scan"] - per_forward["ssd_scan"]
-    if per_forward != launch_counts(ssd_scan=cfg.n_layers) or (
-            counts != launch_counts(ssd_scan=2 * cfg.n_layers)):
-        raise AssertionError(f"mamba: K4 launches {per_forward} per forward "
-                             f"and {per_generate} per generate, want "
+    per_generate = counts[kernel] - per_forward[kernel]
+    if per_forward != launch_counts(**{kernel: cfg.n_layers}) or (
+            counts != launch_counts(**{kernel: 2 * cfg.n_layers})):
+        raise AssertionError(f"{arch}: {kernel} launches {per_forward} per "
+                             f"forward and {per_generate} per generate, want "
                              f"{cfg.n_layers} each and no other kernel")
-    if not (logits.shape == (MAMBA_BATCH, MAMBA_SEQ, cfg.vocab_size)
+    if not (logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
             and torch.isfinite(logits).all()):
-        raise AssertionError(f"mamba: bad logits {tuple(logits.shape)}")
+        raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
     gen = out.tokens
-    if not (gen.shape == (MAMBA_BATCH, MAMBA_GEN) and int(gen.min()) >= 0
+    if not (gen.shape == (LM_BATCH, LM_GEN) and int(gen.min()) >= 0
             and int(gen.max()) < cfg.vocab_size):
-        raise AssertionError(f"mamba: bad tokens {tuple(gen.shape)}")
+        raise AssertionError(f"{arch}: bad tokens {tuple(gen.shape)}")
     loss = float(M.loss_fn(params, batch, cfg))
     if not 0.0 < loss < 2 * math.log(cfg.vocab_size):
-        raise AssertionError(f"mamba: loss {loss}")
-    print(f"mamba forward {tuple(tokens.shape)}: K4 launched "
-          f"{per_forward['ssd_scan']} times (first call "
+        raise AssertionError(f"{arch}: loss {loss}")
+    print(f"{arch} forward {tuple(tokens.shape)}: {kernel} launched "
+          f"{per_forward[kernel]} times (first call "
           f"{first_forward_s * 1e3:.1f} ms), loss {loss:.4f} (ln V = "
-          f"{math.log(cfg.vocab_size):.4f}); generate: prompt "
-          f"{MAMBA_PROMPT}, {MAMBA_GEN} tokens, K4 {per_generate} launches, "
-          f"prefill {out.prefill_s:.3f} s, decode "
-          f"{out.decode_s / MAMBA_GEN * 1e3:.2f} ms/token", flush=True)
+          f"{math.log(cfg.vocab_size):.4f}); generate: prompt {LM_PROMPT}, "
+          f"{LM_GEN} tokens, {kernel} {per_generate} launches, prefill "
+          f"{out.prefill_s:.3f} s, decode "
+          f"{out.decode_s / LM_GEN * 1e3:.2f} ms/token", flush=True)
 
     # prefill + teacher-forced decode reproduce the forward's logits
     reset_counts()
-    lg, st = M.prefill(params, prompt, cfg, MAMBA_SEQ)
-    after_prefill = read_counts()["ssd_scan"]
-    errs = [float((lg[:, 0] - logits[:, MAMBA_PROMPT - 1]).abs().max())]
-    for t in range(MAMBA_PROMPT, MAMBA_SEQ - 1):
+    lg, st = M.prefill(params, prompt, cfg, LM_SEQ)
+    per_prefill = read_counts()[kernel]
+    errs = [float((lg[:, 0] - logits[:, LM_PROMPT - 1]).abs().max())]
+    for t in range(LM_PROMPT, LM_SEQ - 1):
         lg, st = M.decode_step(params, tokens[:, t:t + 1], st, cfg)
         errs.append(float((lg[:, 0] - logits[:, t]).abs().max()))
-    if (read_counts()["ssd_scan"] != after_prefill
-            or after_prefill != cfg.n_layers):
-        raise AssertionError("mamba: decode launched K4, or prefill did not "
-                             "launch it once per layer")
+    per_decode = read_counts()[kernel] - per_prefill
+    if per_decode or per_prefill != cfg.n_layers:
+        raise AssertionError(f"{arch}: decode launched {kernel}, or prefill "
+                             "did not launch it once per layer")
     if not max(errs) < DECODE_TOL:
-        raise AssertionError(f"mamba: decode vs forward {max(errs)}")
-    print(f"mamba: prefill + {len(errs) - 1} decode steps match the forward's "
-          f"logits, max |d| {max(errs):.3g} (< {DECODE_TOL}); decode "
-          f"launched no K4", flush=True)
+        raise AssertionError(f"{arch}: decode vs forward {max(errs)}")
+    print(f"{arch}: prefill + {len(errs) - 1} decode steps match the "
+          f"forward's logits, max |d| {max(errs):.3g} (< {DECODE_TOL}); "
+          f"decode launched no {kernel}", flush=True)
+    del st
 
     # the card's kernel path against the CPU's plain path, same weights
+    sub, sub_cfg = params, cfg
+    if cpu_layers is not None:
+        sub_cfg = dataclasses.replace(cfg, n_layers=cpu_layers)
+        sub = M.LM(params.embed, list(params.layers[:cpu_layers]),
+                   params.final_norm, params.lm_head)
     small = tokens[:1, :256]
-    on_card, _ = M.forward(params, M.Batch(tokens=small), cfg)
-    cpu_params = copy.deepcopy(params).to("cpu")
-    on_cpu, _ = M.forward(cpu_params, M.Batch(tokens=small.cpu()), cfg)
-    cpu_err = compare(torch, "mamba forward card vs CPU", on_card.cpu(),
+    on_card, _ = M.forward(sub, M.Batch(tokens=small), sub_cfg)
+    cpu_params = copy.deepcopy(sub).to("cpu")
+    on_cpu, _ = M.forward(cpu_params, M.Batch(tokens=small.cpu()), sub_cfg)
+    cpu_err = compare(torch, f"{arch} forward card vs CPU", on_card.cpu(),
                       on_cpu, **CPU_TOL)
-    print(f"mamba: forward (1, 256) on the card vs the CPU's plain forward: "
-          f"max |d| {cpu_err:.3g} (|logit| up to "
-          f"{float(on_cpu.abs().max()):.3g})", flush=True)
-    del cpu_params, on_cpu
+    print(f"{arch}: forward (1, 256) over {sub_cfg.n_layers} layers on the "
+          f"card vs the CPU's plain forward: max |d| {cpu_err:.3g} (|logit| "
+          f"up to {float(on_cpu.abs().max()):.3g})", flush=True)
+    del cpu_params, on_cpu, sub
 
     fwd_ms = []
     for _ in range(3):
@@ -944,30 +1027,34 @@ def mamba_path(torch):
         M.forward(params, batch, cfg)
         torch.cuda.synchronize()
         fwd_ms.append((time.perf_counter() - t0) * 1e3)
-    again = generate(params, prompt, cfg, MAMBA_GEN)
+    again = generate(params, prompt, cfg, LM_GEN)
     summary = dict(
-        config=cfg.name, n_params=n_params, batch=MAMBA_BATCH,
-        seq=MAMBA_SEQ, prompt=MAMBA_PROMPT, generated=MAMBA_GEN,
-        loss=loss, forward_ms=sorted(fwd_ms)[1],
+        config=cfg.name, n_params=n_params, batch=LM_BATCH, seq=LM_SEQ,
+        prompt=LM_PROMPT, generated=LM_GEN, loss=loss,
+        forward_ms=sorted(fwd_ms)[1],
         prefill_s=[out.prefill_s, again.prefill_s],
-        decode_ms_per_token=[out.decode_s / MAMBA_GEN * 1e3,
-                             again.decode_s / MAMBA_GEN * 1e3],
+        decode_ms_per_token=[out.decode_s / LM_GEN * 1e3,
+                             again.decode_s / LM_GEN * 1e3],
         decode_vs_forward_max_abs=max(errs), card_vs_cpu_max_abs=cpu_err,
+        card_vs_cpu_layers=sub_cfg.n_layers,
         sample_output=gen[0, :16].tolist())
-    summary["profile"] = profile_mamba(torch, params, batch, prompt, cfg)
-    return dict(launches=counts["ssd_scan"],
-                per_forward=per_forward["ssd_scan"],
-                per_generate=per_generate), summary
+    del logits
+    summary["profile"] = profile_lm(torch, params, batch, prompt, cfg,
+                                    kernel)
+    return dict(launches=counts[kernel], per_forward=per_forward[kernel],
+                per_generate=per_generate, per_prefill=per_prefill,
+                per_decode=per_decode), summary
 
 
-def profile_mamba(torch, params, batch, prompt, cfg):
+def profile_lm(torch, params, batch, prompt, cfg, kernel):
     """One forward and 16 decode steps under torch.profiler: device time by
-    kernel, K4's share and the device's busy share of the wall time."""
+    kernel, ``kernel``'s share and the device's busy share of the wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
     out = {}
-    _, st = M.prefill(params, prompt, cfg, MAMBA_SEQ)
+    _, st = M.prefill(params, prompt, cfg, LM_SEQ)
     nxt = prompt.tokens[:, -1:]
 
     def decode16():
@@ -975,6 +1062,8 @@ def profile_mamba(torch, params, batch, prompt, cfg):
         for _ in range(16):
             _, s = M.decode_step(params, nxt, s, cfg)
 
+    # the compiled kernel's symbol carries the source's name
+    symbol = kernel.removesuffix("_bhsd")
     for label, fn in (("forward", lambda: M.forward(params, batch, cfg)),
                       ("decode16", decode16)):
         torch.cuda.synchronize()
@@ -988,15 +1077,16 @@ def profile_mamba(torch, params, batch, prompt, cfg):
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(r[0] for r in rows)
-        k4 = sum(r[0] for r in rows if "ssd_scan" in r[2])
-        print(f"profile of mamba {label}: wall {wall_ms:.1f} ms, kernels "
-              f"{busy:.2f} ms ({busy / wall_ms:.1%} of wall), K4 {k4:.2f} ms "
-              f"({k4 / max(busy, 1e-9):.1%} of kernels), "
-              f"{sum(r[1] for r in rows)} device ops; top:", flush=True)
+        ours = sum(r[0] for r in rows if symbol in r[2])
+        print(f"profile of {cfg.name} {label}: wall {wall_ms:.1f} ms, "
+              f"kernels {busy:.2f} ms ({busy / wall_ms:.1%} of wall), "
+              f"{kernel} {ours:.2f} ms ({ours / max(busy, 1e-9):.1%} of "
+              f"kernels), {sum(r[1] for r in rows)} device ops; top:",
+              flush=True)
         top = sorted(rows, reverse=True)[:8]
         for ms, count, key in top:
             print(f"  {ms:10.3f} ms {count:6d}x  {key[:90]}", flush=True)
-        out[label] = dict(wall_ms=wall_ms, device_ms=busy, k4_ms=k4,
+        out[label] = dict(wall_ms=wall_ms, device_ms=busy, kernel_ms=ours,
                           device_ops=sum(r[1] for r in rows),
                           top=[[key[:60], ms, count] for ms, count, key
                                in top[:5]])
@@ -1049,6 +1139,52 @@ def time_ssd(torch):
     return row
 
 
+def flash_bound(bh, sq, sk, d, causal, window, itemsize):
+    """Least time of one K5 call: q, k, v read once and o written once at
+    HBM rate, against the float32 operations the function needs at the
+    float32 rate: per live (q, k) pair 2 D for q . k and 2 D for p v, and
+    its max, exp and sum; per output element the scale and the division.
+    Masked pairs need no work, so the causal half is counted once."""
+    from repro_torch.kernels.ref import flash_mask
+    live = int(flash_mask(sq, sk, causal, window, "cpu").sum())
+    n_bytes = itemsize * bh * d * (2 * sq + 2 * sk)
+    n_ops = bh * (live * (4 * d + 3) + 2 * sq * d)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, n_ops)
+
+
+def time_flash(torch):
+    """K5, its plain version and PyTorch's
+    ``scaled_dot_product_attention(is_causal=True)`` (the yardstick, never
+    on the path) at yi-6b's forward shape, float32, device ms by CUDA
+    events."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.ref import flash_attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bh, s, _, d, causal, window, _ = FLASH_SHAPES[-1]
+    q, k, v = flash_lanes(torch, bh, s, s, d, False, 6)
+    lib_err = float((sdpa(q, k, v, is_causal=True)
+                     - flash_attention_bhsd(q, k, v)).abs().max())
+    t, by, n_bytes, n_ops = flash_bound(bh, s, s, d, causal, window, 4)
+    row = dict(
+        shape=[bh, s, d], causal=causal,
+        ms=time_device(torch, lambda: flash_attention_bhsd(q, k, v), False),
+        plain_ms=time_device(torch, lambda: flash_attention_ref(q, k, v),
+                             False, iters=5),
+        library_ms=time_device(torch, lambda: sdpa(q, k, v, is_causal=True),
+                               False),
+        library_max_abs_diff=lib_err, bound_ms=t, bound_by=by,
+        bytes=n_bytes, flops=n_ops)
+    print(f"flash_attention_bhsd at {row['shape']} causal: {row['ms']:.3f} "
+          f"ms device, plain {row['plain_ms']:.3f} ms, "
+          f"scaled_dot_product_attention {row['library_ms']:.3f} ms (max "
+          f"|d| {lib_err:.3g}), bound {t:.4f} ms ({by}; "
+          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)", flush=True)
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -1089,6 +1225,7 @@ def main() -> int:
     err = check_kernels(torch, scfg, ch, ops)
     err["decision_fused_batched"] = check_batched(torch)
     err["ssd_scan"] = check_ssd(torch)
+    err["flash_attention_bhsd"] = check_flash(torch)
     launches, run = main_path(torch)
     profile_rounds(torch, run)
     (svc_counts, per_full, svc_summary,
@@ -1097,8 +1234,12 @@ def main() -> int:
                        **profile_flushes(torch, svc, full_flushes))
     launches["decision_fused_batched"] = svc_counts["decision_fused_batched"]
     times = timings(torch, scfg, ch, ops)
-    mamba_launches, mamba = mamba_path(torch)
+    mamba_launches, mamba = lm_path(torch, "mamba2-130m", "ssd_scan")
     ssd_time = time_ssd(torch)
+    torch.cuda.empty_cache()
+    yi_launches, yi = lm_path(torch, "yi-6b", "flash_attention_bhsd",
+                              cpu_layers=2)
+    flash_time = time_flash(torch)
 
     rows = []
     for name in ("scheduler_solve", "decision_fused"):
@@ -1134,9 +1275,19 @@ def main() -> int:
         "launches_per_forward": mamba_launches["per_forward"],
         "launches_per_generate": mamba_launches["per_generate"],
         "max_abs_err": err["ssd_scan"], "library_ms": None, **ssd_time})
+    rows.append({
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "launches": yi_launches["launches"],
+        "launches_per_forward": yi_launches["per_forward"],
+        "launches_per_prefill": yi_launches["per_prefill"],
+        "launches_per_decode": yi_launches["per_decode"],
+        "max_abs_err": err["flash_attention_bhsd"], **flash_time})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
     print(json.dumps({"mamba": mamba}), flush=True)
+    print(json.dumps({"yi": yi}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 architecture registry (twin of ``repro/configs/__init__.py``).
 
 ``ARCH_IDS`` lists the reference's 10 assigned architectures.
-``get_config(name)`` returns the full-size ``ModelConfig`` of the one the
-port runs so far, ``mamba2-130m``; the nine others raise
+``get_config(name)`` returns the full-size ``ModelConfig`` of the two the
+port runs so far, ``mamba2-130m`` and ``yi-6b``; the eight others raise
 ``NotImplementedError`` (ROADMAP §A item 10). Every config has
 ``reduced()`` for CPU tests.
 """
@@ -29,6 +29,9 @@ ARCH_IDS = [
 def get_config(name: str) -> ModelConfig:
     if name == "mamba2-130m":
         from repro_torch.configs.mamba2_130m import CONFIG
+        return CONFIG
+    if name == "yi-6b":
+        from repro_torch.configs.yi_6b import CONFIG
         return CONFIG
     if name in ARCH_IDS:
         raise NotImplementedError(f"arch {name!r} is not ported yet "

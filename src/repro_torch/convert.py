@@ -11,13 +11,15 @@ the port's float32 tensors:
   unchanged;
 * biases: unchanged.
 
-``lm_params_from_jax`` (the model zoo's SSM stack) takes the reference's
-``init_params`` tree, numpy leaves, and returns the port's
-:class:`~repro_torch.models.model.MambaLM`: the period-stacked
+``lm_params_from_jax`` (the model zoo's decoder stacks) takes the
+reference's ``init_params`` tree, numpy leaves, and returns the port's
+:class:`~repro_torch.models.model.LM`: the period-stacked
 ``params["period"]["layer<i>"]`` leaves, whose leading axis counts
 periods (``models/model.py`` in the reference), are unstacked into the
-layer list; ``embed.emb`` and ``final_norm.g`` carry over unchanged.
-Dense weights are (in, out) in both packages.
+layer list (Mamba layers: ``norm1`` and the mixer's leaves; dense layers:
+``norm1``, ``mixer.w{q,k,v,o}``, ``norm2``, ``mlp.w{i,g,o}``);
+``embed.emb``, ``final_norm.g`` and an untied ``lm_head.w`` carry over
+unchanged. Dense weights are (in, out) in both packages.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as M
-from repro_torch.models.layers import Embedding, RMSNorm
+from repro_torch.models.attention import Attention
+from repro_torch.models.layers import Dense, Embedding, RMSNorm, SwiGLU
 from repro_torch.models.mamba import Mamba2Block
 
 _CONV = ("c1w", "c2w")
@@ -47,29 +50,37 @@ def _tensor(value, device) -> torch.Tensor:
     return torch.from_numpy(np.array(value)).to(device)
 
 
-def _mamba_layer(p: dict, k: int, cfg, device) -> M.MambaLayer:
+def _layer(p: dict, k: int, spec, cfg, device) -> M.Layer:
     """Layer ``k`` of one period-stacked reference layer ``p``."""
     def leaf(v):
         return _tensor(v[k], device)
 
+    norm1 = RMSNorm(leaf(p["norm1"]["g"]), cfg.rmsnorm_eps)
     m = p["mixer"]
-    mixer = {name: ({"w": leaf(v["w"])} if isinstance(v, dict) else leaf(v))
-             for name, v in m.items()}
-    return M.MambaLayer(RMSNorm(leaf(p["norm1"]["g"]), cfg.rmsnorm_eps),
-                        Mamba2Block(mixer, cfg))
+    if spec.mixer == "mamba":
+        mixer = {name: ({"w": leaf(v["w"])} if isinstance(v, dict)
+                        else leaf(v)) for name, v in m.items()}
+        return M.Layer(norm1, Mamba2Block(mixer, cfg))
+    mixer = Attention(*(leaf(m[n]["w"]) for n in ("wq", "wk", "wv", "wo")),
+                      cfg)
+    mlp = SwiGLU(*(leaf(p["mlp"][n]["w"]) for n in ("wi", "wg", "wo")))
+    return M.Layer(norm1, mixer, RMSNorm(leaf(p["norm2"]["g"]),
+                                         cfg.rmsnorm_eps), mlp)
 
 
-def lm_params_from_jax(tree: dict, cfg, device="cuda") -> M.MambaLM:
+def lm_params_from_jax(tree: dict, cfg, device="cuda") -> M.LM:
     """The reference's LM parameter tree (numpy leaves) -> the port's
-    :class:`~repro_torch.models.model.MambaLM` on ``device``."""
+    :class:`~repro_torch.models.model.LM` on ``device``."""
     M.check_config(cfg)
     prefix, period, n_periods = cfg.period_decomposition()
     if prefix or tree.get("prefix"):
         raise NotImplementedError("prefix layers are not ported yet "
                                   "(ROADMAP §A item 10)")
-    layers = [_mamba_layer(tree["period"][f"layer{i}"], k, cfg, device)
-              for k in range(n_periods) for i in range(len(period))]
+    layers = [_layer(tree["period"][f"layer{i}"], k, spec, cfg, device)
+              for k in range(n_periods) for i, spec in enumerate(period)]
     final_norm = RMSNorm(_tensor(tree["final_norm"]["g"], device),
                          cfg.rmsnorm_eps)
-    return M.MambaLM(Embedding(_tensor(tree["embed"]["emb"], device)),
-                     layers, final_norm)
+    head = (None if cfg.tie_embeddings else
+            Dense(_tensor(tree["lm_head"]["w"], device)))
+    return M.LM(Embedding(_tensor(tree["embed"]["emb"], device)), layers,
+                final_norm, head)

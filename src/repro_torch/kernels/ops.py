@@ -1,12 +1,13 @@
-"""SSD entry points of the model zoo (twin of the SSD part of
+"""Attention and SSD entry points of the model zoo (twin of
 ``repro/kernels/ops.py``).
 
-``ssd`` pads S to a multiple of the chunk and runs :func:`ssd_scan`: the
-CUDA kernel for CUDA tensors, its plain version for CPU tensors. Unlike the
-reference's ``ssd``, it takes an initial state and returns the final one
-on request, so the full-sequence forward and the serving prefill both go
-through it. ``ssd_decode_step`` is plain PyTorch, as it is jnp in the
-reference.
+``flash_attention`` runs :func:`flash_attention_bhsd` on (BH, S, D)
+tensors: the CUDA kernel for CUDA tensors, its plain version for CPU
+tensors. ``ssd`` pads S to a multiple of the chunk and runs
+:func:`ssd_scan` the same way. Unlike the reference's ``ssd``, it takes an
+initial state and returns the final one on request, so the full-sequence
+forward and the serving prefill both go through it. ``ssd_decode_step`` is
+plain PyTorch, as it is jnp in the reference.
 """
 
 from __future__ import annotations
@@ -14,7 +15,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.ssd_scan import ssd_scan
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
+    """(BH, Sq, D) flash attention, KV heads already expanded."""
+    return flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                scale=scale)
+
+
+def attention_auto(q, k, v, *, causal=True, window=None, scale=None):
+    """Same as flash_attention: the wrapper already dispatches on device."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           scale=scale)
 
 
 def pad_to_chunk(chunk: int, x, dt, bm, cm):

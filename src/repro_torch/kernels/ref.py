@@ -1,5 +1,15 @@
-"""Plain PyTorch versions of the SSD scan (twin of the SSD part of
+"""Plain PyTorch versions of the attention and SSD kernels (twin of
 ``repro/kernels/ref.py``).
+
+``flash_attention_ref`` is the function ``csrc/flash_attention.cu``
+computes, as the reference's Pallas kernel
+(``repro/kernels/flash_attention.py::_attn_kernel``) defines it: query
+and key positions both start at 0, the window is one-sided; the wrapper
+(``kernels/flash_attention.py``) runs it for CPU tensors and
+``chip_smoke.py`` holds the kernel against it on the card.
+``attention_ref`` is the reference's dense oracle, which places the
+queries at the end of the keys and makes a non-causal window two-sided:
+the two agree where Sq == Sk and a window comes with ``causal``.
 
 ``ssd_chunked_ref`` is the function ``csrc/ssd_scan.cu`` computes, op for
 op in the order of the reference's Pallas kernel
@@ -8,13 +18,72 @@ op in the order of the reference's Pallas kernel
 holds the kernel against it on the card. ``ssd_ref`` is the sequential
 recurrence, the ground truth both are tested against.
 
-Shapes: x (b, S, H, P), dt (b, S, H), a (H,), bm / cm (b, S, N), state
-(b, H, N, P); both return ``(y, h_final)``.
+SSD shapes: x (b, S, H, P), dt (b, S, H), a (H,), bm / cm (b, S, N),
+state (b, H, N, P); both return ``(y, h_final)``.
 """
 
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window=None,
+                  scale=None):
+    """Dense softmax attention over q (BH, Sq, D), k / v (BH, Sk, D),
+    float32 softmax, output in q's type. With ``causal`` the queries sit
+    at the end of the keys (offset Sk - Sq) and a window keeps
+    ``k > q - window``; without it a window keeps ``|k - q| < window``."""
+    sq, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    if scale is None:
+        scale = float(d) ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        offset = sk - sq
+        mask &= k_pos <= q_pos + offset
+        if window is not None:
+            mask &= k_pos > q_pos + offset - window
+    elif window is not None:
+        mask &= (k_pos - q_pos).abs() < window
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_mask(sq: int, sk: int, causal: bool, window, device):
+    """The flash kernel's (Sq, Sk) mask: positions from 0 on both sides,
+    ``k <= q`` with ``causal``, ``k > q - window`` with a window (with or
+    without ``causal``)."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
+                        scale=None):
+    """The flash kernel's function over q (BH, Sq, D), k / v (BH, Sk, D),
+    dense: q scaled in float32 before the product, masked scores set to
+    -1e30 (never -inf), ``exp(s - max)``, ``(p @ v) / max(l, 1e-30)``,
+    output in q's type."""
+    d = q.shape[2]
+    if scale is None:
+        scale = float(d) ** -0.5
+    s = torch.bmm(q.float() * scale, k.float().transpose(1, 2))
+    mask = flash_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    return (torch.bmm(p, v.float()) / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
 def ssd_ref(x, dt, a, bm, cm, h0=None):

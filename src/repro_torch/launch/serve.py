@@ -1,13 +1,14 @@
 """Batched serving (twin of ``repro/launch/serve.py``): prefill a
 batch of prompts, then decode greedily, reporting per-phase latencies.
 
-Runs a reduced architecture (the reference's defaults: 2 layers,
-d_model 256) over the synthetic vocab; ``--device`` picks the card
-(default ``cuda``, which raises without one) or ``cpu``. The full width
-runs through the same :func:`generate` in ``chip_smoke.py``.
+Runs a reduced architecture (``mamba2-130m`` or ``yi-6b``; the
+reference's defaults: 2 layers, d_model 256) over the synthetic vocab;
+``--device`` picks the card (default ``cuda``, which raises without one)
+or ``cpu``. The full widths run through the same :func:`generate` in
+``chip_smoke.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-      --arch mamba2-130m --batch 4 --prompt-len 64 --gen 32
+      --arch yi-6b --batch 4 --prompt-len 64 --gen 32
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def generate(params: M.MambaLM, batch: Batch, cfg, gen: int) -> Generation:
+def generate(params: M.LM, batch: Batch, cfg, gen: int) -> Generation:
     """Prefill ``batch.tokens`` (B, S), then ``gen`` greedy decode steps:
     the first generated token is the prefill's argmax, each step feeds the
     last token back (the reference's loop)."""

@@ -1,0 +1,245 @@
+"""Grouped-query self-attention with RoPE, sliding windows and KV caches
+(twin of ``repro/models/attention.py``).
+
+Full-sequence attention (``apply_attention``) and prefill attention
+(``prefill_attention``) run through the flash kernel: the KV heads are
+expanded in the reference's grouping (KV head j serves query heads
+j g .. j g + g - 1, as ``q.reshape(b, s, kv, g, hd)`` groups them there:
+``repeat_interleave``, not ``repeat``) and ``ops.flash_attention`` runs on
+(B Hq, S, hd), the CUDA kernel for CUDA tensors and its plain version for
+CPU tensors. The reference computes these with its jnp
+``_grouped_attention`` (its module docstring says the TPU prefill routes
+through the Pallas kernel; its code does not); on the prompt, causal with
+Sq == Sk, the two compute the same function. ``_grouped_attention`` is
+here too, the plain model-level twin the kernel path is held against.
+Decode (``decode_attention``) is plain PyTorch over the cache, as it is
+jnp in the reference.
+
+Caches are the reference's: a cache of C slots, each slot holding the
+absolute position of its key (``slot_pos``, -1 empty), filled at
+``position % C`` so a window cache rolls and RoPE stays exact.
+``length`` is a Python int. Prefill fills the cache it is given, and
+decode writes its slot, in place (the returned cache shares the tensors
+of the one passed in); the reference returns new arrays, but copying two
+(B, C, KV, hd) tensors per layer per token would cost more than the step.
+Decode masks the slots of positions after its own, so decoding twice from
+one state is exact as long as the first run did not roll the cache; once
+it has, the keys it overwrote are gone.
+
+Cross-attention (``kv_x``), ``kv_valid`` masks and ``attn_probs_bf16``
+raise ``NotImplementedError`` (ROADMAP §A item 10).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (_dtype, Dense, apply_rope,
+                                       rope_frequencies, truncated_normal)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, C, KV, hd)
+    v: torch.Tensor          # (B, C, KV, hd)
+    slot_pos: torch.Tensor   # (C,) int32 absolute position per slot, -1 empty
+    length: int              # tokens seen so far
+
+
+class Attention(nn.Module):
+    """One attention mixer: ``wq`` (d, Hq hd), ``wk`` / ``wv`` (d, KV hd),
+    ``wo`` (Hq hd, d), named as the reference's dict keys. Called as a
+    layer's mixer it is causal self-attention with the config's window:
+    ``forward`` full-sequence, ``prefill`` and ``decode`` with a cache."""
+
+    def __init__(self, wq, wk, wv, wo, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.wq, self.wk, self.wv, self.wo = (Dense(w) for w in
+                                              (wq, wk, wv, wo))
+        inv, self.rot_dim = rope_frequencies(
+            cfg.resolved_head_dim, cfg.partial_rotary, cfg.rope_theta)
+        self.register_buffer("inv_freq", inv.to(wq.device), persistent=False)
+
+    @classmethod
+    def init(cls, generator, cfg: ModelConfig, dtype,
+             device="cuda") -> "Attention":
+        """Drawn in the reference's order: wq, wk, wv, wo."""
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        shapes = ((d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+                  (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d))
+        return cls(*(truncated_normal(generator, s, 0.02, dtype, device)
+                     for s in shapes), cfg)
+
+    def forward(self, x):
+        return apply_attention(self, x, self.cfg,
+                               window=self.cfg.sliding_window)
+
+    def prefill(self, x, cache_len: int):
+        """The prompt into a new cache of ``cache_slots(cfg, cache_len)``
+        slots; returns (out, cache)."""
+        cache = init_cache(self.cfg, x.shape[0],
+                           cache_slots(self.cfg, cache_len),
+                           _dtype(self.cfg.param_dtype), x.device)
+        return prefill_attention(self, x, self.cfg, cache,
+                                 window=self.cfg.sliding_window)
+
+    def decode(self, x, cache: KVCache):
+        return decode_attention(self, x, self.cfg, cache,
+                                window=self.cfg.sliding_window)
+
+
+def _not_ported(cfg: ModelConfig, kv_x=None, kv_valid=None):
+    if kv_x is not None or kv_valid is not None or cfg.attn_probs_bf16:
+        raise NotImplementedError(
+            "cross-attention (kv_x), kv_valid masks and attn_probs_bf16 are "
+            "not ported yet (ROADMAP §A item 10)")
+
+
+def _qkv(p: Attention, x, cfg: ModelConfig):
+    """Projections split into heads: q (B, S, Hq, hd), k / v (B, S, KV,
+    hd)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    return (p.wq(x).reshape(b, s, cfg.n_heads, hd),
+            p.wk(x).reshape(b, s, cfg.n_kv_heads, hd),
+            p.wv(x).reshape(b, s, cfg.n_kv_heads, hd))
+
+
+def _rope(p: Attention, t, positions):
+    return apply_rope(t, positions, p.inv_freq, p.rot_dim)
+
+
+def _flash_attention(q, k, v, *, causal, window):
+    """q (B, Sq, Hq, hd), k / v (B, Sk, KV, hd) -> (B, Sq, Hq, hd) through
+    ``ops.flash_attention`` on (B Hq, S, hd), KV heads expanded."""
+    b, sq, hq, hd = q.shape
+    g = hq // k.shape[2]
+
+    def heads_first(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], hd)
+
+    out = kops.flash_attention(
+        heads_first(q), heads_first(k.repeat_interleave(g, dim=2)),
+        heads_first(v.repeat_interleave(g, dim=2)), causal=causal,
+        window=window)
+    return out.reshape(b, hq, sq, hd).transpose(1, 2)
+
+
+def _grouped_attention(q, k, v, *, causal, window, q_offset=0):
+    """The reference's dense grouped attention: q (B, Sq, Hq, hd), k / v
+    (B, Sk, KV, hd) -> (B, Sq, Hq, hd); ``q_offset`` is the absolute
+    position of q[0] minus that of k[0]. Scores scaled after the product,
+    float32 softmax, a window only with ``causal``."""
+    b, sq, hq, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kv, hq // kv, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                     k.float()) * float(hd) ** -0.5
+    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return out.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def apply_attention(p: Attention, x, cfg: ModelConfig, *, positions=None,
+                    causal=True, window=None, kv_x=None, kv_valid=None):
+    """Full (non-cached) self-attention over x (B, S, d): training,
+    scoring. ``positions`` (1 or B, S) default to 0 .. S - 1."""
+    _not_ported(cfg, kv_x, kv_valid)
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None]
+    q, k = _rope(p, q, positions), _rope(p, k, positions)
+    # the reference applies a window only with causal masking
+    out = _flash_attention(q, k, v, causal=causal,
+                           window=window if causal else None)
+    return p.wo(out.reshape(b, s, -1))
+
+
+def cache_slots(cfg: ModelConfig, cache_len: int) -> int:
+    """A layer's cache size: ``cache_len``, or the window where shorter."""
+    return (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+            else cache_len)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+               device="cuda") -> KVCache:
+    hd = cfg.resolved_head_dim
+    shape = (batch, cache_len, cfg.n_kv_heads, hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        slot_pos=torch.full((cache_len,), -1, dtype=torch.int32,
+                            device=device),
+        length=0)
+
+
+def prefill_attention(p: Attention, x, cfg: ModelConfig, cache: KVCache, *,
+                      window=None):
+    """Causal attention over the prompt x (B, S, d), filling ``cache``.
+
+    Rolling semantics: if the prompt is longer than the cache, only the
+    last ``cache_len`` keys survive, each at slot ``position % cache_len``
+    (window caches are sized to the window). Returns (out, cache).
+    """
+    _not_ported(cfg)
+    b, s, _ = x.shape
+    cache_len = cache.k.shape[1]
+    q, k, v = _qkv(p, x, cfg)
+    positions = torch.arange(s, device=x.device)[None]
+    q, k = _rope(p, q, positions), _rope(p, k, positions)
+    out = _flash_attention(q, k, v, causal=True, window=window)
+
+    first = max(0, s - cache_len)       # only the most recent fit
+    pos = positions[0, first:]
+    slots = pos % cache_len
+    cache.k.zero_()
+    cache.v.zero_()
+    cache.slot_pos.fill_(-1)
+    cache.k[:, slots] = k[:, first:].to(cache.k.dtype)
+    cache.v[:, slots] = v[:, first:].to(cache.v.dtype)
+    cache.slot_pos[slots] = pos.to(cache.slot_pos.dtype)
+    return p.wo(out.reshape(b, s, -1)), cache._replace(length=s)
+
+
+def decode_attention(p: Attention, x, cfg: ModelConfig, cache: KVCache, *,
+                     window=None):
+    """One-token decode, x (B, 1, d): write the slot, attend over the live
+    slots (positions already rotated). Returns (out, cache)."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    pos = cache.length                   # absolute position of this token
+    q, k, v = _qkv(p, x, cfg)
+    positions = torch.full((1, 1), pos, device=x.device)
+    q, k = _rope(p, q, positions), _rope(p, k, positions)
+
+    slot = pos % cache.k.shape[1]
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    cache.slot_pos[slot] = pos
+    # slots of later positions are left from an earlier decode of this state
+    valid = (cache.slot_pos >= 0) & (cache.slot_pos <= pos)
+    if window is not None:
+        valid &= cache.slot_pos > pos - window
+    qg = q.reshape(b, 1, cfg.n_kv_heads, -1, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                     cache.k.float()) * float(hd) ** -0.5
+    s = torch.where(valid, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", prob, cache.v.float())
+    out = out.reshape(b, 1, -1).to(x.dtype)
+    return p.wo(out), cache._replace(length=pos + 1)

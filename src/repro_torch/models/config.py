@@ -5,8 +5,8 @@ Every architecture of the zoo is a ``ModelConfig`` plus a *layer pattern*:
 the stack splits into a repeated "period" of layers after optional prefix
 layers. The reference scans the period over stacked parameters; the port
 runs its layers as a Python loop over an ``nn.ModuleList``
-(``models/model.py``). Only ``mamba2-130m`` runs in the port so far
-(ROADMAP §A item 10).
+(``models/model.py``). Only ``mamba2-130m`` and ``yi-6b`` run in the port
+so far (ROADMAP §A item 10).
 """
 
 from __future__ import annotations

@@ -57,6 +57,11 @@ class Mamba2Block(nn.Module):
                 return_state: bool = False):
         return apply_mamba(self, x, self.cfg, state, return_state)
 
+    def prefill(self, x, cache_len: int):
+        """The prompt from a zero state; returns (out, final state), whose
+        size does not grow with ``cache_len``."""
+        return apply_mamba(self, x, self.cfg, return_state=True)
+
     def decode(self, x, state: MambaState):
         return decode_mamba(self, x, self.cfg, state)
 

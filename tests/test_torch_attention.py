@@ -1,0 +1,357 @@
+"""The port's attention (the flash kernel's plain version, RoPE, SwiGLU and
+the ``Attention`` mixer) against the reference, on the CPU.
+
+Inputs come from numpy with a seed and go to both packages. On CPU
+tensors the port's ``flash_attention_bhsd`` runs its plain version (the
+function ``csrc/flash_attention.cu`` computes, held against it on the card
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``); the reference runs
+its Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs it.
+
+Tolerances, each with its reason:
+
+- the plain kernel against the Pallas kernel and against
+  ``ref.attention_ref``: the reference tests' own, 2e-5 in float32 and
+  2e-2 in bfloat16. The port's plain version is dense where the Pallas
+  kernel carries an online softmax over blocks of 128, and scales q before
+  the product where the oracle scales the scores, so the two round
+  differently (measured max |d| 3.6e-7 against the kernel, |out| up to
+  2.6, and 1.2e-6 against the oracle); in bfloat16 one rounding of the
+  output may land on the neighbouring bfloat16 value (measured 2.0e-3);
+- RoPE: the inverse frequencies bit for bit; rtol 1e-6 / atol 1e-6 on the
+  rotated vectors (measured 4.8e-7 at |x| up to 4.1, positions up to
+  2,063: the angles are the same float32 products, cos and sin differ in
+  the last ulp);
+- SwiGLU and the ``Attention`` mixer: rtol 1e-4 / atol 2e-5 on outputs
+  and on the cached keys and values. The two sides sum float32 products
+  in other orders, over up to 4,096 terms at yi-6b's width: measured max
+  |d| 4.4e-6 at |out| up to 5.0 (full width, apply and prefill), 2.4e-6
+  in decode, 2.9e-6 in the cached keys (|k| up to 5.2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+from test_torch_reference import reference  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check_kernel_shape, flash_attention_bhsd, smem_bytes)
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models.layers import (SwiGLU, apply_rope,  # noqa: E402
+                                       rope_frequencies)
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ROPE_TOL = dict(rtol=1e-6, atol=1e-6)
+OUT_TOL = dict(rtol=1e-4, atol=2e-5)
+
+# (bh, Sq, Sk, D, causal, window): tests/test_kernels.py's six shapes
+# (Sq == Sk), then Sq != Sk and non-causal windows
+KERNEL_SHAPES = [
+    (2, 256, 256, 64, True, None),
+    (1, 200, 200, 64, True, None),     # not a multiple of a block
+    (2, 384, 384, 64, True, 128),      # sliding window
+    (3, 64, 64, 128, False, None),     # bidirectional
+    (1, 128, 128, 32, True, 32),       # window < block
+    (2, 256, 256, 64, True, None),     # (bfloat16 in the reference test)
+]
+OTHER_SHAPES = [
+    (2, 100, 300, 64, True, None),     # Sq < Sk
+    (2, 300, 100, 64, True, None),     # Sq > Sk
+    (1, 150, 130, 128, True, 40),      # Sq > Sk with a window
+    (2, 256, 256, 64, False, 48),      # non-causal window
+    (1, 70, 200, 32, False, 100),      # non-causal window, Sq < Sk
+]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return reference()
+
+
+def qkv(bh, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((bh, sq, d)).astype(np.float32),
+            rng.standard_normal((bh, sk, d)).astype(np.float32),
+            rng.standard_normal((bh, sk, d)).astype(np.float32))
+
+
+def both(ref, arrs, dtype):
+    """The arrays as the reference's and the port's tensors of ``dtype``."""
+    jd = ref.jnp.bfloat16 if dtype == torch.bfloat16 else ref.jnp.float32
+    return ([ref.jnp.asarray(a, jd) for a in arrs],
+            [torch.from_numpy(a).to(dtype) for a in arrs])
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **tol)
+
+
+# --------------------------------------------------------------- the kernel
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window",
+                         KERNEL_SHAPES + OTHER_SHAPES)
+def test_flash_matches_pallas_kernel(ref, bh, sq, sk, d, causal, window,
+                                     dtype):
+    """The plain K5 against the reference's Pallas kernel in interpret
+    mode (which pads to blocks of 128 where the port bounds-checks)."""
+    (jq, jk, jv), (q, k, v) = both(ref, qkv(bh, sq, sk, d), dtype)
+    want = ref.flash_attention.flash_attention_bhsd(
+        jq, jk, jv, causal=causal, window=window, interpret=True)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.shape == (bh, sq, d) and got.dtype == dtype
+    tol = TOL[dtype]
+    close(got.float(), want, dict(rtol=tol, atol=tol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window", KERNEL_SHAPES + [
+    (1, 77, 77, 32, True, None), (3, 300, 300, 64, True, None),
+    (2, 16, 16, 64, True, 5)])
+def test_flash_matches_attention_ref(ref, bh, sq, sk, d, causal, window,
+                                     dtype):
+    """The plain K5 against the reference's dense oracle where the two
+    define the same function (Sq == Sk; a window only with causal), and
+    against the port's twin of that oracle."""
+    (jq, jk, jv), (q, k, v) = both(ref, qkv(bh, sq, sk, d, seed=1), dtype)
+    want = ref.ref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    got = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    tol = TOL[dtype]
+    close(got.float(), want, dict(rtol=tol, atol=tol))
+    twin = tref.attention_ref(q, k, v, causal=causal, window=window)
+    close(twin.float(), want, dict(rtol=tol, atol=tol))
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (64, 192, True, None),    # the oracle puts the queries at the end
+    (128, 128, False, 32),    # the oracle's window is two-sided
+])
+def test_reference_kernel_and_oracle_disagree(ref, sq, sk, causal, window):
+    """Where the reference's kernel and its oracle define different
+    functions (ROADMAP §C), the port's kernel follows the kernel, and
+    ``tref.attention_ref`` the oracle."""
+    (jq, jk, jv), (q, k, v) = both(ref, qkv(2, sq, sk, 64, seed=2),
+                                   torch.float32)
+    kernel = ref.flash_attention.flash_attention_bhsd(
+        jq, jk, jv, causal=causal, window=window, interpret=True)
+    oracle = ref.ref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert np.abs(np.asarray(kernel) - np.asarray(oracle)).max() > 0.1
+    close(flash_attention_bhsd(q, k, v, causal=causal, window=window),
+          kernel, dict(rtol=2e-5, atol=2e-5))
+    close(tref.attention_ref(q, k, v, causal=causal, window=window), oracle,
+          dict(rtol=2e-5, atol=2e-5))
+
+
+def test_flash_wrapper_checks():
+    q = torch.zeros((2, 8, 32))
+    with pytest.raises(TypeError):
+        flash_attention_bhsd(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        flash_attention_bhsd(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        flash_attention_bhsd(q, q[:1], q[:1])
+    with pytest.raises(ValueError):
+        flash_attention_bhsd(q[:, :0], q, q)
+    with pytest.raises(ValueError):
+        flash_attention_bhsd(q, q, q, window=0)
+    with pytest.raises(ValueError, match="sees no key"):
+        flash_attention_bhsd(torch.zeros((2, 20, 32)), q, q, window=12)
+    meta = q.to("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bhsd(meta, meta, meta)
+    for d in (32, 64, 128):
+        check_kernel_shape(128, d)
+    for bh, d in ((1, 96), (1, 256), (1 << 16, 64)):
+        with pytest.raises(ValueError):
+            check_kernel_shape(bh, d)
+    # (64 D + 64 (D + 4) + 64 D) floats at D = 128: two blocks per SM
+    assert smem_bytes(128) == 99_328 and 2 * smem_bytes(128) < 228 << 10
+
+
+# ----------------------------------------------------------- RoPE, SwiGLU
+
+@pytest.mark.parametrize("hd,frac,theta,max_pos", [
+    (128, 1.0, 5e6, 2064),    # yi-6b, positions up to the smoke's cache
+    (64, 1.0, 1e4, 300),
+    (64, 0.5, 1e4, 300),      # partial rotary (chatglm3)
+])
+def test_rope_matches_reference(ref, hd, frac, theta, max_pos):
+    inv, rot = rope_frequencies(hd, frac, theta)
+    rinv, rrot = ref.layers.rope_frequencies(hd, frac, theta)
+    assert rot == rrot and inv.dtype == torch.float32
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(rinv))
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 40, 3, hd)).astype(np.float32)
+    pos = np.sort(rng.integers(0, max_pos, (2, 40))).astype(np.int32)
+    want = ref.layers.apply_rope(ref.jnp.asarray(x), ref.jnp.asarray(pos),
+                                 rinv, rrot)
+    got = apply_rope(torch.from_numpy(x), torch.from_numpy(pos).long(), inv,
+                     rot)
+    close(got, want, ROPE_TOL)
+
+
+def test_swiglu_matches_reference(ref):
+    rp = ref.layers.init_swiglu(ref.jax.random.PRNGKey(5), 96, 160,
+                                ref.jnp.float32)
+    mlp = SwiGLU(*(torch.from_numpy(np.array(rp[n]["w"]))
+                   for n in ("wi", "wg", "wo")))
+    x = np.random.default_rng(5).standard_normal((2, 7, 96)).astype(
+        np.float32)
+    close(mlp(torch.from_numpy(x)),
+          ref.layers.apply_swiglu(rp, ref.jnp.asarray(x)), OUT_TOL)
+    own = SwiGLU.init(torch.Generator().manual_seed(0), 96, 160,
+                      torch.float32, "cpu")
+    assert [tuple(p.shape) for p in own.parameters()] == [
+        (96, 160), (96, 160), (160, 96)]
+
+
+# ------------------------------------------------------------ the mixer
+
+def attention_pair(ref, width, seed=3, **replace):
+    """The port's and the reference's attention config and one mixer with
+    the reference's weights: ``reduced`` yi-6b (d_model 256, 4 / 1 heads,
+    hd 64) or its full attention width (d_model 4096, 32 / 4 heads, hd
+    128)."""
+    import dataclasses
+    cfg = configs.get_config("yi-6b")
+    rcfg = ref.configs.get_config("yi-6b")
+    if width == "reduced":
+        cfg, rcfg = cfg.reduced(), rcfg.reduced()
+    cfg = dataclasses.replace(cfg, **replace)
+    rcfg = dataclasses.replace(rcfg, **replace)
+    rp = ref.attention.init_attention(ref.jax.random.PRNGKey(seed), rcfg,
+                                      ref.jnp.float32)
+    mixer = attn.Attention(*(torch.from_numpy(np.array(rp[n]["w"]))
+                             for n in ("wq", "wk", "wv", "wo")), cfg)
+    return cfg, rcfg, rp, mixer
+
+
+def check_cache(cache, rcache):
+    close(cache.k, rcache.k, OUT_TOL)
+    close(cache.v, rcache.v, OUT_TOL)
+    np.testing.assert_array_equal(cache.slot_pos.numpy(),
+                                  np.asarray(rcache.slot_pos))
+    assert cache.length == int(rcache.length)
+
+
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_attention_matches_reference(ref, width):
+    """``apply_attention``, ``prefill_attention`` (cache contents,
+    ``slot_pos``, ``length``) and three ``decode_attention`` steps of one
+    mixer, at reduced yi-6b and at its full attention width (batch 1 x
+    128; no MLP, so it stays cheap)."""
+    cfg, rcfg, rp, mixer = attention_pair(ref, width)
+    b, s = (2, 40) if width == "reduced" else (1, 128)
+    jnp = ref.jnp
+    x = np.random.default_rng(6).standard_normal(
+        (b, s + 3, cfg.d_model)).astype(np.float32)
+    xt = torch.from_numpy(x)
+
+    want = ref.attention.apply_attention(rp, jnp.asarray(x[:, :s]), rcfg)
+    with torch.inference_mode():
+        got = attn.apply_attention(mixer, xt[:, :s], cfg)
+        assert torch.equal(mixer(xt[:, :s]), got)
+    close(got, want, OUT_TOL)
+
+    clen = s + 8
+    rcache = ref.attention.init_cache(rcfg, b, clen, jnp.float32)
+    want, rcache = ref.attention.prefill_attention(
+        rp, jnp.asarray(x[:, :s]), rcfg, rcache)
+    with torch.inference_mode():
+        got, cache = mixer.prefill(xt[:, :s], clen)
+    close(got, want, OUT_TOL)
+    check_cache(cache, rcache)
+    for t in range(s, s + 3):
+        want, rcache = ref.attention.decode_attention(
+            rp, jnp.asarray(x[:, t:t + 1]), rcfg, rcache)
+        with torch.inference_mode():
+            got, cache = mixer.decode(xt[:, t:t + 1], cache)
+        close(got, want, OUT_TOL)
+        check_cache(cache, rcache)
+
+
+@pytest.mark.parametrize("s,clen,window", [
+    (40, 16, None),   # rolling: the prompt is longer than the cache
+    (40, 16, 16),     # a window cache, sized to the window
+    (40, 64, 10),     # a window inside a longer cache
+])
+def test_prefill_rolling_and_window(ref, s, clen, window):
+    """The prefill's cache fill through the scratch row (only the last
+    ``clen`` keys survive, at ``position % clen``) and windowed attention,
+    then decode steps past the window, against the reference."""
+    cfg, rcfg, rp, mixer = attention_pair(ref, "reduced", seed=7)
+    jnp = ref.jnp
+    x = np.random.default_rng(7).standard_normal(
+        (2, s + 4, cfg.d_model)).astype(np.float32)
+    rcache = ref.attention.init_cache(rcfg, 2, clen, jnp.float32)
+    want, rcache = ref.attention.prefill_attention(
+        rp, jnp.asarray(x[:, :s]), rcfg, rcache, window=window)
+    with torch.inference_mode():
+        cache = attn.init_cache(cfg, 2, clen, torch.float32, "cpu")
+        got, cache = attn.prefill_attention(
+            mixer, torch.from_numpy(x[:, :s]), cfg, cache, window=window)
+    close(got, want, OUT_TOL)
+    check_cache(cache, rcache)
+    for t in range(s, s + 4):
+        want, rcache = ref.attention.decode_attention(
+            rp, jnp.asarray(x[:, t:t + 1]), rcfg, rcache, window=window)
+        with torch.inference_mode():
+            got, cache = attn.decode_attention(
+                mixer, torch.from_numpy(x[:, t:t + 1]), cfg, cache,
+                window=window)
+        close(got, want, OUT_TOL)
+        check_cache(cache, rcache)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 9),
+                                           (False, None), (False, 9)])
+def test_kernel_path_matches_grouped_attention(ref, causal, window):
+    """``apply_attention`` (KV heads expanded, the flash kernel on (B Hq,
+    S, hd)) against the reference's ``_grouped_attention`` and the port's
+    twin of it, on the same rotated q, k, v (GQA groups of 2; a
+    non-causal call drops the window, as the reference does)."""
+    cfg, rcfg, rp, mixer = attention_pair(ref, "reduced", n_heads=4,
+                                          n_kv_heads=2)
+    jnp = ref.jnp
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((2, 33, 4, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 33, 2, 64)).astype(np.float32)
+            for _ in range(2))
+    want = ref.attention._grouped_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = attn._flash_attention(tq, tk, tv, causal=causal,
+                                window=window if causal else None)
+    close(got, want, OUT_TOL)
+    twin = attn._grouped_attention(tq, tk, tv, causal=causal, window=window)
+    close(twin, want, OUT_TOL)
+    x = rng.standard_normal((2, 33, cfg.d_model)).astype(np.float32)
+    close(attn.apply_attention(mixer, torch.from_numpy(x), cfg,
+                               causal=causal, window=window),
+          ref.attention.apply_attention(rp, jnp.asarray(x), rcfg,
+                                        causal=causal, window=window),
+          OUT_TOL)
+
+
+def test_unported_attention_args_raise(ref):
+    import dataclasses
+    cfg, _, _, mixer = attention_pair(ref, "reduced")
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="§A item 10"):
+        attn.apply_attention(mixer, x, cfg, kv_x=x)
+    with pytest.raises(NotImplementedError, match="§A item 10"):
+        attn.apply_attention(mixer, x, cfg,
+                             kv_valid=torch.ones(4, dtype=torch.bool))
+    bf16 = dataclasses.replace(cfg, attn_probs_bf16=True)
+    with pytest.raises(NotImplementedError, match="§A item 10"):
+        attn.apply_attention(mixer, x, bf16)
+    with pytest.raises(NotImplementedError, match="§A item 10"):
+        attn.prefill_attention(mixer, x, bf16,
+                               attn.init_cache(cfg, 1, 8, torch.float32,
+                                               "cpu"))

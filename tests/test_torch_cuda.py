@@ -15,7 +15,12 @@ cuda_fused and stitched paths select the same clients. The SSD scan
 against its plain chunked version at the smoke's shapes: y rtol 1e-4 /
 atol 2e-4, the final state rtol 1e-4 / atol 2e-5, as on the CPU (float32
 sums in other orders; both sides full float32, TF32 off); mamba2-130m's
-forward and prefill launch it once per layer (24), decode never.
+forward and prefill launch it once per layer (24), decode never. The
+flash attention kernel against its plain version at the reference tests'
+shapes, yi-6b's (128, 2048, 128) and Sq != Sk: 2e-5 in float32 and 2e-2
+in bfloat16, the reference tests' own; skipping the masked key tiles
+changes no bit; reduced yi-6b at its full head_dim (128) launches it once
+per layer in forward and prefill, never in decode.
 """
 
 import numpy as np
@@ -33,7 +38,8 @@ from repro_torch.kernels.decision_fused import (decision_fused,
                                                 decision_fused_batched_plain,
                                                 decision_fused_plain,
                                                 pack_decision_operands)
-from repro_torch.kernels.ref import ssd_chunked_ref
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.ref import flash_attention_ref, ssd_chunked_ref
 from repro_torch.kernels.scheduler_solve import (scheduler_solve,
                                                  scheduler_solve_plain,
                                                  solve_scalars)
@@ -247,3 +253,70 @@ def test_mamba_launches_ssd_scan_per_layer(cuda):
         lg, st = M.decode_step(params, tok[:, t:t + 1], st, cfg)
         assert float((lg[:, 0] - logits[:, t]).abs().max()) < 2e-4
     assert ssd_scan.launches == 48
+
+
+# (bh, Sq, Sk, D, causal, window): the reference tests' shapes, Sq != Sk,
+# a non-causal window and yi-6b's shapes at batch 4: generate's prefill of
+# 2000 and the forward's 2048
+FLASH_SHAPES = [(2, 256, 256, 64, True, None), (1, 200, 200, 64, True, None),
+                (2, 384, 384, 64, True, 128), (3, 64, 64, 128, False, None),
+                (1, 128, 128, 32, True, 32), (2, 100, 300, 64, True, None),
+                (2, 150, 130, 128, True, 40), (2, 256, 256, 64, False, 48),
+                (128, 2000, 2000, 128, True, None),
+                (128, 2048, 2048, 128, True, None)]
+
+
+def flash_lanes(bh, sq, sk, d, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((bh, s, d), generator=g, device=device).to(dtype)
+            for s in (sq, sk, sk)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, bh, sq, sk, d, causal,
+                                              window, dtype):
+    q, k, v = flash_lanes(bh, sq, sk, d, dtype, cuda)
+    before = flash_attention_bhsd.launches
+    out = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    every = flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                 skip_tiles=False)
+    assert flash_attention_bhsd.launches == before + 2
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, every)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = flash_lanes(2, 64, 64, 96, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        flash_attention_bhsd(q, k, v)
+    q, k, v = flash_lanes(2, 64, 64, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        flash_attention_bhsd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_attention_bhsd(q, k.cpu(), v)
+
+
+def test_yi_launches_flash_attention_per_layer(cuda):
+    """yi-6b reduced to 2 layers of d_model 512 (4 query heads of 128
+    sharing one KV head), batch 2 x 256: one launch per layer in the
+    forward and in the prefill, none in decode, and decode reproduces the
+    forward's logits."""
+    cfg = get_config("yi-6b").reduced(d_model=512)
+    assert cfg.resolved_head_dim == 128
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    flash_attention_bhsd.launches = 0
+    logits, _ = M.forward(params, M.Batch(tokens=tok), cfg)
+    assert flash_attention_bhsd.launches == cfg.n_layers
+    _, st = M.prefill(params, M.Batch(tokens=tok[:, :200]), cfg, 256)
+    assert flash_attention_bhsd.launches == 2 * cfg.n_layers
+    for t in range(200, 204):
+        lg, st = M.decode_step(params, tok[:, t:t + 1], st, cfg)
+        assert float((lg[:, 0] - logits[:, t]).abs().max()) < 2e-4
+    assert flash_attention_bhsd.launches == 2 * cfg.n_layers

@@ -88,7 +88,7 @@ def test_configs_match_reference(ref):
     assert port.param_count() == want.param_count()
     assert ([dataclasses.astuple(s) for s in port.layer_specs()]
             == [dataclasses.astuple(s) for s in want.layer_specs()])
-    for name in configs.ARCH_IDS[1:]:
+    for name in sorted(set(configs.ARCH_IDS) - {"mamba2-130m", "yi-6b"}):
         with pytest.raises(NotImplementedError, match="§A item 10"):
             configs.get_config(name)
     with pytest.raises(KeyError):
@@ -96,13 +96,17 @@ def test_configs_match_reference(ref):
 
 
 def test_unported_layers_raise():
-    dense = ModelConfig(name="d", arch_type="dense", n_layers=2, d_model=64,
-                        n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=32)
+    moe = ModelConfig(name="m", arch_type="moe", n_layers=2, d_model=64,
+                      n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=32,
+                      n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="§A item 10"):
-        M.init_params(torch.Generator().manual_seed(0), dense, device="cpu")
-    spec = dense.layer_specs()[0]
+        M.init_params(torch.Generator().manual_seed(0), moe, device="cpu")
+    spec = moe.layer_specs()[0]
     with pytest.raises(NotImplementedError, match="§A item 10"):
-        M._layer_cache_init(spec, dense, 1, 8, torch.float32, "cpu")
+        M._layer_cache_init(spec, moe, 1, 8, torch.float32, "cpu")
+    vlm = dataclasses.replace(moe, n_experts=0, top_k=0, cross_attn_every=2)
+    with pytest.raises(NotImplementedError, match="§A item 10"):
+        M.init_params(torch.Generator().manual_seed(0), vlm, device="cpu")
 
 
 def test_init_params_matches_reference_layout(ref, lm):

@@ -61,7 +61,9 @@ def reference() -> types.SimpleNamespace:
                  config="models.config", mamba="models.mamba",
                  model="models.model", ops="kernels.ops", ref="kernels.ref",
                  ssd_scan="kernels.ssd_scan", configs="configs",
-                 serve="launch.serve")
+                 serve="launch.serve", attention="models.attention",
+                 layers="models.layers",
+                 flash_attention="kernels.flash_attention")
     mods = {k: importlib.import_module(f"repro.{v}") for k, v in names.items()}
     return types.SimpleNamespace(jax=jax, jnp=jnp, **mods)
 
