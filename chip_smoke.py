@@ -23,10 +23,13 @@ Phases; any failure exits non-zero before the result line is printed:
    rtol 1e-4 / atol 2e-5: float32 sums in another order); and flash
    attention (K5) at the reference tests' shapes (S = 200, windows 128
    and 32, D = 128 bidirectional, bfloat16), Sq != Sk both ways, a
-   non-causal window, and yi-6b's (BH, S, D) = (128, 2048, 128) causal
-   (2e-5 in float32, 2e-2 in bfloat16, the reference tests' own), each
-   also with the masked key tiles run instead of skipped (the same
-   bits);
+   non-causal window, and yi-6b's (BH, S, D) = (128, 2000 and 2048,
+   128) causal (2e-5 in float32, 2e-2 in bfloat16, the reference tests'
+   own), each also with the masked key tiles run instead of skipped (the
+   same bits), and at yi-6b's two shapes on its 16 unexpanded KV heads
+   (``kv_group=8``, as the prefill and the forward call it): bit for bit
+   the kernel on the expanded KV and with the masked tiles run, and 2e-5
+   from the plain version; ``ptxas`` must report no spills in K5;
 4. drive the main path at full width through ``run_simulation``: the
    paper's CIFAR-10 configuration (100 clients, 500 examples each, 2000
    test images, CNN 32/64/120, lambda 10, m_cap 32, I = 10, batch 32),
@@ -68,12 +71,17 @@ Phases; any failure exits non-zero before the result line is printed:
    32 query heads sharing 4 KV heads of 128, d_ff 11008, untied head,
    6.06 B random float32 parameters from a seed) the same way, after the
    Mamba model is freed: K5 must launch 32 times per forward and 32 per
-   prefill (one per layer), never in decode, and no other kernel; the
+   prefill (one per layer), never in decode, and no other kernel, and no
+   ``repeat_interleave`` may run (K5 reads the unexpanded KV heads); the
    card-against-CPU forward runs the embedding, the first 2 layers and
-   the head; then K5's device time at (128, 2048, 128) causal beside its
-   plain version's, its bound and PyTorch's
-   ``scaled_dot_product_attention`` (the yardstick; the port never calls
-   it).
+   the head; then K5's device time at (128, 2048, 128) causal on 16 KV
+   heads, as the model calls it, beside its plain version's, its bound and
+   PyTorch's ``scaled_dot_product_attention(enable_gqa=True)`` (the
+   yardstick; the port never calls it), and, where
+   ``build/flash_attention_cuda_cores.cu`` holds the earlier K5 that ran
+   on the CUDA cores
+   (``git show 3f5cf30:src/repro_torch/kernels/csrc/flash_attention.cu``),
+   that kernel on the expanded KV in the same run.
 
 TF32 is off for every product and convolution in every phase.
 
@@ -93,10 +101,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the float32 rate
-# outside the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the float32 rate
+# outside the tensor cores and the dense TF32 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 CHECK_SIZES = (1, 100, 1025, 3597, 1 << 20)
 ROUNDS = 5
 # The bucket-batched kernel's (B, N) checks; (1024, 32) and (512, 128) are
@@ -834,6 +843,7 @@ FLASH_SHAPES = ((2, 256, 256, 64, True, None, False),
                 (128, 2048, 2048, 128, True, None, False))
 # the reference tests' own tolerances (tests/test_kernels.py)
 FLASH_TOL = {False: 2e-5, True: 2e-2}
+YI_GROUP = 8  # yi-6b's query heads per KV head (32 / 4)
 LM_BATCH, LM_SEQ, LM_PROMPT, LM_GEN = 4, 2048, 2000, 64
 # prefill + decode against the teacher-forced forward (the bound of the
 # reference's tests/test_arch_smoke.py::test_decode_matches_forward), and
@@ -884,6 +894,19 @@ def check_ssd(torch):
     return err
 
 
+def check_no_spills(log):
+    """K5's functions, as ``ptxas -v`` reports them, spill nothing (a spill
+    or a serialised wgmma would quietly cost most of its speed). An empty
+    log means the library was already built."""
+    bad = [line.strip() for line in log.splitlines()
+           if ("spill" in line and not line.strip().startswith(
+               "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+               "loads")) or "Performance Loss" in line]
+    if bad:
+        raise AssertionError("flash_attention: ptxas reports spills or "
+                             "serialised products:\n" + "\n".join(bad))
+
+
 def flash_lanes(torch, bh, sq, sk, d, bf16, seed):
     """q, k, v standard normal, as the reference's kernel tests draw
     them, in float32 or bfloat16."""
@@ -895,7 +918,8 @@ def flash_lanes(torch, bh, sq, sk, d, bf16, seed):
 
 def check_flash(torch):
     """K5 against its plain version, and with the masked key tiles run
-    instead of skipped (the same bits)."""
+    instead of skipped (the same bits); at yi-6b's two shapes also on the
+    unexpanded KV heads (``kv_group=8``) against the expanded call."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.ref import flash_attention_ref
     err = 0.0
@@ -919,7 +943,41 @@ def check_flash(torch):
         print(f"{tag} agrees with its plain version (max |d| "
               f"{float((out.float() - want.float()).abs().max()):.3g}); "
               "skipping masked tiles is exact", flush=True)
+    # yi-6b's 32 query heads on 4 KV heads, batch 4: the model's calls in
+    # generate's prefill (2000, ragged last tiles) and in the forward (2048)
+    for bh, s, _, d, causal, window, _ in FLASH_SHAPES[-2:]:
+        q, k, v = flash_gqa_lanes(torch, bh, s, d, s + 7)
+        out = flash_attention_bhsd(q, k, v, kv_group=YI_GROUP)
+        every = flash_attention_bhsd(q, k, v, kv_group=YI_GROUP,
+                                     skip_tiles=False)
+        expanded = flash_attention_bhsd(q, k.repeat_interleave(YI_GROUP, 0),
+                                        v.repeat_interleave(YI_GROUP, 0))
+        want = flash_attention_ref(q, k, v, kv_group=YI_GROUP)
+        torch.cuda.synchronize()
+        tag = f"flash_attention {(bh, s, s, d)} kv_group={YI_GROUP}"
+        err = max(err, compare(torch, tag, out, want, FLASH_TOL[False],
+                               FLASH_TOL[False]))
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{tag}: non-finite output")
+        if not torch.equal(out, expanded):
+            raise AssertionError(f"{tag}: differs from the kernel on the "
+                                 "expanded KV heads")
+        if not torch.equal(out, every):
+            raise AssertionError(f"{tag}: skipping the masked tiles changed "
+                                 "the result")
+        print(f"{tag} on {k.shape[0]} unexpanded KV heads equals the kernel "
+              "on the expanded heads bit for bit, skipping masked tiles is "
+              "exact, and it agrees with its plain version (max |d| "
+              f"{float((out - want).abs().max()):.3g})", flush=True)
+        del q, k, v, out, every, expanded, want
     return err
+
+
+def flash_gqa_lanes(torch, bh, s, d, seed):
+    """q (BH, S, D) and k, v (BH / 8, S, D), standard normal, float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((n, s, d), generator=g, device="cuda")
+            for n in (bh, bh // YI_GROUP, bh // YI_GROUP)]
 
 
 def lm_path(torch, arch, kernel, cpu_layers=None):
@@ -952,15 +1010,30 @@ def lm_path(torch, arch, kernel, cpu_layers=None):
     batch = M.Batch(tokens=tokens, labels=labels)
     prompt = M.Batch(tokens=tokens[:, :LM_PROMPT])
 
-    # the main path: a forward, then generate; counts from 0
+    # the main path: a forward, then generate; counts from 0, and every
+    # repeat_interleave (a KV-head expansion) counted
     reset_counts()
-    t0 = time.perf_counter()
-    logits, _ = M.forward(params, batch, cfg)
-    torch.cuda.synchronize()
-    first_forward_s = time.perf_counter() - t0
-    per_forward = read_counts()
-    out = generate(params, prompt, cfg, LM_GEN)
+    expansions = []
+    interleave = torch.Tensor.repeat_interleave
+
+    def counting(self, *args, **kw):
+        expansions.append(tuple(self.shape))
+        return interleave(self, *args, **kw)
+
+    torch.Tensor.repeat_interleave = counting
+    try:
+        t0 = time.perf_counter()
+        logits, _ = M.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        first_forward_s = time.perf_counter() - t0
+        per_forward = read_counts()
+        out = generate(params, prompt, cfg, LM_GEN)
+    finally:
+        torch.Tensor.repeat_interleave = interleave
     counts = read_counts()
+    if expansions:
+        raise AssertionError(f"{arch}: repeat_interleave ran on "
+                             f"{expansions[:4]} ({len(expansions)} calls)")
     per_generate = counts[kernel] - per_forward[kernel]
     if per_forward != launch_counts(**{kernel: cfg.n_layers}) or (
             counts != launch_counts(**{kernel: 2 * cfg.n_layers})):
@@ -1139,49 +1212,120 @@ def time_ssd(torch):
     return row
 
 
-def flash_bound(bh, sq, sk, d, causal, window, itemsize):
-    """Least time of one K5 call: q, k, v read once and o written once at
-    HBM rate, against the float32 operations the function needs at the
-    float32 rate: per live (q, k) pair 2 D for q . k and 2 D for p v, and
-    its max, exp and sum; per output element the scale and the division.
-    Masked pairs need no work, so the causal half is counted once."""
+def flash_bound(bh, sq, sk, d, causal, window, itemsize, kv_group=1):
+    """Least time of one K5 call. Bytes: q and o (BH heads) and k and v
+    (BH / kv_group heads, unexpanded) read or written once at HBM rate.
+    Operations: per live (q, k) pair 2 D for q . k and 2 D for p v, each a
+    float32 product that float32-accurate tensor-core work takes as three
+    TF32 products (3xTF32) at the TF32 rate; per live pair its max, exp and
+    sum, and per output element the scale and the division, on the CUDA
+    cores at the float32 rate. Masked pairs need no work, so the causal
+    half is counted once. The bound is the largest of the three times;
+    ``f32_ms`` is the same products and softmax all on the CUDA cores in
+    float32, the bound of a design without tensor cores."""
     from repro_torch.kernels.ref import flash_mask
     live = int(flash_mask(sq, sk, causal, window, "cpu").sum())
-    n_bytes = itemsize * bh * d * (2 * sq + 2 * sk)
-    n_ops = bh * (live * (4 * d + 3) + 2 * sq * d)
+    n_bytes = itemsize * d * (2 * bh * sq + 2 * (bh // kv_group) * sk)
+    products = bh * live * 4 * d
+    softmax = bh * (live * 3 + 2 * sq * d)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", n_bytes, n_ops)
+    t_tc = 3 * products / TF32_OPS_PER_S * 1e3
+    t_cuda = softmax / F32_OPS_PER_S * 1e3
+    t = max(t_bytes, t_tc, t_cuda)
+    return dict(bound_ms=t,
+                bound_by="bytes" if t == t_bytes else "operations",
+                bound_detail=("bytes" if t == t_bytes else
+                              "tensor-core operations (3xTF32)"
+                              if t == t_tc else "CUDA-core operations"),
+                bytes=n_bytes, flops=products + softmax,
+                tensor_core_ms=t_tc, cuda_core_ms=t_cuda, bytes_ms=t_bytes,
+                f32_ms=max(t_bytes, (products + softmax) / F32_OPS_PER_S
+                           * 1e3))
+
+
+def cuda_core_flash(torch):
+    """The earlier K5 (CUDA cores, expanded KV, commit 3f5cf30) built from
+    ``build/flash_attention_cuda_cores.cu`` with the port's flags, as a
+    function of (q, k, v) (causal); None when that file is absent."""
+    import ctypes
+    from repro_torch.kernels import _build
+    src = ROOT / "build" / "flash_attention_cuda_cores.cu"
+    if not src.is_file():
+        return None
+    lib = ROOT / "build" / "flash_attention_cuda_cores.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v):
+        o = torch.empty_like(q)
+        bh, sq, d = q.shape
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
+                  sq, k.shape[1], d, 0, 1, 0, d ** -0.5, 1,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"CUDA-core flash_attention: cudaError "
+                               f"{code}")
+        return o
+    return call
 
 
 def time_flash(torch):
-    """K5, its plain version and PyTorch's
-    ``scaled_dot_product_attention(is_causal=True)`` (the yardstick, never
-    on the path) at yi-6b's forward shape, float32, device ms by CUDA
-    events."""
+    """K5 as the model calls it at yi-6b's forward shape (q (128, 2048,
+    128) on 16 unexpanded KV heads, ``kv_group=8``, causal, float32), its
+    plain version and PyTorch's
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` (the
+    yardstick, never on the path) on the same inputs, device ms by CUDA
+    events; the earlier CUDA-core kernel on the expanded KV where its
+    source is at hand, timed in turns with this one."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.ref import flash_attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bh, s, _, d, causal, window, _ = FLASH_SHAPES[-1]
-    q, k, v = flash_lanes(torch, bh, s, s, d, False, 6)
-    lib_err = float((sdpa(q, k, v, is_causal=True)
-                     - flash_attention_bhsd(q, k, v)).abs().max())
-    t, by, n_bytes, n_ops = flash_bound(bh, s, s, d, causal, window, 4)
-    row = dict(
-        shape=[bh, s, d], causal=causal,
-        ms=time_device(torch, lambda: flash_attention_bhsd(q, k, v), False),
-        plain_ms=time_device(torch, lambda: flash_attention_ref(q, k, v),
-                             False, iters=5),
-        library_ms=time_device(torch, lambda: sdpa(q, k, v, is_causal=True),
-                               False),
-        library_max_abs_diff=lib_err, bound_ms=t, bound_by=by,
-        bytes=n_bytes, flops=n_ops)
-    print(f"flash_attention_bhsd at {row['shape']} causal: {row['ms']:.3f} "
-          f"ms device, plain {row['plain_ms']:.3f} ms, "
-          f"scaled_dot_product_attention {row['library_ms']:.3f} ms (max "
-          f"|d| {lib_err:.3g}), bound {t:.4f} ms ({by}; "
-          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)", flush=True)
+    q, k, v = flash_gqa_lanes(torch, bh, s, d, 6)
+    b = LM_BATCH
+
+    def kernel():
+        return flash_attention_bhsd(q, k, v, kv_group=YI_GROUP)
+
+    def library():
+        return sdpa(q.view(b, -1, s, d), k.view(b, -1, s, d),
+                    v.view(b, -1, s, d), is_causal=True,
+                    enable_gqa=True).view(bh, s, d)
+
+    lib_err = float((library() - kernel()).abs().max())
+    row = dict(shape=[bh, s, d], kv_heads=bh // YI_GROUP, causal=causal,
+               ms=time_device(torch, kernel, False),
+               plain_ms=time_device(torch, lambda: flash_attention_ref(
+                   q, k, v, kv_group=YI_GROUP), False, iters=5),
+               library_ms=time_device(torch, library, False),
+               library_max_abs_diff=lib_err,
+               **flash_bound(bh, s, s, d, causal, window, 4, YI_GROUP))
+    old = cuda_core_flash(torch)
+    if old is not None:
+        ke, ve = (t.repeat_interleave(YI_GROUP, 0) for t in (k, v))
+        err = float((old(q, ke, ve) - kernel()).abs().max())
+        turns = [time_device(torch, lambda: old(q, ke, ve), False),
+                 time_device(torch, kernel, False),
+                 time_device(torch, kernel, False),
+                 time_device(torch, lambda: old(q, ke, ve), False)]
+        row["cuda_core_kernel"] = dict(ms=[turns[0], turns[3]],
+                                       new_ms=turns[1:3], max_abs_diff=err)
+        del ke, ve
+    print(f"flash_attention_bhsd at {row['shape']} on {row['kv_heads']} KV "
+          f"heads, causal: {row['ms']:.3f} ms device, plain "
+          f"{row['plain_ms']:.3f} ms, scaled_dot_product_attention "
+          f"{row['library_ms']:.3f} ms (max |d| {lib_err:.3g}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
+          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
+          f"all float32 on the CUDA cores {row['f32_ms']:.4f} ms)"
+          + (f"; the CUDA-core kernel {row['cuda_core_kernel']['ms']} ms "
+             f"against {row['cuda_core_kernel']['new_ms']} in turns"
+             if "cuda_core_kernel" in row else ""),
+          flush=True)
     return row
 
 
@@ -1216,8 +1360,9 @@ def main() -> int:
     for name, log in logs.items():
         for line in log.splitlines():
             if any(k in line for k in ("entry function", "registers",
-                                       "spill")):
+                                       "spill", "Performance Loss")):
                 print(f"  {name}: {line.strip()}", flush=True)
+    check_no_spills(logs.get("flash_attention", ""))
 
     ch, scfg = CONFIG.channel(), CONFIG.scheduler(lam=10.0)
     co = decision_coeffs(scfg, ch)

@@ -19,16 +19,19 @@ from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
-    """(BH, Sq, D) flash attention, KV heads already expanded."""
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    kv_group=1):
+    """(BH, Sq, D) flash attention over k / v (BH / kv_group, Sk, D):
+    query row-block ``bh`` reads KV head ``bh // kv_group``."""
     return flash_attention_bhsd(q, k, v, causal=causal, window=window,
-                                scale=scale)
+                                scale=scale, kv_group=kv_group)
 
 
-def attention_auto(q, k, v, *, causal=True, window=None, scale=None):
+def attention_auto(q, k, v, *, causal=True, window=None, scale=None,
+                   kv_group=1):
     """Same as flash_attention: the wrapper already dispatches on device."""
     return flash_attention(q, k, v, causal=causal, window=window,
-                           scale=scale)
+                           scale=scale, kv_group=kv_group)
 
 
 def pad_to_chunk(chunk: int, x, dt, bm, cm):

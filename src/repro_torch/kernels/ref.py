@@ -70,14 +70,19 @@ def flash_mask(sq: int, sk: int, causal: bool, window, device):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
-                        scale=None):
-    """The flash kernel's function over q (BH, Sq, D), k / v (BH, Sk, D),
-    dense: q scaled in float32 before the product, masked scores set to
-    -1e30 (never -inf), ``exp(s - max)``, ``(p @ v) / max(l, 1e-30)``,
-    output in q's type."""
+                        scale=None, kv_group: int = 1):
+    """The flash kernel's function over q (BH, Sq, D), k / v (BH /
+    kv_group, Sk, D), dense: KV head j serves query rows j kv_group ..
+    j kv_group + kv_group - 1 (expanded here with ``repeat_interleave``),
+    q scaled in float32 before the product, masked scores set to -1e30
+    (never -inf), ``exp(s - max)``, ``(p @ v) / max(l, 1e-30)``, output in
+    q's type."""
     d = q.shape[2]
     if scale is None:
         scale = float(d) ** -0.5
+    if kv_group > 1:
+        k = k.repeat_interleave(kv_group, dim=0)
+        v = v.repeat_interleave(kv_group, dim=0)
     s = torch.bmm(q.float() * scale, k.float().transpose(1, 2))
     mask = flash_mask(q.shape[1], k.shape[1], causal, window, q.device)
     s = torch.where(mask[None], s, NEG_INF)

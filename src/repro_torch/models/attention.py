@@ -2,12 +2,13 @@
 (twin of ``repro/models/attention.py``).
 
 Full-sequence attention (``apply_attention``) and prefill attention
-(``prefill_attention``) run through the flash kernel: the KV heads are
-expanded in the reference's grouping (KV head j serves query heads
-j g .. j g + g - 1, as ``q.reshape(b, s, kv, g, hd)`` groups them there:
-``repeat_interleave``, not ``repeat``) and ``ops.flash_attention`` runs on
-(B Hq, S, hd), the CUDA kernel for CUDA tensors and its plain version for
-CPU tensors. The reference computes these with its jnp
+(``prefill_attention``) run through the flash kernel:
+``ops.flash_attention`` runs on q (B Hq, S, hd) and the unexpanded k / v
+(B KV, S, hd) with ``kv_group = Hq / KV``, in the reference's grouping
+(KV head j serves query heads j g .. j g + g - 1, as
+``q.reshape(b, s, kv, g, hd)`` groups them there: ``repeat_interleave``,
+not ``repeat``), the CUDA kernel for CUDA tensors and its plain version
+for CPU tensors. The reference computes these with its jnp
 ``_grouped_attention`` (its module docstring says the TPU prefill routes
 through the Pallas kernel; its code does not); on the prompt, causal with
 Sq == Sk, the two compute the same function. ``_grouped_attention`` is
@@ -117,17 +118,17 @@ def _rope(p: Attention, t, positions):
 
 def _flash_attention(q, k, v, *, causal, window):
     """q (B, Sq, Hq, hd), k / v (B, Sk, KV, hd) -> (B, Sq, Hq, hd) through
-    ``ops.flash_attention`` on (B Hq, S, hd), KV heads expanded."""
+    ``ops.flash_attention`` on q (B Hq, S, hd) and the unexpanded k / v
+    (B KV, S, hd) with ``kv_group = Hq / KV``: row-block b Hq + h reads
+    KV head b KV + h // kv_group, the reference's grouping."""
     b, sq, hq, hd = q.shape
-    g = hq // k.shape[2]
 
     def heads_first(t):
         return t.transpose(1, 2).reshape(-1, t.shape[1], hd)
 
     out = kops.flash_attention(
-        heads_first(q), heads_first(k.repeat_interleave(g, dim=2)),
-        heads_first(v.repeat_interleave(g, dim=2)), causal=causal,
-        window=window)
+        heads_first(q), heads_first(k), heads_first(v), causal=causal,
+        window=window, kv_group=hq // k.shape[2])
     return out.reshape(b, hq, sq, hd).transpose(1, 2)
 
 

@@ -166,11 +166,61 @@ def test_flash_wrapper_checks():
         flash_attention_bhsd(meta, meta, meta)
     for d in (32, 64, 128):
         check_kernel_shape(128, d)
-    for bh, d in ((1, 96), (1, 256), (1 << 16, 64)):
+        check_kernel_shape(128, d, 2048, 2048, 8)
+    for bh, d in ((1, 96), (1, 256), (1 << 31, 64)):
         with pytest.raises(ValueError):
             check_kernel_shape(bh, d)
-    # (64 D + 64 (D + 4) + 64 D) floats at D = 128: two blocks per SM
-    assert smem_bytes(128) == 99_328 and 2 * smem_bytes(128) < 228 << 10
+    with pytest.raises(ValueError, match="grid"):
+        check_kernel_shape(1 << 16, 64, 64 * 65535)
+    # Q_lo (128, D), P hi + lo (128, 32) and two stages of K hi + lo
+    # (32, D) and V^T hi + lo (D, 32), float32, at D = 128: 224 KB and one
+    # block per SM
+    assert smem_bytes(128) == 2 * 32_768 + 32_768 + 2 * 65_536 + 64 + 1024
+    assert smem_bytes(128) < 227 << 10 < 2 * smem_bytes(128)
+
+
+def test_flash_wrapper_checks_kv_group():
+    """k and v hold BH / kv_group heads; BH must be a multiple of it."""
+    q = torch.zeros((8, 16, 32))
+    kv = torch.zeros((2, 16, 32))
+    assert flash_attention_bhsd(q, kv, kv, kv_group=4).shape == q.shape
+    for group, k in ((4, torch.zeros((8, 16, 32))), (2, kv), (1, kv),
+                     (4, torch.zeros((2, 16, 64)))):
+        with pytest.raises(ValueError, match="kv_group"):
+            flash_attention_bhsd(q, k, k, kv_group=group)
+    with pytest.raises(ValueError, match="kv_group"):
+        flash_attention_bhsd(q, kv, torch.zeros((4, 16, 32)), kv_group=4)
+    for group in (3, 0):
+        with pytest.raises(ValueError, match="multiple of kv_group"):
+            flash_attention_bhsd(q, kv, kv, kv_group=group)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_group", [2, 4, 8])
+@pytest.mark.parametrize("sq,sk,d,causal,window", [
+    (64, 64, 64, True, None), (100, 300, 32, True, None),
+    (150, 130, 128, True, 40), (70, 200, 64, False, 100)])
+def test_flash_kv_group_equals_expanded(sq, sk, d, causal, window,
+                                        kv_group, dtype):
+    """The plain K5 on unexpanded KV heads (row-block bh reads KV head
+    bh // kv_group) equals it on the ``repeat_interleave``-expanded KV,
+    bit for bit, through the wrapper and ``ops``."""
+    bh = 2 * kv_group
+    rng = np.random.default_rng(kv_group)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, s, d)).astype(
+        np.float32)).to(dtype) for n, s in ((bh, sq), (2, sk), (2, sk)))
+    want = flash_attention_bhsd(q, k.repeat_interleave(kv_group, dim=0),
+                                v.repeat_interleave(kv_group, dim=0),
+                                causal=causal, window=window)
+    for got in (flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                     kv_group=kv_group),
+                tref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, kv_group=kv_group),
+                ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    kv_group=kv_group),
+                ops.attention_auto(q, k, v, causal=causal, window=window,
+                                   kv_group=kv_group)):
+        assert got.dtype == dtype and torch.equal(got, want)
 
 
 # ----------------------------------------------------------- RoPE, SwiGLU
@@ -311,10 +361,11 @@ def test_prefill_rolling_and_window(ref, s, clen, window):
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 9),
                                            (False, None), (False, 9)])
 def test_kernel_path_matches_grouped_attention(ref, causal, window):
-    """``apply_attention`` (KV heads expanded, the flash kernel on (B Hq,
-    S, hd)) against the reference's ``_grouped_attention`` and the port's
-    twin of it, on the same rotated q, k, v (GQA groups of 2; a
-    non-causal call drops the window, as the reference does)."""
+    """``apply_attention`` (the flash kernel on q (B Hq, S, hd) and the
+    unexpanded k / v (B KV, S, hd), ``kv_group = Hq / KV``) against the
+    reference's ``_grouped_attention`` and the port's twin of it, on the
+    same rotated q, k, v (GQA groups of 2; a non-causal call drops the
+    window, as the reference does)."""
     cfg, rcfg, rp, mixer = attention_pair(ref, "reduced", n_heads=4,
                                           n_kv_heads=2)
     jnp = ref.jnp

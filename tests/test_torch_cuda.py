@@ -19,8 +19,10 @@ forward and prefill launch it once per layer (24), decode never. The
 flash attention kernel against its plain version at the reference tests'
 shapes, yi-6b's (128, 2048, 128) and Sq != Sk: 2e-5 in float32 and 2e-2
 in bfloat16, the reference tests' own; skipping the masked key tiles
-changes no bit; reduced yi-6b at its full head_dim (128) launches it once
-per layer in forward and prefill, never in decode.
+changes no bit; on unexpanded KV heads (``kv_group`` 8 and 2) it equals
+itself on the ``repeat_interleave``-expanded heads bit for bit; reduced
+yi-6b at its full head_dim (128) launches it once per layer in forward
+and prefill, never in decode, and expands no KV head.
 """
 
 import numpy as np
@@ -288,6 +290,66 @@ def test_flash_attention_kernel_matches_plain(cuda, bh, sq, sk, d, causal,
     assert out.dtype == dtype and torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     assert torch.equal(out, every)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window,kv_group", [
+    (128, 2048, 2048, 128, True, None, 8),   # yi-6b's forward
+    (128, 2000, 2000, 128, True, None, 8),   # yi-6b's prefill
+    (4, 150, 130, 128, True, 40, 2), (8, 100, 300, 64, True, None, 2),
+    (4, 256, 256, 32, False, 48, 2)])
+def test_flash_attention_kv_group_equals_expanded(cuda, bh, sq, sk, d,
+                                                  causal, window, kv_group,
+                                                  dtype):
+    """Row-block bh reads KV head bh // kv_group: the kernel on the
+    unexpanded heads equals it on the expanded ones bit for bit, and its
+    plain version (which expands) within the tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(kv_group)
+    q, k, v = (torch.randn((n, s, d), generator=g, device=cuda).to(dtype)
+               for n, s in ((bh, sq), (bh // kv_group, sk),
+                            (bh // kv_group, sk)))
+    out = flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                               kv_group=kv_group)
+    expanded = flash_attention_bhsd(
+        q, k.repeat_interleave(kv_group, 0), v.repeat_interleave(kv_group, 0),
+        causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               kv_group=kv_group)
+    torch.cuda.synchronize()
+    assert torch.equal(out, expanded)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_rejects_bad_kv_groups(cuda):
+    q, k, v = flash_lanes(8, 64, 64, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="kv_group"):
+        flash_attention_bhsd(q, k, v, kv_group=4)    # k has BH heads
+    with pytest.raises(ValueError, match="kv_group"):
+        flash_attention_bhsd(q, k[:2], v[:4], kv_group=4)
+    with pytest.raises(ValueError, match="multiple of kv_group"):
+        flash_attention_bhsd(q, k[:2], v[:2], kv_group=3)
+    assert flash_attention_bhsd(q, k[:2], v[:2], kv_group=4).shape == q.shape
+
+
+def test_yi_forward_and_prefill_expand_no_kv_head(cuda, monkeypatch):
+    """No ``repeat_interleave`` runs in reduced yi-6b's forward or prefill
+    on the card: K5 reads the shared KV heads itself."""
+    cfg = get_config("yi-6b").reduced(d_model=512)
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    calls = []
+    interleave = torch.Tensor.repeat_interleave
+
+    def counting(self, *args, **kw):
+        calls.append(tuple(self.shape))
+        return interleave(self, *args, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "repeat_interleave", counting)
+    M.forward(params, M.Batch(tokens=tok), cfg)
+    M.prefill(params, M.Batch(tokens=tok[:, :80]), cfg, 96)
+    assert calls == [] and cfg.n_heads > cfg.n_kv_heads
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):

@@ -255,19 +255,23 @@ def test_decode_twice_from_one_state():
 
 def test_attention_routes_through_the_flash_entry(monkeypatch, lm):
     """Forward and prefill call ``ops.flash_attention`` once per layer on
-    (B Hq, S, hd); decode never does."""
+    q (B Hq, S, hd) and the unexpanded k (B KV, S, hd) with ``kv_group =
+    Hq / KV``; decode never does."""
     cfg, _, _, params = lm
     calls = []
     flash = attn.kops.flash_attention
 
     def counting(q, k, v, **kw):
-        calls.append((tuple(q.shape), tuple(k.shape)))
+        calls.append((tuple(q.shape), tuple(k.shape), kw["kv_group"]))
         return flash(q, k, v, **kw)
 
     monkeypatch.setattr(attn.kops, "flash_attention", counting)
     tok = torch.from_numpy(tokens(cfg, 2, 30)).long()
     M.forward(params, M.Batch(tokens=tok), cfg)
-    assert calls == [((8, 30, 64), (8, 30, 64))] * cfg.n_layers
+    group = cfg.n_heads // cfg.n_kv_heads
+    assert calls == [((2 * cfg.n_heads, 30, 64),
+                      (2 * cfg.n_kv_heads, 30, 64), group)] * cfg.n_layers
+    assert group > 1
     _, st = M.prefill(params, M.Batch(tokens=tok[:, :20]), cfg, 30)
     assert len(calls) == 2 * cfg.n_layers
     for t in range(20, 23):
