@@ -18,9 +18,10 @@ Phases; any failure exits non-zero before the result line is printed:
    with and without ``valid``, heterogeneous operand rows, bit for bit
    (tolerance 0); and the SSD scan (K4, through ``ops.ssd``, which pads)
    at (b, S, H, P, N) = (1, 100, 2, 32, 16) chunk 32, (2, 384, 24, 64,
-   128) and the prefill shape (4, 2048, 24, 64, 128) chunk 128, from a
-   zero and a random state (y rtol 1e-4 / atol 2e-4, the final state
-   rtol 1e-4 / atol 2e-5: float32 sums in another order); and flash
+   128), generate's prefill (4, 2000, 24, 64, 128) and the forward shape
+   (4, 2048, 24, 64, 128) chunk 128, from a zero and a random state (y
+   rtol 1e-4 / atol 2e-4, the final state rtol 1e-4 / atol 2e-5: float32
+   sums in another order, the kernel's products 3xTF32); and flash
    attention (K5) at the reference tests' shapes (S = 200, windows 128
    and 32, D = 128 bidirectional, bfloat16), Sq != Sk both ways, a
    non-causal window, and yi-6b's (BH, S, D) = (128, 2000 and 2048,
@@ -29,7 +30,7 @@ Phases; any failure exits non-zero before the result line is printed:
    same bits), and at yi-6b's two shapes on its 16 unexpanded KV heads
    (``kv_group=8``, as the prefill and the forward call it): bit for bit
    the kernel on the expanded KV and with the masked tiles run, and 2e-5
-   from the plain version; ``ptxas`` must report no spills in K5;
+   from the plain version; ``ptxas`` must report no spills in K4 and K5;
 4. drive the main path at full width through ``run_simulation``: the
    paper's CIFAR-10 configuration (100 clients, 500 examples each, 2000
    test images, CNN 32/64/120, lambda 10, m_cap 32, I = 10, batch 32),
@@ -66,7 +67,11 @@ Phases; any failure exits non-zero before the result line is printed:
    (kernel path) against the same weights' forward on the CPU (plain path)
    at rtol 1e-4 / atol 1e-4; forward ms, prefill s, decode ms per token, a
    profile of one forward and 16 decode steps, and K4's device time at the
-   prefill shape beside its plain version's and its bound;
+   forward shape (each of its four device kernels' share by the profiler)
+   beside its plain version's and its bound, and, where
+   ``build/ssd_scan_cuda_cores.cu`` holds the earlier K4 that ran on the
+   CUDA cores (``git show 3f5cf30:src/repro_torch/kernels/csrc/ssd_scan.cu``),
+   that kernel in turns with this one;
 9. dense GQA attention (``yi-6b``, full width: 32 layers, d_model 4096,
    32 query heads sharing 4 KV heads of 128, d_ff 11008, untied head,
    6.06 B random float32 parameters from a seed) the same way, after the
@@ -819,9 +824,10 @@ def timings(torch, scfg, ch, ops):
 # --------------------------------------------------------------------------
 
 # (b, S, H, P, N, chunk) of the SSD checks: the reference tests' padded
-# shape, a mid shape, and the prefill shape at batch 4 x 2048.
+# shape, a mid shape, generate's prefill (4 x 2000, padded to 2048 with
+# dt = 0) and the forward shape at batch 4 x 2048 (last: time_ssd times it).
 SSD_SHAPES = ((1, 100, 2, 32, 16, 32), (2, 384, 24, 64, 128, 128),
-              (4, 2048, 24, 64, 128, 128))
+              (4, 2000, 24, 64, 128, 128), (4, 2048, 24, 64, 128, 128))
 # y, then the final state: float32 sums in another order than the plain
 # version's (as on the CPU, tests/test_torch_ssd.py)
 SSD_TOL = (dict(rtol=1e-4, atol=2e-4), dict(rtol=1e-4, atol=2e-5))
@@ -894,17 +900,18 @@ def check_ssd(torch):
     return err
 
 
-def check_no_spills(log):
-    """K5's functions, as ``ptxas -v`` reports them, spill nothing (a spill
-    or a serialised wgmma would quietly cost most of its speed). An empty
-    log means the library was already built."""
+def check_no_spills(name, log):
+    """The functions of ``name``'s library (K4's four passes, K5), as
+    ``ptxas -v`` reports them, spill nothing (a spill or a serialised wgmma
+    would quietly cost most of their speed). An empty log means the library
+    was already built."""
     bad = [line.strip() for line in log.splitlines()
            if ("spill" in line and not line.strip().startswith(
                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
                "loads")) or "Performance Loss" in line]
     if bad:
-        raise AssertionError("flash_attention: ptxas reports spills or "
-                             "serialised products:\n" + "\n".join(bad))
+        raise AssertionError(f"{name}: ptxas reports spills or serialised "
+                             "products:\n" + "\n".join(bad))
 
 
 def flash_lanes(torch, bh, sq, sk, d, bf16, seed):
@@ -1167,48 +1174,156 @@ def profile_lm(torch, params, batch, prompt, cfg, kernel):
 
 
 def ssd_bound(b, s, h, p, n, chunk, with_state):
-    """Least time of one K4 call: bytes (inputs read once, outputs written
-    once) at HBM rate, against the float32 operations the function needs
-    (C.B^T once per (batch, chunk) over the causal triangle; per (batch,
-    head, chunk) the decay weights, m @ x over the triangle, the
-    inter-chunk product and the state update) at the float32 rate."""
+    """Least time of one K4 call. Bytes: inputs read once, outputs written
+    once, at HBM rate. Operations: the products (C.B^T once per (batch,
+    chunk) over the causal triangle; per (batch, head, chunk) m @ x over
+    the triangle, the inter-chunk product and the state update), each a
+    float32 product that float32-accurate tensor-core work takes as three
+    TF32 products (3xTF32) at the TF32 rate; the decay weights, the scaling
+    and the sums on the CUDA cores at the float32 rate. The bound is the
+    largest of the three times; ``f32_ms`` is everything in float32 on the
+    CUDA cores, the bound of a design without tensor cores (commit
+    3f5cf30's)."""
     nc = s // chunk
     tri = chunk * (chunk + 1) // 2
     n_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
                    + (b * h * n * p if with_state else 0))
-    scores = 2 * tri * n                          # per (batch, chunk)
-    per_head = (6 * chunk + 1                     # g, lc, exp(lc), B weights
-                + 6 * tri                         # decay, min, exp, where, m
-                + 2 * tri * p                     # m @ x
-                + chunk * n + 2 * chunk * n * p   # (C exp(lc)) @ state
-                + chunk * p                       # y = intra + inter
-                + chunk * n + 2 * chunk * n * p   # (B bw)^T @ x
-                + 2 * n * p)                      # carry * state + update
-    ops_ = b * nc * scores + b * h * nc * per_head
+    products = (b * nc * 2 * tri * n              # C.B^T
+                + b * h * nc * (2 * tri * p       # m @ x
+                                + 2 * chunk * n * p    # (C exp(lc)) @ state
+                                + 2 * chunk * n * p))  # (B bw)^T @ x
+    other = b * h * nc * (6 * chunk + 1           # g, lc, exp(lc), B weights
+                          + 6 * tri               # decay, min, exp, where, m
+                          + chunk * n             # C exp(lc)
+                          + chunk * p             # y = intra + inter
+                          + chunk * n             # B bw
+                          + 2 * n * p)            # carry * state + update
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ / F32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", n_bytes, ops_)
+    t_tc = 3 * products / TF32_OPS_PER_S * 1e3
+    t_cuda = other / F32_OPS_PER_S * 1e3
+    t = max(t_bytes, t_tc, t_cuda)
+    return dict(bound_ms=t,
+                bound_by="bytes" if t == t_bytes else "operations",
+                bound_detail=("bytes" if t == t_bytes else
+                              "tensor-core operations (3xTF32)"
+                              if t == t_tc else "CUDA-core operations"),
+                bytes=n_bytes, flops=products + other,
+                tensor_core_ms=t_tc, cuda_core_ms=t_cuda, bytes_ms=t_bytes,
+                f32_ms=max(t_bytes, (products + other) / F32_OPS_PER_S
+                           * 1e3))
+
+
+def earlier_kernel(name):
+    """The library of ``build/<name>_cuda_cores.cu``, an earlier design of a
+    kernel put there by hand, built with the port's flags; None when that
+    file is absent."""
+    import ctypes
+    from repro_torch.kernels import _build
+    src = ROOT / "build" / f"{name}_cuda_cores.cu"
+    if not src.is_file():
+        return None
+    lib = src.with_suffix(".so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
+def cuda_core_ssd(torch):
+    """The earlier K4 (CUDA cores, one block per (batch, head), commit
+    3f5cf30) from ``build/ssd_scan_cuda_cores.cu``, as a function of (x,
+    dt, a, bm, cm, chunk) returning (y, the final state); None when that
+    file is absent."""
+    import ctypes
+    lib = earlier_kernel("ssd_scan")
+    if lib is None:
+        return None
+    fn = lib.ssd_scan_f32
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(x, dt, a, bm, cm, chunk):
+        b, s, h, p = x.shape
+        n = bm.shape[-1]
+        y = torch.empty_like(x)
+        h_final = torch.empty((b, h, n, p), device=x.device)
+        code = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+                  cm.data_ptr(), None, y.data_ptr(), h_final.data_ptr(), b,
+                  s, h, p, n, chunk, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"CUDA-core ssd_scan: cudaError {code}")
+        return y, h_final
+    return call
+
+
+# K4's device kernels, launched in this order by one ssd_scan call
+SSD_PASSES = ("ssd_scan_chunk_state", "ssd_scan_state_pass", "ssd_scan_cb",
+              "ssd_scan_chunk_out")
+
+
+def ssd_pass_ms(torch, fn, calls=10):
+    """Device ms per call of each of K4's device kernels, from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(SSD_PASSES, 0.0)
+    for e in prof.key_averages():
+        for name in SSD_PASSES:
+            if name in e.key:
+                out[name] += e.self_device_time_total / 1e3 / calls
+    return out
 
 
 def time_ssd(torch):
-    """K4 and its plain version at the prefill shape (with the final
-    state), device ms by CUDA events."""
+    """K4 and its plain version at the forward shape (with the final
+    state), device ms by CUDA events, each device kernel's share by the
+    profiler; the earlier CUDA-core kernel where its source is at hand,
+    timed in turns with this one."""
     from repro_torch.kernels.ref import ssd_chunked_ref
     from repro_torch.kernels.ssd_scan import ssd_scan
     b, s, h, p, n, chunk = SSD_SHAPES[-1]
     x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, 5)
-    t, by, n_bytes, n_ops = ssd_bound(b, s, h, p, n, chunk, True)
+
+    def kernel():
+        return ssd_scan(x, dt, a, bm, cm, chunk=chunk, return_state=True)
+
     row = dict(
         shape=[b, s, h, p, n], chunk=chunk,
-        ms=time_device(torch, lambda: ssd_scan(
-            x, dt, a, bm, cm, chunk=chunk, return_state=True), False),
+        ms=time_device(torch, kernel, False),
         plain_ms=time_device(torch, lambda: ssd_chunked_ref(
             x, dt, a, bm, cm, chunk=chunk), False, iters=5),
-        bound_ms=t, bound_by=by, bytes=n_bytes, flops=n_ops)
-    print(f"ssd_scan at {row['shape']}: {row['ms']:.3f} ms device, plain "
-          f"{row['plain_ms']:.3f} ms, bound {t:.4f} ms ({by}; "
-          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)", flush=True)
+        device_kernels_ms=ssd_pass_ms(torch, kernel),
+        **ssd_bound(b, s, h, p, n, chunk, True))
+    old = cuda_core_ssd(torch)
+    if old is not None:
+        (y_old, h_old), (y, h_new) = old(x, dt, a, bm, cm, chunk), kernel()
+        err = max(float((y_old - y).abs().max()),
+                  float((h_old - h_new).abs().max()))
+        turns = [time_device(torch, lambda: old(x, dt, a, bm, cm, chunk),
+                             False),
+                 time_device(torch, kernel, False),
+                 time_device(torch, kernel, False),
+                 time_device(torch, lambda: old(x, dt, a, bm, cm, chunk),
+                             False)]
+        row["cuda_core_kernel"] = dict(ms=[turns[0], turns[3]],
+                                       new_ms=turns[1:3], max_abs_diff=err)
+    passes = ", ".join(f"{k.removeprefix('ssd_scan_')} {v:.4f}"
+                       for k, v in row["device_kernels_ms"].items())
+    print(f"ssd_scan at {row['shape']}: {row['ms']:.3f} ms device ({passes}"
+          f" ms by the profiler), plain {row['plain_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
+          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
+          f"bytes {row['bytes_ms']:.4f} ms; all float32 on the CUDA cores "
+          f"{row['f32_ms']:.4f} ms)"
+          + (f"; the CUDA-core kernel {row['cuda_core_kernel']['ms']} ms "
+             f"against {row['cuda_core_kernel']['new_ms']} in turns"
+             if "cuda_core_kernel" in row else ""),
+          flush=True)
     return row
 
 
@@ -1244,18 +1359,14 @@ def flash_bound(bh, sq, sk, d, causal, window, itemsize, kv_group=1):
 
 
 def cuda_core_flash(torch):
-    """The earlier K5 (CUDA cores, expanded KV, commit 3f5cf30) built from
-    ``build/flash_attention_cuda_cores.cu`` with the port's flags, as a
-    function of (q, k, v) (causal); None when that file is absent."""
+    """The earlier K5 (CUDA cores, expanded KV, commit 3f5cf30) from
+    ``build/flash_attention_cuda_cores.cu``, as a function of (q, k, v)
+    (causal); None when that file is absent."""
     import ctypes
-    from repro_torch.kernels import _build
-    src = ROOT / "build" / "flash_attention_cuda_cores.cu"
-    if not src.is_file():
+    lib = earlier_kernel("flash_attention")
+    if lib is None:
         return None
-    lib = ROOT / "build" / "flash_attention_cuda_cores.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).flash_attention_fwd
+    fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -1362,7 +1473,8 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers",
                                        "spill", "Performance Loss")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    check_no_spills(logs.get("flash_attention", ""))
+    for name in ("ssd_scan", "flash_attention"):
+        check_no_spills(name, logs.get(name, ""))
 
     ch, scfg = CONFIG.channel(), CONFIG.scheduler(lam=10.0)
     co = decision_coeffs(scfg, ch)

@@ -1,295 +1,782 @@
 // Mamba-2 chunked SSD scan: h[t] = exp(dt[t] a) h[t-1] + dt[t] B[t] (x) x[t],
-// y[t] = C[t] . h[t], in the chunked dual form (arXiv 2405.21060), with the
-// final state written out when the caller asks for it.
+// y[t] = C[t] . h[t], in the chunked dual form (arXiv 2405.21060), with an
+// initial state and the final state written out when the caller asks.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py (ssd_scan,
 // body _ssd_kernel). That kernel runs a (batch, heads, chunks) grid whose
 // chunk axis is sequential on the TPU's one core, carrying the (N, P) state
-// in VMEM scratch and never writing it out. Here one block owns one
-// (batch, head) pair and loops over the chunks itself (blocks run in no
-// order, so nothing can carry between them); the state lives in shared
-// memory across the loop and, unlike the TPU kernel, is stored after the
-// last chunk, which is what lets the serving prefill run this kernel.
-// Per chunk, in the TPU kernel's order: g = dt a and its inclusive cumsum
-// lc (sequential, one thread); w = where(s <= t, exp(min(lc_t - lc_s, 0)),
-// 0), selected and never multiplied by a mask, since exp overflows above
-// the diagonal; m = (C_t . B_s) w dt_s; y = m @ x + (C exp(lc)) @ state;
+// in VMEM scratch. Per chunk, in its order: g = dt a and its inclusive
+// cumsum lc (sequential); w = where(s <= t, exp(min(lc_t - lc_s, 0)), 0),
+// selected and never multiplied by a mask, since exp overflows above the
+// diagonal; m = (C_t . B_s) w dt_s; y = m @ x + (C exp(lc)) @ state;
 // state = exp(lc_last) state + (B exp(lc_last - lc) dt)^T @ x.
 //
-// Bound on the card: at the prefill shape (b, S, H, P, N, L) = (4, 2048,
-// 24, 64, 128, 128) a call moves ~113 MB (x and y 50 MB each, B and C
-// 4 MB each, the state 3 MB): 0.034 ms at 3.35 TB/s; its float32 work,
-// counting C.B^T once per (batch, chunk) and the (L, L) products over the
-// causal triangle, is ~8.4 GFLOP: 0.125 ms at 67 TFLOP/s. So it is bound
-// by operations. This design recomputes C.B^T in every head's block (H
-// times the needed work) and runs every product in full float32 on the
-// CUDA cores (no TF32, no tensor cores), so it agrees with the plain
-// version to float32's tolerance. What it does about the bound:
-// - one chunk's x, B, C, the state and m stay in shared memory (dynamic,
-//   220 KB at the widths above), so each input byte is read from device
-//   memory once;
-// - the (L, L) work skips the blocks of columns past the causal diagonal:
-//   their m entries are exact zeros for finite inputs, so y sums only
-//   s < t0 + 32 (62.5% of the full products at L = 128);
-// - each product is an outer-product loop in registers: a warp owns 4
-//   rows t (or 32 rows n) and a lane 1-4 columns, so per step one
-//   broadcast float4 load of one operand and one conflict-free load per
-//   column of the other feed 8-32 products. B rows are padded to N + 1
-//   floats and C is stored transposed with rows of L + 4, so the column
-//   reads of a warp hit distinct banks and the float4 reads stay aligned;
-// - a warp computes m and then y for its own 4 rows, so the tile loop
-//   needs no block-wide barrier;
-// - the products accumulate with explicit fused multiply-adds (fmaf), one
-//   instruction and one rounding per product, as cuBLAS computes the
-//   plain version's einsums; the build's -fmad=false, which keeps the
-//   decision kernels' separate roundings, does not apply to them.
-// One block per (batch, head) gives 96 blocks at the prefill shape, under
-// the card's 132 SMs, each with 8 warps: a chunk-parallel design and the
-// tensor cores are later work.
+// Bound on the card at the prefill shape (b, S, H, P, N, L) = (4, 2048, 24,
+// 64, 128, 128) with the final state: 113 MB read and written once (x and
+// y 50 MB each), 0.034 ms at 3.35 TB/s; 8.20 GFLOP of products (C.B^T once
+// per (batch, chunk) over the causal tiles, then per (batch, head, chunk)
+// m @ x, (C exp(lc)) @ state and the state update), three TF32 tensor-core
+// products each (3xTF32) at 495 TFLOP/s: 0.050 ms; 0.17 GFLOP of
+// elementwise work on the CUDA cores, 0.0025 ms. So it is bound by
+// tensor-core operations.
+//
+// The chunks are independent but for the state carried between them, and
+// that carry is elementwise. So the scan runs as four kernels, launched in
+// order on the caller's stream, each with a grid of more blocks than the
+// card's 132 SMs (one block per (batch, head) would be 96):
+//
+// 1. ssd_scan_chunk_state, block (chunk, head, batch), 1,536 blocks at the
+//    shape above: lc (one thread, sequential, as the reference orders it;
+//    written to a (b, H, S) scratch so that pass 4 uses the same values),
+//    bw = exp(lc_last - lc) dt, and the chunk's own state contribution
+//    U^T = x^T (B bw) (P x N, K = L) on the tensor cores, written to a
+//    (b, chunks, H, P, Np) scratch (Np = N rounded up to 32, 50 MB).
+// 2. ssd_scan_state_pass, block (32 state columns, head, batch): for each
+//    chunk in order, state = exp(lc_last) state + U (the reference's
+//    order, on the CUDA cores), overwriting U with the state entering the
+//    chunk; from h0 or zeros; the final state to h_out. Elementwise, 16
+//    steps of 8,192 values per (batch, head), loads run 4 chunks ahead.
+// 3. ssd_scan_cb, block (64 rows, chunk, batch): CB = C B^T (L x L, K = N)
+//    once per (batch, chunk), not once per head (B and C are shared by the
+//    heads), and only the 64-row tiles' columns on or left of the
+//    diagonal; to a (b, chunks, L, L) scratch that pass 4 reads from L2.
+// 4. ssd_scan_chunk_out, block (64 rows, chunk, head, batch), 3,072
+//    blocks, the longer rows first: m = CB w dt over the live columns,
+//    y = m @ x + (C exp(lc)) @ state on the tensor cores.
+//
+// Bytes of this design at the shape above: x read twice (100 MB), the
+// state scratch written, read, written and read (~200 MB, partly in the
+// 50 MB L2), y 50 MB, B, C, CB and lc ~20 MB: ~370 MB, 0.11 ms at the HBM
+// rate, over the operations bound. A single pass with a chained state
+// (a block waiting on its predecessor chunk's flag) would save the state
+// traffic but serialise the chunks of each (batch, head) at the rate of
+// one block's latency; with chunk-parallel passes every product runs in
+// parallel over 1,536-3,072 blocks.
+//
+// Products: 3xTF32 wgmma. Each operand x is split into hi = tf32(x) and
+// lo = tf32(x - hi); a product is lo.hi + hi.lo + hi.hi (small terms
+// first), wgmma m64nNk8 with both operands from shared memory. TF32 wgmma
+// takes its operands K-major only, so each operand tile is stored in
+// shared memory as rows of 32 K-values (128 bytes, swizzled: row r's
+// 16-byte chunk c at c ^ (r % 8)), transposed on the way where the
+// product's K is the row index in device memory (x^T and (B bw)^T in pass
+// 1, x^T in pass 4). A block is two warpgroups (256 threads): both take
+// the tile's 64 rows, each half of its columns, so a thread holds half the
+// sums and stores half the operands, within the 128 registers that let two
+// blocks (16 warps) share an SM; the passes are bound by load latency, and
+// one warpgroup a block held up to 254 registers (12 warps an SM). K runs in
+// slabs of 32; each slab's 12 wgmma go into a fresh accumulator, added on
+// the CUDA cores to the product's float32 sum once the next slab is
+// stored: the tensor cores truncate as they add, so a sum held on them
+// across a whole product (48 wgmma at K = 128) drifts by up to an ulp of
+// |y| (~60 here) per product step, most of the tolerance's margin (found
+// for flash_attention.cu too). Rows past the shape (P = 32, L = 32,
+// N < Np) are zeros in shared memory.
+//
+// Loads: passes 1 and 4 copy each slab's sources raw (rows as they lie in
+// device memory) into one of two shared-memory stages by cp.async, two
+// slabs ahead, and split, transpose and weight them from there; pass 4
+// stores slab k + 1's operands in a second buffer while slab k's products
+// run. Pass 3 (a tenth of the time) loads through registers. Not TMA:
+// every operand is rewritten before the product reads it, so a copy
+// engine would only land the raw rows, which cp.async does without tensor
+// maps. Each block needs at most 99 KB of shared memory and 128 registers
+// a thread: two blocks, 16 warps, an SM.
+//
+// The CUDA-core arithmetic keeps the reference's roundings: the build's
+// -fmad=false keeps every multiply and add separate, as the plain version
+// computes them.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 4 * kWarps;  // rows t per tile: 4 per warp
-constexpr int kLdm = kTile + 4;    // row of the transposed m tile
+using namespace hopper;
 
-// Dynamic shared memory, in floats: C^T (N, L + 4), m^T (L, kLdm), x
-// (L, P), B (L, N + 1), the state (N, P + 1), and lc, dt, exp(lc) and the
-// B weights (L each). The float4-read arrays come first, each a multiple
-// of 4 floats long, so every float4 read is 16-byte aligned.
-__host__ __device__ inline int64_t smem_floats(int chunk, int n, int p) {
-  return (int64_t)n * (chunk + 4) + (int64_t)chunk * kLdm +
-         (int64_t)chunk * p + (int64_t)chunk * (n + 1) +
-         (int64_t)n * (p + 1) + 4 * (int64_t)chunk;
+// Two warpgroups: both compute the tile's 64 rows (wgmma's M), each for
+// half of the B tile's rows (the output's columns).
+constexpr int kThreads = 256;
+constexpr int kRows = 64;      // rows of an A tile (wgmma's M)
+constexpr int kAPer = kRows * 8 / kThreads;  // A chunks a thread stores
+constexpr int kSlab = 32;      // K per slab: one 128-byte swizzled row
+constexpr int kATile = kRows * 128;
+constexpr int kMaxChunk = 128;
+
+// Bytes of one operand buffer: a slab's A hi, A lo (64 rows) and B hi,
+// B lo (nb rows), each row 128 bytes, from a 1024-byte aligned base.
+// block_smem: two of them (passes 3 and 4; pass 1 has one and two raw
+// stages, as many bytes).
+__host__ __device__ constexpr int buf_bytes(int nb) {
+  return 2 * kATile + 2 * nb * 128;
+}
+__host__ __device__ constexpr int block_smem(int nb) {
+  return 2 * buf_bytes(nb) + 1024;
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
 
-__global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ a, const float* __restrict__ bm,
-                    const float* __restrict__ cm,
-                    const float* __restrict__ h0, float* __restrict__ y,
-                    float* __restrict__ h_out, int S, int H, int P, int N,
-                    int L) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int ldc = L + 4, ldb = N + 1, lds = P + 1;
-  float* ct = smem;              // (N, L + 4): C transposed
-  float* mt = ct + N * ldc;      // (L, kLdm): m transposed, one tile
-  float* xs = mt + L * kLdm;     // (L, P)
-  float* bs = xs + L * P;        // (L, N + 1)
-  float* st = bs + L * ldb;      // (N, P + 1): the carried state
-  float* lc = st + N * lds;      // (L) inclusive cumsum of dt a
-  float* dts = lc + L;           // (L)
-  float* elc = dts + L;          // (L) exp(lc)
-  float* bw = elc + L;           // (L) exp(lc_last - lc) dt
+// Four K values of row r (slab columns 4 c4 .. 4 c4 + 3) into the hi tile
+// at ``tile`` and the lo tile at tile + lo_off, swizzled as wgmma reads a
+// K-major operand with the 128-byte swizzle.
+__device__ __forceinline__ void put4(uint32_t tile, int lo_off, int r, int c4,
+                                     float4 v) {
+  const uint32_t off = tile + r * 128 + ((c4 ^ (r & 7)) << 4);
+  const float4 hi =
+      make_float4(to_tf32(v.x), to_tf32(v.y), to_tf32(v.z), to_tf32(v.w));
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(off),
+               "f"(hi.x), "f"(hi.y), "f"(hi.z), "f"(hi.w)
+               : "memory");
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(off + lo_off),
+               "f"(to_tf32(v.x - hi.x)), "f"(to_tf32(v.y - hi.y)),
+               "f"(to_tf32(v.z - hi.z)), "f"(to_tf32(v.w - hi.w))
+               : "memory");
+}
 
-  const float ah = a[h];
-  const int64_t hoff = ((int64_t)b * H + h) * N * P;
-  for (int e = tid; e < N * P; e += kThreads) {
-    const int n = e / P, p = e - n * P;
-    st[n * lds + p] = h0 != nullptr ? h0[hoff + e] : 0.0f;
+// The 12 products of one slab: lo.hi, hi.lo, hi.hi over its 4 k8 steps
+// (32 bytes, 2 descriptor units, each).
+template <int NB, int J>
+__device__ __forceinline__ void slab_from(float* d, uint64_t ah, uint64_t al,
+                                          uint64_t bh, uint64_t bl) {
+  if constexpr (J < 12) {
+    constexpr int k = 2 * (J % 4);
+    WgmmaSS<NB, k, k>::run(d, J < 4 ? al : ah, J >= 4 && J < 8 ? bl : bh);
+    slab_from<NB, J + 1>(d, ah, al, bh, bl);
   }
+}
 
-  for (int c = 0; c < S / L; ++c) {
-    const int64_t row0 = (int64_t)b * S + (int64_t)c * L;  // (b, t) row
-    for (int e = tid; e < L * P; e += kThreads) {
-      const int l = e / P, p = e - l * P;
-      xs[e] = x[((row0 + l) * H + h) * P + p];
-    }
-    for (int e = tid; e < L * N; e += kThreads) {
-      const int l = e / N, n = e - l * N;
-      bs[l * ldb + n] = bm[(row0 + l) * N + n];
-      ct[n * ldc + l] = cm[(row0 + l) * N + n];
-    }
-    for (int l = tid; l < L; l += kThreads) {
-      dts[l] = dt[(row0 + l) * H + h];
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float acc = dts[0] * ah;
-      lc[0] = acc;
-      for (int l = 1; l < L; ++l) {
-        acc = acc + dts[l] * ah;
-        lc[l] = acc;
+// One K slab: D (64 x NB / 2) += A (64 x 32) B_w (NB / 2 x 32)^T in
+// 3xTF32, from the buffer at ``buf``, committed as one group; B_w is
+// warpgroup w's half of the B tile's rows (a multiple of 8 rows, so it
+// starts on the swizzle's 1024-byte period).
+template <int NB>
+__device__ __forceinline__ void issue_slab(float* d, uint32_t buf) {
+  const uint32_t b = buf + 2 * kATile + (threadIdx.x / 128) * (NB / 2) * 128;
+  wgmma_fence();
+  slab_from<NB / 2, 0>(d, sw128_desc(buf), sw128_desc(buf + kATile),
+                       sw128_desc(b), sw128_desc(b + NB * 128));
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.0f;
+  fence_regs<N>(d);
+}
+
+// Once the last slab's products are done, in every warp: their fresh sum
+// added to ``total`` on the CUDA cores, and the buffer free.
+template <int NB>
+__device__ __forceinline__ void absorb(float* total, float* fresh) {
+  wgmma_wait<0>();
+  fence_regs<NB / 4>(fresh);
+#pragma unroll
+  for (int i = 0; i < NB / 4; ++i) total[i] += fresh[i];
+}
+
+// After a slab's stores: visible to wgmma (the async proxy), in every
+// warp; the previous slab's products, if ``pending``, awaited and added to
+// ``total`` (they ran while this slab loaded and stored); this slab's
+// products issued into ``fresh``, zeroed here.
+template <int NB>
+__device__ __forceinline__ void run_slab(float* fresh, float* total,
+                                         bool pending, uint32_t buf) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (pending) absorb<NB>(total, fresh);
+  zero<NB / 4>(fresh);
+  issue_slab<NB>(fresh, buf);
+}
+
+// Four values of a row that may be ragged: v[j] = p[j] for k0 + j < n.
+__device__ __forceinline__ float4 ld4_upto(const float* p, int k0, int n) {
+  return make_float4(k0 < n ? p[0] : 0.0f, k0 + 1 < n ? p[1] : 0.0f,
+                     k0 + 2 < n ? p[2] : 0.0f, k0 + 3 < n ? p[3] : 0.0f);
+}
+
+// A thread's accumulator of a 64 x NB product, NB / 4 floats:
+// d[4 j + 2 i + e] is row 16 (warp % 4) + g + 8 i, column (NB / 2) w +
+// 8 j + 2 t + e (warpgroup w, g = lane / 4, t = lane % 4).
+struct Frag {
+  int r0, c0;  // row of i = 0; column of j = 0, e = 0
+  __device__ explicit Frag(int nb) {
+    const int lane = threadIdx.x % 32;
+    r0 = 16 * (threadIdx.x / 32 % 4) + lane / 4;
+    c0 = (threadIdx.x / 128) * (nb / 2) + 2 * (lane % 4);
+  }
+};
+
+// ------------------------------------------------ raw sources
+
+// Raw sources, copied by cp.async into stages ahead of their split
+// (a byte count under the copy's size zero-fills the rest): pass 4's
+// stage holds two 8 KB tiles.
+constexpr int kRawHalf = kRows * kSlab * 4;
+constexpr int kRawBytes = 2 * kRawHalf;
+
+__device__ __forceinline__ void cp16(uint32_t dst, const float* src,
+                                     int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(uint32_t dst, const float* src,
+                                    int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ float4 lds4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// ------------------------------------------------ pass 1: chunk states
+
+// Bytes of a pass-1 stage: x rows (32 x P) and B rows (32 x NP).
+__host__ __device__ constexpr int raw1_bytes(int np) {
+  return kSlab * kRows * 4 + kSlab * np * 4;
+}
+
+// Block (chunk c, head h, batch b): lc to the scratch, and U^T (P x NP) =
+// x^T (B bw) to the state scratch at (b, c, h). NP = N rounded up to 32.
+// Each slab's x rows and B rows are copied raw by cp.async into one of two
+// stages two slabs ahead (the first two before the cumsum, which they do
+// not depend on), then split, transposed and weighted from there into the
+// operand buffer.
+template <int NP>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_scan_chunk_state(const float* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ a,
+                         const float* __restrict__ bm,
+                         float* __restrict__ lc_out,
+                         float* __restrict__ states, int S, int H, int P,
+                         int N, int L) {
+  __shared__ float dts[kMaxChunk], lcs[kMaxChunk], bws[kMaxChunk];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int nc = S / L, nk = L / kSlab;
+  const int64_t row0 = (int64_t)b * S + (int64_t)c * L;  // (b, t) row
+  const int64_t xrow = (int64_t)H * P;  // x's stride from one t to the next
+  const float* xh = x + row0 * xrow + (int64_t)h * P;
+  const uint32_t buf = smem_base();
+  const uint32_t raw = buf + buf_bytes(NP);
+  constexpr int kRaw = raw1_bytes(NP);
+  const bool b_aligned = N % 4 == 0;
+
+  auto fetch = [&](int k) {
+    if (k < nk) {
+      const uint32_t st = raw + (k & 1) * kRaw;
+      const int64_t r0 = row0 + kSlab * k;
+      for (int e = tid; e < kSlab * P / 4; e += kThreads) {  // x rows
+        const int r = e / (P / 4), c4 = e % (P / 4);
+        cp16(st + (r * P + 4 * c4) * 4, xh + (kSlab * k + r) * xrow + 4 * c4,
+             16);
+      }
+#pragma unroll
+      for (int i = 0; i < NP / 32; ++i) {  // B rows, zeros past N
+        const int e = tid + kThreads * i, r = e / (NP / 4);
+        const int n = 4 * (e % (NP / 4));
+        const uint32_t dst = st + kSlab * kRows * 4 + (r * NP + n) * 4;
+        const float* src = bm + (r0 + r) * N + n;
+        if (b_aligned) {
+          cp16(dst, n < N ? src : bm, n < N ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cp4(dst + 4 * j, n + j < N ? src + j : bm, n + j < N ? 4 : 0);
+        }
       }
     }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  fetch(0);
+  fetch(1);
+
+  for (int l = tid; l < L; l += kThreads) dts[l] = dt[(row0 + l) * H + h];
+  __syncthreads();
+  if (tid == 0) {
+    const float ah = a[h];
+    float acc = dts[0] * ah;
+    lcs[0] = acc;
+#pragma unroll 8
+    for (int l = 1; l < L; ++l) {
+      acc = acc + dts[l] * ah;
+      lcs[l] = acc;
+    }
+  }
+  __syncthreads();
+  const float lc_last = lcs[L - 1];
+  for (int l = tid; l < L; l += kThreads) {
+    bws[l] = expf(lc_last - lcs[l]) * dts[l];
+    lc_out[((int64_t)b * H + h) * S + (int64_t)c * L + l] = lcs[l];
+  }
+
+  float acc[NP / 4], fresh[NP / 4];
+#pragma unroll
+  for (int i = 0; i < NP / 4; ++i) acc[i] = 0.0f;
+  for (int k = 0; k < nk; ++k) {
+    // slab k's copies landed, in every thread; the operand buffer's last
+    // products done, in every warp
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    wgmma_wait<0>();
     __syncthreads();
-    const float lc_last = lc[L - 1];
-    for (int l = tid; l < L; l += kThreads) {
-      elc[l] = expf(lc[l]);
-      bw[l] = expf(lc_last - lc[l]) * dts[l];
+    const uint32_t st = raw + (k & 1) * kRaw;
+    const int l0 = kSlab * k;
+    // A = x^T: rows p (zeros past P), K = l; a warp reads 32 neighbouring
+    // p of one staged row
+#pragma unroll
+    for (int i = 0; i < kAPer; ++i) {
+      const int e = tid + kThreads * i, p = e % kRows, c4 = e / kRows;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (p < P) {
+        const uint32_t src = st + (4 * c4 * P + p) * 4;
+        v = make_float4(lds(src), lds(src + P * 4), lds(src + 2 * P * 4),
+                        lds(src + 3 * P * 4));
+      }
+      put4(buf, kATile, p, c4, v);
+    }
+    // B = (B bw)^T: rows n, K = l (rolled: unrolled, it passes the
+    // 128 registers that two blocks an SM allow)
+#pragma unroll 1
+    for (int i = 0; i < NP / 32; ++i) {
+      const int e = tid + kThreads * i, n = e % NP, c4 = e / NP;
+      const int l = l0 + 4 * c4;
+      const uint32_t src = st + kSlab * kRows * 4 + (4 * c4 * NP + n) * 4;
+      put4(buf + 2 * kATile, NP * 128, n, c4,
+           make_float4(lds(src) * bws[l], lds(src + NP * 4) * bws[l + 1],
+                       lds(src + 2 * NP * 4) * bws[l + 2],
+                       lds(src + 3 * NP * 4) * bws[l + 3]));
+    }
+    run_slab<NP>(fresh, acc, k > 0, buf);
+    fetch(k + 2);  // into the stage just read (every thread is past it)
+  }
+  absorb<NP>(acc, fresh);
+
+  const Frag f(NP);
+  float* out = states + (((int64_t)b * nc + c) * H + h) * P * NP;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = f.r0 + 8 * i;
+    if (p < P) {
+#pragma unroll
+      for (int j = 0; j < NP / 16; ++j)
+        *reinterpret_cast<float2*>(out + (int64_t)p * NP + 8 * j + f.c0) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------ pass 2: the state carry
+
+constexpr int kCarryThreads = 256;
+constexpr int kAhead = 4;  // chunks whose loads are in flight
+
+// Block (32 state columns n0.., head h, batch b), 256 threads; a thread
+// owns up to two (p, 4 columns) entries of the (P, 32) slab. For each
+// chunk c in order: slot c of the scratch gets the state entering chunk c,
+// and state = exp(lc_last of c) state + U_c.
+__global__ void __launch_bounds__(kCarryThreads)
+    ssd_scan_state_pass(const float* __restrict__ lc,
+                        const float* __restrict__ h0,
+                        float* __restrict__ states,
+                        float* __restrict__ h_out, int S, int H, int P, int N,
+                        int NP, int L) {
+  __shared__ float tile[32][64 + 1];  // (n, p): h0 in, the final state out
+  const int n0 = 32 * blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, nc = S / L;
+  const int64_t hoff = ((int64_t)b * H + h) * N * P;
+  for (int e = tid; e < 32 * P; e += kCarryThreads) {
+    const int r = e / P, p = e % P, n = n0 + r;
+    tile[r][p] = h0 != nullptr && n < N ? h0[hoff + (int64_t)n * P + p] : 0.0f;
+  }
+  __syncthreads();
+  float4 st[2];
+  int off[2];
+  bool mine[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int e = tid + kCarryThreads * i, p = e / 8, q = e % 8;
+    mine[i] = p < P;
+    off[i] = p * NP + n0 + 4 * q;
+    st[i] = mine[i] ? make_float4(tile[4 * q][p], tile[4 * q + 1][p],
+                                  tile[4 * q + 2][p], tile[4 * q + 3][p])
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  const float* lcb = lc + ((int64_t)b * H + h) * S + L - 1;
+  const int64_t cstride = (int64_t)H * P * NP;  // from chunk c to c + 1
+  float* sb = states + (int64_t)b * nc * cstride + (int64_t)h * P * NP;
+
+  float4 u[kAhead][2];
+  float lcl[kAhead];
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) {
+    if (k < nc) {
+      lcl[k] = lcb[(int64_t)k * L];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (mine[i]) u[k][i] = ld4(sb + k * cstride + off[i]);
+    }
+  }
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int c = c0 + k;
+      if (c < nc) {
+        const float carry = expf(lcl[k]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (mine[i]) {
+            st4(sb + c * cstride + off[i], st[i]);
+            st[i] = make_float4(carry * st[i].x + u[k][i].x,
+                                carry * st[i].y + u[k][i].y,
+                                carry * st[i].z + u[k][i].z,
+                                carry * st[i].w + u[k][i].w);
+          }
+        }
+        const int cn = c + kAhead;
+        if (cn < nc) {
+          lcl[k] = lcb[(int64_t)cn * L];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (mine[i]) u[k][i] = ld4(sb + cn * cstride + off[i]);
+        }
+      }
+    }
+  }
+  if (h_out == nullptr) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int e = tid + kCarryThreads * i, p = e / 8, q = e % 8;
+    if (mine[i]) {
+      tile[4 * q][p] = st[i].x;
+      tile[4 * q + 1][p] = st[i].y;
+      tile[4 * q + 2][p] = st[i].z;
+      tile[4 * q + 3][p] = st[i].w;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < 32 * P; e += kCarryThreads) {
+    const int r = e / P, p = e % P, n = n0 + r;
+    if (n < N) h_out[hoff + (int64_t)n * P + p] = tile[r][p];
+  }
+}
+
+// ------------------------------------------------ pass 3: C B^T per chunk
+
+// Rows t0 .. t0 + 63 of CB = C B^T, columns 0 .. NB - 1 (NB = min(t0 +
+// 64, L): the tile's columns on or left of the diagonal), K = n in slabs.
+template <int NB>
+__device__ __forceinline__ void cb_tile(const float* __restrict__ bm,
+                                        const float* __restrict__ cm,
+                                        float* __restrict__ out, int64_t row0,
+                                        int t0, int N, int NP, int L) {
+  const int tid = threadIdx.x;
+  const uint32_t base = smem_base();
+  float acc[NB / 4], fresh[NB / 4];
+#pragma unroll
+  for (int i = 0; i < NB / 4; ++i) acc[i] = 0.0f;
+  for (int k = 0; k < NP / kSlab; ++k) {
+    const int n0 = k * kSlab;
+    // A = C rows t, B = B rows s, both K = n: element e is row e / 8,
+    // chunk e % 8 (a row's 8 chunks in neighbouring threads)
+    float4 av[kAPer], bv[NB / 32];
+#pragma unroll
+    for (int i = 0; i < kAPer; ++i) {
+      const int e = tid + kThreads * i, r = e / 8, n = n0 + 4 * (e % 8);
+      const int t = t0 + r;
+      av[i] = t < L ? ld4_upto(cm + (row0 + t) * N + n, n, N)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int i = 0; i < NB / 32; ++i) {
+      const int e = tid + kThreads * i, s = e / 8, n = n0 + 4 * (e % 8);
+      bv[i] = ld4_upto(bm + (row0 + s) * N + n, n, N);
     }
     __syncthreads();
+    const uint32_t buf = base + (k & 1) * buf_bytes(NB);
+#pragma unroll
+    for (int i = 0; i < kAPer; ++i) {
+      const int e = tid + kThreads * i;
+      put4(buf, kATile, e / 8, e % 8, av[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < NB / 32; ++i) {
+      const int e = tid + kThreads * i;
+      put4(buf + 2 * kATile, NB * 128, e / 8, e % 8, bv[i]);
+    }
+    run_slab<NB>(fresh, acc, k > 0, buf);
+  }
+  absorb<NB>(acc, fresh);
+  const Frag f(NB);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + f.r0 + 8 * i;
+    if (t < L) {
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j)
+        *reinterpret_cast<float2*>(out + (int64_t)t * L + 8 * j + f.c0) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
 
-    // Rows t = t0 + i0 .. t0 + i0 + 3 belong to this warp, in m and in y.
-    const int i0 = 4 * warp;
-    for (int t0 = 0; t0 < L; t0 += kTile) {
-      const int ncols = t0 + kTile;  // columns s past it are masked
-      // m[t][s] = (C_t . B_s) * w * dt_s for s = lane + 32 j < ncols
-      {
-        float acc[4][4];
+// Block (64-row tile mt, chunk c, batch b): the tile's rows of CB into the
+// (b, chunks, L, L) scratch.
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_scan_cb(const float* __restrict__ bm, const float* __restrict__ cm,
+                float* __restrict__ cb, int S, int N, int NP, int L) {
+  const int mt = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = S / L, t0 = kRows * mt;
+  const int64_t row0 = (int64_t)b * S + (int64_t)c * L;
+  float* out = cb + ((int64_t)b * nc + c) * L * L;
+  switch (min(t0 + kRows, L)) {
+    case 32:
+      cb_tile<32>(bm, cm, out, row0, t0, N, NP, L);
+      break;
+    case 64:
+      cb_tile<64>(bm, cm, out, row0, t0, N, NP, L);
+      break;
+    default:
+      cb_tile<128>(bm, cm, out, row0, t0, N, NP, L);
+  }
+}
+
+// ------------------------------------------------ pass 4: the outputs
+
+// Block (64-row tile mt and chunk c, head h, batch b), the longest tiles
+// first: y rows t0 .. t0 + 63 (those below L) = m @ x over the columns
+// s < min(t0 + 64, L), plus (C exp(lc)) @ state entering c. PP = P. Each
+// slab's sources are copied raw into one of two stages by cp.async two
+// slabs ahead (CB rows and x rows for m @ x, C rows and state^T rows for
+// the rest; rows past the shape zero-filled), then split from there into
+// the operand buffers, so no thread waits on a load it just issued.
+template <int PP>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_scan_chunk_out(const float* __restrict__ x,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ cm,
+                       const float* __restrict__ lc,
+                       const float* __restrict__ cb,
+                       const float* __restrict__ states,
+                       float* __restrict__ y, int S, int H, int N, int NP,
+                       int L) {
+  __shared__ float dts[kMaxChunk], lcs[kMaxChunk], elc[kMaxChunk];
+  const int nc = S / L, mtiles = (L + kRows - 1) / kRows;
+  const int mt = mtiles - 1 - (int)blockIdx.x / nc;
+  const int c = blockIdx.x % nc, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, t0 = kRows * mt;
+  const int64_t row0 = (int64_t)b * S + (int64_t)c * L;
+  const int64_t xrow = (int64_t)H * PP;
+  const float* xh = x + row0 * xrow + (int64_t)h * PP;
+  const float* cbc = cb + ((int64_t)b * nc + c) * L * L;
+  const float* hst =
+      states + (((int64_t)b * nc + c) * H + h) * PP * (int64_t)NP;
+  const uint32_t base = smem_base();
+  const uint32_t raw = base + 2 * buf_bytes(PP);
+  // slabs 0 .. ni - 1: m @ x over s0 = 32 q; then (C exp(lc)) @ state
+  // over n0 = 32 (q - ni)
+  const int ni = min(t0 + kRows, L) / kSlab, nslabs = ni + NP / kSlab;
+  const bool c_aligned = N % 4 == 0;
+
+  // Slab q's sources into stage q % 2, one cp.async group (empty past the
+  // last slab, so that the group count stays one per slab).
+  auto fetch = [&](int q) {
+    if (q < nslabs) {
+      const uint32_t st = raw + (q & 1) * kRawBytes;
+      if (q < ni) {
+        const int s0 = kSlab * q;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int i = 0; i < kAPer; ++i) {  // CB rows t: 8 chunks each
+          const int e = tid + kThreads * i, r = e / 8, c4 = e % 8;
+          const int t = t0 + r;
+          cp16(st + r * 128 + c4 * 16,
+               t < L ? cbc + (int64_t)t * L + s0 + 4 * c4 : cbc,
+               t < L ? 16 : 0);
+        }
 #pragma unroll
-          for (int r = 0; r < 4; ++r) acc[j][r] = 0.0f;
-#pragma unroll 4
-        for (int k = 0; k < N; ++k) {
-          const float4 c4 = ld4(&ct[k * ldc + t0 + i0]);
+        for (int i = 0; i < PP / 32; ++i) {  // x rows s: PP / 4 chunks each
+          const int e = tid + kThreads * i, r = e / (PP / 4);
+          const int c4 = e % (PP / 4);
+          cp16(st + kRawHalf + r * PP * 4 + c4 * 16,
+               xh + (s0 + r) * xrow + 4 * c4, 16);
+        }
+      } else {
+        const int n0 = kSlab * (q - ni);
+#pragma unroll
+        for (int i = 0; i < kAPer; ++i) {  // C rows t: 8 chunks each
+          const int e = tid + kThreads * i, r = e / 8, c4 = e % 8;
+          const int t = t0 + r, n = n0 + 4 * c4;
+          const uint32_t dst = st + r * 128 + c4 * 16;
+          const float* src = cm + (row0 + (t < L ? t : 0)) * N + n;
+          if (c_aligned) {
+            cp16(dst, t < L && n < N ? src : cm, t < L && n < N ? 16 : 0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              cp4(dst + 4 * j, t < L && n + j < N ? src + j : cm,
+                  t < L && n + j < N ? 4 : 0);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < PP / 32; ++i) {  // state^T rows p: 8 chunks
+          const int e = tid + kThreads * i, r = e / 8, c4 = e % 8;
+          cp16(st + kRawHalf + r * 128 + c4 * 16,
+               hst + (int64_t)r * NP + n0 + 4 * c4, 16);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  fetch(0);
+  fetch(1);
+
+  for (int l = tid; l < L; l += kThreads) {
+    dts[l] = dt[(row0 + l) * H + h];
+    const float v = lc[((int64_t)b * H + h) * S + (int64_t)c * L + l];
+    lcs[l] = v;
+    elc[l] = expf(v);
+  }
+
+  // y: every slab's fresh sum of both products, added in turn
+  float acc[PP / 4], fresh[PP / 4];
+#pragma unroll
+  for (int i = 0; i < PP / 4; ++i) acc[i] = 0.0f;
+  for (int q = 0; q < nslabs; ++q) {
+    // slab q's copies landed (q + 1's may be in flight), in every thread;
+    // the operand buffer's last products were awaited in every warp
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+    const uint32_t st = raw + (q & 1) * kRawBytes;
+    const uint32_t buf = base + (q & 1) * buf_bytes(PP);
+    if (q < ni) {
+      // A = m rows t, K = s: m = CB w dt, w = exp(min(lc_t - lc_s, 0))
+      const int s0 = kSlab * q;
+#pragma unroll
+      for (int i = 0; i < kAPer; ++i) {
+        const int e = tid + kThreads * i, r = e / 8, c4 = e % 8;
+        const int t = t0 + r, s = s0 + 4 * c4;
+        const float4 v = lds4(st + r * 128 + c4 * 16);
+        float4 m = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (t < L) {
+          const float lt = lcs[t];
+          float* mv = &m.x;
+          const float* cv = &v.x;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            if (32 * j < ncols) {
-              const float bv = bs[(lane + 32 * j) * ldb + k];
-              acc[j][0] = fmaf(c4.x, bv, acc[j][0]);
-              acc[j][1] = fmaf(c4.y, bv, acc[j][1]);
-              acc[j][2] = fmaf(c4.z, bv, acc[j][2]);
-              acc[j][3] = fmaf(c4.w, bv, acc[j][3]);
+            if (s + j <= t) {
+              // min(d, 0) that keeps a NaN, as the reference's minimum does
+              const float d = lt - lcs[s + j];
+              mv[j] = cv[j] * expf(d > 0.0f ? 0.0f : d) * dts[s + j];
             }
           }
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = lane + 32 * j;
-          if (32 * j < ncols) {
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int t = t0 + i0 + r;
-              const float d = lc[t] - lc[s];
-              // min(d, 0) that keeps a NaN, as jnp.minimum does
-              const float w = s <= t ? expf(d > 0.0f ? 0.0f : d) : 0.0f;
-              mt[s * kLdm + i0 + r] = acc[j][r] * w * dts[s];
-            }
-          }
-        }
+        put4(buf, kATile, r, c4, m);
       }
-      // this warp's rows of C become C exp(lc); no other warp reads them
-      __syncwarp();
-      for (int e = lane; e < 4 * N; e += 32) {
-        const int n = e / 4, t = t0 + i0 + (e & 3);
-        ct[n * ldc + t] = ct[n * ldc + t] * elc[t];
+      // B = x^T rows p, K = s: a warp reads 32 neighbouring p of a row
+#pragma unroll
+      for (int i = 0; i < PP / 32; ++i) {
+        const int e = tid + kThreads * i, p = e % PP, c4 = e / PP;
+        const uint32_t src = st + kRawHalf + (4 * c4 * PP + p) * 4;
+        put4(buf + 2 * kATile, PP * 128, p, c4,
+             make_float4(lds(src), lds(src + PP * 4), lds(src + 2 * PP * 4),
+                         lds(src + 3 * PP * 4)));
       }
-      __syncwarp();
-      // y[t][p] = m @ x + (C exp(lc)) @ state for p = lane + 32 q
-      {
-        const int nq = P / 32;
-        float acc[2][4], inter[2][4];
+    } else {
+      // A = C exp(lc) rows t, K = n; B = state^T rows p, K = n
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[q][r] = inter[q][r] = 0.0f;
-#pragma unroll 4
-        for (int k = 0; k < ncols; ++k) {
-          const float4 m4 = ld4(&mt[k * kLdm + i0]);
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            if (q < nq) {
-              const float xv = xs[k * P + lane + 32 * q];
-              acc[q][0] = fmaf(m4.x, xv, acc[q][0]);
-              acc[q][1] = fmaf(m4.y, xv, acc[q][1]);
-              acc[q][2] = fmaf(m4.z, xv, acc[q][2]);
-              acc[q][3] = fmaf(m4.w, xv, acc[q][3]);
-            }
-          }
+      for (int i = 0; i < kAPer; ++i) {
+        const int e = tid + kThreads * i, r = e / 8, c4 = e % 8;
+        const int t = t0 + r;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (t < L) {
+          v = lds4(st + r * 128 + c4 * 16);
+          const float sc = elc[t];
+          v = make_float4(v.x * sc, v.y * sc, v.z * sc, v.w * sc);
         }
-#pragma unroll 4
-        for (int k = 0; k < N; ++k) {
-          const float4 c4 = ld4(&ct[k * ldc + t0 + i0]);
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            if (q < nq) {
-              const float sv = st[k * lds + lane + 32 * q];
-              inter[q][0] = fmaf(c4.x, sv, inter[q][0]);
-              inter[q][1] = fmaf(c4.y, sv, inter[q][1]);
-              inter[q][2] = fmaf(c4.z, sv, inter[q][2]);
-              inter[q][3] = fmaf(c4.w, sv, inter[q][3]);
-            }
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          if (q < nq) {
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              y[((row0 + t0 + i0 + r) * H + h) * P + lane + 32 * q] =
-                  acc[q][r] + inter[q][r];
-            }
-          }
-        }
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-
-    // state = exp(lc_last) state + (B bw)^T @ x: rows n = lane + 32 j,
-    // columns p0 .. p0 + P/8 - 1 of this warp
-    for (int e = tid; e < L * N; e += kThreads) {
-      const int l = e / N, n = e - l * N;
-      bs[l * ldb + n] = bs[l * ldb + n] * bw[l];
-    }
-    __syncthreads();
-    {
-      const float carry = expf(lc_last);
-      const int ncol4 = P / 32;  // float4 columns per warp: P / 8 floats
-      const int p0 = warp * (P / 8);
-      float acc[4][8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int u = 0; u < 8; ++u) acc[j][u] = 0.0f;
-#pragma unroll 2
-      for (int k = 0; k < L; ++k) {
-        float bv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = lane + 32 * j;
-          bv[j] = n < N ? bs[k * ldb + n] : 0.0f;
-        }
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          if (v < ncol4) {
-            const float4 x4 = ld4(&xs[k * P + p0 + 4 * v]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[j][4 * v + 0] = fmaf(bv[j], x4.x, acc[j][4 * v + 0]);
-              acc[j][4 * v + 1] = fmaf(bv[j], x4.y, acc[j][4 * v + 1]);
-              acc[j][4 * v + 2] = fmaf(bv[j], x4.z, acc[j][4 * v + 2]);
-              acc[j][4 * v + 3] = fmaf(bv[j], x4.w, acc[j][4 * v + 3]);
-            }
-          }
-        }
+        put4(buf, kATile, r, c4, v);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = lane + 32 * j;
-        if (n < N) {
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            if (u < 4 * ncol4) {
-              float* sp = &st[n * lds + p0 + u];
-              *sp = carry * *sp + acc[j][u];
-            }
-          }
-        }
+      for (int i = 0; i < PP / 32; ++i) {
+        const int e = tid + kThreads * i, p = e / 8, c4 = e % 8;
+        put4(buf + 2 * kATile, PP * 128, p, c4,
+             lds4(st + kRawHalf + p * 128 + c4 * 16));
       }
     }
-    __syncthreads();
+    run_slab<PP>(fresh, acc, q > 0, buf);
+    fetch(q + 2);  // into the stage just read (every thread is past it)
   }
+  absorb<PP>(acc, fresh);
 
-  if (h_out != nullptr) {
-    for (int e = tid; e < N * P; e += kThreads) {
-      const int n = e / P, p = e - n * P;
-      h_out[hoff + e] = st[n * lds + p];
+  const Frag f(PP);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + f.r0 + 8 * i;
+    if (t < L) {
+      float* out = y + (row0 + t) * xrow + (int64_t)h * PP + f.c0;
+#pragma unroll
+      for (int j = 0; j < PP / 16; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
   }
+}
+
+// ------------------------------------------------------------------ host
+
+int state_cols(int n) { return n <= 32 ? 32 : n <= 64 ? 64 : 128; }
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int NP>
+cudaError_t launch_chunk_state(const float* x, const float* dt, const float* a,
+                               const float* bm, float* lc, float* states,
+                               int batch, int S, int H, int P, int N, int L,
+                               cudaStream_t stream) {
+  const int bytes = buf_bytes(NP) + 2 * raw1_bytes(NP) + 1024;
+  cudaError_t err = allow_smem(ssd_scan_chunk_state<NP>, bytes);
+  if (err != cudaSuccess) return err;
+  ssd_scan_chunk_state<NP><<<dim3(S / L, H, batch), kThreads, bytes,
+                             stream>>>(x, dt, a, bm, lc, states, S, H, P, N,
+                                       L);
+  return cudaGetLastError();
+}
+
+template <int PP>
+cudaError_t launch_chunk_out(const float* x, const float* dt, const float* cm,
+                             const float* lc, const float* cb,
+                             const float* states, float* y, int batch, int S,
+                             int H, int N, int NP, int L,
+                             cudaStream_t stream) {
+  const int bytes = block_smem(PP) + 2 * kRawBytes;
+  cudaError_t err = allow_smem(ssd_scan_chunk_out<PP>, bytes);
+  if (err != cudaSuccess) return err;
+  const int mtiles = (L + kRows - 1) / kRows;
+  ssd_scan_chunk_out<PP><<<dim3(mtiles * (S / L), H, batch), kThreads, bytes,
+                           stream>>>(x, dt, cm, lc, cb, states, y, S, H, N,
+                                     NP, L);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -297,21 +784,56 @@ __global__ void __launch_bounds__(kThreads)
 // x (batch, S, H, P), dt (batch, S, H), a (H,), bm / cm (batch, S, N),
 // all contiguous float32 on the device; S a multiple of chunk; chunk in
 // {32, 64, 128}, P in {32, 64}, N at most 128 (kernels/ssd_scan.py checks
-// the shape and the shared memory before the launch). h0 (batch, H, N, P)
-// or NULL for a zero state; h_out the same shape, or NULL to skip the
-// final state. Launches on ``stream`` and returns cudaGetLastError() (or
-// the error of raising the block's shared memory limit).
+// the shape before the launch). h0 (batch, H, N, P) or NULL for a zero
+// state; h_out the same shape, or NULL to skip the final state; work
+// kernels/ssd_scan.py::work_floats floats, 16-byte aligned: lc (batch, H,
+// S), the chunk states (batch, S / chunk, H, P, Np) with Np = N rounded up
+// to 32, then C B^T (batch, S / chunk, chunk, chunk). Launches the four
+// passes on ``stream`` and returns the first cudaError (of raising a
+// kernel's shared memory limit or of a launch), 0 if none.
 extern "C" int ssd_scan_f32(const float* x, const float* dt, const float* a,
                             const float* bm, const float* cm, const float* h0,
-                            float* y, float* h_out, int batch, int S, int H,
-                            int P, int N, int chunk, void* stream) {
-  const int bytes =
-      (int)(smem_floats(chunk, N, P) * (int64_t)sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+                            float* y, float* h_out, float* work, int batch,
+                            int S, int H, int P, int N, int chunk,
+                            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int L = chunk, nc = S / L, NP = state_cols(N);
+  float* lc = work;
+  float* states = lc + (int64_t)batch * H * S;
+  float* cb = states + (int64_t)batch * nc * H * P * NP;
+
+  cudaError_t err;
+  switch (NP) {
+    case 32:
+      err = launch_chunk_state<32>(x, dt, a, bm, lc, states, batch, S, H, P,
+                                   N, L, st);
+      break;
+    case 64:
+      err = launch_chunk_state<64>(x, dt, a, bm, lc, states, batch, S, H, P,
+                                   N, L, st);
+      break;
+    default:
+      err = launch_chunk_state<128>(x, dt, a, bm, lc, states, batch, S, H, P,
+                                    N, L, st);
+  }
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, batch);
-  ssd_scan_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, dt, a, bm, cm, h0, y, h_out, S, H, P, N, chunk);
-  return (int)cudaGetLastError();
+
+  ssd_scan_state_pass<<<dim3(NP / 32, H, batch), kCarryThreads, 0, st>>>(
+      lc, h0, states, h_out, S, H, P, N, NP, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int cb_bytes = block_smem(L < 128 ? L : 128);
+  err = allow_smem(ssd_scan_cb, cb_bytes);
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_cb<<<dim3((L + kRows - 1) / kRows, nc, batch), kThreads, cb_bytes,
+                st>>>(bm, cm, cb, S, N, NP, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = P == 32 ? launch_chunk_out<32>(x, dt, cm, lc, cb, states, y, batch, S,
+                                       H, N, NP, L, st)
+                : launch_chunk_out<64>(x, dt, cm, lc, cb, states, y, batch, S,
+                                       H, N, NP, L, st);
+  return (int)err;
 }

@@ -3,8 +3,10 @@
 
 ``flash_attention`` runs :func:`flash_attention_bhsd` on (BH, S, D)
 tensors: the CUDA kernel for CUDA tensors, its plain version for CPU
-tensors. ``ssd`` pads S to a multiple of the chunk and runs
-:func:`ssd_scan` the same way. Unlike the reference's ``ssd``, it takes an
+tensors. ``attention_auto`` runs the dense oracle on CPU tensors and the
+kernel on CUDA tensors, as the reference's runs the oracle off a TPU.
+``ssd`` pads S to a multiple of the chunk and runs :func:`ssd_scan` the
+same way. Unlike the reference's ``ssd``, it takes an
 initial state and returns the final one on request, so the full-sequence
 forward and the serving prefill both go through it. ``ssd_decode_step`` is
 plain PyTorch, as it is jnp in the reference.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -29,7 +32,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
 
 def attention_auto(q, k, v, *, causal=True, window=None, scale=None,
                    kv_group=1):
-    """Same as flash_attention: the wrapper already dispatches on device."""
+    """Model-zoo entry point, the twin of the reference's: on CPU tensors
+    the dense oracle :func:`ref.attention_ref` (queries at the end of the
+    keys, a non-causal window two-sided), as the reference computes it off
+    a TPU; on CUDA tensors K5 through :func:`flash_attention` (0-based
+    positions, a one-sided window), the twin of its TPU branch. The two
+    agree where Sq == Sk and a window comes with ``causal``."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale, kv_group=kv_group)
     return flash_attention(q, k, v, causal=causal, window=window,
                            scale=scale, kv_group=kv_group)
 

@@ -30,15 +30,20 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window=None,
-                  scale=None):
-    """Dense softmax attention over q (BH, Sq, D), k / v (BH, Sk, D),
-    float32 softmax, output in q's type. With ``causal`` the queries sit
-    at the end of the keys (offset Sk - Sq) and a window keeps
-    ``k > q - window``; without it a window keeps ``|k - q| < window``."""
+                  scale=None, kv_group: int = 1):
+    """Dense softmax attention over q (BH, Sq, D), k / v (BH / kv_group,
+    Sk, D) (KV head j serves query rows j kv_group .. j kv_group +
+    kv_group - 1, expanded with ``repeat_interleave``), float32 softmax,
+    output in q's type. With ``causal`` the queries sit at the end of the
+    keys (offset Sk - Sq) and a window keeps ``k > q - window``; without
+    it a window keeps ``|k - q| < window``."""
     sq, d = q.shape[1], q.shape[2]
     sk = k.shape[1]
     if scale is None:
         scale = float(d) ** -0.5
+    if kv_group > 1:
+        k = k.repeat_interleave(kv_group, dim=0)
+        v = v.repeat_interleave(kv_group, dim=0)
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     q_pos = torch.arange(sq, device=q.device)[:, None]
     k_pos = torch.arange(sk, device=q.device)[None, :]

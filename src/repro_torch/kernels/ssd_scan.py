@@ -20,8 +20,9 @@ from repro_torch.kernels._launch import (ptr, raise_on_error, stream_of,
                                          unsupported_device)
 from repro_torch.kernels.ref import ssd_chunked_ref
 
-# The shapes the kernel takes (csrc/ssd_scan.cu): a warp's 4 rows of a
-# 32-row tile, 1-4 column blocks of 32 per lane, rows n = lane + 32 j.
+# The shapes the kernel takes (csrc/ssd_scan.cu): wgmma tiles of 64 rows
+# over K slabs of 32, P and the chunk padded to 64 rows, N to 32, 64 or 128
+# state columns.
 CHUNKS = (32, 64, 128)
 HEAD_DIMS = (32, 64)
 MAX_STATE = 128
@@ -29,12 +30,29 @@ MAX_STATE = 128
 MAX_SMEM_BYTES = 232_448
 
 
+def state_cols(n: int) -> int:
+    """N rounded up to 32, 64 or 128: the state's columns in the kernel's
+    tiles and scratch (zeros past N)."""
+    return 32 if n <= 32 else 64 if n <= 64 else 128
+
+
 def smem_bytes(chunk: int, n: int, p: int) -> int:
-    """Dynamic shared memory of one block (csrc/ssd_scan.cu smem_floats):
-    C^T (N, L + 4), m^T (L, 36), x (L, P), B (L, N + 1), the state
-    (N, P + 1) and four (L,) vectors."""
-    return 4 * (n * (chunk + 4) + chunk * 36 + chunk * p + chunk * (n + 1)
-                + n * (p + 1) + 4 * chunk)
+    """Dynamic shared memory of the largest block of the four passes
+    (csrc/ssd_scan.cu block_smem): two operand buffers, each a K slab's
+    64-row A tile and nb-row B tile, rows of 128 bytes, in hi and lo, plus
+    1 KB for alignment; nb is the state's columns (pass 1), the chunk (pass
+    3) or P (pass 4, which adds two 16 KB stages of raw sources)."""
+    def block(nb):
+        return 2 * (2 * 64 * 128 + 2 * nb * 128) + 1024
+    return max(block(max(state_cols(n), chunk)), block(p) + 2 * 16384)
+
+
+def work_floats(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """float32 scratch of one call (csrc/ssd_scan.cu ssd_scan_f32): lc
+    (b, H, S), the chunk states (b, S / chunk, H, P, state_cols(N)) and
+    C B^T (b, S / chunk, chunk, chunk)."""
+    nc = s // chunk
+    return b * h * s + b * nc * h * p * state_cols(n) + b * nc * chunk * chunk
 
 
 def check_kernel_shape(chunk: int, n: int, p: int):
@@ -77,7 +95,7 @@ def _check_args(x, dt, a, bm, cm, h0, chunk):
 @functools.cache
 def _lib():
     fn = _build.load("ssd_scan").ssd_scan_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -91,7 +109,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     or None for zeros. Returns y (b, S, H, P), and the final state
     (b, H, N, P) with ``return_state``.
 
-    CUDA tensors launch the kernel on the current stream (no
+    CUDA tensors launch the kernel's four passes on the current stream (no
     synchronisation) and count one launch in ``ssd_scan.launches``; CPU
     tensors run the plain version.
     """
@@ -109,9 +127,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty_like(x)
     h_final = (torch.empty((b, h, n, p), dtype=torch.float32,
                            device=x.device) if return_state else None)
+    work = torch.empty(work_floats(b, s, h, p, n, chunk), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         code = _lib()(ptr(x), ptr(dt), ptr(a), ptr(bm), ptr(cm), ptr(h0),
-                      ptr(y), ptr(h_final), b, s, h, p, n, chunk,
+                      ptr(y), ptr(h_final), ptr(work), b, s, h, p, n, chunk,
                       stream_of(x.device))
     raise_on_error("ssd_scan", code)
     ssd_scan.launches += 1

@@ -17,6 +17,9 @@ Tolerances, each with its reason:
   differently (measured max |d| 3.6e-7 against the kernel, |out| up to
   2.6, and 1.2e-6 against the oracle); in bfloat16 one rounding of the
   output may land on the neighbouring bfloat16 value (measured 2.0e-3);
+- ``ops.attention_auto`` against the reference's: 2e-5, as above. Off
+  the accelerator both run the dense oracle, the same einsums and softmax
+  in float32 (measured max |d| 6.6e-7, |out| up to 2.5);
 - RoPE: the inverse frequencies bit for bit; rtol 1e-6 / atol 1e-6 on the
   rotated vectors (measured 4.8e-7 at |x| up to 4.1, positions up to
   2,063: the angles are the same float32 products, cos and sin differ in
@@ -147,6 +150,24 @@ def test_reference_kernel_and_oracle_disagree(ref, sq, sk, causal, window):
           dict(rtol=2e-5, atol=2e-5))
 
 
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (64, 192, True, None),    # where the kernel's function differs
+    (128, 128, False, 32),    # where the kernel's function differs
+    (100, 300, True, 40),
+    (96, 96, True, None),
+])
+def test_attention_auto_matches_reference(ref, sq, sk, causal, window):
+    """The port's ``ops.attention_auto`` on CPU tensors against the
+    reference's on the same arrays: both run the dense oracle off the
+    accelerator, so they agree where K5's function does not."""
+    (jq, jk, jv), (q, k, v) = both(ref, qkv(2, sq, sk, 32, seed=3),
+                                   torch.float32)
+    want = ref.ops.attention_auto(jq, jk, jv, causal=causal, window=window)
+    got = ops.attention_auto(q, k, v, causal=causal, window=window)
+    assert got.shape == (2, sq, 32) and got.dtype == torch.float32
+    close(got, want, dict(rtol=2e-5, atol=2e-5))
+
+
 def test_flash_wrapper_checks():
     q = torch.zeros((2, 8, 32))
     with pytest.raises(TypeError):
@@ -217,10 +238,16 @@ def test_flash_kv_group_equals_expanded(sq, sk, d, causal, window,
                 tref.flash_attention_ref(q, k, v, causal=causal,
                                          window=window, kv_group=kv_group),
                 ops.flash_attention(q, k, v, causal=causal, window=window,
-                                    kv_group=kv_group),
-                ops.attention_auto(q, k, v, causal=causal, window=window,
-                                   kv_group=kv_group)):
+                                    kv_group=kv_group)):
         assert got.dtype == dtype and torch.equal(got, want)
+    # attention_auto runs the dense oracle on the CPU: its kv_group equals
+    # the oracle on the expanded KV
+    assert torch.equal(
+        ops.attention_auto(q, k, v, causal=causal, window=window,
+                           kv_group=kv_group),
+        tref.attention_ref(q, k.repeat_interleave(kv_group, dim=0),
+                           v.repeat_interleave(kv_group, dim=0),
+                           causal=causal, window=window))
 
 
 # ----------------------------------------------------------- RoPE, SwiGLU

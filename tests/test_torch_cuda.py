@@ -12,8 +12,9 @@ rtol 1e-5 / atol 1e-3, tc rtol 1e-5, ``sel`` exact where |u - q| > 1e-6.
 The bucket-batched fused kernel is held to its plain version bit for bit
 (the same IEEE ops in the same order, no contraction), and the service's
 cuda_fused and stitched paths select the same clients. The SSD scan
-against its plain chunked version at the smoke's shapes: y rtol 1e-4 /
-atol 2e-4, the final state rtol 1e-4 / atol 2e-5, as on the CPU (float32
+(through ``ops.ssd``, which pads) against its plain chunked version at the
+smoke's shapes: y rtol 1e-4 / atol 2e-4, the final state rtol 1e-4 /
+atol 2e-5, as on the CPU (float32
 sums in other orders; both sides full float32, TF32 off); mamba2-130m's
 forward and prefill launch it once per layer (24), decode never. The
 flash attention kernel against its plain version at the reference tests'
@@ -35,6 +36,7 @@ from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.data.synthetic import make_cifar10_like
 from repro_torch.fl.decision import decision_coeffs
 from repro_torch.fl.simulation import SimConfig, run_simulation
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.decision_fused import (decision_fused,
                                                 decision_fused_batched,
                                                 decision_fused_batched_plain,
@@ -197,10 +199,11 @@ def test_service_fused_flush_matches_stitched(cuda):
         np.testing.assert_allclose(f.q, d.q, rtol=1e-5, atol=1e-6)
 
 
-# (b, S, H, P, N, chunk): the padded reference-test shape, a mid shape and
-# mamba2-130m's prefill shape at batch 4 x 2048
+# (b, S, H, P, N, chunk): the padded reference-test shape, a mid shape,
+# mamba2-130m's prefill in generate (4 x 2000, padded to 2048 by ops.ssd:
+# 48 steps with dt = 0) and its forward shape at batch 4 x 2048
 SSD_SHAPES = [(1, 128, 2, 32, 16, 32), (2, 384, 24, 64, 128, 128),
-              (4, 2048, 24, 64, 128, 128)]
+              (4, 2000, 24, 64, 128, 128), (4, 2048, 24, 64, 128, 128)]
 
 
 def ssd_lanes(b, s, h, p, n, device, seed=0):
@@ -220,13 +223,15 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk, with_h0):
     x, dt, a, bm, cm = ssd_lanes(b, s, h, p, n, cuda)
     h0 = torch.randn((b, h, n, p), device=cuda) if with_h0 else None
     before = ssd_scan.launches
-    y, h_final = ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=h0,
-                          return_state=True)
-    y_only = ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    y, h_final = kernel_ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0,
+                                return_state=True)
+    y_only = kernel_ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0)
     assert ssd_scan.launches == before + 2
-    y0, h0_final = ssd_chunked_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    xp, dtp, bmp, cmp = kernel_ops.pad_to_chunk(chunk, x, dt, bm, cm)
+    y0, h0_final = ssd_chunked_ref(xp, dtp, a, bmp, cmp, chunk=chunk, h0=h0)
     torch.cuda.synchronize()
-    torch.testing.assert_close(y, y0, rtol=1e-4, atol=2e-4)
+    assert y.shape == x.shape
+    torch.testing.assert_close(y, y0[:, :s], rtol=1e-4, atol=2e-4)
     torch.testing.assert_close(h_final, h0_final, rtol=1e-4, atol=2e-5)
     assert torch.equal(y_only, y)
 

@@ -168,9 +168,11 @@ def test_ssd_scan_checks_its_arguments():
 
 def test_kernel_shape_limits():
     """The shapes the kernel takes (chunk 32/64/128, P 32/64, N <= 128) and
-    its shared memory: mamba2-130m's (chunk, N, P) = (128, 128, 64) needs
-    220,160 B of the 232,448 a block may have."""
-    assert smem_bytes(128, 128, 64) == 220_160
+    its shared memory: at mamba2-130m's (chunk, N, P) = (128, 128, 64) the
+    largest block (passes 1 and 3: two buffers of a 64-row and a 128-row
+    tile of one K slab in hi and lo) needs 99,328 B of the 232,448 a block
+    may have."""
+    assert smem_bytes(128, 128, 64) == 99_328
     for chunk, n, p in ((128, 128, 64), (32, 32, 32), (32, 16, 32),
                         (64, 16, 32)):
         check_kernel_shape(chunk, n, p)
