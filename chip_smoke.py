@@ -8,15 +8,19 @@ Phases; any failure exits non-zero before the result line is printed:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together), timing the build and printing
-   each kernel's registers and spills from ``ptxas``;
+   each kernel's registers and spills from ``ptxas``; K2/K3, K4 and K5
+   must not spill;
 3. hold each kernel against its plain PyTorch version on the card: the
-   solve and the fused decision at N in {1, 100, 1025, 3597, 1048576},
-   with and without masks (q at rtol 1e-5 / atol 1e-6, P and the other
-   power-like outputs at rtol 1e-5 / atol 1e-3, tc at rtol 1e-5, ``sel``
-   exact where |u - q| > 1e-6), and the bucket-batched fused decision at
-   (B, N) in {(1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384)}
-   with and without ``valid``, heterogeneous operand rows, bit for bit
-   (tolerance 0); and the SSD scan (K4, through ``ops.ssd``, which pads)
+   solve at N in {1, 100, 1025, 3597, 1048576} (q at rtol 1e-5 / atol
+   1e-6, P at rtol 1e-5 / atol 1e-3); the fused decision (K2) at those N
+   and at 3, 5 and 1027, with and without masks, bit for bit (and at the
+   solve's tolerances, tc at rtol 1e-5, ``sel`` exact where
+   |u - q| > 1e-6), also with every lane and mask at storage offset 1;
+   the bucket-batched fused decision (K3) at (B, N) in {(1, 8), (7, 1029),
+   (1024, 32), (512, 128), (64, 16384), (1, 3), (70000, 4)} (the last past
+   CUDA's grid-y limit) with and without ``valid``, heterogeneous operand
+   rows, bit for bit, also at storage offset 1; and the SSD scan (K4,
+   through ``ops.ssd``, which pads)
    at (b, S, H, P, N) = (1, 100, 2, 32, 16) chunk 32, (2, 384, 24, 64,
    128), generate's prefill (4, 2000, 24, 64, 128) and the forward shape
    (4, 2048, 24, 64, 128) chunk 128, from a zero and a random state (y
@@ -51,12 +55,21 @@ Phases; any failure exits non-zero before the result line is printed:
    homogeneous 64-tenant bucket under ``"cuda"`` launches the solve
    kernel once per group; flush times per solver, and a profile of two
    fused flushes (device time against host time);
-7. time each kernel and its plain version with CUDA events: device time
-   at the engine's N = 100 and the service's bucket shapes (L2 warm, as
-   the rounds leave it) and at N = 2^20 or (64, 16384) (L2 flushed
-   before each call), the time per call with the host's share at the
-   warm shapes, calls back to back; beside the least time the card needs
-   for the same work;
+7. (run right after phase 3, before any profiler session) time K1-K3
+   and their plain versions with CUDA events: device time at the
+   engine's N = 100 and the service's bucket shapes (L2 warm, as the
+   rounds leave it) and at N = 2^20 or (64, 16384) (L2 flushed before
+   each call), the time per call with the host's share at the warm
+   shapes, calls back to back; beside the least time the card needs for
+   the same work; for K2 and K3 also the launch floor (the empty
+   ``decision_launch_floor`` on the same grid), the static SASS count of
+   a lane (``cuobjdump -sass``) and the issue-rate floor it gives at the
+   card's max SM clock, and, where ``build/decision_fused_pr16.cu`` holds
+   the PR-16 design (``git show
+   2e05f3b:src/repro_torch/kernels/csrc/decision_fused.cu``, with its
+   ``theorem2.cuh`` beside it or the current one), that design behind its
+   own launch path, checked bit for bit and timed in turns with this one
+   (old, new, new, old), device and per call;
 8. Mamba-2 (``mamba2-130m``, full width: 24 layers, d_model 768, 129 M
    random float32 parameters from a seed) on the card: with the counts at
    0, a forward at batch 4 x 2048 and ``launch/serve.py::generate``
@@ -99,6 +112,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -112,10 +126,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 CHECK_SIZES = (1, 100, 1025, 3597, 1 << 20)
+# K2 only: short and ragged vectors
+FUSED_EDGE_SIZES = (3, 5, 1027)
 ROUNDS = 5
 # The bucket-batched kernel's (B, N) checks; (1024, 32) and (512, 128) are
 # the service's proposed groups at full width, (64, 16384) a cold large one.
 BATCHED_SHAPES = ((1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384))
+# a single ragged row, and rows past CUDA's grid-y limit (65,535)
+BATCHED_EDGE_SHAPES = ((1, 3), (70000, 4))
 SERVICE_FULL_FLUSHES = 6
 SERVICE_PARTIAL_FLUSHES = 20
 SERVICE_PARTIAL_SIZE = 64
@@ -169,6 +187,29 @@ def compare(torch, name, got, want, rtol, atol):
     return float((got - want).abs().max())
 
 
+def offset_view(torch, x):
+    """A copy of ``x`` as a contiguous view at storage offset 1 (the tail of
+    a flat buffer one element longer)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def bitwise(torch, tag, got, want):
+    """Each output equal to the plain version's bit for bit; max |d|."""
+    for name, x, y in zip(("sel", "q", "P", "Z'", "tc", "pq"), got, want):
+        e = float((x.float() - y.float()).abs().max())
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag} {name}: not bitwise equal to the "
+                                 f"plain version (max |d| {e})")
+    for out in got[1:]:
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{tag}: non-finite output")
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(got, want))
+
+
 def check_kernels(torch, scfg, ch, ops):
     from repro_torch.kernels.decision_fused import (decision_fused,
                                                     decision_fused_plain)
@@ -177,14 +218,15 @@ def check_kernels(torch, scfg, ch, ops):
                                                      solve_scalars)
     kw = solve_kwargs(scfg, ch)
     err = {"scheduler_solve": 0.0, "decision_fused": 0.0}
-    for n in CHECK_SIZES:
+    for n in sorted(CHECK_SIZES + FUSED_EDGE_SIZES):
         gains, z, u, mask = lanes(torch, n, n, "cuda")
-        q, p = scheduler_solve(gains, z, **kw)
-        q0, p0 = scheduler_solve_plain(gains, z, solve_scalars(**kw))
-        torch.cuda.synchronize()
-        e = max(compare(torch, f"solve q N={n}", q, q0, 1e-5, 1e-6),
-                compare(torch, f"solve P N={n}", p, p0, 1e-5, 1e-3))
-        err["scheduler_solve"] = max(err["scheduler_solve"], e)
+        if n in CHECK_SIZES:
+            q, p = scheduler_solve(gains, z, **kw)
+            q0, p0 = scheduler_solve_plain(gains, z, solve_scalars(**kw))
+            torch.cuda.synchronize()
+            e = max(compare(torch, f"solve q N={n}", q, q0, 1e-5, 1e-6),
+                    compare(torch, f"solve P N={n}", p, p0, 1e-5, 1e-3))
+            err["scheduler_solve"] = max(err["scheduler_solve"], e)
         for masked in (False, True):
             m = mask if masked else None
             got = decision_fused(gains, z, u, ops, active=m, valid=m)
@@ -200,11 +242,16 @@ def check_kernels(torch, scfg, ch, ops):
             far = (u - want[1]).abs() > 1e-6
             if not torch.equal(got[0][far], want[0][far]):
                 raise AssertionError(f"{tag}: selection differs")
-            for out in got[1:]:
-                if not torch.isfinite(out).all():
-                    raise AssertionError(f"{tag}: non-finite output")
+            e = max(e, bitwise(torch, tag, got, want))
+            # the same lanes at storage offset 1, masks included
+            views = [offset_view(torch, x) for x in (gains, z, u)]
+            mv = None if m is None else offset_view(torch, m)
+            got = decision_fused(*views, ops, active=mv, valid=mv)
+            torch.cuda.synchronize()
+            bitwise(torch, f"{tag} offset 1", got, want)
             err["decision_fused"] = max(err["decision_fused"], e)
-        print(f"kernels agree with plain versions at N={n}", flush=True)
+        print(f"kernels agree with plain versions at N={n} (the fused one "
+              f"bit for bit, also at storage offset 1)", flush=True)
     return err
 
 
@@ -237,30 +284,28 @@ def batched_lanes(torch, b, n, seed, device):
 
 
 def check_batched(torch):
-    """The bucket-batched kernel against its plain version, bit for bit."""
+    """The bucket-batched kernel against its plain version, bit for bit, at
+    the checked shapes and the edge shapes, and at storage offset 1."""
     from repro_torch.kernels.decision_fused import (
         decision_fused_batched, decision_fused_batched_plain)
     err = 0.0
-    for b, n in BATCHED_SHAPES:
+    for b, n in BATCHED_SHAPES + BATCHED_EDGE_SHAPES:
         gains, z, u, valid, ops = batched_lanes(torch, b, n, b * n, "cuda")
         for masked in (False, True):
             v = valid if masked else None
-            got = decision_fused_batched(gains, z, u, ops, valid=v)
             want = decision_fused_batched_plain(gains, z, u, ops, v)
+            got = decision_fused_batched(gains, z, u, ops, valid=v)
             torch.cuda.synchronize()
-            for name, x, y in zip(("sel", "q", "P", "Z'", "tc", "pq"), got,
-                                  want):
-                e = float((x.float() - y.float()).abs().max())
-                if not torch.equal(x, y):
-                    raise AssertionError(
-                        f"batched ({b}, {n}) valid={masked} {name}: not "
-                        f"bitwise equal to the plain version (max |d| {e})")
-                err = max(err, e)
-            for out in got[1:]:
-                if not torch.isfinite(out).all():
-                    raise AssertionError(f"batched ({b}, {n}): non-finite")
+            tag = f"batched ({b}, {n}) valid={masked}"
+            err = max(err, bitwise(torch, tag, got, want))
+            views = [offset_view(torch, x) for x in (gains, z, u)]
+            got = decision_fused_batched(
+                *views, ops, valid=None if v is None else offset_view(
+                    torch, v))
+            torch.cuda.synchronize()
+            bitwise(torch, f"{tag} offset 1", got, want)
         print(f"batched kernel equals its plain version at (B, N) = "
-              f"({b}, {n})", flush=True)
+              f"({b}, {n}), also at storage offset 1", flush=True)
     return err
 
 
@@ -767,15 +812,279 @@ def bound(spec, n, rows=0):
                                  else "operations")
 
 
+def main_path_sass(text, func):
+    """Instructions of ``func`` in ``cuobjdump -sass`` output ``text``
+    from its entry to its last EXIT before the first RET (the slow paths
+    of the divisions and square roots, called out of line, come after),
+    NOPs left out: the static count of one lane's main path."""
+    body = text.split(f"Function : {func}", 1)[1].split("Function : ")[0]
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", m.group(1)).split()[0]
+           for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)]
+    ret = next((k for k, op in enumerate(ops) if op.startswith("RET")),
+               len(ops))
+    end = max(k for k, op in enumerate(ops[:ret]) if op == "EXIT")
+    return sum(1 for op in ops[:end + 1] if op != "NOP")
+
+
+def sass_per_lane(libraries):
+    """{(library tag, kernel): static SASS instructions of one lane}, read
+    with ``cuobjdump -sass`` from the built libraries: K2 without masks
+    and K3 with ``valid``, as the engine and the service call them."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    # mangled names: decision_kernel<kActive, kValid, kRowOps> of this
+    # design; the PR-16 design's two kernels
+    funcs = {"decision_fused": ("decision_kernelILb0ELb0ELb0EE",
+                                "decision_fused_kernel"),
+             "decision_fused_batched": ("decision_kernelILb0ELb1ELb1EE",
+                                        "decision_fused_batched_kernel")}
+    out = {}
+    for tag, lib in libraries.items():
+        text = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        names = re.findall(r"Function : (\S+)", text)
+        for kernel, keys in funcs.items():
+            name = next(x for x in names
+                        if keys[tag == "pr16"] in x)
+            out[(tag, kernel)] = main_path_sass(text, name)
+    return out
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def busy_sm_clock_hz(torch, fn):
+    """The SM clock ``nvidia-smi`` reads while ``fn`` runs back to back on
+    the card (the queue filled first, then kept full until the query
+    returns)."""
+    for _ in range(300):
+        fn()
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits"],
+                            stdout=subprocess.PIPE, text=True)
+    while proc.poll() is None:
+        fn()
+    torch.cuda.synchronize()
+    return float(proc.stdout.read().split()[0]) * 1e6
+
+
+def pr16_decision(torch):
+    """The PR-16 design of K2 and K3 (commit 2e05f3b: a 1-D grid-stride
+    loop over the flattened lanes, 256-thread blocks, each K3 lane finding
+    its row by a 64-bit division) from ``build/decision_fused_pr16.cu``,
+    behind the PR-16 wrappers' launch path (the same checks, six output
+    allocations, a device context, K2's operands converted per call), as
+    (k2(gains, z, u, ops), k3(gains, z, u, ops, valid), library path);
+    None when that file is absent."""
+    import ctypes
+
+    from repro_torch.kernels._launch import check_lanes
+    lib = earlier_kernel("decision_fused_pr16")
+    if lib is None:
+        return None
+    k2 = lib.decision_fused_f32
+    k2.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    k3 = lib.decision_fused_batched_f32
+    k3.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+
+    def outputs(gains):
+        sel = torch.empty(gains.shape, dtype=torch.bool, device=gains.device)
+        return [sel] + [torch.empty_like(gains) for _ in range(5)]
+
+    def launched(code, outs):
+        if code != 0:
+            raise RuntimeError(f"PR-16 decision kernel: cudaError {code}")
+        return tuple(outs)
+
+    def call2(gains, z, u, ops):
+        check_lanes("pr16", torch.float32, gains, gains=gains, z=z, u=u)
+        check_lanes("pr16", torch.bool, gains)
+        if (ops.dtype != torch.float32 or ops.device.type != "cpu"
+                or ops.shape != (14,)):
+            raise ValueError("pr16: bad ops")
+        outs = outputs(gains)
+        host = (ctypes.c_float * 14)(*[float(v) for v in ops.tolist()])
+        with torch.cuda.device(gains.device):
+            code = k2(gains.data_ptr(), z.data_ptr(), u.data_ptr(), None,
+                      None, *(x.data_ptr() for x in outs), gains.shape[0],
+                      host, torch.cuda.current_stream(gains.device)
+                      .cuda_stream)
+        return launched(code, outs)
+
+    def call3(gains, z, u, ops, valid):
+        check_lanes("pr16", torch.float32, gains, 2, gains=gains, z=z, u=u)
+        check_lanes("pr16", torch.bool, gains, 2, valid=valid)
+        if (ops.dtype != torch.float32 or ops.shape != (gains.shape[0], 14)
+                or ops.device != gains.device or not ops.is_contiguous()):
+            raise ValueError("pr16: bad ops")
+        outs = outputs(gains)
+        with torch.cuda.device(gains.device):
+            code = k3(gains.data_ptr(), z.data_ptr(), u.data_ptr(),
+                      ops.data_ptr(), valid.data_ptr(),
+                      *(x.data_ptr() for x in outs), *gains.shape,
+                      torch.cuda.current_stream(gains.device).cuda_stream)
+        return launched(code, outs)
+
+    return call2, call3, ROOT / "build" / "decision_fused_pr16.so"
+
+
+# what phase 7 adds to K2's and K3's rows of the kernels line
+DECISION_EXTRAS = ("ms_turns", "pr16_ms", "pr16_ms_turns", "pr16_call_ms",
+                   "launch_floor_ms", "sass_per_lane", "issue_floor_ms",
+                   "pr16_sass_per_lane", "busy_sm_clock_mhz",
+                   "issue_floor_busy_clock_ms", "host_split_us")
+
+
+def host_split(torch, whole, pieces, iters=2000):
+    """Host microseconds per call of a wrapper (``whole``) and of the
+    ``pieces`` of its launch path, each run back to back on the host clock
+    (the device work of a launch is shorter than its host time), and the
+    rest of the wrapper (``whole`` less the pieces)."""
+    def per_call(fn):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / iters * 1e6
+    out = {"whole": per_call(whole)}
+    out.update((name, per_call(fn)) for name, fn in pieces.items())
+    out["rest"] = out["whole"] - sum(out[k] for k in pieces)
+    return out
+
+
+def in_turns(torch, new, old, measure):
+    """``measure`` of ``new`` and ``old`` taken old, new, new, old: (new's
+    two, old's two)."""
+    t = [measure(f) for f in (old, new, new, old)]
+    return [t[1], t[2]], [t[0], t[3]]
+
+
 def timings(torch, scfg, ch, ops):
-    from repro_torch.kernels.decision_fused import (decision_fused,
-                                                    decision_fused_plain)
+    """Phase 7: K1's, K2's and K3's device time (and per call at the warm
+    shapes) beside their plain versions' and their bound; for K2 and K3
+    also the launch floor, the static SASS count of a lane, the issue-rate
+    floor it gives, and, where ``build/decision_fused_pr16.cu`` holds the
+    PR-16 design, that design's times taken in turns with this one."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._launch import stream_of
+    from repro_torch.kernels.decision_fused import _lib as launch_k2
+    from repro_torch.kernels.decision_fused import _lib_batched as launch_k3
+    from repro_torch.kernels.decision_fused import (
+        check_args, check_batched_args, decision_fused,
+        decision_fused_batched, decision_fused_batched_plain,
+        decision_fused_plain, decision_outputs, launch_floor, launch_plan)
     from repro_torch.kernels.scheduler_solve import (scheduler_solve,
                                                      scheduler_solve_plain,
                                                      solve_scalars)
     kw = solve_kwargs(scfg, ch)
     s = solve_scalars(**kw)
     ops_dev = ops.to("cuda")  # the plain version then copies nothing
+    pr16 = pr16_decision(torch)
+    libs = {"this": _build.library_path("decision_fused")}
+    if pr16 is not None:
+        libs["pr16"] = pr16[2]
+    sass = sass_per_lane(libs)
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"phase 7: max SM clock {clock / 1e6:.0f} MHz, {sms} SMs; static "
+          f"SASS per lane {({f'{k[0]} {k[1]}': v for k, v in sass.items()})}",
+          flush=True)
+
+    def floors(name, rows, n, like, kernel, cold):
+        """The launch floor on this shape's plan and the issue floor:
+        the lane's SASS over 4 schedulers an SM at the max clock and, at
+        the cold shapes, at the clock read while the kernel runs."""
+        stream = torch.cuda.current_stream().cuda_stream
+        ptr = like.data_ptr()
+
+        def empty():
+            code = launch_floor()(*[ptr] * 7, rows, n,
+                                  *launch_plan(rows, n), stream)
+            if code != 0:
+                raise RuntimeError(f"decision_launch_floor: cudaError {code}")
+        issue = sass[("this", name)] * rows * n / 32 / (4 * sms) * 1e3
+        row = dict(launch_floor_ms=time_device(torch, empty, False),
+                   sass_per_lane=sass[("this", name)],
+                   issue_floor_ms=issue / clock,
+                   pr16_sass_per_lane=sass.get(("pr16", name)))
+        if cold:
+            busy = busy_sm_clock_hz(torch, kernel)
+            row.update(busy_sm_clock_mhz=busy / 1e6,
+                       issue_floor_busy_clock_ms=issue / busy)
+        return row
+
+    def compare_pr16(row, new, old, cold):
+        row.update(pr16_ms=None, pr16_call_ms=None)
+        if old is None:
+            return
+        bitwise(torch, "PR-16 design", old(), new())
+        ms, ms16 = in_turns(torch, new, old,
+                            lambda f: time_device(torch, f, cold))
+        row.update(ms=sum(ms) / 2, ms_turns=ms, pr16_ms=sum(ms16) / 2,
+                   pr16_ms_turns=ms16)
+        if not cold:
+            call, call16 = in_turns(torch, new, old,
+                                    lambda f: time_calls(torch, f))
+            row.update(call_ms=sum(call) / 2, pr16_call_ms=sum(call16) / 2)
+
+    def split_k2(gains, z, u):
+        """The K2 wrapper's host time: its checks, its output allocations
+        and views, the bare C call (ctypes and the launch) and the rest."""
+        sel, out = decision_outputs(gains)
+        args = (gains.data_ptr(), z.data_ptr(), u.data_ptr(), None, None,
+                sel.data_ptr(), out.data_ptr(), gains.shape[0],
+                ops.data_ptr(), *launch_plan(1, gains.shape[0])[:2],
+                stream_of(gains.device))
+        return host_split(torch, lambda: decision_fused(gains, z, u, ops), {
+            "checks": lambda: check_args(gains, z, u, ops),
+            "outputs": lambda: decision_outputs(gains)[1].unbind(0),
+            "launch": lambda: launch_k2()(*args)})
+
+    def split_k3(gains, z, u, bops, valid):
+        sel, out = decision_outputs(gains)
+        args = (gains.data_ptr(), z.data_ptr(), u.data_ptr(),
+                bops.data_ptr(), valid.data_ptr(), sel.data_ptr(),
+                out.data_ptr(), *gains.shape, *launch_plan(*gains.shape),
+                stream_of(gains.device))
+        return host_split(torch, lambda: decision_fused_batched(
+            gains, z, u, bops, valid=valid), {
+            "checks": lambda: check_batched_args(gains, z, u, bops, valid),
+            "outputs": lambda: decision_outputs(gains)[1].unbind(0),
+            "launch": lambda: launch_k3()(*args)})
+
+    def report(name, shape, row):
+        pr16_ms = row["pr16_ms"]
+        print(f"{name} {shape}: {row['ms'] * 1e3:.2f} us device"
+              + (f" (PR-16 design {pr16_ms * 1e3:.2f} us in turns)"
+                 if pr16_ms else "")
+              + (f", {row['call_ms'] * 1e3:.1f} us per call"
+                 if "call_ms" in row else "")
+              + (f" (PR-16 {row['pr16_call_ms'] * 1e3:.1f})"
+                 if row.get("pr16_call_ms") else "")
+              + f"; launch floor {row['launch_floor_ms'] * 1e3:.2f} us, "
+              f"issue floor {row['issue_floor_ms'] * 1e3:.2f} us "
+              f"({row['sass_per_lane']} SASS a lane)"
+              + (f", {row['issue_floor_busy_clock_ms'] * 1e3:.2f} us at the "
+                 f"{row['busy_sm_clock_mhz']:.0f} MHz read while it ran"
+                 if "busy_sm_clock_mhz" in row else "")
+              + "; bound "
+              f"{row['bound_ms'] * 1e3:.3f} us", flush=True)
+        if "host_split_us" in row:
+            print("  host us per call: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in row["host_split_us"].items()),
+                flush=True)
+
     out = {}
     for n in (scfg.n_clients, 1 << 20):
         gains, z, u, _ = lanes(torch, n, 7, "cuda")
@@ -795,9 +1104,14 @@ def timings(torch, scfg, ch, ops):
             if not cold:
                 row.update(call_ms=time_calls(torch, kernel),
                            plain_call_ms=time_calls(torch, plain))
+            if name == "decision_fused":
+                compare_pr16(row, kernel, None if pr16 is None else
+                             (lambda: pr16[0](gains, z, u, ops)), cold)
+                row.update(floors(name, 1, n, gains, kernel, cold))
+                if not cold:
+                    row["host_split_us"] = split_k2(gains, z, u)
+                report(name, n, row)
             out[(name, n)] = row
-    from repro_torch.kernels.decision_fused import (
-        decision_fused_batched, decision_fused_batched_plain)
     for b, n in BATCHED_SHAPES[2:]:
         gains, z, u, valid, bops = batched_lanes(torch, b, n, 11, "cuda")
         cold = (b, n) == BATCHED_SHAPES[-1]
@@ -815,6 +1129,13 @@ def timings(torch, scfg, ch, ops):
         if not cold:
             row.update(call_ms=time_calls(torch, kernel),
                        plain_call_ms=time_calls(torch, plain, iters=50))
+        compare_pr16(row, kernel, None if pr16 is None else
+                     (lambda: pr16[1](gains, z, u, bops, valid)), cold)
+        row.update(floors("decision_fused_batched", b, n, gains, kernel,
+                          cold))
+        if not cold:
+            row["host_split_us"] = split_k3(gains, z, u, bops, valid)
+        report("decision_fused_batched", (b, n), row)
         out[("decision_fused_batched", (b, n))] = row
     return out
 
@@ -901,10 +1222,10 @@ def check_ssd(torch):
 
 
 def check_no_spills(name, log):
-    """The functions of ``name``'s library (K4's four passes, K5), as
-    ``ptxas -v`` reports them, spill nothing (a spill or a serialised wgmma
-    would quietly cost most of their speed). An empty log means the library
-    was already built."""
+    """The functions of ``name``'s library (K2 and K3, K4's four passes,
+    K5), as ``ptxas -v`` reports them, spill nothing (a spill or a
+    serialised wgmma would quietly cost most of their speed). An empty log
+    means the library was already built."""
     bad = [line.strip() for line in log.splitlines()
            if ("spill" in line and not line.strip().startswith(
                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
@@ -1213,18 +1534,20 @@ def ssd_bound(b, s, h, p, n, chunk, with_state):
                            * 1e3))
 
 
-def earlier_kernel(name):
-    """The library of ``build/<name>_cuda_cores.cu``, an earlier design of a
-    kernel put there by hand, built with the port's flags; None when that
-    file is absent."""
+def earlier_kernel(stem):
+    """The library of ``build/<stem>.cu``, an earlier design of a kernel put
+    there by hand, built with the port's flags and its headers on the
+    include path (a header beside the source, from the same commit, wins);
+    None when that file is absent."""
     import ctypes
     from repro_torch.kernels import _build
-    src = ROOT / "build" / f"{name}_cuda_cores.cu"
+    src = ROOT / "build" / f"{stem}.cu"
     if not src.is_file():
         return None
     lib = src.with_suffix(".so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(src)], check=True, capture_output=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                    f"-I{_build.CSRC}", "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -1234,7 +1557,7 @@ def cuda_core_ssd(torch):
     dt, a, bm, cm, chunk) returning (y, the final state); None when that
     file is absent."""
     import ctypes
-    lib = earlier_kernel("ssd_scan")
+    lib = earlier_kernel("ssd_scan_cuda_cores")
     if lib is None:
         return None
     fn = lib.ssd_scan_f32
@@ -1363,7 +1686,7 @@ def cuda_core_flash(torch):
     ``build/flash_attention_cuda_cores.cu``, as a function of (q, k, v)
     (causal); None when that file is absent."""
     import ctypes
-    lib = earlier_kernel("flash_attention")
+    lib = earlier_kernel("flash_attention_cuda_cores")
     if lib is None:
         return None
     fn = lib.flash_attention_fwd
@@ -1473,7 +1796,7 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers",
                                        "spill", "Performance Loss")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    for name in ("ssd_scan", "flash_attention"):
+    for name in ("decision_fused", "ssd_scan", "flash_attention"):
         check_no_spills(name, logs.get(name, ""))
 
     ch, scfg = CONFIG.channel(), CONFIG.scheduler(lam=10.0)
@@ -1481,6 +1804,9 @@ def main() -> int:
     ops = pack_decision_operands(co.solve, co.acct)
     err = check_kernels(torch, scfg, ch, ops)
     err["decision_fused_batched"] = check_batched(torch)
+    # phase 7's K1-K3 timings run here, next to their checks and before
+    # phases 5 and 6 run torch.profiler in this process
+    times = timings(torch, scfg, ch, ops)
     err["ssd_scan"] = check_ssd(torch)
     err["flash_attention_bhsd"] = check_flash(torch)
     launches, run = main_path(torch)
@@ -1490,7 +1816,6 @@ def main() -> int:
     svc_profile = dict(flush_split(svc, full_flushes),
                        **profile_flushes(torch, svc, full_flushes))
     launches["decision_fused_batched"] = svc_counts["decision_fused_batched"]
-    times = timings(torch, scfg, ch, ops)
     mamba_launches, mamba = lm_path(torch, "mamba2-130m", "ssd_scan")
     ssd_time = time_ssd(torch)
     torch.cuda.empty_cache()
@@ -1512,6 +1837,7 @@ def main() -> int:
             "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
             "library_ms": None, "call_ms": small["call_ms"],
             "plain_call_ms": small["plain_call_ms"],
+            **{k: small[k] for k in DECISION_EXTRAS if k in small},
             "large": dict(n=1 << 20, **large)})
     spec = KERNELS["decision_fused_batched"]
     main_shape, *others = BATCHED_SHAPES[2:]

@@ -62,38 +62,44 @@ __device__ __forceinline__ float rate(float g, float p, float bw, float n0) {
   return bw * log2f(1.0f + (g * p) / n0);
 }
 
-// Eq. 17 for a given power, clipped into [q_floor, 1].
-__device__ __forceinline__ float q_eq17(float p, float g, float z,
+// Eq. 17 for a given power, clipped into [q_floor, 1]; r is the power's
+// rate(g, p, bw, n0), before its kEps floor.
+__device__ __forceinline__ float q_eq17(float r, float p, float z,
                                         const SolveScalars& s) {
-  const float r = max_nan(rate(g, p, s.bw, s.n0), kEps);
+  r = max_nan(r, kEps);
   const float inv_sq = s.lle_n / r + (s.n_over_v * z) * p;
   return clip(rsqrtf(max_nan(inv_sq, kEps)), s.q_floor, 1.0f);
 }
 
-// Per-client drift-plus-penalty objective of Eq. 15.
-__device__ __forceinline__ float objective(float q, float p, float g, float z,
+// Per-client drift-plus-penalty objective of Eq. 15; r as for q_eq17.
+__device__ __forceinline__ float objective(float r, float q, float p, float z,
                                            const SolveScalars& s) {
-  const float r = max_nan(rate(g, p, s.bw, s.n0), kEps);
+  r = max_nan(r, kEps);
   const float y0 = 1.0f / (s.n * q) + (s.lle * q) / r;
   return s.v * y0 + z * (p * q - s.p_bar);
 }
 
 // Interior and boundary candidates from the Eq. 16 argument a; keeps the
-// interior one where its objective is finite and not larger.
+// interior one where its objective is finite and not larger. Each
+// candidate's rate is computed once, for Eq. 17 and the objective both;
+// the kept one's goes to *r_out (before the kEps floor) where asked.
 __device__ __forceinline__ void solve(float g, float z, float a,
                                       const SolveScalars& s, float* q_out,
-                                      float* p_out) {
+                                      float* p_out, float* r_out = nullptr) {
   const float w = lambertw0(sqrtf(a / 4.0f));
   float p_int = (s.n0 / g) * (a / (4.0f * max_nan(w * w, kEps)) - 1.0f);
   p_int = clip(p_int, 0.0f, s.p_max);
-  const float q_int = q_eq17(p_int, g, z, s);
+  const float r_int = rate(g, p_int, s.bw, s.n0);
+  const float q_int = q_eq17(r_int, p_int, z, s);
   const float p_bnd = s.p_max;
-  const float q_bnd = q_eq17(p_bnd, g, z, s);
-  const float f_int = objective(q_int, p_int, g, z, s);
-  const float f_bnd = objective(q_bnd, p_bnd, g, z, s);
+  const float r_bnd = rate(g, p_bnd, s.bw, s.n0);
+  const float q_bnd = q_eq17(r_bnd, p_bnd, z, s);
+  const float f_int = objective(r_int, q_int, p_int, z, s);
+  const float f_bnd = objective(r_bnd, q_bnd, p_bnd, z, s);
   const bool use_int = isfinite(f_int) && (f_int <= f_bnd);
   *q_out = use_int ? q_int : q_bnd;
   *p_out = use_int ? p_int : p_bnd;
+  if (r_out != nullptr) *r_out = use_int ? r_int : r_bnd;
 }
 
 inline unsigned int grid_for(int64_t n) {

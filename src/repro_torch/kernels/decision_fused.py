@@ -13,22 +13,29 @@ accounting folds stay with the caller (``fl/decision.py``,
 ``decision_fused`` takes one (N,) client vector and its (14,) operands;
 ``decision_fused_batched`` takes the service's (B, N) bucket rows with a
 (B, 14) operand row each. Both launch ``csrc/decision_fused.cu`` for CUDA
-tensors and run their plain versions for CPU tensors.
+tensors and run their plain versions for CPU tensors. The launch path is
+kept lean, since at the engine's and the service's shapes it costs more
+than the kernel: the five float outputs are one allocation (a (5, ...)
+slab whose rows are returned as views), the grid comes from
+:func:`launch_plan`, K2's operands are read by the C side straight from
+the host tensor, and a device context is entered only when the lanes are
+not on the current device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.scheduler import (SolveCoeffs, solve_round_coeffs,
                                         update_queues_z)
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (check_lanes, host_f32, ptr,
-                                         raise_on_error, stream_of,
-                                         unsupported_device)
+from repro_torch.kernels._launch import (check_lanes, raise_on_error,
+                                         stream_of, unsupported_device)
 
 # Operand-vector layout: SolveCoeffs' 11 fields in declaration order, then
 # AccountCoeffs' ell, bw, n0 (the reference's layout).
@@ -80,23 +87,103 @@ def decision_fused_batched_plain(gains, z, u, ops, valid=None):
     return _decision_lanes(gains, z, u, cols, None, valid)
 
 
+# The launch plan: one lane a thread; a block of ``block`` threads works
+# inside one row, ``grid_x`` blocks along it; row blocks loop over rows
+# ``by, by + grid_y, ...`` past CUDA's grid-y limit.
+MAX_THREADS = 128
+MAX_GRID_Y = 65535
+
+
+class LaunchPlan(NamedTuple):
+    block: int    # threads a block, along one row (a warp multiple)
+    grid_x: int   # blocks along a row
+    grid_y: int   # row blocks
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(rows: int, n: int) -> LaunchPlan:
+    """How the kernel covers ``rows`` rows of ``n`` lanes: blocks of the
+    row's length rounded up to a power of two, from one warp to
+    ``MAX_THREADS``, so short rows (the service's buckets of 32) make many
+    small blocks that spread over every SM."""
+    block = min(MAX_THREADS, max(32, 1 << (n - 1).bit_length()))
+    return LaunchPlan(block, -(-n // block), min(rows, MAX_GRID_Y))
+
+
+def decision_outputs(like: torch.Tensor):
+    """``(sel, out)`` for lanes like ``like``: ``sel`` bool, ``out`` one
+    float32 slab (5, *shape) whose rows are q, P, Z', tc and pq."""
+    return (like.new_empty(like.shape, dtype=torch.bool),
+            like.new_empty((5, *like.shape)))
+
+
 @functools.cache
 def _lib():
     fn = _build.load("decision_fused").decision_fused_f32
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong,
-                                            ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 7
+                   + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_uint, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _batched_argtypes(fn):
+    fn.argtypes = ([ctypes.c_void_p] * 7
+                   + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
 def _lib_batched():
-    fn = _build.load("decision_fused").decision_fused_batched_f32
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong,
-                                            ctypes.c_longlong,
-                                            ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _batched_argtypes(_build.load("decision_fused")
+                             .decision_fused_batched_f32)
+
+
+@functools.cache
+def launch_floor():
+    """``decision_launch_floor``: an empty kernel with the batched
+    kernel's C arguments, launched on the plan it is given."""
+    return _batched_argtypes(_build.load("decision_fused")
+                             .decision_launch_floor)
+
+
+def _on(device: torch.device):
+    """``torch.cuda.device(device)`` where it is not the current device."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def check_args(gains, z, u, ops, active=None, valid=None):
+    """:func:`decision_fused`'s argument checks."""
+    check_lanes("decision_fused", torch.float32, gains, gains=gains, z=z,
+                u=u)
+    if active is not None or valid is not None:
+        check_lanes("decision_fused", torch.bool, gains,
+                    **{k: m for k, m in (("active", active),
+                                         ("valid", valid)) if m is not None})
+    if (ops.dtype != torch.float32 or ops.device.type != "cpu"
+            or ops.shape != (N_DECISION_OPS,)):
+        raise ValueError(f"decision_fused: ops must be a ({N_DECISION_OPS},) "
+                         f"float32 CPU tensor, got {tuple(ops.shape)} "
+                         f"{ops.dtype} on {ops.device}")
+
+
+def check_batched_args(gains, z, u, ops, valid=None):
+    """:func:`decision_fused_batched`'s argument checks."""
+    kernel = "decision_fused_batched"
+    check_lanes(kernel, torch.float32, gains, 2, gains=gains, z=z, u=u)
+    if valid is not None:
+        check_lanes(kernel, torch.bool, gains, 2, valid=valid)
+    b = gains.shape[0]
+    if (ops.dtype != torch.float32 or ops.shape != (b, N_DECISION_OPS)
+            or ops.device != gains.device or not ops.is_contiguous()):
+        raise ValueError(f"{kernel}: ops must be a contiguous ({b}, "
+                         f"{N_DECISION_OPS}) float32 tensor on "
+                         f"{gains.device}, got {tuple(ops.shape)} "
+                         f"{ops.dtype} on {ops.device}")
 
 
 def decision_fused(gains: torch.Tensor, z: torch.Tensor, u: torch.Tensor,
@@ -112,30 +199,25 @@ def decision_fused(gains: torch.Tensor, z: torch.Tensor, u: torch.Tensor,
     synchronisation) and count one launch in ``decision_fused.launches``;
     CPU tensors run the plain version.
     """
-    check_lanes("decision_fused", torch.float32, gains, gains=gains, z=z,
-                u=u)
-    masks = {k: m for k, m in (("active", active), ("valid", valid))
-             if m is not None}
-    check_lanes("decision_fused", torch.bool, gains, **masks)
-    if (ops.dtype != torch.float32 or ops.device.type != "cpu"
-            or ops.shape != (N_DECISION_OPS,)):
-        raise ValueError(f"decision_fused: ops must be a ({N_DECISION_OPS},) "
-                         f"float32 CPU tensor, got {tuple(ops.shape)} "
-                         f"{ops.dtype} on {ops.device}")
+    check_args(gains, z, u, ops, active, valid)
     if gains.device.type == "cpu":
         return decision_fused_plain(gains, z, u, ops, active, valid)
     if gains.device.type != "cuda":
         unsupported_device("decision_fused", gains.device)
-    sel = torch.empty(gains.shape, dtype=torch.bool, device=gains.device)
-    q, p, z_new, tc, pq = (torch.empty_like(gains) for _ in range(5))
-    host_ops = host_f32("decision_fused", ops.tolist(), N_DECISION_OPS)
-    with torch.cuda.device(gains.device):
-        code = _lib()(ptr(gains), ptr(z), ptr(u), ptr(active), ptr(valid),
-                      ptr(sel), ptr(q), ptr(p), ptr(z_new), ptr(tc), ptr(pq),
-                      gains.shape[0], host_ops, stream_of(gains.device))
+    sel, out = decision_outputs(gains)
+    n = gains.shape[0]
+    # the kernel takes the 14 operands by value, read from the host tensor
+    host_ops = ops if ops.is_contiguous() else ops.contiguous()
+    with _on(gains.device):
+        code = _lib()(gains.data_ptr(), z.data_ptr(), u.data_ptr(),
+                      None if active is None else active.data_ptr(),
+                      None if valid is None else valid.data_ptr(),
+                      sel.data_ptr(), out.data_ptr(), n,
+                      host_ops.data_ptr(), *launch_plan(1, n)[:2],
+                      stream_of(gains.device))
     raise_on_error("decision_fused", code)
     decision_fused.launches += 1
-    return sel, q, p, z_new, tc, pq
+    return (sel, *out.unbind(0))
 
 
 decision_fused.launches = 0
@@ -160,30 +242,22 @@ def decision_fused_batched(gains: torch.Tensor, z: torch.Tensor,
     ``decision_fused_batched.launches``; CPU tensors run the plain version.
     """
     kernel = "decision_fused_batched"
-    check_lanes(kernel, torch.float32, gains, 2, gains=gains, z=z, u=u)
-    if valid is not None:
-        check_lanes(kernel, torch.bool, gains, 2, valid=valid)
-    b = gains.shape[0]
-    if (ops.dtype != torch.float32 or ops.shape != (b, N_DECISION_OPS)
-            or ops.device != gains.device or not ops.is_contiguous()):
-        raise ValueError(f"{kernel}: ops must be a contiguous ({b}, "
-                         f"{N_DECISION_OPS}) float32 tensor on "
-                         f"{gains.device}, got {tuple(ops.shape)} "
-                         f"{ops.dtype} on {ops.device}")
+    check_batched_args(gains, z, u, ops, valid)
     if gains.device.type == "cpu":
         return decision_fused_batched_plain(gains, z, u, ops, valid)
     if gains.device.type != "cuda":
         unsupported_device(kernel, gains.device)
-    sel = torch.empty(gains.shape, dtype=torch.bool, device=gains.device)
-    q, p, z_new, tc, pq = (torch.empty_like(gains) for _ in range(5))
-    with torch.cuda.device(gains.device):
-        code = _lib_batched()(ptr(gains), ptr(z), ptr(u), ptr(ops),
-                              ptr(valid), ptr(sel), ptr(q), ptr(p),
-                              ptr(z_new), ptr(tc), ptr(pq), b,
-                              gains.shape[1], stream_of(gains.device))
+    sel, out = decision_outputs(gains)
+    b, n = gains.shape
+    with _on(gains.device):
+        code = _lib_batched()(
+            gains.data_ptr(), z.data_ptr(), u.data_ptr(), ops.data_ptr(),
+            None if valid is None else valid.data_ptr(), sel.data_ptr(),
+            out.data_ptr(), b, n, *launch_plan(b, n),
+            stream_of(gains.device))
     raise_on_error(kernel, code)
     decision_fused_batched.launches += 1
-    return sel, q, p, z_new, tc, pq
+    return (sel, *out.unbind(0))
 
 
 decision_fused_batched.launches = 0

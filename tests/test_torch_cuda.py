@@ -7,10 +7,12 @@ device (decided in a fixture, never at import). Run on a GPU with
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances as on the CPU: q rtol 1e-5 / atol 1e-6, power-like outputs
-rtol 1e-5 / atol 1e-3, tc rtol 1e-5, ``sel`` exact where |u - q| > 1e-6.
-The bucket-batched fused kernel is held to its plain version bit for bit
-(the same IEEE ops in the same order, no contraction), and the service's
+Solve tolerances as on the CPU: q rtol 1e-5 / atol 1e-6, power-like
+outputs rtol 1e-5 / atol 1e-3. The fused kernels, single-vector and
+bucket-batched, are held to their plain versions bit for bit (the same
+IEEE ops in the same order, no contraction; the single-vector one also at
+the solve's tolerances), at short and ragged sizes, rows past CUDA's
+grid-y limit and lanes at storage offset 1, and the service's
 cuda_fused and stitched paths select the same clients. The SSD scan
 (through ``ops.ssd``, which pads) against its plain chunked version at the
 smoke's shapes: y rtol 1e-4 / atol 2e-4, the final state rtol 1e-4 /
@@ -25,6 +27,8 @@ itself on the ``repeat_interleave``-expanded heads bit for bit; reduced
 yi-6b at its full head_dim (128) launches it once per layer in forward
 and prefill, never in decode, and expands no KV head.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -56,6 +60,7 @@ from repro_torch.service.demo import demo_request, register_demo_tenants
 pytestmark = pytest.mark.cuda
 
 SIZES = [1, 100, 1023, 1024, 1025, 3597]
+OUTPUTS = ("sel", "q", "p", "z_new", "tc", "pq")
 KW = dict(n=100, v=1000.0, lam=10.0, ell=32 * 555178.0, bandwidth=22e6,
           noise=1.0, p_max=100.0, p_bar=1.0, q_floor=1e-5)
 
@@ -113,6 +118,33 @@ def test_decision_fused_kernel_matches_plain(cuda, n, masked):
     torch.testing.assert_close(got[4], want[4], rtol=1e-5, atol=0.0)
     far = (u - want[1]).abs() > 1e-6
     assert torch.equal(got[0][far], want[0][far])
+    for name, x, y in zip(OUTPUTS, got, want):
+        assert torch.equal(x, y), name
+
+
+def offset_view(x):
+    """A copy of ``x`` as a contiguous view at storage offset 1."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 5, 1027])
+def test_decision_fused_kernel_edges_bitwise(cuda, n, masked, offset):
+    """Short and ragged vectors, masks on and off, lanes and masks at
+    storage offset 1: bit for bit the plain version."""
+    gains, z, u, mask = lanes(n, cuda)
+    m = mask if masked else None
+    want = decision_fused_plain(gains, z, u, ops(), m, m)
+    if offset:
+        gains, z, u = (offset_view(x) for x in (gains, z, u))
+        m = None if m is None else offset_view(m)
+    got = decision_fused(gains, z, u, ops(), active=m, valid=m)
+    for name, x, y in zip(OUTPUTS, got, want):
+        assert torch.equal(x, y), name
 
 
 def test_wrappers_reject_mixed_devices(cuda):
@@ -155,27 +187,56 @@ def test_engine_paths_launch_their_kernels(cuda):
 BATCHED_SHAPES = [(1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384)]
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,n", BATCHED_SHAPES)
-def test_decision_fused_batched_kernel_equals_plain(cuda, b, n, masked):
-    gains, z, u, _ = lanes(b * n, cuda)
+def bucket(b, n, device):
+    """(B, N) lanes, a ragged ``valid`` and B heterogeneous operand rows
+    (each its own ell, lam, V and Pmax)."""
+    gains, z, u, _ = lanes(b * n, device)
     gains, z, u = gains.view(b, n), z.view(b, n), u.view(b, n)
-    g = torch.Generator(device=cuda).manual_seed(b)
-    valid = (torch.arange(n, device=cuda)
-             < torch.randint(1, n + 1, (b, 1), generator=g, device=cuda))
-    v = valid if masked else None
-    rows = [pack_decision_operands(*decision_coeffs(
+    g = torch.Generator(device=device).manual_seed(b)
+    valid = (torch.arange(n, device=device)
+             < torch.randint(1, n + 1, (b, 1), generator=g, device=device))
+    return gains, z, u, valid, operand_rows(b, n).to(device)
+
+
+@functools.cache
+def operand_rows(b, n):
+    return torch.stack([pack_decision_operands(*decision_coeffs(
         SchedulerConfig(n_clients=n, model_bits=1e5 * (1 + r % 97),
                         lam=0.5 + r % 30, V=10.0 + 37.0 * r),
         ChannelConfig(n_clients=n, p_max=20.0 + r % 130)))
-        for r in range(b)]
-    bops = torch.stack(rows).to(cuda)
+        for r in range(b)])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n", BATCHED_SHAPES)
+def test_decision_fused_batched_kernel_equals_plain(cuda, b, n, masked):
+    gains, z, u, valid, bops = bucket(b, n, cuda)
+    v = valid if masked else None
     before = decision_fused_batched.launches
     got = decision_fused_batched(gains, z, u, bops, valid=v)
     assert decision_fused_batched.launches == before + 1
     want = decision_fused_batched_plain(gains, z, u, bops, v)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n", [(1, 3), (7, 1029), (70000, 4)])
+def test_decision_fused_batched_kernel_edges_bitwise(cuda, b, n, masked,
+                                                     offset):
+    """A single ragged row, ragged rows, and rows past CUDA's grid-y limit
+    (the kernel's row loop), ``valid`` on and off, lanes at storage offset
+    1: bit for bit the plain version."""
+    gains, z, u, valid, bops = bucket(b, n, cuda)
+    v = valid if masked else None
+    want = decision_fused_batched_plain(gains, z, u, bops, v)
+    if offset:
+        gains, z, u = (offset_view(x) for x in (gains, z, u))
+        v = None if v is None else offset_view(v)
+    got = decision_fused_batched(gains, z, u, bops, valid=v)
+    for name, x, y in zip(OUTPUTS, got, want):
+        assert torch.equal(x, y), name
 
 
 def test_service_fused_flush_matches_stitched(cuda):
