@@ -11,8 +11,10 @@ Phases; any failure exits non-zero before the result line is printed:
    each kernel's registers and spills from ``ptxas``; K2/K3, K4 and K5
    must not spill;
 3. hold each kernel against its plain PyTorch version on the card: the
-   solve at N in {1, 100, 1025, 3597, 1048576} (q at rtol 1e-5 / atol
-   1e-6, P at rtol 1e-5 / atol 1e-3); the fused decision (K2) at those N
+   solve at N in {1, 100, 1025, 3597, 1048576} and at the sweep's 4 x
+   3597 = 14388 flattened lanes, bit for bit (and at q rtol 1e-5 / atol
+   1e-6, P rtol 1e-5 / atol 1e-3); the fused decision (K2) at the first
+   five N
    and at 3, 5 and 1027, with and without masks, bit for bit (and at the
    solve's tolerances, tc at rtol 1e-5, ``sel`` exact where
    |u - q| > 1e-6), also with every lane and mask at storage offset 1;
@@ -43,6 +45,22 @@ Phases; any failure exits non-zero before the result line is printed:
    matched M. Each run starts with the launch counters at 0; the fused
    run must launch only the fused kernel, the cuda run only the solve
    kernel, and all three must select the same clients in every round;
+10. (run right after phase 4) the paper's FEMNIST experiment at full
+   width through ``run_simulation``: N = 3,597 writers of 40 examples
+   (``make_femnist_like``: 451 MB of images on the card), 10,000 test
+   images, CNN 32/64/120 on 28x28x1 with 62 classes, lambda 10, the
+   paper's 500/1,500/1,597 sigma split (``resolve_sigmas`` on an
+   explicit array), m_cap 32, I = 10, batch 32, 5 rounds, ``proposed``
+   under ``"cuda_fused"``, ``"cuda"`` and ``"stitched"`` on the same
+   draws: the fused run must launch only K2, 5 times, the cuda run only
+   K1, 5 times; then ``run_sweep`` on the same network, seeds (0, 1, 2,
+   3), 100 rounds: ``proposed`` under each solver (``"cuda"`` and
+   ``"cuda_fused"`` launch K1 exactly once a round for all four seeds,
+   ``"stitched"`` nothing) and ``uniform`` at the matched M (no kernel).
+   The solvers must select the same clients in every round of the
+   FEMNIST run and every (seed, round) of the sweep but at lanes whose
+   uniform lies within 1e-6 of q (printed; a farther one fails), and
+   ``proposed`` must spend less mean comm time than M-matched uniform;
 5. profile one more fused run (``torch.profiler``): device time by op
    and the device's busy share;
 6. the scheduler service at full width: the demo's deployment mix
@@ -57,11 +75,14 @@ Phases; any failure exits non-zero before the result line is printed:
    fused flushes (device time against host time);
 7. (run right after phase 3, before any profiler session) time K1-K3
    and their plain versions with CUDA events: device time at the
-   engine's N = 100 and the service's bucket shapes (L2 warm, as the
-   rounds leave it) and at N = 2^20 or (64, 16384) (L2 flushed before
-   each call), the time per call with the host's share at the warm
-   shapes, calls back to back; beside the least time the card needs for
-   the same work; for K2 and K3 also the launch floor (the empty
+   engine's N = 100, FEMNIST's 3,597 and the service's bucket shapes (L2
+   warm, as the rounds leave it) and at N = 2^20 or (64, 16384) (L2
+   flushed before each call), the time per call with the host's share at
+   the warm shapes, calls back to back; beside the least time the card
+   needs for the same work; K1's time per call in turns with its earlier
+   launch path (old, new, new, old: scalars through numpy on every call,
+   two allocations, a device context); for each kernel also the launch
+   floor (the empty ``scheduler_solve_launch_floor`` or
    ``decision_launch_floor`` on the same grid), the static SASS count of
    a lane (``cuobjdump -sass``) and the issue-rate floor it gives at the
    card's max SM clock, and, where ``build/decision_fused_pr16.cu`` holds
@@ -103,13 +124,15 @@ Phases; any failure exits non-zero before the result line is printed:
 
 TF32 is off for every product and convolution in every phase.
 
-Prints the service's, Mamba's and yi's JSON lines, the card line, one
+Prints the service's, FEMNIST's, Mamba's and yi's JSON lines, the card
+line, one
 JSON line of the kernels (``{"kernels": [...]}``), then, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -129,6 +152,16 @@ CHECK_SIZES = (1, 100, 1025, 3597, 1 << 20)
 # K2 only: short and ragged vectors
 FUSED_EDGE_SIZES = (3, 5, 1027)
 ROUNDS = 5
+# FEMNIST (paper VI-B) and the policy x seed sweep on its network
+FEMNIST_N = 3597
+SWEEP_SEEDS = (0, 1, 2, 3)
+SWEEP_ROUNDS = 100
+# K1's lanes in one sweep round: every seed's clients flattened
+SWEEP_LANES = len(SWEEP_SEEDS) * FEMNIST_N
+# K1 only: the checked sizes and the sweep's flattened lanes
+SOLVE_SIZES = CHECK_SIZES + (SWEEP_LANES,)
+# two solvers may select differently only where |u - q| is within this
+FLIP_GAP = 1e-6
 # The bucket-batched kernel's (B, N) checks; (1024, 32) and (512, 128) are
 # the service's proposed groups at full width, (64, 16384) a cold large one.
 BATCHED_SHAPES = ((1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384))
@@ -218,15 +251,22 @@ def check_kernels(torch, scfg, ch, ops):
                                                      solve_scalars)
     kw = solve_kwargs(scfg, ch)
     err = {"scheduler_solve": 0.0, "decision_fused": 0.0}
-    for n in sorted(CHECK_SIZES + FUSED_EDGE_SIZES):
+    for n in sorted(set(SOLVE_SIZES + FUSED_EDGE_SIZES)):
         gains, z, u, mask = lanes(torch, n, n, "cuda")
-        if n in CHECK_SIZES:
+        if n in SOLVE_SIZES:
             q, p = scheduler_solve(gains, z, **kw)
             q0, p0 = scheduler_solve_plain(gains, z, solve_scalars(**kw))
             torch.cuda.synchronize()
             e = max(compare(torch, f"solve q N={n}", q, q0, 1e-5, 1e-6),
                     compare(torch, f"solve P N={n}", p, p0, 1e-5, 1e-3))
+            if not (torch.equal(q, q0) and torch.equal(p, p0)):
+                raise AssertionError(f"solve N={n}: not bitwise equal to "
+                                     f"the plain version (max |d| {e})")
             err["scheduler_solve"] = max(err["scheduler_solve"], e)
+        if n not in CHECK_SIZES + FUSED_EDGE_SIZES:
+            print(f"solve kernel equals its plain version at N={n}",
+                  flush=True)
+            continue
         for masked in (False, True):
             m = mask if masked else None
             got = decision_fused(gains, z, u, ops, active=m, valid=m)
@@ -396,6 +436,203 @@ def main_path(torch):
           f"{ROUNDS} rounds: {saving:.1%}", flush=True)
     return ({"scheduler_solve": c_solve["scheduler_solve"],
              "decision_fused": c_fused["decision_fused"]}, run)
+
+
+# --------------------------------------------------------------------------
+# Phase 10 (run right after phase 4): FEMNIST and the sweep at full width.
+# --------------------------------------------------------------------------
+
+def same_selections(tag, sel, other, u, q):
+    """``sel`` and ``other`` (bool arrays of one shape) agree but at lanes
+    whose uniform lies within FLIP_GAP of q; each such lane is printed, a
+    differing lane farther from q fails. Returns the count of flips."""
+    import numpy as np
+    flips = np.argwhere(sel != other)
+    for idx in map(tuple, flips):
+        gap = abs(float(u[idx]) - float(q[idx]))
+        print(f"{tag}: selection differs at {idx}, |u - q| = {gap:.3g}",
+              flush=True)
+        if gap > FLIP_GAP:
+            raise AssertionError(f"{tag}: selection differs at {idx} with "
+                                 f"|u - q| = {gap} > {FLIP_GAP}")
+    return len(flips)
+
+
+def femnist_path(torch):
+    """The paper's FEMNIST experiment at N = 3,597 through
+    ``run_simulation`` under each solver, then the policy x seed sweep
+    on its network through ``run_sweep``; launch counts, selections
+    across solvers, and proposed's comm-time saving."""
+    import numpy as np
+
+    from repro_torch.configs.femnist_cnn import CONFIG, paper_sigmas
+    from repro_torch.core.channel import resolve_sigmas
+    from repro_torch.data.synthetic import make_femnist_like
+    from repro_torch.fl.engine import GeneratorSweepDraws, default_draws
+    from repro_torch.fl.engine import run_sweep
+    from repro_torch.fl.simulation import SimConfig, run_simulation
+    from repro_torch.models.registry import make_model
+
+    n = CONFIG.n_clients
+    ch, scfg = CONFIG.channel(), CONFIG.scheduler(lam=10.0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t0 = time.perf_counter()
+    ds = make_femnist_like(gen, n_clients=n, per_client=40, n_test=10000,
+                           h=CONFIG.cnn.height, w=CONFIG.cnn.width,
+                           c=CONFIG.cnn.channels,
+                           n_classes=CONFIG.cnn.n_classes)
+    cnn = (("conv1", CONFIG.cnn.conv1), ("conv2", CONFIG.cnn.conv2),
+           ("hidden", CONFIG.cnn.hidden))
+    params = make_model("cnn", ds, **dict(cnn)).init_fn(gen)
+    sig = resolve_sigmas(paper_sigmas(), n, device="cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    counts = torch.nn.functional.one_hot(ds.client_labels, 62).sum(1)
+    top = float((counts.max(1).values / 40.0).mean())
+    if not (torch.isfinite(ds.client_images).all() and top > 0.12):
+        raise AssertionError(f"FEMNIST data: bad images or top-class share "
+                             f"{top}")
+    print(f"FEMNIST data {tuple(ds.client_images.shape)} "
+          f"({ds.client_images.numel() * 4 / 1e6:.0f} MB on the card; mean "
+          f"top-class share {top:.3f}) and CNN "
+          f"({sum(p.numel() for p in params.values())} parameters) made in "
+          f"{data_s:.2f} s", flush=True)
+    sim = SimConfig(rounds=ROUNDS, eval_every=ROUNDS, m_cap=32,
+                    gamma=CONFIG.gamma, local_steps=CONFIG.local_steps,
+                    batch=CONFIG.batch, eval_size=10000, model_params=cnn)
+
+    def run(solver):
+        reset_counts()
+        t = time.perf_counter()
+        hist = run_simulation(None, params, ds,
+                              dataclasses.replace(sim, solver=solver),
+                              scfg, ch, sig, keep_selection=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = read_counts()
+        comm = hist["comm_time"]
+        if not (comm.shape == (2,) and (comm > 0).all()
+                and (np.diff(comm) >= 0).all()
+                and all(np.isfinite(hist[k]).all()
+                        for k in ("comm_time", "test_acc", "avg_power"))
+                and ((hist["test_acc"] >= 0) & (hist["test_acc"] <= 1)).all()
+                and (hist["n_selected"] >= 1).all()):
+            raise AssertionError(f"FEMNIST {solver}: bad history {hist}")
+        print(f"FEMNIST proposed/{solver}: {dt:.2f} s for {ROUNDS} rounds, "
+              f"launches {got}, comm_time {comm.tolist()}, test_acc "
+              f"{hist['test_acc'].tolist()}, n_selected "
+              f"{hist['n_selected'].tolist()}", flush=True)
+        return hist, got, dt
+
+    runs = {s: run(s) for s in ("cuda_fused", "cuda", "stitched")}
+    want = {"cuda_fused": launch_counts(decision_fused=ROUNDS),
+            "cuda": launch_counts(scheduler_solve=ROUNDS),
+            "stitched": launch_counts()}
+    for solver, (_, got, _) in runs.items():
+        if got != want[solver]:
+            raise AssertionError(f"FEMNIST {solver} launched {got}, want "
+                                 f"{want[solver]}")
+    draws = default_draws(sim, ds)
+    u = torch.stack([draws.selection_u(r) for r in range(ROUNDS)])
+    u = u.cpu().numpy()
+    fused = runs["cuda_fused"][0]
+    flips = {}
+    for solver in ("cuda", "stitched"):
+        other = runs[solver][0]
+        flips[solver] = same_selections(
+            f"FEMNIST cuda_fused vs {solver}", fused["selected"],
+            other["selected"], u, fused["q"])
+        if not flips[solver]:
+            for key in ("comm_time", "avg_power"):
+                rel = abs(other[key] / fused[key] - 1.0).max()
+                if not rel <= 1e-5:
+                    raise AssertionError(f"FEMNIST {key}: cuda_fused vs "
+                                         f"{solver} rel diff {rel}")
+    print(f"FEMNIST: cuda_fused, cuda and stitched selected the same "
+          f"clients in every round but {flips} lanes within {FLIP_GAP} of "
+          f"q", flush=True)
+
+    def sweep(solver, policy):
+        reset_counts()
+        t = time.perf_counter()
+        out = run_sweep(None, sig, scfg, ch, rounds=SWEEP_ROUNDS,
+                        policies=(policy,), seeds=SWEEP_SEEDS, seed=0,
+                        solver=solver, keep_selection=True)
+        dt = time.perf_counter() - t
+        got = read_counts()
+        for k in ("comm_time", "power", "avg_power"):
+            if not np.isfinite(out[k]).all():
+                raise AssertionError(f"sweep {policy}/{solver}: non-finite "
+                                     f"{k}")
+        if not ((out["n_selected"] >= 1).all()
+                and (np.diff(out["comm_time"], axis=-1) >= 0).all()):
+            raise AssertionError(f"sweep {policy}/{solver}: bad trajectory")
+        print(f"sweep {policy}/{solver}: {dt:.3f} s for {SWEEP_ROUNDS} "
+              f"rounds x {len(SWEEP_SEEDS)} seeds, launches {got}, mean "
+              f"final comm_time {out['comm_time'][0, :, -1].mean():.2f} s, "
+              f"mean selected {out['n_selected'].mean():.2f}", flush=True)
+        return out, got, dt
+
+    sweeps = {s: sweep(s, "proposed") for s in ("cuda_fused", "cuda",
+                                                "stitched")}
+    uni, uni_counts, uni_s = sweep("cuda_fused", "uniform")
+    for solver in ("cuda_fused", "cuda"):
+        if sweeps[solver][1] != launch_counts(scheduler_solve=SWEEP_ROUNDS):
+            raise AssertionError(f"sweep proposed/{solver} launched "
+                                 f"{sweeps[solver][1]}, want the solve "
+                                 f"kernel once per round")
+    if sweeps["stitched"][1] != launch_counts() or uni_counts != (
+            launch_counts()):
+        raise AssertionError("the stitched or uniform sweep launched a "
+                             f"kernel: {sweeps['stitched'][1]} {uni_counts}")
+    sdraws = GeneratorSweepDraws(0, SWEEP_SEEDS, n, "cuda")
+    su = torch.stack([sdraws.selection_u(r) for r in range(SWEEP_ROUNDS)],
+                     1).cpu().numpy()
+    ref_out = sweeps["cuda"][0]
+    sweep_flips = {s: same_selections(
+        f"sweep cuda vs {s}", ref_out["selected"][0], sweeps[s][0][
+            "selected"][0], su, ref_out["q"][0]) for s in ("cuda_fused",
+                                                          "stitched")}
+    prop = ref_out["comm_time"][0, :, -1].mean()
+    base = uni["comm_time"][0, :, -1].mean()
+    saving = 1.0 - prop / base
+    if not prop < base:
+        raise AssertionError(f"sweep: proposed's mean comm time {prop} is "
+                             f"not below M-matched uniform's {base}")
+    print(f"sweep: the solvers selected the same clients in every (seed, "
+          f"round) but {sweep_flips} lanes within {FLIP_GAP} of q; proposed "
+          f"saves {saving:.1%} of mean comm time against M-matched uniform "
+          f"(M = {float(uni['uniform_m']):.3f}) over {SWEEP_ROUNDS} rounds",
+          flush=True)
+    summary = dict(
+        n_clients=n, per_client=40, n_test=10000, data_s=data_s,
+        top_class_share=top,
+        s_per_5_rounds={s: r[2] for s, r in runs.items()},
+        launches={s: r[1] for s, r in runs.items()},
+        comm_time={s: r[0]["comm_time"].tolist() for s, r in runs.items()},
+        test_acc={s: r[0]["test_acc"].tolist() for s, r in runs.items()},
+        n_selected=fused["n_selected"].tolist(), flips=flips,
+        sweep=dict(rounds=SWEEP_ROUNDS, seeds=list(SWEEP_SEEDS),
+                   s_proposed={s: r[2] for s, r in sweeps.items()},
+                   s_uniform=uni_s,
+                   launches={s: r[1]["scheduler_solve"]
+                             for s, r in sweeps.items()},
+                   uniform_m=float(uni["uniform_m"]),
+                   comm_time_proposed=float(prop),
+                   comm_time_uniform=float(base), saving=float(saving),
+                   mean_selected_proposed=float(
+                       ref_out["n_selected"].mean()),
+                   mean_selected_uniform=float(uni["n_selected"].mean()),
+                   avg_power_proposed=float(
+                       ref_out["avg_power"][0, :, -1].mean()),
+                   flips=sweep_flips))
+    launches = {
+        "femnist": {"scheduler_solve": runs["cuda"][1]["scheduler_solve"],
+                    "decision_fused": runs["cuda_fused"][1]["decision_fused"]},
+        "sweep": {"scheduler_solve": sum(r[1]["scheduler_solve"]
+                                         for r in sweeps.values()),
+                  "decision_fused": 0}}
+    return launches, summary
 
 
 # --------------------------------------------------------------------------
@@ -826,18 +1063,21 @@ def main_path_sass(text, func):
     return sum(1 for op in ops[:end + 1] if op != "NOP")
 
 
-def sass_per_lane(libraries):
+def sass_per_lane(libraries, funcs=None):
     """{(library tag, kernel): static SASS instructions of one lane}, read
-    with ``cuobjdump -sass`` from the built libraries: K2 without masks
-    and K3 with ``valid``, as the engine and the service call them."""
+    with ``cuobjdump -sass`` from the built libraries: by default K2
+    without masks and K3 with ``valid``, as the engine and the service
+    call them. ``funcs`` maps a kernel to a substring of its mangled name
+    (a pair: this design's, the earlier design's)."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
     # mangled names: decision_kernel<kActive, kValid, kRowOps> of this
     # design; the PR-16 design's two kernels
-    funcs = {"decision_fused": ("decision_kernelILb0ELb0ELb0EE",
-                                "decision_fused_kernel"),
-             "decision_fused_batched": ("decision_kernelILb0ELb1ELb1EE",
-                                        "decision_fused_batched_kernel")}
+    funcs = funcs or {
+        "decision_fused": ("decision_kernelILb0ELb0ELb0EE",
+                           "decision_fused_kernel"),
+        "decision_fused_batched": ("decision_kernelILb0ELb1ELb1EE",
+                                   "decision_fused_batched_kernel")}
     out = {}
     for tag, lib in libraries.items():
         text = subprocess.run([str(tool), "-sass", str(lib)],
@@ -845,10 +1085,19 @@ def sass_per_lane(libraries):
                               timeout=300).stdout
         names = re.findall(r"Function : (\S+)", text)
         for kernel, keys in funcs.items():
-            name = next(x for x in names
-                        if keys[tag == "pr16"] in x)
+            key = keys if isinstance(keys, str) else keys[tag != "this"]
+            name = next(x for x in names if key in x)
             out[(tag, kernel)] = main_path_sass(text, name)
     return out
+
+
+def solve_sass_per_lane():
+    """K1's static SASS of a lane (its grid-stride loop's body once), read
+    with ``cuobjdump -sass`` from the built library."""
+    from repro_torch.kernels import _build
+    return sass_per_lane({"this": _build.library_path("scheduler_solve")},
+                         {"scheduler_solve": "scheduler_solve_kernel"})[
+        ("this", "scheduler_solve")]
 
 
 def max_sm_clock_hz():
@@ -936,6 +1185,131 @@ def pr16_decision(torch):
     return call2, call3, ROOT / "build" / "decision_fused_pr16.so"
 
 
+def earlier_solve(torch):
+    """K1 behind its earlier launch path (commit e1056e4): the same checks,
+    its 13 scalars folded and rounded through numpy and copied into a new
+    ctypes array on every call, two output allocations, a device context
+    on every call; the same kernel. Counts no launch."""
+    from repro_torch.kernels._launch import (check_lanes, host_f32, ptr,
+                                             raise_on_error, stream_of)
+    from repro_torch.kernels.scheduler_solve import (SCALARS, _lib,
+                                                     solve_scalars)
+
+    def call(gains, z, **kw):
+        check_lanes("scheduler_solve", torch.float32, gains, gains=gains,
+                    z=z)
+        s = solve_scalars(**kw)
+        q, p = torch.empty_like(gains), torch.empty_like(gains)
+        scalars = host_f32("scheduler_solve", (s[k] for k in SCALARS),
+                           len(SCALARS))
+        with torch.cuda.device(gains.device):
+            code = _lib()(ptr(gains), ptr(z), ptr(q), ptr(p),
+                          gains.shape[0], scalars, stream_of(gains.device))
+        raise_on_error("scheduler_solve", code)
+        return q, p
+
+    return call
+
+
+# what phase 7 adds to K1's rows of the kernels line
+SOLVE_EXTRAS = ("call_ms_turns", "earlier_call_ms", "earlier_call_ms_turns",
+                "launch_floor_ms", "sass_per_lane", "issue_floor_ms",
+                "busy_sm_clock_mhz", "issue_floor_busy_clock_ms",
+                "host_split_us")
+
+
+def solve_timings(torch, scfg, ch, clock, sms):
+    """Phase 7's K1 rows at the engine's N = 100, FEMNIST's 3,597 and
+    2^20 lanes: device time beside the plain version's and the bound; the
+    launch floor (the empty ``scheduler_solve_launch_floor`` on K1's
+    grid), the static SASS of a lane and the issue floor it gives; at the
+    warm shapes the time per call, taken in turns with the earlier launch
+    path (old, new, new, old), and the wrapper's host split."""
+    from repro_torch.kernels._launch import check_lanes, stream_of
+    from repro_torch.kernels.scheduler_solve import (_lib, launch_floor,
+                                                     launch_scalars,
+                                                     scheduler_solve,
+                                                     scheduler_solve_plain,
+                                                     solve_scalars)
+    kw = solve_kwargs(scfg, ch)
+    s = solve_scalars(**kw)
+    old = earlier_solve(torch)
+    sass = solve_sass_per_lane()
+    out = {}
+    for n in (scfg.n_clients, FEMNIST_N, 1 << 20):
+        gains, z, _, _ = lanes(torch, n, 7, "cuda")
+        cold = n == 1 << 20
+
+        def kernel():
+            return scheduler_solve(gains, z, **kw)
+
+        def earlier():
+            return old(gains, z, **kw)
+
+        new_out, old_out = kernel(), earlier()
+        if not all(torch.equal(a, b) for a, b in zip(new_out, old_out)):
+            raise AssertionError(f"solve N={n}: the two launch paths differ")
+        b, by = bound(KERNELS["scheduler_solve"], n)
+        q, p = new_out
+        args = (gains.data_ptr(), z.data_ptr(), q.data_ptr(), p.data_ptr(),
+                n, launch_scalars(*(kw[k] for k in (
+                    "n", "v", "lam", "ell", "bandwidth", "noise", "p_max",
+                    "p_bar", "q_floor")))[1], stream_of(gains.device))
+
+        def empty():
+            code = launch_floor()(*args)
+            if code != 0:
+                raise RuntimeError(f"scheduler_solve_launch_floor: "
+                                   f"cudaError {code}")
+
+        issue = sass * n / 32 / (4 * sms) * 1e3
+        row = dict(n=n, ms=time_device(torch, kernel, cold),
+                   plain_ms=time_device(
+                       torch, lambda: scheduler_solve_plain(gains, z, s),
+                       cold),
+                   bound_ms=b, bound_by=by,
+                   launch_floor_ms=time_device(torch, empty, False),
+                   sass_per_lane=sass, issue_floor_ms=issue / clock,
+                   l2="cold" if cold else "warm")
+        if cold:
+            busy = busy_sm_clock_hz(torch, kernel)
+            row.update(busy_sm_clock_mhz=busy / 1e6,
+                       issue_floor_busy_clock_ms=issue / busy)
+        else:
+            call, call17 = in_turns(torch, kernel, earlier,
+                                    lambda f: time_calls(torch, f))
+            row.update(call_ms=sum(call) / 2, call_ms_turns=call,
+                       earlier_call_ms=sum(call17) / 2,
+                       earlier_call_ms_turns=call17,
+                       plain_call_ms=time_calls(
+                           torch, lambda: scheduler_solve_plain(gains, z, s),
+                           iters=50))
+            row["host_split_us"] = host_split(torch, kernel, {
+                "checks": lambda: check_lanes("scheduler_solve",
+                                              torch.float32, gains,
+                                              gains=gains, z=z),
+                "outputs": lambda: gains.new_empty((2, n)).unbind(0),
+                "launch": lambda: _lib()(*args)})
+        print(f"scheduler_solve {n}: {row['ms'] * 1e3:.2f} us device"
+              + (f", {row['call_ms'] * 1e3:.1f} us per call (the earlier "
+                 f"launch path {row['earlier_call_ms'] * 1e3:.1f} in turns)"
+                 if "call_ms" in row else "")
+              + f"; launch floor {row['launch_floor_ms'] * 1e3:.2f} us, "
+              f"issue floor {row['issue_floor_ms'] * 1e3:.3f} us ({sass} "
+              f"SASS a lane)"
+              + (f", {row['issue_floor_busy_clock_ms'] * 1e3:.2f} us at the "
+                 f"{row['busy_sm_clock_mhz']:.0f} MHz read while it ran"
+                 if cold else "")
+              + f"; bound {b * 1e3:.3f} us; plain {row['plain_ms']:.3f} ms",
+              flush=True)
+        if "host_split_us" in row:
+            print("  host us per call: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in row["host_split_us"].items()),
+                flush=True)
+        out[("scheduler_solve", n)] = row
+    return out
+
+
 # what phase 7 adds to K2's and K3's rows of the kernels line
 DECISION_EXTRAS = ("ms_turns", "pr16_ms", "pr16_ms_turns", "pr16_call_ms",
                    "launch_floor_ms", "sass_per_lane", "issue_floor_ms",
@@ -972,8 +1346,10 @@ def in_turns(torch, new, old, measure):
 
 def timings(torch, scfg, ch, ops):
     """Phase 7: K1's, K2's and K3's device time (and per call at the warm
-    shapes) beside their plain versions' and their bound; for K2 and K3
-    also the launch floor, the static SASS count of a lane, the issue-rate
+    shapes) beside their plain versions' and their bound, K1 and K2 at
+    N = 100, 3,597 and 2^20; K1's earlier launch path in turns with this
+    one (:func:`solve_timings`); for each the launch floor, the static
+    SASS count of a lane and the issue-rate
     floor it gives, and, where ``build/decision_fused_pr16.cu`` holds the
     PR-16 design, that design's times taken in turns with this one."""
     from repro_torch.kernels import _build
@@ -984,11 +1360,6 @@ def timings(torch, scfg, ch, ops):
         check_args, check_batched_args, decision_fused,
         decision_fused_batched, decision_fused_batched_plain,
         decision_fused_plain, decision_outputs, launch_floor, launch_plan)
-    from repro_torch.kernels.scheduler_solve import (scheduler_solve,
-                                                     scheduler_solve_plain,
-                                                     solve_scalars)
-    kw = solve_kwargs(scfg, ch)
-    s = solve_scalars(**kw)
     ops_dev = ops.to("cuda")  # the plain version then copies nothing
     pr16 = pr16_decision(torch)
     libs = {"this": _build.library_path("decision_fused")}
@@ -1085,17 +1456,15 @@ def timings(torch, scfg, ch, ops):
                 f"{k} {v:.1f}" for k, v in row["host_split_us"].items()),
                 flush=True)
 
-    out = {}
-    for n in (scfg.n_clients, 1 << 20):
+    out = solve_timings(torch, scfg, ch, clock, sms)
+    for n in (scfg.n_clients, FEMNIST_N, 1 << 20):
         gains, z, u, _ = lanes(torch, n, 7, "cuda")
         calls = {
-            "scheduler_solve": (lambda: scheduler_solve(gains, z, **kw),
-                                lambda: scheduler_solve_plain(gains, z, s)),
             "decision_fused": (
                 lambda: decision_fused(gains, z, u, ops),
                 lambda: decision_fused_plain(gains, z, u, ops_dev)),
         }
-        cold = n > scfg.n_clients
+        cold = n == 1 << 20
         for name, (kernel, plain) in calls.items():
             b, by = bound(KERNELS[name], n)
             row = dict(ms=time_device(torch, kernel, cold),
@@ -1810,6 +2179,11 @@ def main() -> int:
     err["ssd_scan"] = check_ssd(torch)
     err["flash_attention_bhsd"] = check_flash(torch)
     launches, run = main_path(torch)
+    by_path = {"cifar10": dict(launches)}
+    more, femnist = femnist_path(torch)
+    by_path.update(more)
+    for name in launches:
+        launches[name] = sum(p[name] for p in by_path.values())
     profile_rounds(torch, run)
     (svc_counts, per_full, svc_summary,
      (svc, full_flushes)) = service_path(torch)
@@ -1827,18 +2201,20 @@ def main() -> int:
     for name in ("scheduler_solve", "decision_fused"):
         spec = KERNELS[name]
         small = times[(name, scfg.n_clients)]
-        large = times[(name, 1 << 20)]
         rows.append({
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": launches[name],
-            "launches_per_round": launches[name] / ROUNDS,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_per_round": by_path["cifar10"][name] / ROUNDS,
             "max_abs_err": err[name], "n": scfg.n_clients,
             "ms": small["ms"], "plain_ms": small["plain_ms"],
             "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
             "library_ms": None, "call_ms": small["call_ms"],
             "plain_call_ms": small["plain_call_ms"],
-            **{k: small[k] for k in DECISION_EXTRAS if k in small},
-            "large": dict(n=1 << 20, **large)})
+            **{k: small[k] for k in DECISION_EXTRAS + SOLVE_EXTRAS
+               if k in small},
+            "femnist": dict(times[(name, FEMNIST_N)], n=FEMNIST_N),
+            "large": dict(times[(name, 1 << 20)], n=1 << 20)})
     spec = KERNELS["decision_fused_batched"]
     main_shape, *others = BATCHED_SHAPES[2:]
     rows.append({
@@ -1869,6 +2245,7 @@ def main() -> int:
         "max_abs_err": err["flash_attention_bhsd"], **flash_time})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
+    print(json.dumps({"femnist": femnist}), flush=True)
     print(json.dumps({"mamba": mamba}), flush=True)
     print(json.dumps({"yi": yi}), flush=True)
     print(card, flush=True)

@@ -11,6 +11,10 @@ the port's float32 tensors:
   unchanged;
 * biases: unchanged.
 
+``mlp_params_from_jax`` (the MLP: ``w1``, ``b1``, ``w2``, ``b2``) carries
+every leaf unchanged: dense weights are (in, out) in both packages, and
+both flatten NHWC images in (h, w, c) order.
+
 ``lm_params_from_jax`` (the model zoo's decoder stacks) takes the
 reference's ``init_params`` tree, numpy leaves, and returns the port's
 :class:`~repro_torch.models.model.LM`: the period-stacked
@@ -44,6 +48,12 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
             value = value.transpose(3, 2, 0, 1)
         out[name] = torch.from_numpy(np.ascontiguousarray(value)).to(device)
     return out
+
+
+def mlp_params_from_jax(tree: dict, device="cuda") -> dict:
+    """The reference's MLP parameter dict (numpy leaves) -> the port's."""
+    return {name: torch.from_numpy(np.array(tree[name], dtype=np.float32))
+            .to(device) for name in ("w1", "b1", "w2", "b2")}
 
 
 def _tensor(value, device) -> torch.Tensor:

@@ -10,7 +10,14 @@ A model is a draw/apply pair: ``draw(generator, n, device)`` consumes the
 randomness, ``apply(raw, state, sigmas, cfg)`` is elementwise. The engine
 takes its raws from a ``Draws`` source (``fl/engine.py``, whose default
 calls ``draw``), so tests can replay the reference's own draws through
-``apply``.
+``apply``. :func:`draw_gains` is one round's draw and apply on a
+generator.
+
+The uplink is TDMA: a round's communication time is the sum over the
+selected clients of ell / (B log2(1 + |h|^2 P / N0)) (Eq. 8,
+:func:`uplink_time`; :func:`expected_uplink_time` weighs it by q).
+:func:`resolve_sigmas` turns a named sigma distribution or an explicit
+array into the per-client Rayleigh scales.
 """
 
 from __future__ import annotations
@@ -57,11 +64,71 @@ def heterogeneous_sigmas(n_clients: int, fracs=(0.1, 0.4, 0.5),
                       for c, s in zip(counts, sigmas)])
 
 
+def draw_gains(generator: torch.Generator, sigmas: torch.Tensor,
+               cfg: ChannelConfig) -> torch.Tensor:
+    """Clipped per-client gains |h_n(t)|^2 for one round, drawn on
+    ``generator`` (on ``sigmas``' device): Rayleigh(sigma) envelope, so
+    |h|^2 ~ Exponential(mean 2 sigma^2)."""
+    raw = _rayleigh_draw(generator, sigmas.shape[0], sigmas.device)
+    return _rayleigh_apply(raw, None, sigmas, cfg)[0]
+
+
 def channel_rate(gains: torch.Tensor, power: torch.Tensor,
                  cfg: ChannelConfig) -> torch.Tensor:
     """Shannon rate B log2(1 + |h|^2 P / N0) in bits/s (Eq. 8 denominator)."""
     snr = gains * power / gains.new_full((), cfg.noise_power)
     return cfg.bandwidth_hz * torch.log2(1.0 + snr)
+
+
+def _per_client_time(gains, power, model_bits: float, cfg: ChannelConfig):
+    """ell / max(rate, 1e-9) per client, a true IEEE division (``ell`` a
+    0-d tensor: a Python numerator would become a reciprocal times it)."""
+    rate = channel_rate(gains, power, cfg)
+    return gains.new_full((), model_bits) / torch.clamp_min(rate, 1e-9)
+
+
+def uplink_time(gains: torch.Tensor, power: torch.Tensor,
+                selected: torch.Tensor, model_bits: float,
+                cfg: ChannelConfig) -> torch.Tensor:
+    """TDMA round communication time: the sum over the selected clients
+    (a bool or {0, 1} mask over the last axis) of ell / rate."""
+    per_client = _per_client_time(gains, power, model_bits, cfg)
+    return torch.where(selected.bool(), per_client, 0.0).sum(-1)
+
+
+def expected_uplink_time(gains: torch.Tensor, power: torch.Tensor,
+                         q: torch.Tensor, model_bits: float,
+                         cfg: ChannelConfig) -> torch.Tensor:
+    """E[time] given selection probabilities q: the lambda-weighted term of
+    y0(t)."""
+    return (q * _per_client_time(gains, power, model_bits, cfg)).sum(-1)
+
+
+# Named sigma distributions (Section VI's two mixes).
+SIGMA_DISTS = {
+    "homogeneous": homogeneous_sigmas,
+    "heterogeneous": heterogeneous_sigmas,
+}
+
+
+def resolve_sigmas(dist, n_clients: int, device="cuda") -> torch.Tensor:
+    """A named distribution ("homogeneous" | "heterogeneous") or an
+    explicit (N,) array -> per-client Rayleigh scales on ``device``.
+
+    "heterogeneous" rounds its fractions as the reference does: at
+    FEMNIST's N = 3,597 that is 360/1,439/1,798 clients, not the paper's
+    500/1,500/1,597, which an explicit array gives.
+    """
+    if isinstance(dist, str):
+        if dist not in SIGMA_DISTS:
+            raise ValueError(f"unknown sigma distribution {dist!r} "
+                             f"(registered: {sorted(SIGMA_DISTS)})")
+        return SIGMA_DISTS[dist](n_clients, device=device)
+    sig = torch.as_tensor(dist, dtype=torch.float32, device=device)
+    if sig.shape != (n_clients,):
+        raise ValueError(f"sigma array has shape {tuple(sig.shape)}, "
+                         f"want ({n_clients},)")
+    return sig
 
 
 def channel_state_zero(n_clients: int, device="cuda") -> torch.Tensor:

@@ -21,6 +21,12 @@ convert it once per run with :func:`as_operands`); inside, every scalar
 becomes a 0-d tensor so each division is a true IEEE division on every
 device (a CUDA tensor divided by a Python scalar is computed as a product
 with the reciprocal, one rounding more).
+
+The key-drawing wrappers of the reference (:func:`sample_selection`,
+:func:`schedule_step`, :func:`uniform_selection`) draw through a
+``torch.Generator`` on the lanes' device; their math is that of the
+raw-taking functions (:func:`selection_from_uniform`,
+:func:`uniform_decide`).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.channel import (ChannelConfig, _rayleigh_apply,
-                                      _rayleigh_draw)
+                                      _rayleigh_draw, channel_rate)
 from repro_torch.core.lambertw import lambertw0
 
 _LN2 = 0.6931471805599453
@@ -49,6 +55,19 @@ class SchedulerConfig:
     V: float = 1000.0                   # Lyapunov penalty weight
     q_floor: float = 1e-5               # numerical floor to keep q in (0,1]
     guarantee_one: bool = True          # force >=1 participant per round
+
+
+class SchedulerState(NamedTuple):
+    """Carried across rounds; Z are the per-client virtual power queues."""
+
+    z: torch.Tensor      # (N,) float32 virtual queues
+    t: torch.Tensor      # () int32 round counter
+
+
+def init_state(cfg: SchedulerConfig, device="cuda") -> SchedulerState:
+    return SchedulerState(
+        z=torch.zeros((cfg.n_clients,), dtype=torch.float32, device=device),
+        t=torch.zeros((), dtype=torch.int32, device=device))
 
 
 class SolveCoeffs(NamedTuple):
@@ -134,6 +153,13 @@ def solve_candidates_coeffs(gains: torch.Tensor, z: torch.Tensor, c):
     return q_int, p_int, q_bnd, p_bnd, use_int
 
 
+def solve_candidates(gains: torch.Tensor, z: torch.Tensor,
+                     cfg: SchedulerConfig, ch: ChannelConfig):
+    """Both Theorem-2 candidates and the keep-interior mask from the
+    configs: ``(q_int, p_int, q_bnd, p_bnd, use_int)``."""
+    return solve_candidates_coeffs(gains, z, solve_coeffs(cfg, ch))
+
+
 def solve_round_coeffs(gains: torch.Tensor, z: torch.Tensor,
                        c) -> Tuple[torch.Tensor, torch.Tensor]:
     """Theorem-2 solve from a coefficient bundle: -> (q, P), each (N,)."""
@@ -156,6 +182,13 @@ def update_queues_z(z: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
     return torch.clamp_min(z + p * q - ch.p_bar, 0.0)
 
 
+def update_queues(state: SchedulerState, q: torch.Tensor, p: torch.Tensor,
+                  ch: ChannelConfig) -> SchedulerState:
+    """Eq. (9): Z(t+1) = max(Z + P q - Pbar, 0), and the round counter."""
+    return SchedulerState(z=update_queues_z(state.z, q, p, ch),
+                          t=state.t + 1)
+
+
 def force_one(sel: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """An empty selection becomes the client of largest q (the first one on
     ties, as ``jnp.argmax``): paper Section VI's fallback. Works row by row
@@ -170,6 +203,36 @@ def selection_from_uniform(u: torch.Tensor, q: torch.Tensor,
     """I_n = [u_n < q_n], with :func:`force_one` if ``guarantee_one``."""
     sel = u < q
     return force_one(sel, q) if guarantee_one else sel
+
+
+def sample_selection(generator: torch.Generator, q: torch.Tensor,
+                     guarantee_one: bool = True) -> torch.Tensor:
+    """I_n ~ Bernoulli(q_n), independently, from uniforms drawn on
+    ``generator`` (on q's device); an empty draw selects the client of
+    largest q if ``guarantee_one``."""
+    u = torch.rand(q.shape, generator=generator, device=q.device)
+    return selection_from_uniform(u, q, guarantee_one)
+
+
+def schedule_step(generator: torch.Generator, gains: torch.Tensor,
+                  state: SchedulerState, cfg: SchedulerConfig,
+                  ch: ChannelConfig):
+    """One Algorithm-2 round: solve, sample, queue update ->
+    ``(selected, q, P, new_state)``."""
+    q, p = solve_round(gains, state.z, cfg, ch)
+    sel = sample_selection(generator, q, cfg.guarantee_one)
+    return sel, q, p, update_queues(state, q, p, ch)
+
+
+def y0(q: torch.Tensor, p: torch.Tensor, gains: torch.Tensor,
+       cfg: SchedulerConfig, ch: ChannelConfig) -> torch.Tensor:
+    """The scheduling objective y0(t) of Eq. (8), summed over the last
+    axis (diagnostics)."""
+    rate = channel_rate(gains, p, ch)
+    one = q.new_ones(())
+    return (one / (cfg.n_clients * torch.clamp_min(q, _EPS))
+            + cfg.lam * cfg.model_bits * q / torch.clamp_min(rate, _EPS)
+            ).sum(-1)
 
 
 # --------------------------------------------------------------------------
@@ -266,6 +329,18 @@ def greedy_decide(gains: torch.Tensor, c: GreedyCoeffs):
     m = c.m.long()
     sel = _top_m(gains, m)
     return sel, sel.to(torch.float32), _fill(_p_over_m(c.pn, m), gains)
+
+
+def uniform_selection(generator: torch.Generator, n_clients: int,
+                      m_avg: float, ch: ChannelConfig, device="cuda"):
+    """FedAvg's uniform policy as in the paper's Section VI: floor(M) or
+    ceil(M) clients at random (mean M), P = Pbar N / M'. Draws the
+    baseline's raws on ``generator`` (on ``device``), then
+    :func:`uniform_decide` -> ``(selected, q, P)``."""
+    raw = {"take": torch.rand((), generator=generator, device=device),
+           "scores": torch.rand((n_clients,), generator=generator,
+                                device=device)}
+    return uniform_decide(raw, uniform_coeffs(n_clients, m_avg, ch))
 
 
 def estimate_avg_selected(generator, sigmas: torch.Tensor,

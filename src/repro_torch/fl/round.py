@@ -9,6 +9,12 @@ global model, then the server forms the q-weighted aggregate
 or its variance-reduced delta form. Participants train together under
 ``torch.func.vmap`` (one batched program, no per-participant loop); this is
 plain PyTorch, no kernel of this repository.
+
+The engine aggregates the packed participants (:func:`masked_aggregate`);
+:func:`weighted_aggregate`, :func:`delta_aggregate` and :func:`fl_round`
+are the unmasked forms over an explicit (N, ...) client axis, and
+:func:`make_fl_train_step` / :func:`make_train_step` the train steps built
+on them.
 """
 
 from __future__ import annotations
@@ -47,6 +53,75 @@ def train_participants(loss_fn: Callable, params: dict, inputs, labels,
     return torch.func.vmap(
         lambda x, y: local_sgd(loss_fn, params, (x, y), gamma, steps))(
             inputs, labels)
+
+
+def _client_weights(selected: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """I_n / q_n / N, each a true IEEE division."""
+    n = q.shape[0]
+    return selected.to(torch.float32) / q / q.new_full((), n)
+
+
+def _per_client(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return w.reshape((w.shape[0],) + (1,) * (y.ndim - 1))
+
+
+def weighted_aggregate(global_params: dict, client_params: dict,
+                       selected: torch.Tensor, q: torch.Tensor) -> dict:
+    """Algorithm 1 line 7, x <- (1/N) sum_n (I_n / q_n) y_n, over client
+    params with a leading (N,) axis; float32 accumulation."""
+    w = _client_weights(selected, q)
+    return {k: (y.to(torch.float32) * _per_client(w, y)).sum(0).to(y.dtype)
+            for k, y in client_params.items()}
+
+
+def delta_aggregate(global_params: dict, client_params: dict,
+                    selected: torch.Tensor, q: torch.Tensor,
+                    wire_dtype=torch.bfloat16) -> dict:
+    """x <- x + (1/N) sum_n (I_n / q_n)(y_n - x): Algorithm 1's mean with a
+    lower variance, each weighted delta cast to ``wire_dtype`` before the
+    sum (the quantity a deployment puts on the wire)."""
+    w = _client_weights(selected, q)
+
+    def agg(x, y):
+        delta = y.to(torch.float32) - x.to(torch.float32)[None]
+        update = (delta * _per_client(w, y)).to(wire_dtype).sum(0)
+        return (x.to(torch.float32) + update.to(torch.float32)).to(x.dtype)
+
+    return {k: agg(x, client_params[k]) for k, x in global_params.items()}
+
+
+def fl_round(loss_fn: Callable, params: dict, client_batches, selected,
+             q, gamma: float, steps: int) -> dict:
+    """One round over an explicit client axis: every client's local SGD
+    (``client_batches`` leaves (N, steps, ...)), non-participants masked
+    out by the aggregate's weight."""
+    inputs, labels = client_batches
+    updated = train_participants(loss_fn, params, inputs, labels, gamma,
+                                 steps)
+    return weighted_aggregate(params, updated, selected, q)
+
+
+def make_fl_train_step(loss_fn: Callable, gamma: float, steps: int,
+                       n_clients: int):
+    """``train_step(params, batch, selected, q)``: :func:`fl_round` with
+    batch leaves (n_clients, steps, ...) and q, selected (n_clients,)."""
+    def train_step(params, batch, selected, q):
+        return fl_round(loss_fn, params, batch, selected, q, gamma, steps)
+
+    return train_step
+
+
+def make_train_step(loss_fn: Callable, gamma: float):
+    """Plain (non-federated) SGD step: ``train_step(params, batch) ->
+    (new_params, loss)``."""
+    grad_and_loss = torch.func.grad_and_value(loss_fn)
+
+    def train_step(params, batch):
+        g, loss = grad_and_loss(params, batch)
+        return {k: w - gamma * g[k].to(w.dtype)
+                for k, w in params.items()}, loss
+
+    return train_step
 
 
 def pack_participants(sel: torch.Tensor, m_cap: int):

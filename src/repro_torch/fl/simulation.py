@@ -2,7 +2,8 @@
 ``repro/fl/simulation.py``).
 
 ``run_simulation`` runs the port's engine (``fl/engine.py``);
-``match_uniform_m`` sets the uniform baseline's matched participation M.
+``match_uniform_m`` sets the uniform baseline's matched participation M;
+``time_to_accuracy`` reads a history's comm time at a target accuracy.
 The reference's legacy per-round loop engine is not ported: the port's
 parity reference is the JAX package itself (tests/test_torch_engine.py).
 """
@@ -19,7 +20,8 @@ from repro_torch.core.scheduler import SchedulerConfig, estimate_avg_selected
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl.engine import Draws, SimConfig, run_simulation_scan
 
-__all__ = ["SimConfig", "run_simulation", "match_uniform_m"]
+__all__ = ["SimConfig", "run_simulation", "match_uniform_m",
+           "time_to_accuracy"]
 
 
 def run_simulation(draws: Optional[Draws], params: dict,
@@ -46,3 +48,15 @@ def match_uniform_m(generator, sigmas: torch.Tensor, scfg: SchedulerConfig,
             f"channel {channel!r} is not ported yet (ROADMAP §A item 7)")
     return float(estimate_avg_selected(generator, sigmas, scfg, ch, rounds,
                                        raws=raws))
+
+
+def time_to_accuracy(hist: Dict[str, np.ndarray], target: float
+                     ) -> Optional[float]:
+    """First cumulative comm time at which test_acc >= target; None when
+    the target is never reached or the history is empty. Plain-list
+    histories work as well as the engine's arrays."""
+    acc = np.asarray(hist["test_acc"], dtype=np.float64)
+    idx = np.nonzero(acc >= target)[0]
+    if idx.size == 0:
+        return None
+    return float(np.asarray(hist["comm_time"], dtype=np.float64)[idx[0]])

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -45,6 +46,14 @@ def stream_of(device: torch.device) -> int:
     PyTorch's own generated kernel launchers call; it skips building a
     ``torch.cuda.Stream`` object (~2.5 us a call)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` where it is not the current device: a
+    wrapper enters a device context only off the current device."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def raise_on_error(kernel: str, code: int):

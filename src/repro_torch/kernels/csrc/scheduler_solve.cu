@@ -15,6 +15,8 @@
 // does one pass, keeps every intermediate in registers, uses a grid-stride
 // loop with a bounds check instead of the TPU's padded blocks (no pad
 // lanes are ever materialised), and coalesced 4-byte loads and stores.
+// scheduler_solve_launch_floor below is an empty kernel with the same
+// arguments and grid: the least time a launch of this kernel can take.
 #include "theorem2.cuh"
 
 namespace {
@@ -35,6 +37,17 @@ __global__ void scheduler_solve_kernel(const float* __restrict__ gains,
   }
 }
 
+__global__ void scheduler_solve_launch_floor_kernel(
+    const float* __restrict__, const float* __restrict__, float* __restrict__,
+    float* __restrict__, int64_t, float, float, float, t2::SolveScalars) {}
+
+t2::SolveScalars solve_scalars(const float* scalars) {
+  return t2::SolveScalars{scalars[3], scalars[4],  scalars[5],
+                          scalars[6], scalars[7],  scalars[8],
+                          scalars[9], scalars[10], scalars[11],
+                          scalars[12]};
+}
+
 }  // namespace
 
 // scalars (host memory, 13 floats): v*lam*ell, LN2, noise*bandwidth, then
@@ -43,12 +56,23 @@ __global__ void scheduler_solve_kernel(const float* __restrict__ gains,
 extern "C" int scheduler_solve_f32(const float* gains, const float* z,
                                    float* q, float* p, long long n,
                                    const float* scalars, void* stream) {
-  const t2::SolveScalars s{scalars[3], scalars[4],  scalars[5],
-                           scalars[6], scalars[7],  scalars[8],
-                           scalars[9], scalars[10], scalars[11],
-                           scalars[12]};
   scheduler_solve_kernel<<<t2::grid_for(n), t2::kThreads, 0,
                            (cudaStream_t)stream>>>(
-      gains, z, q, p, (int64_t)n, scalars[0], scalars[1], scalars[2], s);
+      gains, z, q, p, (int64_t)n, scalars[0], scalars[1], scalars[2],
+      solve_scalars(scalars));
+  return (int)cudaGetLastError();
+}
+
+// The launch floor: scheduler_solve_f32's arguments and grid, an empty
+// kernel.
+extern "C" int scheduler_solve_launch_floor(const float* gains,
+                                            const float* z, float* q,
+                                            float* p, long long n,
+                                            const float* scalars,
+                                            void* stream) {
+  scheduler_solve_launch_floor_kernel<<<t2::grid_for(n), t2::kThreads, 0,
+                                        (cudaStream_t)stream>>>(
+      gains, z, q, p, (int64_t)n, scalars[0], scalars[1], scalars[2],
+      solve_scalars(scalars));
   return (int)cudaGetLastError();
 }

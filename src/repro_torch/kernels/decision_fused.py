@@ -24,7 +24,6 @@ not on the current device.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -34,8 +33,9 @@ import torch
 from repro_torch.core.scheduler import (SolveCoeffs, solve_round_coeffs,
                                         update_queues_z)
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (check_lanes, raise_on_error,
-                                         stream_of, unsupported_device)
+from repro_torch.kernels._launch import (check_lanes, on_device,
+                                         raise_on_error, stream_of,
+                                         unsupported_device)
 
 # Operand-vector layout: SolveCoeffs' 11 fields in declaration order, then
 # AccountCoeffs' ell, bw, n0 (the reference's layout).
@@ -149,13 +149,6 @@ def launch_floor():
                              .decision_launch_floor)
 
 
-def _on(device: torch.device):
-    """``torch.cuda.device(device)`` where it is not the current device."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def check_args(gains, z, u, ops, active=None, valid=None):
     """:func:`decision_fused`'s argument checks."""
     check_lanes("decision_fused", torch.float32, gains, gains=gains, z=z,
@@ -208,7 +201,7 @@ def decision_fused(gains: torch.Tensor, z: torch.Tensor, u: torch.Tensor,
     n = gains.shape[0]
     # the kernel takes the 14 operands by value, read from the host tensor
     host_ops = ops if ops.is_contiguous() else ops.contiguous()
-    with _on(gains.device):
+    with on_device(gains.device):
         code = _lib()(gains.data_ptr(), z.data_ptr(), u.data_ptr(),
                       None if active is None else active.data_ptr(),
                       None if valid is None else valid.data_ptr(),
@@ -249,7 +242,7 @@ def decision_fused_batched(gains: torch.Tensor, z: torch.Tensor,
         unsupported_device(kernel, gains.device)
     sel, out = decision_outputs(gains)
     b, n = gains.shape
-    with _on(gains.device):
+    with on_device(gains.device):
         code = _lib_batched()(
             gains.data_ptr(), z.data_ptr(), u.data_ptr(), ops.data_ptr(),
             None if valid is None else valid.data_ptr(), sel.data_ptr(),

@@ -6,9 +6,11 @@ tensors: the CUDA kernel for CUDA tensors, its plain version for CPU
 tensors. ``attention_auto`` runs the dense oracle on CPU tensors and the
 kernel on CUDA tensors, as the reference's runs the oracle off a TPU.
 ``ssd`` pads S to a multiple of the chunk and runs :func:`ssd_scan` the
-same way. Unlike the reference's ``ssd``, it takes an
-initial state and returns the final one on request, so the full-sequence
-forward and the serving prefill both go through it. ``ssd_decode_step`` is
+same way. Unlike the reference's ``ssd``, it takes an initial state and
+returns the final one on request, so the full-sequence forward and the
+serving prefill both go through it. ``ssd_auto`` runs the sequential
+oracle on CPU tensors and ``ssd`` on CUDA tensors, as the reference's
+runs its oracle off a TPU. ``ssd_decode_step`` is
 plain PyTorch, as it is jnp in the reference.
 """
 
@@ -67,6 +69,15 @@ def ssd(x, dt, a, bm, cm, *, chunk: int = 128, h0=None,
     if return_state:
         return out[0][:, :s], out[1]
     return out[:, :s]
+
+
+def ssd_auto(x, dt, a, bm, cm, *, chunk: int = 128):
+    """Model-zoo entry point, the twin of the reference's: on CPU tensors
+    the sequential oracle :func:`ref.ssd_ref`, on CUDA tensors K4 through
+    :func:`ssd`. Returns y."""
+    if x.device.type == "cpu":
+        return ref.ssd_ref(x, dt, a, bm, cm)[0]
+    return ssd(x, dt, a, bm, cm, chunk=chunk)
 
 
 def ssd_decode_step(h, xt, dtt, a, bt, ct):

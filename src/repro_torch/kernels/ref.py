@@ -20,11 +20,18 @@ recurrence, the ground truth both are tested against.
 
 SSD shapes: x (b, S, H, P), dt (b, S, H), a (H,), bm / cm (b, S, N),
 state (b, H, N, P); both return ``(y, h_final)``.
+
+``scheduler_solve_ref`` is the solve kernel's oracle, the paper core's
+stitched Theorem-2 solve; the kernel's own plain version, which follows
+its op order, is ``kernels/scheduler_solve.py::scheduler_solve_plain``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.scheduler import SchedulerConfig, solve_round
 
 NEG_INF = -1e30
 
@@ -159,3 +166,13 @@ def ssd_chunked_ref(x, dt, a, bm, cm, *, chunk: int = 128, h0=None):
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, h, p).to(x.dtype)
     return y, state
+
+
+def scheduler_solve_ref(gains, z, *, n, v, lam, ell, bandwidth, noise,
+                        p_max, p_bar, q_floor=1e-5):
+    """Oracle of the solve kernel: the paper core's Theorem-2 solve."""
+    ch = ChannelConfig(n_clients=n, bandwidth_hz=bandwidth,
+                       noise_power=noise, p_max=p_max, p_bar=p_bar)
+    cfg = SchedulerConfig(n_clients=n, model_bits=ell, lam=lam, V=v,
+                          q_floor=q_floor)
+    return solve_round(gains, z, cfg, ch)

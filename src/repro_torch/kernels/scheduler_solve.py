@@ -7,19 +7,25 @@ it takes the configs' scalars directly (``solver="cuda"`` in the engine)
 and forms the Eq. 16 argument as ``v*lam*ell*gains*LN2 /
 (noise*bandwidth*zs)``: the host folds the scalar products in float64 as
 Python does for the reference, and rounds each to float32 once.
+
+The launch path is kept lean, as the fused kernels' is: the 13 rounded
+scalars and their ctypes array are made once per argument tuple and
+cached, q and P are the rows of one (2, N) allocation, and a device
+context is entered only when the lanes are not on the current device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import numpy as np
 import torch
 
 from repro_torch.core.lambertw import lambertw0
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (check_lanes, host_f32, ptr,
+from repro_torch.kernels._launch import (check_lanes, host_f32, on_device,
                                          raise_on_error, stream_of,
                                          unsupported_device)
 
@@ -72,14 +78,36 @@ def scheduler_solve_plain(gains, z, s: dict):
             torch.where(use_int, p_int, p_bnd))
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("scheduler_solve")
-    fn = lib.scheduler_solve_f32
+@functools.lru_cache(maxsize=64)
+def launch_scalars(n, v, lam, ell, bandwidth, noise, p_max, p_bar,
+                   q_floor):
+    """:func:`solve_scalars` of one argument tuple (read-only: every call
+    shares it) and the host float32 array the C interface takes, made once
+    and cached."""
+    s = solve_scalars(n=n, v=v, lam=lam, ell=ell, bandwidth=bandwidth,
+                      noise=noise, p_max=p_max, p_bar=p_bar, q_floor=q_floor)
+    return types.MappingProxyType(s), host_f32(
+        "scheduler_solve", (s[k] for k in SCALARS), len(SCALARS))
+
+
+def _c_function(name: str):
+    fn = getattr(_build.load("scheduler_solve"), name)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
                                            ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _lib():
+    return _c_function("scheduler_solve_f32")
+
+
+@functools.cache
+def launch_floor():
+    """``scheduler_solve_launch_floor``: an empty kernel with the solve
+    kernel's C arguments and grid."""
+    return _c_function("scheduler_solve_launch_floor")
 
 
 def scheduler_solve(gains: torch.Tensor, z: torch.Tensor, *, n: int,
@@ -87,25 +115,29 @@ def scheduler_solve(gains: torch.Tensor, z: torch.Tensor, *, n: int,
                     noise: float, p_max: float, p_bar: float,
                     q_floor: float = 1e-5):
     """Theorem 2 over a flat client vector: gains, z (N,) float32 ->
-    (q, P), each (N,) float32.
+    (q, P), each (N,) float32. ``n`` is the configuration's client count
+    (Eq. 17 and the objective use it), not the number of lanes: the sweep
+    passes every seed's lanes in one call.
 
     CUDA tensors launch the kernel on the current stream (no
     synchronisation) and count one launch in ``scheduler_solve.launches``;
-    CPU tensors run the plain version.
+    q and P are then the two rows of one (2, N) tensor. CPU tensors run the
+    plain version.
     """
     check_lanes("scheduler_solve", torch.float32, gains, gains=gains, z=z)
-    s = solve_scalars(n=n, v=v, lam=lam, ell=ell, bandwidth=bandwidth,
-                      noise=noise, p_max=p_max, p_bar=p_bar, q_floor=q_floor)
+    s, scalars = launch_scalars(n, v, lam, ell, bandwidth, noise, p_max,
+                                p_bar, q_floor)
     if gains.device.type == "cpu":
         return scheduler_solve_plain(gains, z, s)
     if gains.device.type != "cuda":
         unsupported_device("scheduler_solve", gains.device)
-    q, p = torch.empty_like(gains), torch.empty_like(gains)
-    scalars = host_f32("scheduler_solve", (s[k] for k in SCALARS),
-                       len(SCALARS))
-    with torch.cuda.device(gains.device):
-        code = _lib()(ptr(gains), ptr(z), ptr(q), ptr(p), gains.shape[0],
-                      scalars, stream_of(gains.device))
+    n_lanes = gains.shape[0]
+    out = gains.new_empty((2, n_lanes))
+    q, p = out.unbind(0)
+    with on_device(gains.device):
+        code = _lib()(gains.data_ptr(), z.data_ptr(), q.data_ptr(),
+                      p.data_ptr(), n_lanes, scalars,
+                      stream_of(gains.device))
     raise_on_error("scheduler_solve", code)
     scheduler_solve.launches += 1
     return q, p

@@ -84,3 +84,25 @@ def cnn_loss(model: CNN, params: dict, batch) -> torch.Tensor:
     images, labels = batch
     logits = torch.func.functional_call(model, params, (images,))
     return F.cross_entropy(logits, labels)
+
+
+def apply_cnn(params: dict, images: torch.Tensor) -> torch.Tensor:
+    """The CNN with ``params`` on (B, H, W, C) images -> logits."""
+    return torch.func.functional_call(_SHELL, params, (images,))
+
+
+def cnn_accuracy(params: dict, images: torch.Tensor, labels: torch.Tensor,
+                 batch: int = 1024) -> torch.Tensor:
+    """Test accuracy over ``images`` in slices of ``batch``."""
+    with torch.no_grad():
+        preds = torch.cat([apply_cnn(params, images[i:i + batch]).argmax(-1)
+                           for i in range(0, images.shape[0], batch)])
+    return (preds == labels).to(torch.float32).mean()
+
+
+def param_count(params: dict) -> int:
+    return sum(int(p.numel()) for p in params.values())
+
+
+# a parameter-less module: calls swap their params in
+_SHELL = CNN({})

@@ -25,7 +25,10 @@ in bfloat16, the reference tests' own; skipping the masked key tiles
 changes no bit; on unexpanded KV heads (``kv_group`` 8 and 2) it equals
 itself on the ``repeat_interleave``-expanded heads bit for bit; reduced
 yi-6b at its full head_dim (128) launches it once per layer in forward
-and prefill, never in decode, and expands no KV head.
+and prefill, never in decode, and expands no KV head. The solve kernel on
+the sweep's flattened seeds equals itself per seed bit for bit, returns q
+and P as the two rows of one allocation, and the sweep launches it once a
+round for every seed.
 """
 
 import functools
@@ -182,6 +185,53 @@ def test_engine_paths_launch_their_kernels(cuda):
     for solver in ("cuda", "stitched"):
         assert (hist[solver]["selected"]
                 == hist["cuda_fused"]["selected"]).all()
+
+
+@pytest.mark.parametrize("n,seeds", [(100, 3), (3597, 4)])
+def test_scheduler_solve_flattened_seeds(cuda, n, seeds):
+    """S seeds' lanes flattened in one launch equal S launches of N lanes
+    bit for bit (``n`` the configuration's N), and equal the plain version
+    bit for bit; q and P are the rows of one (2, S N) tensor."""
+    gains, z, _, _ = lanes(n * seeds, cuda)
+    kw = dict(KW, n=n)
+    before = scheduler_solve.launches
+    q, p = scheduler_solve(gains, z, **kw)
+    assert scheduler_solve.launches == before + 1
+    assert q.data_ptr() + 4 * n * seeds == p.data_ptr()
+    q0, p0 = scheduler_solve_plain(gains, z, solve_scalars(**kw))
+    assert torch.equal(q, q0) and torch.equal(p, p0)
+    for s in range(seeds):
+        rows = slice(s * n, (s + 1) * n)
+        qs, ps_ = scheduler_solve(gains[rows], z[rows], **kw)
+        assert torch.equal(qs, q[rows]) and torch.equal(ps_, p[rows])
+
+
+def test_sweep_launches_solve_once_a_round(cuda):
+    """run_sweep under "cuda" and "cuda_fused": the solve kernel once a
+    round for all seeds, the same trajectories as "stitched" (n_selected
+    exact, comm time at rtol 1e-5); uniform launches nothing."""
+    from repro_torch.fl.engine import run_sweep
+
+    n, rounds = 64, 12
+    sig = heterogeneous_sigmas(n, device=cuda)
+    scfg = SchedulerConfig(n_clients=n, model_bits=32 * 555178.0)
+    ch = ChannelConfig(n_clients=n)
+    out = {}
+    for solver, policy, want in (("cuda", "proposed", rounds),
+                                 ("cuda_fused", "proposed", rounds),
+                                 ("stitched", "proposed", 0),
+                                 ("cuda", "uniform", 0)):
+        scheduler_solve.launches = decision_fused.launches = 0
+        out[solver, policy] = run_sweep(None, sig, scfg, ch, rounds=rounds,
+                                        policies=(policy,),
+                                        seeds=(0, 1, 2), solver=solver)
+        assert (scheduler_solve.launches, decision_fused.launches) == (
+            want, 0)
+    for solver in ("cuda", "cuda_fused"):
+        got, want = out[solver, "proposed"], out["stitched", "proposed"]
+        np.testing.assert_array_equal(got["n_selected"], want["n_selected"])
+        np.testing.assert_allclose(got["comm_time"], want["comm_time"],
+                                   rtol=1e-5)
 
 
 BATCHED_SHAPES = [(1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384)]

@@ -17,7 +17,8 @@ interpreter exactly as they would without the port's tests.
 
 :func:`record_draws` draws, with the reference engine's own key chain, the
 arrays that :class:`ReplayDraws` feeds to the port's engine, so both sides
-see identical randomness.
+see identical randomness; :func:`record_sweep_draws` and
+:class:`ReplaySweepDraws` do the same for the policy x seed sweep.
 """
 
 from __future__ import annotations
@@ -63,7 +64,9 @@ def reference() -> types.SimpleNamespace:
                  ssd_scan="kernels.ssd_scan", configs="configs",
                  serve="launch.serve", attention="models.attention",
                  layers="models.layers",
-                 flash_attention="kernels.flash_attention")
+                 flash_attention="kernels.flash_attention",
+                 bound="core.bound", mlp="models.mlp",
+                 femnist="configs.femnist_cnn")
     mods = {k: importlib.import_module(f"repro.{v}") for k, v in names.items()}
     return types.SimpleNamespace(jax=jax, jnp=jnp, **mods)
 
@@ -114,3 +117,57 @@ class ReplayDraws:
 
     def batch_idx(self, r):
         return self._a["batch_idx"][r]
+
+
+def record_sweep_draws(ref, key, rounds: int, n: int, seeds,
+                       match_rounds: int) -> dict:
+    """Every draw of the reference's ``run_sweep`` from ``key``, as numpy.
+
+    The chain is ``fl/engine.py``'s: seed ``s`` runs on ``fold_in(key, s)``
+    (shared by every policy), its round keys are ``split(cfg_key,
+    rounds)``, each round key splits into ``k_ch, k_sel``; the rayleigh
+    draw takes ``k_ch``, the proposed policy's uniforms and the uniform
+    baseline's raws ``k_sel``. The matched-M estimate draws its channel
+    from ``split(fold_in(key, 7), match_rounds)``. Per-round arrays are
+    (rounds, S, ...).
+    """
+    jax = ref.jax
+    out = {"channel_raw": [], "selection_u": [], "take": [], "scores": []}
+    for s in seeds:
+        rows = {k: [] for k in out}
+        for k in jax.random.split(jax.random.fold_in(key, s), rounds):
+            k_ch, k_sel = jax.random.split(k)
+            rows["channel_raw"].append(ref.channel._rayleigh_draw(k_ch, n))
+            rows["selection_u"].append(
+                ref.policies.draw_selection_uniform(k_sel, n))
+            uni = ref.policies._draw_uniform(k_sel, n)
+            rows["take"].append(uni["take"])
+            rows["scores"].append(uni["scores"])
+        for k, v in rows.items():
+            out[k].append(np.stack([np.asarray(x) for x in v]))
+    arrays = {k: np.stack(v, axis=1) for k, v in out.items()}
+    arrays["match"] = np.stack([
+        np.asarray(ref.channel._rayleigh_draw(k, n)) for k in
+        jax.random.split(jax.random.fold_in(key, 7), match_rounds)])
+    return arrays
+
+
+class ReplaySweepDraws:
+    """The port's ``SweepDraws`` interface over :func:`record_sweep_draws`
+    arrays."""
+
+    def __init__(self, arrays: dict, device="cpu"):
+        self._a = {k: torch.as_tensor(v, device=device)
+                   for k, v in arrays.items()}
+
+    def channel_raw(self, r):
+        return self._a["channel_raw"][r]
+
+    def selection_u(self, r):
+        return self._a["selection_u"][r]
+
+    def uniform_raw(self, r):
+        return {"take": self._a["take"][r], "scores": self._a["scores"][r]}
+
+    def match_raws(self, rounds):
+        return self._a["match"][:rounds]
