@@ -61,6 +61,26 @@ Phases; any failure exits non-zero before the result line is printed:
    FEMNIST run and every (seed, round) of the sweep but at lanes whose
    uniform lies within 1e-6 of q (printed; a farther one fails), and
    ``proposed`` must spend less mean comm time than M-matched uniform;
+11. (run right after phase 10) scenarios at full width: the population
+   engine (``population = (("p_leave", 0.1), ("p_join", 0.2),
+   ("p_fail", 0.25), ("init_active", 0.8))``) through ``run_simulation``
+   on phase 4's network (N = 100) and phase 10's (N = 3,597), 5 rounds,
+   ``proposed`` under the three solvers on the same draws: the fused run
+   must launch only K2 with its activity mask (5), the cuda run only K1
+   (5); no inactive lane may be selected or have q != 0; the selections
+   must agree but at lanes within 1e-6 of q; ``population=()`` under
+   ``"cuda_fused"`` must equal the population-free fused run of phase 4
+   or 10 bit for bit (K2 with an all-True mask against K2 unmasked); then
+   ``run_tournament`` on the CIFAR-10 network (rayleigh and
+   outage_burst(0.2, 4.0) x the populations (), churn (p_leave 0.1,
+   p_join 0.2) and stragglers (p_fail 0.25) x all six policies, seed 0,
+   5 rounds, phase 4's matched M) under ``solver="cuda"``: K1 exactly 30
+   launches, K2 none, the layout (2, 3, 1, 6, 1, 2), regret >= 0 and 0
+   for each scenario's oracle; then ``run_sweep`` at N = 3,597, seeds
+   0-3, 100 rounds, under ``"cuda"``: all six policies under rayleigh,
+   ``proposed`` and ``uniform`` under each of the five other channels at
+   their default params, M matched under each channel; ``proposed``
+   must launch K1 100 times a sweep, the baselines nothing;
 5. profile one more fused run (``torch.profiler``): device time by op
    and the device's busy share;
 6. the scheduler service at full width: the demo's deployment mix
@@ -90,7 +110,10 @@ Phases; any failure exits non-zero before the result line is printed:
    2e05f3b:src/repro_torch/kernels/csrc/decision_fused.cu``, with its
    ``theorem2.cuh`` beside it or the current one), that design behind its
    own launch path, checked bit for bit and timed in turns with this one
-   (old, new, new, old), device and per call;
+   (old, new, new, old), device and per call; and K2 with the
+   population's one mask as ``active`` and ``valid`` at N = 100 and
+   3,597, device time in turns with the unmasked call, beside its plain
+   version and its bound;
 8. Mamba-2 (``mamba2-130m``, full width: 24 layers, d_model 768, 129 M
    random float32 parameters from a seed) on the card: with the counts at
    0, a forward at batch 4 x 2048 and ``launch/serve.py::generate``
@@ -124,8 +147,8 @@ Phases; any failure exits non-zero before the result line is printed:
 
 TF32 is off for every product and convolution in every phase.
 
-Prints the service's, FEMNIST's, Mamba's and yi's JSON lines, the card
-line, one
+Prints the service's, FEMNIST's, the scenarios', Mamba's and yi's JSON
+lines, the card line, one
 JSON line of the kernels (``{"kernels": [...]}``), then, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -434,8 +457,10 @@ def main_path(torch):
     saving = 1.0 - fused["comm_time"][-1] / uni["comm_time"][-1]
     print(f"comm-time saving of proposed vs M-matched uniform after "
           f"{ROUNDS} rounds: {saving:.1%}", flush=True)
+    ctx = dict(ds=ds, params=params, sig=sig, scfg=scfg, ch=ch, m=m,
+               sim=SimConfig(**base), fused=fused)
     return ({"scheduler_solve": c_solve["scheduler_solve"],
-             "decision_fused": c_fused["decision_fused"]}, run)
+             "decision_fused": c_fused["decision_fused"]}, run, ctx)
 
 
 # --------------------------------------------------------------------------
@@ -632,6 +657,284 @@ def femnist_path(torch):
         "sweep": {"scheduler_solve": sum(r[1]["scheduler_solve"]
                                          for r in sweeps.values()),
                   "decision_fused": 0}}
+    ctx = dict(ds=ds, params=params, sig=sig, scfg=scfg, ch=ch,
+               sim=dataclasses.replace(sim, solver="cuda_fused"),
+               fused=runs["cuda_fused"][0])
+    return launches, summary, ctx
+
+
+# --------------------------------------------------------------------------
+# Phase 11 (run right after phase 10): scenarios at full width.
+# --------------------------------------------------------------------------
+
+# churn and stragglers from a partly active start
+POPULATION = (("p_leave", 0.1), ("p_join", 0.2), ("p_fail", 0.25),
+              ("init_active", 0.8))
+TOURNAMENT = dict(
+    channels=("rayleigh",
+              ("outage_burst", (("outage_p", 0.2), ("burst_len", 4.0)))),
+    populations=((), (("p_leave", 0.1), ("p_join", 0.2)),
+                 (("p_fail", 0.25),)),
+    policies=("proposed", "uniform", "greedy_channel", "proportional_gain",
+              "update_aware", "aoi_capped"),
+    seeds=(0,))
+NEW_CHANNELS = ("rician", "lognormal", "gauss_markov", "mobility",
+                "outage_burst")
+
+
+def check_history(tag, hist):
+    import numpy as np
+    comm = hist["comm_time"]
+    if not ((comm > 0).all() and (np.diff(comm) >= 0).all()
+            and all(np.isfinite(hist[k]).all()
+                    for k in ("comm_time", "test_acc", "avg_power"))
+            and ((hist["test_acc"] >= 0) & (hist["test_acc"] <= 1)).all()
+            and (hist["n_selected"] >= 1).all()):
+        raise AssertionError(f"{tag}: bad history {hist}")
+
+
+def population_runs(torch, width, ctx):
+    """The population engine under the three solvers on the same draws,
+    and the all-active run against phase 4's / 10's population-free fused
+    run: launches, inactive lanes, selections, bits."""
+    import numpy as np
+
+    from repro_torch.fl.engine import default_draws
+    from repro_torch.fl.simulation import run_simulation
+
+    sim = dataclasses.replace(ctx["sim"], population=POPULATION)
+    out, counts, secs = {}, {}, {}
+    for solver in ("cuda_fused", "cuda", "stitched"):
+        reset_counts()
+        t = time.perf_counter()
+        hist = run_simulation(None, ctx["params"], ctx["ds"],
+                              dataclasses.replace(sim, solver=solver),
+                              ctx["scfg"], ctx["ch"], ctx["sig"],
+                              keep_selection=True)
+        torch.cuda.synchronize()
+        secs[solver] = time.perf_counter() - t
+        counts[solver] = read_counts()
+        check_history(f"{width} population {solver}", hist)
+        active = hist["active"]
+        if hist["selected"][~active].any() or hist["q"][~active].any():
+            raise AssertionError(f"{width} population {solver}: an inactive "
+                                 "lane was selected or has q != 0")
+        out[solver] = hist
+        print(f"{width} population proposed/{solver}: {secs[solver]:.3f} s "
+              f"for {ROUNDS} rounds, launches {counts[solver]}, active "
+              f"{active.sum(1).tolist()} of {active.shape[1]}, n_selected "
+              f"{hist['n_selected'].tolist()}, comm_time "
+              f"{hist['comm_time'].tolist()}", flush=True)
+    want = {"cuda_fused": launch_counts(decision_fused=ROUNDS),
+            "cuda": launch_counts(scheduler_solve=ROUNDS),
+            "stitched": launch_counts()}
+    for solver, got in counts.items():
+        if got != want[solver]:
+            raise AssertionError(f"{width} population {solver} launched "
+                                 f"{got}, want {want[solver]}")
+    fused = out["cuda_fused"]
+    draws = default_draws(sim, ctx["ds"])
+    u = torch.stack([draws.selection_u(r) for r in range(ROUNDS)])
+    u = u.cpu().numpy()
+    flips = {}
+    for solver in ("cuda", "stitched"):
+        if not np.array_equal(out[solver]["active"], fused["active"]):
+            raise AssertionError(f"{width}: the activity masks differ "
+                                 f"between cuda_fused and {solver}")
+        flips[solver] = same_selections(
+            f"{width} population cuda_fused vs {solver}", fused["selected"],
+            out[solver]["selected"], u, fused["q"])
+    # The all-active contract: population=() against the population-free
+    # run, back to back with cuDNN's deterministic algorithms, so that the
+    # training, too, is bitwise reproducible between the two runs
+    degenerate, all_active_counts, all_active_s = {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, pop in (("free", None), ("all_active", ())):
+            reset_counts()
+            t = time.perf_counter()
+            degenerate[label] = run_simulation(
+                None, ctx["params"], ctx["ds"],
+                dataclasses.replace(ctx["sim"], population=pop),
+                ctx["scfg"], ctx["ch"], ctx["sig"], keep_selection=True)
+            torch.cuda.synchronize()
+            all_active_s[label] = time.perf_counter() - t
+            all_active_counts[label] = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for label, got in all_active_counts.items():
+        if got != want["cuda_fused"]:
+            raise AssertionError(f"{width} {label} run launched {got}")
+    for key in ("comm_time", "test_acc", "avg_power", "n_selected",
+                "selected", "q"):
+        if not np.array_equal(degenerate["all_active"][key],
+                              degenerate["free"][key]):
+            raise AssertionError(f"{width}: population=() differs from the "
+                                 f"population-free run in {key}")
+    # the scheduling outputs also equal the earlier phase's fused run (its
+    # training ran without cuDNN's deterministic algorithms)
+    for key in ("comm_time", "avg_power", "n_selected", "selected", "q"):
+        if not np.array_equal(degenerate["free"][key], ctx["fused"][key]):
+            raise AssertionError(f"{width}: the population-free fused run "
+                                 f"differs from the earlier phase's in {key}")
+    same_acc = bool(np.array_equal(degenerate["free"]["test_acc"],
+                                   ctx["fused"]["test_acc"]))
+    print(f"{width}: the three solvers selected the same clients in every "
+          f"round but {flips} lanes within {FLIP_GAP} of q; no inactive lane "
+          f"selected, q = 0 on every one; population=() equals the "
+          f"population-free cuda_fused run bit for bit, test accuracy "
+          f"included (K2 with an all-True mask against K2 unmasked); the "
+          f"earlier phase's run {'has' if same_acc else 'lacks'} the same "
+          f"test accuracy {ctx['fused']['test_acc'].tolist()} against "
+          f"{degenerate['free']['test_acc'].tolist()}", flush=True)
+    launches = {"scheduler_solve": counts["cuda"]["scheduler_solve"],
+                "decision_fused": counts["cuda_fused"]["decision_fused"]
+                + sum(c["decision_fused"]
+                      for c in all_active_counts.values())}
+    summary = dict(n_clients=ctx["ds"].n_clients, s_per_5_rounds=secs,
+                   all_active_s=all_active_s, flips=flips,
+                   earlier_run_same_test_acc=same_acc,
+                   active_per_round=fused["active"].sum(1).tolist(),
+                   n_selected=fused["n_selected"].tolist(),
+                   comm_time={s: h["comm_time"].tolist()
+                              for s, h in out.items()},
+                   test_acc={s: h["test_acc"].tolist()
+                             for s, h in out.items()})
+    return launches, summary
+
+
+def tournament_run(torch, ctx):
+    """The 36-config tournament on the CIFAR-10 network under
+    ``solver="cuda"``: K1 30 times (6 proposed configs x 5 rounds), the
+    reference's layout, regret >= 0 and 0 for each scenario's oracle."""
+    import numpy as np
+
+    from repro_torch.fl.engine import eval_rounds
+    from repro_torch.fl.tournament import AXES, run_tournament
+
+    sim = dataclasses.replace(ctx["sim"], solver="cuda", uniform_m=ctx["m"])
+    reset_counts()
+    t = time.perf_counter()
+    out = run_tournament(None, ctx["params"], ctx["ds"], sim, ctx["scfg"],
+                         ctx["ch"], **TOURNAMENT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    n_prop = (len(TOURNAMENT["channels"]) * len(TOURNAMENT["populations"])
+              * len(TOURNAMENT["seeds"]))
+    if counts != launch_counts(scheduler_solve=n_prop * ROUNDS):
+        raise AssertionError(f"tournament launched {counts}, want K1 "
+                             f"{n_prop * ROUNDS} times and nothing else")
+    e = len(eval_rounds(sim.rounds, sim.eval_every))
+    shape = (2, 3, 1, 6, 1)
+    regret = out["regret_acc"]
+    if not (out["test_acc"].shape == shape + (e,) and regret.shape == shape
+            and (regret >= 0).all()
+            and (regret.min(axis=AXES.index("policies")) == 0).all()
+            and all(np.isfinite(out[k]).all()
+                    for k in ("comm_time", "test_acc", "avg_power"))):
+        raise AssertionError(f"tournament: bad layout or regret "
+                             f"{out['test_acc'].shape} {regret}")
+    configs = int(regret.size)
+    print(f"tournament: {configs} configs x {sim.rounds} rounds in "
+          f"{wall:.2f} s ({configs / wall:.2f} configs/s), launches "
+          f"{counts}; layout {out['test_acc'].shape}", flush=True)
+    for row in out["leaderboard"]:
+        print(f"  {row['policy']:>17}: mean final acc "
+              f"{row['mean_final_acc']:.4f}, regret "
+              f"{row['mean_regret_acc']:.4f}, oracle wins "
+              f"{row['oracle_wins']}, unreached {row['unreached']}",
+              flush=True)
+    return counts["scheduler_solve"], dict(
+        configs=configs, rounds=sim.rounds, wall_s=wall,
+        configs_per_s=configs / wall, matched_m=float(ctx["m"]),
+        leaderboard=out["leaderboard"],
+        mean_comm_time={p: float(out["comm_time"][..., i, :, -1].mean())
+                        for i, p in enumerate(out["policies"])})
+
+
+def scenario_sweeps(torch, ctx):
+    """``run_sweep`` at N = 3,597, seeds 0-3, 100 rounds: all six policies
+    under rayleigh, proposed and uniform under each new channel, M matched
+    under each channel; proposed under ``cuda`` launches K1 once a round."""
+    import numpy as np
+
+    from repro_torch.fl.engine import run_sweep
+    from repro_torch.fl.simulation import match_uniform_m
+
+    sig, scfg, ch = ctx["sig"], ctx["scfg"], ctx["ch"]
+    plan = [("rayleigh", TOURNAMENT["policies"])] + [
+        (c, ("proposed", "uniform")) for c in NEW_CHANNELS]
+    k1, rows = 0, {}
+    for channel, policies in plan:
+        t = time.perf_counter()
+        m = match_uniform_m(torch.Generator(device="cuda").manual_seed(5),
+                            sig, scfg, ch, rounds=300, channel=channel)
+        match_s = time.perf_counter() - t
+        row = dict(matched_m=m, match_s=match_s, s={}, mean_comm_time={},
+                   mean_selected={})
+        for policy in policies:
+            reset_counts()
+            t = time.perf_counter()
+            out = run_sweep(None, sig, scfg, ch, rounds=SWEEP_ROUNDS,
+                            policies=(policy,), seeds=SWEEP_SEEDS, seed=0,
+                            uniform_m=m, solver="cuda", channel=channel)
+            dt = time.perf_counter() - t
+            got = read_counts()
+            want = launch_counts(scheduler_solve=SWEEP_ROUNDS
+                                 if policy == "proposed" else 0)
+            if got != want:
+                raise AssertionError(f"sweep {policy}/{channel} launched "
+                                     f"{got}, want {want}")
+            if not (all(np.isfinite(out[k]).all()
+                        for k in ("comm_time", "power", "avg_power"))
+                    and (out["n_selected"] >= 1).all()
+                    and (np.diff(out["comm_time"], axis=-1) >= 0).all()):
+                raise AssertionError(f"sweep {policy}/{channel}: bad "
+                                     f"trajectory")
+            k1 += got["scheduler_solve"]
+            row["s"][policy] = dt
+            row["mean_comm_time"][policy] = float(
+                out["comm_time"][0, :, -1].mean())
+            row["mean_selected"][policy] = float(out["n_selected"].mean())
+        row["saving"] = 1.0 - (row["mean_comm_time"]["proposed"]
+                               / row["mean_comm_time"]["uniform"])
+        rows[channel] = row
+        print(f"sweep {channel}: M = {m:.3f} (matched in {match_s:.3f} s); "
+              + ", ".join(f"{p} {row['s'][p]:.3f} s / comm "
+                          f"{row['mean_comm_time'][p]:.1f} s"
+                          for p in policies)
+              + f"; proposed saves {row['saving']:.1%} against M-matched "
+              f"uniform", flush=True)
+    return k1, rows
+
+
+def scenarios_path(torch, cifar, femnist):
+    """Phase 11: the population engine at N = 100 and 3,597, the policy
+    tournament on the CIFAR-10 network, and the sweeps under every channel
+    and policy at N = 3,597."""
+    t0 = time.perf_counter()
+    pop_cifar, sum_cifar = population_runs(torch, "cifar10", cifar)
+    pop_femnist, sum_femnist = population_runs(torch, "femnist", femnist)
+    k1_tournament, tournament = tournament_run(torch, cifar)
+    k1_sweeps, sweeps = scenario_sweeps(torch, femnist)
+    wall = time.perf_counter() - t0
+    print(f"phase 11 took {wall:.1f} s", flush=True)
+    launches = {
+        "scenarios": {
+            "scheduler_solve": (pop_cifar["scheduler_solve"]
+                                + pop_femnist["scheduler_solve"]
+                                + k1_tournament + k1_sweeps),
+            "decision_fused": (pop_cifar["decision_fused"]
+                               + pop_femnist["decision_fused"])}}
+    summary = dict(population=POPULATION, wall_s=wall,
+                   cifar10=sum_cifar, femnist=sum_femnist,
+                   tournament=tournament, sweeps=sweeps,
+                   launches=dict(population_cifar10=pop_cifar,
+                                 population_femnist=pop_femnist,
+                                 tournament_k1=k1_tournament,
+                                 sweeps_k1=k1_sweeps))
     return launches, summary
 
 
@@ -1031,6 +1334,13 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/decision_fused.cu",
         replaces="src/repro/kernels/decision_fused.py:151",
         bytes_per_lane=33, ops_per_lane=SOLVE_OPS + 15),
+    # K2 under the population's one mask (``active`` and ``valid`` are
+    # the same tensor, read once): 12 B + 1 B read, 21 B written, two
+    # more selects a lane
+    "decision_fused_masked": dict(
+        source="src/repro_torch/kernels/csrc/decision_fused.cu",
+        replaces="src/repro/kernels/decision_fused.py:151",
+        bytes_per_lane=34, ops_per_lane=SOLVE_OPS + 17),
     # 12 B read + 1 B valid + 21 B written per lane, and each row's 14
     # float32 operands read once
     "decision_fused_batched": dict(
@@ -1314,7 +1624,9 @@ def solve_timings(torch, scfg, ch, clock, sms):
 DECISION_EXTRAS = ("ms_turns", "pr16_ms", "pr16_ms_turns", "pr16_call_ms",
                    "launch_floor_ms", "sass_per_lane", "issue_floor_ms",
                    "pr16_sass_per_lane", "busy_sm_clock_mhz",
-                   "issue_floor_busy_clock_ms", "host_split_us")
+                   "issue_floor_busy_clock_ms", "host_split_us",
+                   "masked_ms", "masked_ms_turns", "unmasked_ms_turns",
+                   "masked_plain_ms", "masked_bound_ms")
 
 
 def host_split(torch, whole, pieces, iters=2000):
@@ -1434,6 +1746,22 @@ def timings(torch, scfg, ch, ops):
             "outputs": lambda: decision_outputs(gains)[1].unbind(0),
             "launch": lambda: launch_k3()(*args)})
 
+    def masked_k2(gains, z, u, mask, unmasked):
+        """K2 as the population engine calls it (one mask as ``active``
+        and ``valid``): device ms in turns with the unmasked call, the
+        plain version's, and the bound (34 B a lane)."""
+        def masked():
+            return decision_fused(gains, z, u, ops, active=mask, valid=mask)
+        ms, ms_un = in_turns(torch, masked, unmasked,
+                             lambda f: time_device(torch, f, False))
+        return dict(masked_ms=sum(ms) / 2, masked_ms_turns=ms,
+                    unmasked_ms_turns=ms_un,
+                    masked_plain_ms=time_device(
+                        torch, lambda: decision_fused_plain(
+                            gains, z, u, ops_dev, mask, mask), False),
+                    masked_bound_ms=bound(KERNELS["decision_fused_masked"],
+                                          gains.shape[0])[0])
+
     def report(name, shape, row):
         pr16_ms = row["pr16_ms"]
         print(f"{name} {shape}: {row['ms'] * 1e3:.2f} us device"
@@ -1451,6 +1779,14 @@ def timings(torch, scfg, ch, ops):
                  if "busy_sm_clock_mhz" in row else "")
               + "; bound "
               f"{row['bound_ms'] * 1e3:.3f} us", flush=True)
+        if "masked_ms" in row:
+            print(f"  with the population's mask: "
+                  f"{row['masked_ms'] * 1e3:.2f} us device (turns "
+                  f"{[round(t * 1e3, 2) for t in row['masked_ms_turns']]} "
+                  f"against unmasked "
+                  f"{[round(t * 1e3, 2) for t in row['unmasked_ms_turns']]}"
+                  f"), plain {row['masked_plain_ms'] * 1e3:.1f} us, bound "
+                  f"{row['masked_bound_ms'] * 1e3:.3f} us", flush=True)
         if "host_split_us" in row:
             print("  host us per call: " + ", ".join(
                 f"{k} {v:.1f}" for k, v in row["host_split_us"].items()),
@@ -1458,7 +1794,7 @@ def timings(torch, scfg, ch, ops):
 
     out = solve_timings(torch, scfg, ch, clock, sms)
     for n in (scfg.n_clients, FEMNIST_N, 1 << 20):
-        gains, z, u, _ = lanes(torch, n, 7, "cuda")
+        gains, z, u, mask = lanes(torch, n, 7, "cuda")
         calls = {
             "decision_fused": (
                 lambda: decision_fused(gains, z, u, ops),
@@ -1479,6 +1815,7 @@ def timings(torch, scfg, ch, ops):
                 row.update(floors(name, 1, n, gains, kernel, cold))
                 if not cold:
                     row["host_split_us"] = split_k2(gains, z, u)
+                    row.update(masked_k2(gains, z, u, mask, kernel))
                 report(name, n, row)
             out[(name, n)] = row
     for b, n in BATCHED_SHAPES[2:]:
@@ -2178,10 +2515,14 @@ def main() -> int:
     times = timings(torch, scfg, ch, ops)
     err["ssd_scan"] = check_ssd(torch)
     err["flash_attention_bhsd"] = check_flash(torch)
-    launches, run = main_path(torch)
+    launches, run, cifar_ctx = main_path(torch)
     by_path = {"cifar10": dict(launches)}
-    more, femnist = femnist_path(torch)
+    more, femnist, femnist_ctx = femnist_path(torch)
     by_path.update(more)
+    more, scenarios = scenarios_path(torch, cifar_ctx, femnist_ctx)
+    by_path.update(more)
+    del cifar_ctx, femnist_ctx
+    torch.cuda.empty_cache()
     for name in launches:
         launches[name] = sum(p[name] for p in by_path.values())
     profile_rounds(torch, run)
@@ -2246,6 +2587,7 @@ def main() -> int:
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
     print(json.dumps({"femnist": femnist}), flush=True)
+    print(json.dumps({"scenarios": scenarios}), flush=True)
     print(json.dumps({"mamba": mamba}), flush=True)
     print(json.dumps({"yi": yi}), flush=True)
     print(card, flush=True)

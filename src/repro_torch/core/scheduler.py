@@ -37,8 +37,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.channel import (ChannelConfig, _rayleigh_apply,
-                                      _rayleigh_draw, channel_rate)
+from repro_torch.core.channel import (ChannelConfig, channel_rate,
+                                      make_channel)
 from repro_torch.core.lambertw import lambertw0
 
 _LN2 = 0.6931471805599453
@@ -274,20 +274,35 @@ def greedy_coeffs(n_clients: int, m_avg: float,
                         pn=_f32(ch.p_bar * n_clients))
 
 
+def _on_device(x, like: torch.Tensor) -> torch.Tensor:
+    """A tensor passes to ``like``'s device; a number becomes a 0-d int64
+    or float32 tensor filled there (no host-to-device copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(like.device)
+    dtype = (torch.long if isinstance(x, (int, np.integer))
+             else torch.float32)
+    return like.new_full((), x, dtype=dtype)
+
+
 def _per_row(c, like: torch.Tensor):
     """``c``'s fields as tensors of ``like``'s leading shape on its device:
     a number becomes a 0-d tensor (int64 or float32) broadcast over it, a
     (B,) column of the service passes through."""
-    return type(c)(*(torch.as_tensor(x, device=like.device).expand(
-        like.shape[:-1]) for x in c))
+    return type(c)(*(_on_device(x, like).expand(like.shape[:-1])
+                     for x in c))
 
 
 def uniform_draw_m(take_hi: torch.Tensor, m_avg: torch.Tensor,
-                   n_clients: torch.Tensor) -> torch.Tensor:
+                   n_clients: torch.Tensor, n_active=None) -> torch.Tensor:
     """The round's subset size M' = floor(M) or ceil(M), clipped into
-    [1, N]; an int64 tensor of ``take_hi``'s shape and device."""
+    [1, N]; an int64 tensor of ``take_hi``'s shape and device. Under an
+    activity mask, ``n_active`` (the active count) replaces N: M' clips
+    into [1, max(n_active, 1)], so the top-M' threshold never ties into
+    inactive lanes."""
     m = torch.clamp_min(take_hi.long() + torch.floor(m_avg), 1)
-    return torch.minimum(m.long(), n_clients.long())
+    hi = (n_clients.long() if n_active is None
+          else torch.clamp_min(n_active.long(), 1))
+    return torch.minimum(m.long(), hi)
 
 
 def _top_m(score: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -309,25 +324,40 @@ def _p_over_m(pn: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
                      torch.clamp_min(m, 1).to(torch.float32))
 
 
-def uniform_decide(raw, c: UniformCoeffs):
+def uniform_decide(raw, c: UniformCoeffs, active=None, n_active=None):
     """The uniform baseline on pre-drawn raws {"take": (...), "scores":
     (..., N)}: the M' highest scores are selected, q = M/N,
-    P = Pbar N / M'. Pad lanes must score below every real score."""
+    P = Pbar N / M'. Pad lanes must score below every real score.
+
+    Under an activity mask ``active`` (with its count ``n_active``)
+    inactive lanes score -1, below every live score, M' clips into the
+    active count and their q is 0."""
     scores = raw["scores"]
     c = _per_row(c, scores)
     take_hi = raw["take"] < (c.m_avg - torch.floor(c.m_avg))
-    m = uniform_draw_m(take_hi, c.m_avg, c.n)
-    return (_top_m(scores, m), _fill(c.q_val, scores),
-            _fill(_p_over_m(c.pn, m), scores))
+    m = uniform_draw_m(take_hi, c.m_avg, c.n, n_active)
+    q = _fill(c.q_val, scores)
+    if active is not None:
+        scores = torch.where(active, scores, -1.0)
+        q = torch.where(active, q, 0.0)
+    return _top_m(scores, m), q, _fill(_p_over_m(c.pn, m), scores)
 
 
-def greedy_decide(gains: torch.Tensor, c: GreedyCoeffs):
+def greedy_decide(gains: torch.Tensor, c: GreedyCoeffs, active=None,
+                  n_active=None):
     """Top-M instantaneous channels: sel = gains >= the M-th largest gain,
     q the realized indicator, P = Pbar N / M. Pad gains must lie below
-    every real (clipped-positive) gain."""
+    every real (clipped-positive) gain. Under an activity mask inactive
+    lanes score -inf and M clips into [1, max(n_active, 1)]; P keeps
+    the unclipped M."""
     c = _per_row(c, gains)
     m = c.m.long()
-    sel = _top_m(gains, m)
+    score, m_eff = gains, m
+    if active is not None:
+        score = torch.where(active, gains, -torch.inf)
+        m_eff = torch.clamp_min(torch.minimum(
+            m, torch.clamp_min(n_active.long(), 1)), 1)
+    sel = _top_m(score, m_eff)
     return sel, sel.to(torch.float32), _fill(_p_over_m(c.pn, m), gains)
 
 
@@ -343,25 +373,40 @@ def uniform_selection(generator: torch.Generator, n_clients: int,
     return uniform_decide(raw, uniform_coeffs(n_clients, m_avg, ch))
 
 
+def _raw_at(raws, r: int):
+    """Round ``r`` of raws stacked along a leading round axis (a tensor or
+    a tuple of them)."""
+    if isinstance(raws, tuple):
+        return tuple(x[r] for x in raws)
+    return raws[r]
+
+
 def estimate_avg_selected(generator, sigmas: torch.Tensor,
                           cfg: SchedulerConfig, ch: ChannelConfig,
-                          rounds: int = 500, *,
-                          raws: torch.Tensor = None) -> torch.Tensor:
-    """Monte-Carlo estimate of M = E[sum_n q_n] under Algorithm 2 on i.i.d.
-    Rayleigh gains, discarding the first 20% as burn-in (queues start at 0).
+                          rounds: int = 500, channel=None, *,
+                          raws=None, init_raw=None) -> torch.Tensor:
+    """Monte-Carlo estimate of M = E[sum_n q_n] under Algorithm 2,
+    discarding the first 20% as burn-in (queues start at 0).
 
-    The channel uniforms come from ``generator`` (a ``torch.Generator`` on
-    ``sigmas``' device), or from ``raws``, a (rounds, N) tensor (tests
-    replay the reference's draws; ``generator`` may then be None).
+    ``channel`` is a bound :class:`~repro_torch.core.channel.ChannelModel`
+    whose fading law the estimate follows (None: the paper's i.i.d.
+    Rayleigh). The randomness comes from ``generator`` (a
+    ``torch.Generator`` on ``sigmas``' device: the model's init raw, then
+    a raw a round), or from ``raws``, the rounds' raws stacked along a
+    leading axis, and ``init_raw`` (tests replay the reference's draws;
+    ``generator`` may then be None).
     """
-    n, device = sigmas.shape[0], sigmas.device
+    if channel is None:
+        channel = make_channel("rayleigh", sigmas, ch)
     c = as_operands(solve_coeffs(cfg, ch), sigmas)
-    z = torch.zeros((n,), dtype=torch.float32, device=device)
+    z = torch.zeros_like(sigmas, dtype=torch.float32)
+    if raws is None:
+        init_raw = channel.draw_init(generator)
+    state = channel.init(init_raw)
     sums = []
     for r in range(rounds):
-        raw = (raws[r] if raws is not None
-               else _rayleigh_draw(generator, n, device))
-        gains, _ = _rayleigh_apply(raw, None, sigmas, ch)
+        raw = channel.draw(generator) if raws is None else _raw_at(raws, r)
+        gains, state = channel.apply(raw, state)
         q, p = solve_round_coeffs(gains, z, c)
         z = update_queues_z(z, q, p, c)
         sums.append(q.sum())

@@ -1,14 +1,19 @@
 """Federated learning over the wireless scheduler: the decision layer, the
-Algorithm-1 round, the simulation engine and the policy x seed sweep."""
+Algorithm-1 round, the simulation engine, dynamic populations, the policy
+x seed sweep, the scenario grid and the policy tournament."""
 
 from repro_torch.fl.engine import (Draws, GeneratorDraws,
                                    GeneratorSweepDraws, SimConfig,
                                    SweepDraws, make_sweep_runner,
                                    run_simulation_scan, run_sweep)
+from repro_torch.fl.grid import GridSpec, run_grid
+from repro_torch.fl.population import PopulationConfig
 from repro_torch.fl.simulation import (match_uniform_m, run_simulation,
                                        time_to_accuracy)
+from repro_torch.fl.tournament import run_tournament
 
 __all__ = ["Draws", "GeneratorDraws", "GeneratorSweepDraws", "SimConfig",
            "SweepDraws", "make_sweep_runner", "run_simulation_scan",
-           "run_sweep", "match_uniform_m", "run_simulation",
-           "time_to_accuracy"]
+           "run_sweep", "GridSpec", "run_grid", "PopulationConfig",
+           "match_uniform_m", "run_simulation", "time_to_accuracy",
+           "run_tournament"]

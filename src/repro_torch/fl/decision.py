@@ -100,9 +100,13 @@ def decision_step(policy_step, acct: AccountCoeffs, raw, gains, pol_state,
     tensors on the lanes' device that broadcast against them (the
     service's (B, 1) per-row columns).
 
-    ``valid`` / ``acct_len`` are the service's bucket-padding hooks: a
-    boolean mask of real (non-pad) lanes, which gates the expected-power
-    summand, and the tenant's accounting length. Engines pass neither.
+    ``valid`` is a boolean lane mask that gates the expected-power
+    summand: the service's real (non-pad) lanes, or the population
+    engine's activity mask (``fl/population.py``), passed every round
+    (there the policy step masks q itself; the fused decision also sets
+    q to 0 on the mask's False lanes before selection). ``acct_len`` is
+    the service's tenant accounting length. The population-free engine
+    passes neither.
     """
     sel, q, p, pol_state = policy_step(raw, gains, pol_state)
     t_comm, power = _account(gains, sel, q, p, acct, valid, acct_len)

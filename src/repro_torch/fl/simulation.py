@@ -15,7 +15,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.channel import ChannelConfig, make_channel
 from repro_torch.core.scheduler import SchedulerConfig, estimate_avg_selected
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl.engine import Draws, SimConfig, run_simulation_scan
@@ -38,16 +38,19 @@ def run_simulation(draws: Optional[Draws], params: dict,
 
 def match_uniform_m(generator, sigmas: torch.Tensor, scfg: SchedulerConfig,
                     ch: ChannelConfig, rounds: int = 300,
-                    channel: str = "rayleigh", *,
-                    raws: torch.Tensor = None) -> float:
+                    channel: str = "rayleigh", channel_params: tuple = (), *,
+                    raws=None, init_raw=None) -> float:
     """Algorithm 2's average participation M (Monte Carlo over ``rounds``
-    rounds of i.i.d. Rayleigh gains), for the M-matched uniform baseline
-    (paper Section VI). ``raws`` replays (rounds, N) channel uniforms."""
-    if channel != "rayleigh":
-        raise NotImplementedError(
-            f"channel {channel!r} is not ported yet (ROADMAP §A item 7)")
+    rounds), for the M-matched baselines (paper Section VI), under the
+    fading model ``channel`` with its ``channel_params``: match M under
+    the channel you will sweep. ``rayleigh`` takes no params; passing
+    some is an error rather than a silently mis-matched M. ``raws`` and
+    ``init_raw`` replay the channel's raws (rounds stacked along a
+    leading axis) and its init raw."""
+    chan = make_channel(channel, sigmas, ch, **dict(channel_params))
     return float(estimate_avg_selected(generator, sigmas, scfg, ch, rounds,
-                                       raws=raws))
+                                       channel=chan, raws=raws,
+                                       init_raw=init_raw))
 
 
 def time_to_accuracy(hist: Dict[str, np.ndarray], target: float

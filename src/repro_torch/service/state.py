@@ -160,7 +160,7 @@ class TenantStore:
                 f"policy {spec.policy!r} is not servable (servable: "
                 f"{SERVICE_POLICIES}; the others need global state an "
                 "instantaneous-CSI request cannot carry)")
-        if POLICIES[spec.policy][1] and not spec.m_avg > 0.0:
+        if POLICIES[spec.policy][2] and not spec.m_avg > 0.0:
             raise ValueError(f"policy {spec.policy!r} needs m_avg > 0 "
                              f"(matched participation), got {spec.m_avg!r}")
         if spec.n < 1:

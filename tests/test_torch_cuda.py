@@ -28,7 +28,10 @@ yi-6b at its full head_dim (128) launches it once per layer in forward
 and prefill, never in decode, and expands no KV head. The solve kernel on
 the sweep's flattened seeds equals itself per seed bit for bit, returns q
 and P as the two rows of one allocation, and the sweep launches it once a
-round for every seed.
+round for every seed. The population engine launches K2 with its
+activity mask under cuda_fused and K1 under cuda, keeps inactive lanes
+out, and with ``population=()`` takes the population-free decisions bit
+for bit.
 """
 
 import functools
@@ -185,6 +188,54 @@ def test_engine_paths_launch_their_kernels(cuda):
     for solver in ("cuda", "stitched"):
         assert (hist[solver]["selected"]
                 == hist["cuda_fused"]["selected"]).all()
+
+
+def test_population_engine_launches_masked_kernels(cuda):
+    """The population engine on the card: cuda_fused launches only K2 (its
+    activity mask as ``active`` and ``valid``), cuda only K1, once a
+    round; no inactive lane is selected or has q != 0; the solvers select
+    the same clients; ``population=()`` equals the population-free fused
+    run's decisions bit for bit."""
+    n, rounds = 40, 4
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ds = make_cifar10_like(gen, n_clients=n, per_client=16, n_test=32, h=8,
+                           w=8, device=cuda)
+    mp = dict(conv1=4, conv2=8, hidden=16)
+    params = make_model("cnn", ds, **mp).init_fn(gen)
+    scfg = SchedulerConfig(n_clients=n, model_bits=32 * 50_000.0)
+    ch = ChannelConfig(n_clients=n)
+    sig = heterogeneous_sigmas(n, device=cuda)
+    base = dict(rounds=rounds, eval_every=2, m_cap=4, batch=4, local_steps=2,
+                eval_size=32, model_params=tuple(mp.items()),
+                channel="outage_burst")
+    pop = (("p_leave", 0.2), ("p_join", 0.3), ("p_fail", 0.25),
+           ("init_active", 0.6))
+
+    def run(solver, population):
+        scheduler_solve.launches = decision_fused.launches = 0
+        hist = run_simulation(None, params, ds,
+                              SimConfig(solver=solver, population=population,
+                                        **base), scfg, ch, sig,
+                              keep_selection=True)
+        return hist, (scheduler_solve.launches, decision_fused.launches)
+
+    hist = {}
+    for solver, want in (("cuda_fused", (0, rounds)), ("cuda", (rounds, 0)),
+                         ("stitched", (0, 0))):
+        hist[solver], launched = run(solver, pop)
+        assert launched == want, solver
+        active = hist[solver]["active"]
+        assert not active.all()
+        assert not hist[solver]["selected"][~active].any()
+        assert not hist[solver]["q"][~active].any()
+    for solver in ("cuda", "stitched"):
+        assert (hist[solver]["selected"]
+                == hist["cuda_fused"]["selected"]).all()
+    free, _ = run("cuda_fused", None)
+    degenerate, launched = run("cuda_fused", ())
+    assert launched == (0, rounds)
+    for key in ("comm_time", "avg_power", "n_selected", "selected", "q"):
+        np.testing.assert_array_equal(degenerate[key], free[key])
 
 
 @pytest.mark.parametrize("n,seeds", [(100, 3), (3597, 4)])

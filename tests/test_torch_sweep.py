@@ -11,7 +11,8 @@ reference's, and the solve kernel's flattened-seed call.
   and the objective);
 * the default draws are paired: a seed's numbers do not depend on which
   other seeds the sweep holds;
-* what the sweep does not run raises, naming the ROADMAP item.
+* unknown names, parameters and solvers raise; every registered channel
+  and policy runs.
 """
 
 import numpy as np
@@ -165,14 +166,18 @@ def test_sweep_on_its_own_draws():
 
 
 def test_sweep_rejects_what_it_does_not_run():
-    """Unported channels and policies name their ROADMAP items; unknown
-    names, extra params and solvers are errors."""
+    """Unknown names, extra params and solvers are errors; the channels
+    and policies that once raised (rician, aoi_capped) now run, with
+    their params."""
     sig = heterogeneous_sigmas(N, device="cpu")
     cfg, ch = port_configs()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_sweep(None, sig, cfg, ch, rounds=2, channel="rician")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        run_sweep(None, sig, cfg, ch, rounds=2, policies=("aoi_capped",))
+    out = run_sweep(None, sig, cfg, ch, rounds=2, channel="rician",
+                    channel_params=(("k_factor", 2.0),),
+                    policies=("aoi_capped", "proposed"), uniform_m=4.0,
+                    policy_params={"aoi_capped": {"max_age": 3}},
+                    solver="stitched")
+    assert out["comm_time"].shape == (2, 1, 2)
+    assert np.isfinite(out["comm_time"]).all()
     with pytest.raises(ValueError, match="unknown policy"):
         run_sweep(None, sig, cfg, ch, rounds=2, policies=("best",))
     with pytest.raises(ValueError, match="unknown channel"):
