@@ -93,6 +93,26 @@ Phases; any failure exits non-zero before the result line is printed:
    homogeneous 64-tenant bucket under ``"cuda"`` launches the solve
    kernel once per group; flush times per solver, and a profile of two
    fused flushes (device time against host time);
+12. (run right after phase 6) telemetry (``repro_torch.obs``) on the
+   card: the demo mix at full width under ``cuda_fused`` with telemetry
+   on (an event log in ``build/``) and off on phase 6's stream (warmup,
+   6 full flushes, 20 of 64 tenants, an evict/reload cycle), every
+   group's dispatch under ``torch.cuda.set_sync_debug_mode("error")``:
+   decisions and tenant state bit-equal, K3 launches equal, the on
+   service's log replayed through a fresh telemetry-on service bitwise,
+   the flush / request / group counters what was served, the event log
+   1,020 admits, warmup, evict, reload; the reference's small-flush
+   story (11/3/7/11 tenants: first dispatches > 0 cold, 0 after
+   ``warmup(16)`` with warm hits); the flush p50 of telemetry-on and -off
+   100-tenant services on 200 16-tenant flushes in turns, and the median
+   of the pairs' ratios (fails above a 1.5 p50 ratio); one ``torch.profiler`` session over two full flushes whose
+   ``service.flush/wave...`` spans hold every K3 launch; on phase 4's
+   network under cuDNN's deterministic algorithms, ``run_simulation``
+   (``cuda_fused``, K2 5 each) on and off and the chunk runner (``cuda``,
+   K1 5 each) at 2 + 3 against 5 rounds, bit for bit, with the engine
+   counters and Z gauges; a 6-config tournament (rayleigh, all-active,
+   six policies, ``cuda``) on and off, bit for bit, its counters and one
+   regret gauge per policy;
 7. (run right after phase 3, before any profiler session) time K1-K3
    and their plain versions with CUDA events: device time at the
    engine's N = 100, FEMNIST's 3,597 and the service's bucket shapes (L2
@@ -147,8 +167,8 @@ Phases; any failure exits non-zero before the result line is printed:
 
 TF32 is off for every product and convolution in every phase.
 
-Prints the service's, FEMNIST's, the scenarios', Mamba's and yi's JSON
-lines, the card line, one
+Prints the service's, telemetry's, FEMNIST's, the scenarios', Mamba's
+and yi's JSON lines, the card line, one
 JSON line of the kernels (``{"kernels": [...]}``), then, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -693,6 +713,17 @@ def check_history(tag, hist):
         raise AssertionError(f"{tag}: bad history {hist}")
 
 
+def deterministic(torch, fn):
+    """``fn()`` under cuDNN's deterministic algorithms (the GPU's training
+    is not bitwise reproducible across runs without them)."""
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic = flag
+
+
 def population_runs(torch, width, ctx):
     """The population engine under the three solvers on the same draws,
     and the all-active run against phase 4's / 10's population-free fused
@@ -748,21 +779,16 @@ def population_runs(torch, width, ctx):
     # run, back to back with cuDNN's deterministic algorithms, so that the
     # training, too, is bitwise reproducible between the two runs
     degenerate, all_active_counts, all_active_s = {}, {}, {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        for label, pop in (("free", None), ("all_active", ())):
-            reset_counts()
-            t = time.perf_counter()
-            degenerate[label] = run_simulation(
-                None, ctx["params"], ctx["ds"],
-                dataclasses.replace(ctx["sim"], population=pop),
-                ctx["scfg"], ctx["ch"], ctx["sig"], keep_selection=True)
-            torch.cuda.synchronize()
-            all_active_s[label] = time.perf_counter() - t
-            all_active_counts[label] = read_counts()
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    for label, pop in (("free", None), ("all_active", ())):
+        reset_counts()
+        t = time.perf_counter()
+        degenerate[label] = deterministic(torch, lambda: run_simulation(
+            None, ctx["params"], ctx["ds"],
+            dataclasses.replace(ctx["sim"], population=pop),
+            ctx["scfg"], ctx["ch"], ctx["sig"], keep_selection=True))
+        torch.cuda.synchronize()
+        all_active_s[label] = time.perf_counter() - t
+        all_active_counts[label] = read_counts()
     for label, got in all_active_counts.items():
         if got != want["cuda_fused"]:
             raise AssertionError(f"{width} {label} run launched {got}")
@@ -1250,6 +1276,487 @@ def profile_flushes(torch, svc, flushes):
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         print(f"  {ms:10.4f} ms {count:7d}x  {key[:90]}", flush=True)
     return dict(wall_ms=wall_ms, device_ms=busy)
+
+
+# --------------------------------------------------------------------------
+# Phase 12 (run right after phase 6): telemetry on the card.
+# --------------------------------------------------------------------------
+
+# the reference's obs_overhead leg: 100-tenant services, 16-tenant
+# flushes, arms interleaved in alternating order (200 pairs: at 80 the p50
+# ratio moved 0.94-1.04 between two runs on one card)
+OVERHEAD_SCALE = 0.1
+OVERHEAD_BATCH = 16
+OVERHEAD_FLUSHES = 200
+OVERHEAD_LIMIT = 1.5
+# the reference's small-flush story (examples/telemetry.py)
+SMALL_FLUSHES = (11, 3, 7, 11)
+EVENTS_PATH = ROOT / "build" / "telemetry_events.jsonl"
+
+
+def set_telemetry(on):
+    from repro_torch import obs
+    obs.configure(on)
+
+
+def no_sync_dispatch(torch, svc):
+    """Run ``svc``'s group dispatches (staging, the copy, the step's
+    launches and the telemetry recorded around them) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any implicit
+    synchronisation there raises."""
+    orig = svc._dispatch_group
+
+    def checked(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    svc._dispatch_group = checked
+
+
+def serve_logged(torch, svc, flushes):
+    """Serve ``flushes``; per flush the responses and the replay log's
+    length after it."""
+    resp, marks = [], []
+    for reqs in flushes:
+        for name, gains, raw in reqs:
+            svc.submit(name, gains, raw=raw)
+        resp.append(svc.flush())
+        marks.append(len(svc.log))
+    torch.cuda.synchronize()
+    return resp, marks
+
+
+def decisions_equal(a, b):
+    import numpy as np
+    return set(a) == set(b) and all(
+        all(np.array_equal(x, y) for x, y in zip(a[k], b[k])) for k in a)
+
+
+def telemetry_service(torch):
+    """The demo mix at full width under ``cuda_fused``, telemetry on and
+    off on phase 6's stream (warmup, full and partial flushes, one
+    evict/reload cycle): bitwise neutrality, replay, the counters, the
+    event log, and no synchronisation in any group's dispatch."""
+    import numpy as np
+
+    from repro_torch.service import SchedulerService
+    from repro_torch.service.demo import register_demo_tenants
+
+    full = SERVICE_FULL_FLUSHES
+    if EVENTS_PATH.exists():
+        EVENTS_PATH.unlink()
+    arms, flushes = {}, None
+    for arm in ("off", "on"):
+        set_telemetry(arm == "on")
+        svc = SchedulerService(
+            solver="cuda_fused", telemetry=arm == "on",
+            event_log=str(EVENTS_PATH) if arm == "on" else None)
+        tenants = register_demo_tenants(svc, np.random.default_rng(0))
+        if flushes is None:
+            flushes = service_stream(tenants, 1, full,
+                                     SERVICE_PARTIAL_FLUSHES,
+                                     SERVICE_PARTIAL_SIZE)
+        svc.warmup(1024)
+        no_sync_dispatch(torch, svc)
+        reset_counts()
+        t = time.perf_counter()
+        resp, marks = serve_logged(torch, svc, flushes)
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        name = svc.evict_lru()
+        svc.reload(name)
+        arms[arm] = dict(svc=svc, resp=resp, marks=marks, counts=counts,
+                         wall=wall, cycled=name)
+        print(f"telemetry service/{arm}: {len(flushes)} flushes in "
+              f"{wall:.3f} s, launches {counts}, evict/reload of {name}",
+              flush=True)
+    set_telemetry(False)
+    on, off = arms["on"], arms["off"]
+    if on["counts"] != off["counts"] or on["counts"] != launch_counts(
+            decision_fused_batched=on["counts"]["decision_fused_batched"]):
+        raise AssertionError(f"telemetry on/off launched {on['counts']} / "
+                             f"{off['counts']}")
+    for f, (a, b) in enumerate(zip(on["resp"], off["resp"])):
+        if not decisions_equal(a, b):
+            raise AssertionError(f"telemetry on/off: flush {f} decisions "
+                                 "differ")
+    if not snaps_equal(on["svc"].snapshot(), off["svc"].snapshot()):
+        raise AssertionError("telemetry on/off: tenant state differs")
+    if on["cycled"] != off["cycled"] or not all(
+            np.array_equal(x, y) for x, y in zip(
+                on["svc"].tenant_state(on["cycled"]),
+                off["svc"].tenant_state(off["cycled"]))):
+        raise AssertionError("telemetry on/off: the evicted and reloaded "
+                             "tenant's state differs")
+    # the on-service's log through a fresh telemetry-on service
+    set_telemetry(True)
+    fresh = SchedulerService(solver="cuda_fused", telemetry=True)
+    register_demo_tenants(fresh, np.random.default_rng(0))
+    replayed = on["svc"].log.replay(fresh)
+    set_telemetry(False)
+    starts = [0] + on["marks"][:-1]
+    for f, (lo, hi) in enumerate(zip(starts, on["marks"])):
+        merged = {}
+        for entry in replayed[lo:hi]:
+            merged.update(entry)
+        if not decisions_equal(merged, on["resp"][f]):
+            raise AssertionError(f"replay of flush {f} through a fresh "
+                                 "telemetry-on service differs")
+    reg = on["svc"].obs.registry
+    store = on["svc"].store
+    groups = sum(len({store.spec(nm).bucket for nm, _, _ in reqs})
+                 for reqs in flushes)
+    want = {"service_flushes_total": len(flushes),
+            "service_requests_served_total": sum(map(len, flushes)),
+            "service_groups_served_total": groups,
+            "service_log_entries": on["marks"][-1]}
+    got = {k: reg.value(k) for k in want}
+    if got != want or groups != on["marks"][-1]:
+        raise AssertionError(f"telemetry counters {got}, served {want}")
+    if off["svc"].metrics_snapshot()["metrics"]:
+        raise AssertionError("the telemetry-off service recorded metrics")
+    events = [json.loads(ln)["event"]
+              for ln in EVENTS_PATH.read_text().splitlines()]
+    n_admit = len(store.tenants)
+    if events != ["admit"] * n_admit + ["warmup", "evict", "reload"]:
+        raise AssertionError(f"event log: {events[:3]}...{events[-4:]} "
+                             f"({len(events)} events)")
+    snap = on["svc"].metrics_snapshot()
+    hist = {m["name"]: m for m in snap["metrics"]
+            if m["kind"] == "histogram" and not m["labels"]}
+    split = {seg: dict(p50_ms=hist[f"service_flush_{seg}_seconds"]["p50"]
+                       * 1e3,
+                       count=hist[f"service_flush_{seg}_seconds"]["count"])
+             for seg in ("stage", "dispatch", "pull")}
+    z = {m["labels"]["bucket"]: m["value"] for m in snap["metrics"]
+         if m["name"] == "service_z_mean"}
+    print(f"telemetry service: on and off bit-equal in {len(flushes)} "
+          f"flushes ({sum(map(len, flushes))} decisions), the tenant state "
+          f"and the evict/reload cycle; K3 {on['counts']} in each; replay "
+          f"through a fresh telemetry-on service bitwise; counters "
+          f"{got}; {len(events)} events ({n_admit} admit, warmup, evict, "
+          f"reload); no synchronisation in any group's dispatch; flush "
+          f"segments p50 " + ", ".join(f"{k} {v['p50_ms']:.3f} ms"
+                                        for k, v in split.items())
+          + f"; Eq. 8 t_comm p50 {hist['service_t_comm_seconds']['p50']:.4g}"
+          f" s; mean Z per bucket {z}", flush=True)
+    return on["counts"]["decision_fused_batched"] * 2, dict(
+        flushes=len(flushes), decisions=sum(map(len, flushes)),
+        groups=groups, launches_per_arm=on["counts"],
+        wall_s={a: arms[a]["wall"] for a in arms}, segments=split,
+        t_comm_p50_s=hist["service_t_comm_seconds"]["p50"],
+        z_mean=z, events=len(events)), on["svc"], flushes[:2]
+
+
+def small_flush_story(torch):
+    """A cold service serving 11/3/7/11-tenant flushes pays first
+    dispatches on the serving path; after ``warmup(16)`` the same stream
+    pays none and lands on warmed shapes."""
+    import numpy as np
+
+    from repro_torch.service import SchedulerService
+    from repro_torch.service.demo import demo_request, register_demo_tenants
+
+    out = {}
+    for label in ("cold", "warmed"):
+        svc = SchedulerService(solver="cuda_fused", telemetry=True)
+        tenants = register_demo_tenants(svc, np.random.default_rng(0))
+        warm_s = 0.0
+        if label == "warmed":
+            svc.warmup(max_batch=16)
+            warm_s = svc.obs.registry.value("service_compile_seconds_total")
+        base = svc.obs.compiles.misses_total()
+        rng = np.random.default_rng(2)
+        reset_counts()
+        for k in SMALL_FLUSHES:
+            for t in tenants[:k]:
+                name, gains, raw = demo_request(rng, *t)
+                svc.submit(name, gains, raw=raw)
+            svc.flush()
+        torch.cuda.synchronize()
+        reg = svc.obs.registry
+        out[label] = dict(
+            misses=svc.obs.compiles.misses_total() - base,
+            warm_hits=reg.value("service_warmup_hits_total"),
+            compile_s=reg.value("service_compile_seconds_total") - warm_s,
+            warmup_compile_s=warm_s,
+            k3=read_counts()["decision_fused_batched"])
+    cold, warmed = out["cold"], out["warmed"]
+    if not (cold["misses"] > 0 and warmed["misses"] == 0
+            and warmed["warm_hits"] > 0):
+        raise AssertionError(f"small-flush story: {out}")
+    print(f"small flushes {SMALL_FLUSHES}: cold {cold['misses']:.0f} first "
+          f"dispatches on the serving path ({cold['compile_s'] * 1e3:.3f} ms "
+          f"service_compile_seconds_total); after warmup(16) "
+          f"({warmed['warmup_compile_s'] * 1e3:.3f} ms) "
+          f"{warmed['misses']:.0f} misses, {warmed['warm_hits']:.0f} warm "
+          f"hits ({warmed['compile_s'] * 1e3:.3f} ms)", flush=True)
+    return cold["k3"] + warmed["k3"], out
+
+
+def telemetry_overhead(torch):
+    """The flush p50 of a telemetry-on and a telemetry-off 100-tenant
+    service on the same 16-tenant flushes, arms in alternating order."""
+    import numpy as np
+
+    from repro_torch.service import SchedulerService
+    from repro_torch.service.demo import demo_request, register_demo_tenants
+
+    svcs, tenants = {}, None
+    for arm in ("on", "off"):
+        svcs[arm] = SchedulerService(solver="cuda_fused",
+                                     telemetry=arm == "on")
+        tenants = register_demo_tenants(svcs[arm], np.random.default_rng(7),
+                                        scale=OVERHEAD_SCALE)
+        svcs[arm].warmup(max_batch=OVERHEAD_BATCH)
+    rng = np.random.default_rng(11)
+    walls = {"on": [], "off": []}
+    reset_counts()
+    for i in range(OVERHEAD_FLUSHES):
+        pick = rng.choice(len(tenants), OVERHEAD_BATCH, replace=False)
+        reqs = [demo_request(rng, *tenants[j]) for j in pick]
+        order = ("on", "off") if i % 2 == 0 else ("off", "on")
+        for arm in order:
+            t = time.perf_counter()
+            for name, gains, raw in reqs:
+                svcs[arm].submit(name, gains, raw=raw)
+            svcs[arm].flush(log=False)
+            walls[arm].append(time.perf_counter() - t)
+    k3 = read_counts()["decision_fused_batched"]
+    p50 = {arm: percentile(w, 50) * 1e3 for arm, w in walls.items()}
+    ratio = p50["on"] / p50["off"]
+    # each pair served the same requests back to back
+    paired = percentile([a / b for a, b in zip(walls["on"], walls["off"])],
+                        50)
+    print(f"telemetry overhead: {len(tenants)} tenants, {OVERHEAD_FLUSHES} "
+          f"flushes of {OVERHEAD_BATCH} per arm in turns: p50 on "
+          f"{p50['on']:.4f} ms, off {p50['off']:.4f} ms, ratio "
+          f"{ratio:.4f}; median of the pairs' ratios {paired:.4f}",
+          flush=True)
+    if ratio > OVERHEAD_LIMIT:
+        raise AssertionError(f"telemetry-on flush p50 is {ratio:.3f}x the "
+                             f"off one (limit {OVERHEAD_LIMIT})")
+    return k3, dict(tenants=len(tenants), flushes=OVERHEAD_FLUSHES,
+                    batch=OVERHEAD_BATCH, p50_ms_enabled=p50["on"],
+                    p50_ms_disabled=p50["off"], p50_ratio=ratio,
+                    paired_ratio_p50=paired)
+
+
+def span_check(torch, svc, flushes):
+    """One ``torch.profiler`` session over two telemetry-on full flushes:
+    the ``service.flush/wave...`` spans are in the trace, every K3 launch
+    falls inside one, and the device ran one K3 kernel per launch."""
+    import repro_torch.service.step as step_mod
+    from torch.profiler import ProfilerActivity, profile
+    k3 = step_mod.decision_fused_batched
+
+    def marked(*args, **kw):
+        with torch.profiler.record_function("k3_launch"):
+            return k3(*args, **kw)
+
+    set_telemetry(True)
+    step_mod.decision_fused_batched = marked
+    reset_counts()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for reqs in flushes:
+                for name, gains, raw in reqs:
+                    svc.submit(name, gains, raw=raw)
+                svc.flush()
+            torch.cuda.synchronize()
+    finally:
+        step_mod.decision_fused_batched = k3
+        set_telemetry(False)
+    launches = read_counts()["decision_fused_batched"]
+    events = prof.events()
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = [e.time_range for e in host
+             if e.name.startswith("service.flush/wave")]
+    marks = [e.time_range for e in host if e.name == "k3_launch"]
+    inside = sum(any(s.start <= m.start and m.end <= s.end for s in spans)
+                 for m in marks)
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "decision_kernel" in e.key)
+    if not (spans and len(marks) == launches == inside == kernels):
+        raise AssertionError(f"spans {len(spans)}, K3 launches {launches}, "
+                             f"marked {len(marks)}, inside a span {inside}, "
+                             f"device kernels {kernels}")
+    print(f"profiler spans: {len(spans)} service.flush/wave spans over 2 "
+          f"full flushes; all {launches} K3 launches inside one, "
+          f"{kernels} K3 kernels on the device", flush=True)
+    return launches, dict(spans=len(spans), k3_launches=launches,
+                          k3_device_kernels=kernels)
+
+
+def telemetry_engine(torch, ctx):
+    """``run_simulation`` at CIFAR-10 width under ``cuda_fused``, telemetry
+    on and off back to back (deterministic cuDNN): histories bit-equal,
+    K2 5 launches each, the engine counters; then the chunk runner under
+    ``cuda``: chunks of 2 + 3 rounds equal one of 5 bit for bit (K1 5
+    launches each), the Z gauges the host copy of the carry's queues."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.fl.engine import (default_draws, init_carry,
+                                       make_chunk_runner)
+    from repro_torch.fl.simulation import run_simulation
+
+    sim = ctx["sim"]
+    args = (ctx["scfg"], ctx["ch"], ctx["sig"])
+    hists, counts, secs = {}, {}, {}
+    for arm in ("off", "on"):
+        set_telemetry(arm == "on")
+        reset_counts()
+        t = time.perf_counter()
+        hists[arm] = deterministic(torch, lambda: run_simulation(
+            None, ctx["params"], ctx["ds"], sim, *args,
+            keep_selection=True))
+        secs[arm] = time.perf_counter() - t
+        counts[arm] = read_counts()
+    reg = obs.default_registry()
+    rounds_per_s = reg.value("engine_rounds_per_sec")
+    engine = {k: reg.value(k) for k in ("engine_runs_total",
+                                        "engine_rounds_total")}
+    set_telemetry(False)
+    want = launch_counts(decision_fused=ROUNDS)
+    if counts["on"] != want or counts["off"] != want:
+        raise AssertionError(f"engine on/off launched {counts}")
+    for key, x in hists["off"].items():
+        if not np.array_equal(x, hists["on"][key]):
+            raise AssertionError(f"engine on/off: {key} differs")
+    if not (engine == {"engine_runs_total": 1.0,
+                       "engine_rounds_total": float(ROUNDS)}
+            and rounds_per_s > 0):
+        raise AssertionError(f"engine counters {engine}, rounds/s "
+                             f"{rounds_per_s}")
+    csim = dataclasses.replace(sim, solver="cuda")
+    draws = default_draws(csim, ctx["ds"])
+    chunks, chunk_counts = {}, {}
+    for lengths in ((ROUNDS,), (2, ROUNDS - 2)):
+        set_telemetry(lengths != (ROUNDS,))
+        reset_counts()
+
+        def run():
+            run_chunk = make_chunk_runner(ctx["ds"], csim, *args[:2],
+                                          ctx["sig"], draws)
+            carry = init_carry(draws, ctx["params"], ctx["scfg"], csim,
+                               ctx["sig"], ctx["ch"])
+            for n in lengths:
+                carry, acc, nsel = run_chunk(carry, n)
+            return carry, acc, nsel
+
+        chunks[lengths] = deterministic(torch, run)
+        torch.cuda.synchronize()
+        chunk_counts[lengths] = read_counts()
+    reg = obs.default_registry()
+    z_gauges = (reg.value("engine_z_mean"), reg.value("engine_z_max"))
+    chunk_s = [m for m in reg.snapshot()
+               if m["name"] == "engine_chunk_seconds"][0]
+    set_telemetry(False)
+    (c1, a1, n1), (c2, a2, n2) = chunks[(ROUNDS,)], chunks[(2, ROUNDS - 2)]
+    same = (all(torch.equal(c1[0][k], c2[0][k]) for k in c1[0])
+            and all(torch.equal(x, y) for x, y in zip(c1[1], c2[1]))
+            and torch.equal(c1[2], c2[2]) and c1[3] == c2[3] == ROUNDS
+            and torch.equal(c1[4], c2[4]) and torch.equal(c1[5], c2[5])
+            and torch.equal(a1, a2) and torch.equal(n1, n2))
+    if not same:
+        raise AssertionError("chunks of 2 + 3 rounds differ from one of 5")
+    for lengths, got in chunk_counts.items():
+        if got != launch_counts(scheduler_solve=ROUNDS):
+            raise AssertionError(f"chunks {lengths} launched {got}")
+    z = c2[1].z.cpu().numpy()
+    if z_gauges != (float(z.mean()), float(z.max())):
+        raise AssertionError(f"Z gauges {z_gauges} against the carry's "
+                             f"{float(z.mean())}, {float(z.max())}")
+    print(f"telemetry engine: run_simulation on and off bit-equal "
+          f"({secs['off']:.3f} / {secs['on']:.3f} s for {ROUNDS} rounds, K2 "
+          f"{ROUNDS} each), engine_rounds_per_sec {rounds_per_s:.2f}; "
+          f"chunks 2 + {ROUNDS - 2} equal one of {ROUNDS} bit for bit under "
+          f"cuda (K1 {ROUNDS} "
+          f"each), Z gauges {z_gauges} = the carry's, chunk p50 "
+          f"{chunk_s['p50'] * 1e3:.1f} ms", flush=True)
+    return {"decision_fused": 2 * ROUNDS,
+            "scheduler_solve": 2 * ROUNDS}, dict(
+        run_s=secs, rounds_per_sec=rounds_per_s, z_gauges=list(z_gauges),
+        chunk_p50_ms=chunk_s["p50"] * 1e3)
+
+
+def telemetry_tournament(torch, ctx):
+    """``run_tournament`` (rayleigh x all-active x six policies, seed 0, 5
+    rounds: 6 configs) under ``cuda``, telemetry on and off back to back
+    (deterministic cuDNN): leaderboards and trajectories bit-equal, K1 the
+    same, and the counters and regret gauges."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.fl.tournament import run_tournament
+
+    sim = dataclasses.replace(ctx["sim"], solver="cuda", uniform_m=ctx["m"])
+    spec = dict(channels=("rayleigh",), populations=((),),
+                policies=TOURNAMENT["policies"], seeds=(0,))
+    outs, counts = {}, {}
+    for arm in ("off", "on"):
+        set_telemetry(arm == "on")
+        reset_counts()
+        outs[arm] = deterministic(torch, lambda: run_tournament(
+            None, ctx["params"], ctx["ds"], sim, ctx["scfg"], ctx["ch"],
+            **spec))
+        counts[arm] = read_counts()
+    reg = obs.default_registry()
+    configs = reg.value("tournament_configs_total")
+    per_s = reg.value("tournament_configs_per_sec")
+    gauges = {m["labels"]["policy"]: m["value"] for m in reg.snapshot()
+              if m["name"] == "tournament_regret_acc"}
+    set_telemetry(False)
+    on, off = outs["on"], outs["off"]
+    if on["leaderboard"] != off["leaderboard"] or not all(
+            np.array_equal(on[k], off[k])
+            for k in ("comm_time", "test_acc", "avg_power", "n_selected")):
+        raise AssertionError("tournament on/off differ")
+    if counts["on"] != counts["off"] or counts["on"] != launch_counts(
+            scheduler_solve=ROUNDS):
+        raise AssertionError(f"tournament on/off launched {counts}")
+    n = len(TOURNAMENT["policies"])
+    want = {r["policy"]: r["mean_regret_acc"] for r in on["leaderboard"]}
+    if configs != n or gauges != want or not per_s > 0:
+        raise AssertionError(f"tournament counters: configs {configs}, "
+                             f"gauges {gauges}, want {want}")
+    print(f"telemetry tournament: {n} configs on and off bit-equal, K1 "
+          f"{counts['on']['scheduler_solve']} each; "
+          f"tournament_configs_total {configs:.0f}, configs/s {per_s:.2f}, "
+          f"regret gauges {gauges}", flush=True)
+    return 2 * ROUNDS, dict(configs=n, configs_per_sec=per_s,
+                            regret_acc=gauges)
+
+
+def telemetry_path(torch, ctx):
+    """Phase 12: telemetry on the card, through the service, the engine,
+    the chunk runner and the tournament. Returns the launches by kernel
+    and the phase's summary."""
+    t0 = time.perf_counter()
+    k3_service, service, svc, two = telemetry_service(torch)
+    k3_story, story = small_flush_story(torch)
+    k3_over, overhead = telemetry_overhead(torch)
+    k3_spans, spans = span_check(torch, svc, two)
+    del svc
+    engine_counts, engine = telemetry_engine(torch, ctx)
+    k1_tournament, tournament = telemetry_tournament(torch, ctx)
+    wall = time.perf_counter() - t0
+    print(f"phase 12 took {wall:.1f} s", flush=True)
+    launches = {"decision_fused_batched": (k3_service + k3_story + k3_over
+                                           + k3_spans),
+                "decision_fused": engine_counts["decision_fused"],
+                "scheduler_solve": (engine_counts["scheduler_solve"]
+                                    + k1_tournament)}
+    return launches, dict(wall_s=wall, service=service, small_flushes=story,
+                          overhead=overhead, spans=spans, engine=engine,
+                          tournament=tournament, launches=launches)
 
 
 # --------------------------------------------------------------------------
@@ -2521,7 +3028,7 @@ def main() -> int:
     by_path.update(more)
     more, scenarios = scenarios_path(torch, cifar_ctx, femnist_ctx)
     by_path.update(more)
-    del cifar_ctx, femnist_ctx
+    del femnist_ctx
     torch.cuda.empty_cache()
     for name in launches:
         launches[name] = sum(p[name] for p in by_path.values())
@@ -2530,7 +3037,16 @@ def main() -> int:
      (svc, full_flushes)) = service_path(torch)
     svc_profile = dict(flush_split(svc, full_flushes),
                        **profile_flushes(torch, svc, full_flushes))
-    launches["decision_fused_batched"] = svc_counts["decision_fused_batched"]
+    tele_launches, telemetry = telemetry_path(torch, cifar_ctx)
+    del cifar_ctx
+    torch.cuda.empty_cache()
+    by_path["telemetry"] = {k: tele_launches[k]
+                            for k in ("scheduler_solve", "decision_fused")}
+    for name in ("scheduler_solve", "decision_fused"):
+        launches[name] = sum(p[name] for p in by_path.values())
+    k3_by_path = {"service": svc_counts["decision_fused_batched"],
+                  "telemetry": tele_launches["decision_fused_batched"]}
+    launches["decision_fused_batched"] = sum(k3_by_path.values())
     mamba_launches, mamba = lm_path(torch, "mamba2-130m", "ssd_scan")
     ssd_time = time_ssd(torch)
     torch.cuda.empty_cache()
@@ -2562,6 +3078,7 @@ def main() -> int:
         "name": "decision_fused_batched", "route": "cuda",
         "source": spec["source"], "replaces": spec["replaces"],
         "launches": launches["decision_fused_batched"],
+        "launches_by_path": k3_by_path,
         "launches_per_full_flush": per_full,
         "max_abs_err": err["decision_fused_batched"], "library_ms": None,
         **times[("decision_fused_batched", main_shape)],
@@ -2586,6 +3103,7 @@ def main() -> int:
         "max_abs_err": err["flash_attention_bhsd"], **flash_time})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
+    print(json.dumps({"telemetry": telemetry}), flush=True)
     print(json.dumps({"femnist": femnist}), flush=True)
     print(json.dumps({"scenarios": scenarios}), flush=True)
     print(json.dumps({"mamba": mamba}), flush=True)

@@ -8,5 +8,7 @@ Pallas TPU kernels on the ported paths (the simulation engine, the
 scheduler service, and Mamba-2 scoring and serving) are hand-written CUDA
 C++ for Hopper (``kernels/csrc``), each with a plain PyTorch version
 beside it. Entry points run on ``device="cuda"``
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``. ``repro_torch.obs`` is the
+reference's telemetry layer (off by default; ``obs.configure(True)`` or
+``SchedulerService(telemetry=True)``), recording on the host only.
 """

@@ -2,6 +2,11 @@
 Algorithm-1 round, the simulation engine, dynamic populations, the policy
 x seed sweep, the scenario grid and the policy tournament."""
 
+# Engine internals (make_sim_round, make_chunk_runner, init_carry,
+# eval_rounds) stay importable from repro_torch.fl.engine but are not part
+# of the package surface, as in the reference: the carry/chunk layout is
+# free to change without breaking the public API.
+
 from repro_torch.fl.engine import (Draws, GeneratorDraws,
                                    GeneratorSweepDraws, SimConfig,
                                    SweepDraws, make_sweep_runner,

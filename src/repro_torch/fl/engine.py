@@ -28,6 +28,21 @@ every draw of a run goes through one :class:`Draws` source. The default,
 device; tests pass one that replays arrays drawn by the reference with its
 own key chain.
 
+:func:`make_chunk_runner` and :func:`init_carry` expose the rounds in
+chunks: ``run_chunk(carry, n_rounds)`` advances a carry ``(params,
+pol_state, ch_state, round, t_comm_cum, power_cum)`` by ``n_rounds``
+rounds and evaluates, so a caller can watch a run between chunks. Draws
+are taken by round index, so chunks of a and b rounds equal one of a + b
+bit for bit.
+
+Telemetry (``repro_torch.obs``, the process-wide switch): with it on,
+``run_simulation_scan`` records rounds/s, the per-interval Eq. 8 comm
+time and the selection counts from the host history after the run's one
+read back, and each chunk records its wall time and the Eq. 9 queue
+gauges (that copy waits for the chunk); a first-use counter runs either
+way. Nothing recorded feeds back into a round: histories are bitwise the
+same with telemetry on or off.
+
 The policy x seed sweep (:func:`run_sweep`, :func:`make_sweep_runner`) is
 the scheduling layer alone, without training: per policy, every seed's
 channel -> solve -> select -> account chain runs on (S, N) tensors, one
@@ -65,6 +80,8 @@ from repro_torch.fl.round import (masked_aggregate, pack_participants,
                                   train_participants)
 from repro_torch.kernels.scheduler_solve import scheduler_solve
 from repro_torch.models.registry import make_model
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.instrument import EngineInstruments, perf
 
 SOLVERS = ("stitched", "cuda", "cuda_fused")
 
@@ -405,13 +422,81 @@ def run_simulation_scan(draws: Optional[Draws], params: dict,
     probabilities, so two runs can be compared lane by lane, and under a
     population ``"active"``, each round's activity mask.
     """
+    ei = EngineInstruments(obs_metrics.default_registry())
+    t0 = perf()
+    # the reference jits a fresh runner per call: one first use a run
+    ei.compiles.miss(("config_runner", sim.rounds), entry="config_runner",
+                     policy=sim.policy, rounds=sim.rounds)
     draws = default_draws(sim, ds) if draws is None else draws
     points, kept = run_config(draws, params, ds, sim, scfg, ch, sigmas,
                               keep_selection=keep_selection)
     hist = history_from_trajectory(sim.rounds, sim.eval_every, ds.n_clients,
                                    *points.cpu().numpy().T)
     hist.update({k: v.cpu().numpy() for k, v in kept.items()})
+    if ei.enabled:
+        ei.record_history(hist, perf() - t0)   # host arrays: already read
     return hist
+
+
+def make_chunk_runner(ds: FederatedDataset, sim: SimConfig,
+                      scfg: SchedulerConfig, ch: ChannelConfig,
+                      sigmas: torch.Tensor, draws: Draws):
+    """The multi-round chunk function (twin of the reference's).
+
+    ``run_chunk(carry, n_rounds)`` runs ``n_rounds`` rounds from the
+    carry's round index on ``draws``, evaluates test accuracy on the
+    resulting params and returns ``(carry, acc, last_n_selected)``, both
+    device scalars. ``carry = (params, pol_state, ch_state, round,
+    t_comm_cum, power_cum)`` (:func:`init_carry`); the accounting stays on
+    the device between chunks.
+
+    Telemetry: each chunk length's first call counts an
+    ``engine_compile_misses_total`` miss; with telemetry on each chunk
+    also records its wall time and the post-chunk Z-queue gauges (Eq. 9),
+    whose host copy waits for the chunk — the returned carry is bitwise
+    the same either way.
+    """
+    sim_round = make_sim_round(ds, sim, scfg, ch, sigmas)
+    eval_fn = make_eval_fn(ds, sim)
+    ei = EngineInstruments(obs_metrics.default_registry())
+
+    def run_chunk(carry, n_rounds: int):
+        if n_rounds < 1:
+            raise ValueError(f"a chunk runs >= 1 round, got {n_rounds}")
+        fresh = ei.compiles.miss(("run_chunk", n_rounds),
+                                 entry="run_chunk", n_rounds=n_rounds)
+        t0 = perf()
+        params, pol_state, ch_state, r0, t_cum, p_cum = carry
+        for r in range(r0, r0 + n_rounds):
+            params, pol_state, ch_state, t_comm, power, n_sel, *_ = (
+                sim_round(params, pol_state, ch_state, draws, r))
+            t_cum = t_cum + t_comm
+            p_cum = p_cum + power
+        carry = (params, pol_state, ch_state, r0 + n_rounds, t_cum, p_cum)
+        acc = eval_fn(params)
+        if fresh:
+            ei.compiles.compile_s.inc(perf() - t0)
+        if ei.enabled:
+            ei.record_policy_state(pol_state)   # waits: chunk truly done
+            ei.chunk_s.record(perf() - t0)
+        return carry, acc, n_sel
+
+    return run_chunk
+
+
+def init_carry(draws: Draws, params: dict, scfg: SchedulerConfig,
+               sim: SimConfig, sigmas: torch.Tensor, ch: ChannelConfig):
+    """A fresh chunk-runner carry at round 0 on ``sigmas``' device
+    (params copied, so the caller's stay untouched). The channel state
+    comes from ``draws``' init raw, with the round-0 activity mask under
+    ``sim.population``: pass the draws the chunk runner was built with."""
+    device = sigmas.device
+    channel = make_channel(sim.channel, sigmas, ch,
+                           **dict(sim.channel_params))
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return ({k: v.detach().clone() for k, v in params.items()},
+            init_policy_state(sim.policy, scfg.n_clients, device),
+            init_channel_carry(draws, sim, channel), 0, zero, zero.clone())
 
 
 # --------------------------------------------------------------------------

@@ -16,8 +16,11 @@ call, then every policy is scored per scenario on the host:
   fastest policy of the scenario.
 
 The scoring (:func:`tournament_metrics`, :func:`leaderboard`) is the
-reference's host numpy, copied. The reference's telemetry
-(``TournamentInstruments``) is not wired in yet (ROADMAP §A item 9).
+reference's host numpy, copied. With process-wide telemetry on
+(``repro_torch.obs.configure(True)``) ``run_tournament`` records the
+sweep's scale (configs, configs/s, wall) and each policy's scored
+accuracy regret, host numpy over the finished leaderboard: trajectories
+are bitwise the same either way.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl.engine import SimConfig
 from repro_torch.fl.grid import GridSpec, run_grid
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.instrument import TournamentInstruments, perf
 
 __all__ = ["run_tournament", "tournament_metrics", "leaderboard"]
 
@@ -131,6 +136,8 @@ def run_tournament(draws: Optional[Callable], params,
     with the metric arrays and a ``"leaderboard"``. Baseline policies need
     ``sim.uniform_m > 0`` (the matched M), as in ``run_grid``.
     """
+    ti = TournamentInstruments(obs_metrics.default_registry())
+    t0 = perf()
     spec = GridSpec(channels=tuple(channels), sigma_dists=tuple(sigma_dists),
                     policies=tuple(policies), seeds=tuple(seeds),
                     populations=tuple(tuple(p) for p in populations))
@@ -138,4 +145,6 @@ def run_tournament(draws: Optional[Callable], params,
     out = dict(grid)
     out.update(tournament_metrics(grid, acc_target_frac))
     out["leaderboard"] = leaderboard(out, grid["policies"])
+    if ti.enabled:
+        ti.record(spec.size, perf() - t0, out["leaderboard"])
     return out

@@ -33,17 +33,32 @@ a spilled tenant — re-admits it with bitwise-identical queues.
 ``evict_lru()`` picks the least-recently-used resident. ``compact_log()``
 snapshots state and drops the served log entries.
 
-Not in this port yet: the reference's telemetry (``telemetry`` /
-``event_log``, ``metrics_snapshot``), its legacy ``staging=False`` batch
-builder (the reference's internal parity reference) and the rank-0
-gating of ``save`` (ROADMAP §A 9 and §A 8).
+``staging=False`` builds each group's batch the legacy way, padding
+every request into fresh host arrays; it is the staged arenas' bitwise
+parity reference, and both paths send the batch in the same one copy.
+
+Telemetry (``repro_torch.obs``, off by default): the service records flush
+latency split into its host segments (staging / dispatch / pull), per-bucket
+group occupancy and pad waste, queue depth, per-decision comm time, tenant
+lifecycle counters, replay-log growth, and — keyed by ``step_signature`` —
+every first dispatch of a batch shape on the serving path (``warmup()``
+seeds the tracker, so warm hits are counted too). All recording is on the
+host, on values already there: the Eq. 8 comm times are read from the
+host arrays the flush pulled after its one synchronisation, so
+telemetry-on serving and replay are bitwise-identical to telemetry-off
+and add no synchronisation (tests/test_torch_obs.py).
+``metrics_snapshot()`` exports dict / JSON / Prometheus text.
+
+Not in this port yet: the rank-0 gating of ``save`` (ROADMAP §A 8).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
-from typing import Dict, List, NamedTuple, Optional
+import warnings
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -55,10 +70,14 @@ from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.policies import (POLICY_DRAWS, POLICY_RAW_PAD,
                                        PolicyState)
 from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.export import EventLog, json_snapshot, prometheus_text
+from repro_torch.obs.instrument import ServiceInstruments, perf
+from repro_torch.obs.profile import trace_span
 from repro_torch.service.replay import LoggedRequest, RequestLog
 from repro_torch.service.state import (BucketKey, TenantSpec, TenantStore,
                                        bucket_width)
-from repro_torch.service.step import make_bucket_step
+from repro_torch.service.step import make_bucket_step, step_signature
 
 GAINS_PAD = 0.0  # below every clipped channel gain (gain_bounds lo > 0)
 SOLVERS = ("stitched", "cuda", "cuda_fused")
@@ -101,6 +120,50 @@ def _numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy().copy()
     return np.array(x)
+
+
+def _transfer_buffer(parts, device: torch.device):
+    """One host buffer holding a batch's arrays back to back (8-byte
+    aligned; pinned on a CUDA device, fresh per group so no in-flight copy
+    can see it refilled). ``parts`` are (dtype, shape) pairs; returns the
+    buffer, each array's (offset, bytes) span and numpy views to fill."""
+    spans, total = [], 0
+    for dtype, shape in parts:
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        spans.append((total, nbytes))
+        total += -(-nbytes // 8) * 8
+    buf = torch.empty(total, dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    views = [host[o:o + n].view(dtype).reshape(shape)
+             for (o, n), (dtype, shape) in zip(spans, parts)]
+    return buf, spans, views
+
+
+def _send(buf, spans, views, example, device: torch.device):
+    """Copy a filled transfer buffer to ``device`` (one copy, not awaited)
+    and view it as the ``(rows, gains, raw)`` batch."""
+    dev = buf.to(device, non_blocking=True)
+    out = [dev[o:o + n].view(torch.from_numpy(v).dtype).view(v.shape)
+           for (o, n), v in zip(spans, views)]
+    return out[0], out[1], tree_unflatten(example, out[2:])
+
+
+def _upload(batch, example, device: torch.device):
+    """A host ``(rows, gains, raw)`` batch on ``device``, in the staged
+    path's one copy of one transfer buffer."""
+    arrays = [batch[0], batch[1], *tree_leaves(batch[2])]
+    buf, spans, views = _transfer_buffer([(a.dtype, a.shape)
+                                          for a in arrays], device)
+    for view, a in zip(views, arrays):
+        view[...] = a
+    return _send(buf, spans, views, example, device)
+
+
+def _pad_lane(x: np.ndarray, width: int, fill) -> np.ndarray:
+    out = np.full((width,), fill, x.dtype)
+    out[: x.shape[0]] = x
+    return out
 
 
 class _Stage:
@@ -166,25 +229,13 @@ class _Stage:
                  (np.dtype(np.float32), (b_pad, nb))]
         parts += [(np.dtype(d), (b_pad,) if s else (b_pad, nb))
                   for s, d in zip(self.proto.scalar, self.proto.dtypes)]
-        spans, total = [], 0
-        for dtype, shape in parts:
-            nbytes = int(np.prod(shape)) * dtype.itemsize
-            spans.append((total, nbytes))
-            total += -(-nbytes // 8) * 8
-        buf = torch.empty(total, dtype=torch.uint8,
-                          pin_memory=device.type == "cuda")
-        host = buf.numpy()
-        views = [host[o:o + n].view(dtype).reshape(shape)
-                 for (o, n), (dtype, shape) in zip(spans, parts)]
+        buf, spans, views = _transfer_buffer(parts, device)
         views[0][:c] = rows
         views[0][c:] = sentinel
         for view, arena in zip(views[1:], [self.gains] + self.raw):
             view[:c] = arena[:c]
             view[c:] = 0
-        dev = buf.to(device, non_blocking=True)
-        out = [dev[o:o + n].view(torch.from_numpy(v).dtype).view(v.shape)
-               for (o, n), v in zip(spans, views)]
-        return out[0], out[1], tree_unflatten(self.proto.example, out[2:])
+        return _send(buf, spans, views, self.proto.example, device)
 
     def reset(self) -> None:
         self.count = 0
@@ -230,11 +281,35 @@ class SchedulerService:
     """
 
     def __init__(self, solver: str = "cuda_fused", log_requests: bool = True,
-                 spill_dir: Optional[str] = None, device="cuda"):
+                 staging: bool = True, spill_dir: Optional[str] = None,
+                 telemetry: Optional[bool] = None,
+                 event_log: Union[None, str, EventLog] = None,
+                 log_warn_bytes: float = float(1 << 28), device="cuda"):
         """``log_requests=False`` disables the replay log; deployments
         that keep it call :meth:`compact_log` on their checkpoint cadence.
+
+        ``staging=False`` builds each group's batch the legacy way (fresh
+        padded arrays per request, stacked per group): the staged arenas'
+        bitwise parity reference, not for production use.
+
         ``spill_dir`` routes :meth:`evict` state spills to disk; by
-        default spilled rows stay on the host heap."""
+        default spilled rows stay on the host heap.
+
+        ``telemetry`` turns this service's metrics registry on or off
+        (``None`` follows the process-wide ``repro_torch.obs.configure``
+        switch, which starts off). All recording is on the host: served
+        decisions, queue updates and replay are bitwise-identical with
+        telemetry on or off; off, the hot path pays one attribute load and
+        an empty call per site. Read metrics via :meth:`metrics_snapshot`.
+
+        ``event_log`` is an optional JSONL path (or a shared
+        :class:`~repro_torch.obs.export.EventLog`) for lifecycle events
+        (admit / evict / reload / compact / warmup / log-growth warnings);
+        the in-memory tail is always kept, file writes are rank-0 gated.
+
+        ``log_warn_bytes`` is the estimated retained replay-log size above
+        which the service warns, once, that the log (unbounded by design)
+        wants a :meth:`compact_log` cadence. Default 256 MiB."""
         if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r} (want one of "
                              f"{SOLVERS})")
@@ -245,8 +320,14 @@ class SchedulerService:
                                "the plain versions on the CPU")
         self.solver = solver
         self.log_requests = log_requests
+        self.staging = staging
         self.spill_dir = spill_dir
+        self.obs = ServiceInstruments(obs_metrics.new_registry(telemetry))
+        self.events = (event_log if isinstance(event_log, EventLog)
+                       else EventLog(event_log))
+        self.log_warn_bytes = float(log_warn_bytes)
         self.store = TenantStore(self.device)
+        self.store.obs = self.obs
         self.log = RequestLog()
         self._waves: List[_Wave] = []
         self._steps: Dict[BucketKey, object] = {}
@@ -256,6 +337,7 @@ class SchedulerService:
         self._spill_seq = 0
         self._tick = 0
         self._last_used: Dict[str, int] = {}
+        self._bstrs: Dict[BucketKey, str] = {}   # cached as_string() forms
 
     # ------------------------------------------------------------ tenants
     def add_tenant(self, name: str, scfg: SchedulerConfig,
@@ -268,14 +350,26 @@ class SchedulerService:
                                          policy=policy, m_avg=m_avg))
         self._invalidate_step(spec.bucket)
         self._touch(name)
+        self.events.emit("admit", tenant=name,
+                         bucket=self._bucket_str(spec.bucket))
         return spec
+
+    def _bucket_str(self, bkey: BucketKey) -> str:
+        """Cached ``bkey.as_string()`` (metric labels, events): the flush
+        path does a dict lookup instead of formatting per group."""
+        s = self._bstrs.get(bkey)
+        if s is None:
+            s = self._bstrs[bkey] = bkey.as_string()
+        return s
 
     def _invalidate_step(self, bkey: BucketKey) -> None:
         """Drop a bucket's cached step if tenant-set changes can affect it:
         only ``solver='cuda'`` binds the bucket's configuration into its
-        solve."""
+        solve. The first-dispatch tracker forgets the bucket with it, as
+        the reference's forgets a dropped jit cache."""
         if self.solver == "cuda":
             self._steps.pop(bkey, None)
+            self.obs.compiles.forget(bkey)
 
     def raw_structure(self, name: str):
         """An example raw-draw tree for this tenant (log loading)."""
@@ -346,13 +440,15 @@ class SchedulerService:
             self._waves.append(wave)
         wave.seen.add(name)
         wave.groups.setdefault(bkey, []).append(_Pending(name, gains, raw))
-        stage = wave.stages.get(bkey)
-        if stage is None:
-            pool = self._pool.get(bkey)
-            stage = pool.pop() if pool else _Stage(bkey, proto)
-            wave.stages[bkey] = stage
-        stage.put(spec.n, gains, leaves)
+        if self.staging:
+            stage = wave.stages.get(bkey)
+            if stage is None:
+                pool = self._pool.get(bkey)
+                stage = pool.pop() if pool else _Stage(bkey, proto)
+                wave.stages[bkey] = stage
+            stage.put(spec.n, gains, leaves)
         self._touch(name)
+        self.obs.submits.inc()
 
     @property
     def n_queued(self) -> int:
@@ -367,13 +463,24 @@ class SchedulerService:
         after one synchronisation. Each group is appended to the replay log
         right after it was issued, which makes the log failure-atomic.
         """
+        obs = self.obs
+        t_start = perf()
+        if obs.enabled:
+            obs.queue_depth.set(self.n_queued)
+        annotate = obs_metrics.enabled()   # profiler spans: global switch
         waves, self._waves = self._waves, []
         pending = []
         try:
-            for w in waves:
+            for wi, w in enumerate(waves):
                 for bkey, reqs in w.groups.items():
-                    outs = self._dispatch_group(bkey, reqs,
-                                                w.stages[bkey])
+                    if annotate:
+                        with trace_span("service.flush/wave"
+                                        f"{wi}/{self._bucket_str(bkey)}"):
+                            outs = self._dispatch_group(
+                                bkey, reqs, w.stages.get(bkey))
+                    else:
+                        outs = self._dispatch_group(bkey, reqs,
+                                                    w.stages.get(bkey))
                     if log and self.log_requests:
                         self.log.append_entry(
                             [LoggedRequest(*r) for r in reqs])
@@ -383,11 +490,13 @@ class SchedulerService:
                 for bkey, stage in w.stages.items():
                     stage.reset()
                     self._pool.setdefault(bkey, []).append(stage)
+        t_pull = perf()
         pulled = [(reqs, [x.to("cpu", non_blocking=True) for x in outs])
                   for reqs, outs in pending]
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         responses: Dict[str, Decision] = {}
+        rec_t_comm = obs.t_comm.record if obs.enabled else None
         for reqs, outs in pulled:
             sel, q, p, t_comm, power, n_sel = (x.numpy() for x in outs)
             for i, r in enumerate(reqs):
@@ -396,25 +505,70 @@ class SchedulerService:
                     sel=sel[i, :n], q=q[i, :n], p=p[i, :n],
                     t_comm=t_comm[i], power=power[i],
                     n_sel=np.int64(n_sel[i]))
+                if rec_t_comm is not None:
+                    rec_t_comm(float(t_comm[i]))
+        t_end = perf()
+        obs.pull_s.record(t_end - t_pull)
+        obs.flush_s.record(t_end - t_start)
+        obs.flushes.inc()
+        if log and self.log_requests:
+            self._log_health()
         return responses
+
+    def _log_health(self) -> None:
+        """Replay-log growth gauges + the one-time threshold warning: the
+        log is unbounded by design (it is the replay trajectory), so when
+        the estimated retained bytes cross ``log_warn_bytes`` the service
+        emits one ``log_growth_warning`` event and one Python warning
+        nudging the :meth:`compact_log` cadence."""
+        est = self.log.bytes_est
+        self.obs.log_entries.set(len(self.log))
+        self.obs.log_bytes.set(est)
+        if est > self.log_warn_bytes:
+            rec = self.events.once(
+                "log_growth", "log_growth_warning",
+                entries=len(self.log), bytes_est=est,
+                threshold=self.log_warn_bytes)
+            if rec is not None:
+                warnings.warn(
+                    f"replay log holds ~{est / 2**20:.0f} MiB across "
+                    f"{len(self.log)} entries (threshold "
+                    f"{self.log_warn_bytes / 2**20:.0f} MiB); it grows "
+                    "unbounded by design — call compact_log() on your "
+                    "checkpoint cadence to bound host memory",
+                    RuntimeWarning, stacklevel=3)
 
     def warmup(self, max_batch: int = 8) -> None:
         """Serve all-sentinel batches of every power-of-two size up to
         ``max_batch`` through every bucket's step (no row is written back,
         so tenant state is bitwise untouched): loads the kernels and warms
-        the device allocator off the serving path."""
+        the device allocator off the serving path, and seeds the
+        first-dispatch tracker so later dispatches of these shapes count
+        as warm hits."""
+        obs = self.obs
+        n_warmed = 0
         for bkey, bucket in self.store.buckets().items():
             step = self._bucket_step(bkey, bucket)
             stage = _Stage(bkey, self._proto(bkey.policy))
+            bstr = self._bucket_str(bkey)
             b = 1
             while b <= _next_pow2(max_batch):
+                fresh = obs.compiles.warm(
+                    step_signature(bkey, bucket.size, b, self.solver),
+                    bucket=bstr, batch=b, solver=self.solver)
                 rows, gains, raw = stage.batch([], bucket.size, b,
                                                self.device)
+                t0 = perf()
                 step(bucket.state, bucket.table, bucket.n_real, rows, 0,
                      gains, raw)
+                if fresh:
+                    obs.compiles.compile_s.inc(perf() - t0)
+                    n_warmed += 1
                 b *= 2
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.events.emit("warmup", shapes_compiled=n_warmed,
+                         max_batch=max_batch)
 
     def _bucket_step(self, bkey: BucketKey, bucket):
         if bkey not in self._steps:
@@ -448,16 +602,67 @@ class SchedulerService:
         return solve
 
     def _dispatch_group(self, bkey: BucketKey, reqs: List[_Pending],
-                        stage: _Stage):
+                        stage: Optional[_Stage]):
         """Issue one (wave, bucket) group; returns its device outputs
         without reading them."""
+        obs = self.obs
         bucket = self.store.buckets()[bkey]
         step = self._bucket_step(bkey, bucket)
-        rows, gains, raw = stage.batch(
-            [bucket.row_of[r.tenant] for r in reqs], bucket.size,
-            _next_pow2(len(reqs)), self.device)
-        return step(bucket.state, bucket.table, bucket.n_real, rows,
+        b_pad = _next_pow2(len(reqs))
+        row_ids = [bucket.row_of[r.tenant] for r in reqs]
+        t0 = perf()
+        if stage is not None:
+            rows, gains, raw = stage.batch(row_ids, bucket.size, b_pad,
+                                           self.device)
+        else:
+            rows, gains, raw = _upload(
+                self._legacy_batch(bkey, bucket, reqs, row_ids, b_pad),
+                self._proto(bkey.policy).example, self.device)
+        t1 = perf()
+        fresh = obs.compiles.miss(
+            step_signature(bkey, bucket.size, b_pad, self.solver),
+            bucket=self._bucket_str(bkey), batch=b_pad, solver=self.solver)
+        outs = step(bucket.state, bucket.table, bucket.n_real, rows,
                     len(reqs), gains, raw)
+        t2 = perf()
+        obs.stage_s.record(t1 - t0)
+        obs.dispatch_s.record(t2 - t1)
+        if fresh:
+            # the first dispatch of a shape: its host wall is the cost the
+            # serving path just paid (module docstring of obs/instrument.py)
+            obs.compiles.compile_s.inc(t2 - t1)
+        if obs.enabled:
+            occ, waste = obs.bucket(self._bucket_str(bkey))
+            occ.record(len(reqs))
+            waste.record((b_pad - len(reqs)) / b_pad)
+            obs.groups.inc()
+            obs.requests.inc(len(reqs))
+        return outs
+
+    def _legacy_batch(self, bkey: BucketKey, bucket, reqs, row_ids,
+                      b_pad: int):
+        """The pad-per-request host batch ``(rows, gains, raw)``: one
+        ``np.full`` per request lane, stacked per group — the staged
+        arenas' bitwise parity reference, built as the reference's
+        ``_legacy_batch`` builds it (rows int64 here, the step's index
+        type)."""
+        nb = bkey.n_bucket
+        rows = np.full((b_pad,), bucket.size, np.int64)  # pad: dropped
+        gains = np.zeros((b_pad, nb), np.float32)
+        raw_rows = []
+        fills = POLICY_RAW_PAD[bkey.policy]
+        for i, r in enumerate(reqs):
+            rows[i] = row_ids[i]
+            gains[i] = _pad_lane(r.gains, nb, GAINS_PAD)
+            raw_rows.append(tree_unflatten(r.raw, [
+                x if np.ndim(x) == 0 else _pad_lane(np.asarray(x), nb, f)
+                for x, f in zip(tree_leaves(r.raw), tree_leaves(fills))]))
+        for _ in range(b_pad - len(reqs)):   # sentinel-row payloads
+            raw_rows.append(tree_map(lambda x: np.zeros_like(np.asarray(x)),
+                                     raw_rows[0]))
+        raw = tree_unflatten(raw_rows[0], [
+            np.stack(xs) for xs in zip(*map(tree_leaves, raw_rows))])
+        return rows, gains, raw
 
     # --------------------------------------------------- tenant lifecycle
     def evict(self, name: str):
@@ -481,6 +686,10 @@ class SchedulerService:
             self._spilled[name] = (spec, path)
         else:
             self._spilled[name] = (spec, row)
+        self.obs.spills.inc()
+        self.obs.spilled.set(len(self._spilled))
+        self.events.emit("evict", tenant=name,
+                         spill="disk" if self.spill_dir else "heap")
         return row
 
     def reload(self, name: str) -> TenantSpec:
@@ -502,6 +711,9 @@ class SchedulerService:
         out = self.store.readmit(spec, row)
         self._invalidate_step(spec.bucket)
         self._touch(name)
+        self.obs.reloads.inc()
+        self.obs.spilled.set(len(self._spilled))
+        self.events.emit("reload", tenant=name)
         return out
 
     def evict_lru(self) -> str:
@@ -548,5 +760,48 @@ class SchedulerService:
             raise ValueError("flush() before compacting the log "
                              "(queued requests are not yet in it)")
         snap = self.snapshot()
-        self.log.compact(snap)
+        dropped = self.log.compact(snap)
+        self.obs.log_compactions.inc()
+        self.obs.log_entries.set(0)
+        self.obs.log_bytes.set(0)
+        self.events.emit("compact", entries_dropped=dropped)
+        return snap
+
+    # --------------------------------------------------------- telemetry
+    def metrics_snapshot(self, fmt: str = "dict"):
+        """This service's metrics, in one of three formats.
+
+        ``fmt="dict"`` (default): a JSON-serializable dict, the metric list
+        plus on-demand extras (tenant counts, per-bucket Z-queue summaries
+        — the paper's Eq. 9 virtual power queues, copied to the host HERE,
+        off the serving path, and only when telemetry is on). ``"json"``:
+        the same, serialized. ``"prometheus"``: the Prometheus text
+        exposition format. With telemetry off the registry is empty and
+        nothing is read from the device.
+        """
+        obs = self.obs
+        if obs.enabled:
+            obs.queue_depth.set(self.n_queued)
+            for bkey, b in self.store.buckets().items():
+                bstr = self._bucket_str(bkey)
+                z = b.state.z.detach().cpu().numpy()   # snapshot time only
+                g = obs.registry.gauge
+                g("service_z_mean", bucket=bstr).set(float(z.mean()))
+                g("service_z_max", bucket=bstr).set(float(z.max()))
+                g("service_bucket_tenants", bucket=bstr).set(b.size)
+        if fmt == "prometheus":
+            return prometheus_text(obs.registry)
+        snap = json_snapshot(
+            obs.registry,
+            tenants={"resident": len(self.store),
+                     "spilled": len(self._spilled)},
+            queued=self.n_queued,
+            log={"entries": len(self.log), "bytes_est": self.log.bytes_est,
+                 "n_compacted": self.log.n_compacted},
+            compile_misses=obs.compiles.misses_total())
+        if fmt == "json":
+            return json.dumps(snap)
+        if fmt != "dict":
+            raise ValueError(f"unknown fmt {fmt!r} "
+                             "(want 'dict'|'json'|'prometheus')")
         return snap

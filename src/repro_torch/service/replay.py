@@ -47,6 +47,9 @@ class RequestLog:
         self.entries: List[List[LoggedRequest]] = []
         self.snapshot: Optional[Dict[str, PolicyState]] = None
         self.n_compacted: int = 0    # entries dropped by compact()
+        self.bytes_est: int = 0      # retained payload estimate, kept up
+        #                              to date on append (O(1) to read: the
+        #                              service's gauge and growth warning)
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -56,6 +59,12 @@ class RequestLog:
         return sum(len(e) for e in self.entries)
 
     def append_entry(self, requests: List[LoggedRequest]) -> None:
+        est = 0
+        for r in requests:
+            est += r.gains.nbytes + len(r.tenant) + 64  # + container slop
+            for leaf in tree_leaves(r.raw):
+                est += np.asarray(leaf).nbytes
+        self.bytes_est += est
         self.entries.append(list(requests))
 
     # --------------------------------------------------------- compaction
@@ -67,6 +76,7 @@ class RequestLog:
         self.snapshot = tree_map(np.array, snapshot)
         self.n_compacted += dropped
         self.entries = []
+        self.bytes_est = 0
         return dropped
 
     # ------------------------------------------------------------- replay

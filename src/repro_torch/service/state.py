@@ -42,6 +42,7 @@ from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.policies import POLICIES, PolicyState, policy_aux_init
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.fl.sharding import padded_len
+from repro_torch.obs.instrument import noop_instruments
 from repro_torch.service.step import SERVICE_POLICIES, coeff_row
 
 
@@ -150,6 +151,10 @@ class TenantStore:
         self._tenants: Dict[str, TenantSpec] = {}
         self._buckets: Dict[BucketKey, _Bucket] = {}
         self._dirty: set = set()
+        # telemetry hook: admit/evict counters + resident gauge. A disabled
+        # bundle (every metric a shared no-op) keeps the store usable
+        # standalone; the owning SchedulerService installs its own here
+        self.obs = noop_instruments()
 
     # ------------------------------------------------------------ registry
     def add(self, spec: TenantSpec) -> TenantSpec:
@@ -176,6 +181,8 @@ class TenantStore:
         self._tenants[spec.name] = spec
         bucket.tenants.append(spec)
         self._dirty.add(spec.bucket)
+        self.obs.admits.inc()
+        self.obs.resident.set(len(self._tenants))
         return spec
 
     def evict(self, name: str) -> PolicyState:
@@ -192,6 +199,8 @@ class TenantStore:
             self._dirty.discard(spec.bucket)
         else:
             self._dirty.add(spec.bucket)
+        self.obs.evicts.inc()
+        self.obs.resident.set(len(self._tenants))
         return row
 
     def readmit(self, spec: TenantSpec, row: PolicyState) -> TenantSpec:

@@ -13,7 +13,10 @@ bucket-batched, are held to their plain versions bit for bit (the same
 IEEE ops in the same order, no contraction; the single-vector one also at
 the solve's tolerances), at short and ragged sizes, rows past CUDA's
 grid-y limit and lanes at storage offset 1, and the service's
-cuda_fused and stitched paths select the same clients. The SSD scan
+cuda_fused and stitched paths select the same clients; telemetry on
+(``repro_torch.obs``) equals telemetry off bit for bit in the service
+(both batch builders; no synchronisation in a group's dispatch) and in the
+engine and the chunk runner (deterministic cuDNN). The SSD scan
 (through ``ops.ssd``, which pads) against its plain chunked version at the
 smoke's shapes: y rtol 1e-4 / atol 2e-4, the final state rtol 1e-4 /
 atol 2e-5, as on the CPU (float32
@@ -34,6 +37,7 @@ out, and with ``population=()`` takes the population-free decisions bit
 for bit.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -359,6 +363,108 @@ def test_service_fused_flush_matches_stitched(cuda):
         f = decisions["cuda_fused"][name]
         assert np.array_equal(d.sel, f.sel)
         np.testing.assert_allclose(f.q, d.q, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("staging", [True, False])
+def test_service_telemetry_is_neutral_on_the_card(cuda, staging):
+    """A demo-mix slice under cuda_fused, telemetry on (profiler spans too)
+    and off: the same decisions and queues bit for bit, the same K3
+    launches, the counters what was served, and no synchronisation inside
+    any group's dispatch (``set_sync_debug_mode("error")``)."""
+    from repro_torch import obs
+    runs = {}
+    for on in (False, True):
+        obs.configure(on)
+        try:
+            svc = SchedulerService(solver="cuda_fused", device=cuda,
+                                   telemetry=on, staging=staging)
+            rng = np.random.default_rng(0)
+            tenants = register_demo_tenants(svc, rng, scale=0.05)
+            svc.warmup(16)
+            dispatch = svc._dispatch_group
+
+            def checked(*args):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return dispatch(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+
+            svc._dispatch_group = checked
+            before = decision_fused_batched.launches
+            out = []
+            for _ in range(3):
+                for name, n, policy in tenants:
+                    _, gains, raw = demo_request(rng, name, n, policy)
+                    svc.submit(name, gains, raw=raw)
+                out.append(svc.flush())
+            runs[on] = (svc, out, decision_fused_batched.launches - before)
+        finally:
+            obs.configure(False)
+    (off, r_off, k_off), (on, r_on, k_on) = runs[False], runs[True]
+    assert k_on == k_off == 6
+    for a, b in zip(r_on, r_off):
+        for name in b:
+            for x, y in zip(a[name], b[name]):
+                assert np.array_equal(x, y), name
+    for x, y in zip(on.snapshot().values(), off.snapshot().values()):
+        for lx, ly in zip(x, y):
+            assert np.array_equal(lx, ly)
+    reg = on.obs.registry
+    assert reg.value("service_flushes_total") == 3
+    assert reg.value("service_requests_served_total") == 3 * len(tenants)
+    assert off.metrics_snapshot()["metrics"] == []
+
+
+def test_engine_telemetry_is_neutral_on_the_card(cuda):
+    """run_simulation under cuda_fused with telemetry on and off (cuDNN's
+    deterministic algorithms: the card's training is otherwise not
+    bitwise reproducible), and the chunk runner's 2 + 1 rounds against 3:
+    equal bit for bit, K2 / K1 once a round each."""
+    from repro_torch import obs
+    from repro_torch.fl.engine import (default_draws, init_carry,
+                                       make_chunk_runner)
+    n, rounds = 20, 3
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ds = make_cifar10_like(gen, n_clients=n, per_client=16, n_test=32, h=8,
+                           w=8, device=cuda)
+    mp = dict(conv1=4, conv2=8, hidden=16)
+    params = make_model("cnn", ds, **mp).init_fn(gen)
+    scfg = SchedulerConfig(n_clients=n, model_bits=32 * 50_000.0)
+    ch = ChannelConfig(n_clients=n)
+    sig = heterogeneous_sigmas(n, device=cuda)
+    sim = SimConfig(rounds=rounds, eval_every=2, m_cap=4, batch=4,
+                    local_steps=2, eval_size=32,
+                    model_params=tuple(mp.items()))
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    hist, chunks = {}, {}
+    try:
+        for on in (False, True):
+            obs.configure(on)
+            decision_fused.launches = scheduler_solve.launches = 0
+            hist[on] = run_simulation(None, params, ds, sim, scfg, ch, sig,
+                                      keep_selection=True)
+            assert (decision_fused.launches, scheduler_solve.launches) == (
+                rounds, 0)
+            csim = dataclasses.replace(sim, solver="cuda")
+            draws = default_draws(csim, ds)
+            run_chunk = make_chunk_runner(ds, csim, scfg, ch, sig, draws)
+            carry = init_carry(draws, params, scfg, csim, sig, ch)
+            for length in ((rounds,) if on else (2, rounds - 2)):
+                carry, acc, _ = run_chunk(carry, length)
+            assert scheduler_solve.launches == rounds
+            chunks[on] = (carry, acc)
+        assert obs.default_registry().value("engine_runs_total") == 1.0
+    finally:
+        obs.configure(False)
+        torch.backends.cudnn.deterministic = flag
+    for key in hist[False]:
+        assert np.array_equal(hist[False][key], hist[True][key]), key
+    (a, acc_a), (b, acc_b) = chunks[False], chunks[True]
+    assert all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+    assert torch.equal(a[1].z, b[1].z) and torch.equal(a[4], b[4])
+    assert torch.equal(acc_a, acc_b)
 
 
 # (b, S, H, P, N, chunk): the padded reference-test shape, a mid shape,
