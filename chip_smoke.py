@@ -30,13 +30,18 @@ Phases; any failure exits non-zero before the result line is printed:
    sums in another order, the kernel's products 3xTF32); and flash
    attention (K5) at the reference tests' shapes (S = 200, windows 128
    and 32, D = 128 bidirectional, bfloat16), Sq != Sk both ways, a
-   non-causal window, and yi-6b's (BH, S, D) = (128, 2000 and 2048,
+   non-causal window, non-causal (2, 300, 77, 64) (a ragged key tile)
+   and (2, 70, 150, 64), and yi-6b's (BH, S, D) = (128, 2000 and 2048,
    128) causal (2e-5 in float32, 2e-2 in bfloat16, the reference tests'
    own), each also with the masked key tiles run instead of skipped (the
-   same bits), and at yi-6b's two shapes on its 16 unexpanded KV heads
-   (``kv_group=8``, as the prefill and the forward call it): bit for bit
-   the kernel on the expanded KV and with the masked tiles run, and 2e-5
-   from the plain version; ``ptxas`` must report no spills in K4 and K5;
+   same bits), and on the unexpanded KV heads as the models call it: at
+   yi-6b's two shapes (``kv_group=8``) and at each of phase 13's calls
+   (``ZOO_FLASH``: chatglm3-6b's ``kv_group`` 16, minicpm-2b's D = 64,
+   granite-20b's 48, llama-3.2-vision-11b's self and cross-attention over
+   1,601 media keys, seamless-m4t-large-v2's encoder over 4,096 frames,
+   its decoder's self and cross-attention): bit for bit the kernel on the
+   expanded KV and with the masked tiles run, and 2e-5 from the plain
+   version; ``ptxas`` must report no spills in K4 and K5;
 4. drive the main path at full width through ``run_simulation``: the
    paper's CIFAR-10 configuration (100 clients, 500 examples each, 2000
    test images, CNN 32/64/120, lambda 10, m_cap 32, I = 10, batch 32),
@@ -163,12 +168,30 @@ Phases; any failure exits non-zero before the result line is printed:
    ``build/flash_attention_cuda_cores.cu`` holds the earlier K5 that ran
    on the CUDA cores
    (``git show 3f5cf30:src/repro_torch/kernels/csrc/flash_attention.cu``),
-   that kernel on the expanded KV in the same run.
+   that kernel on the expanded KV in the same run;
+13. the rest of the dense zoo the same way, one id after another, each
+   freed before the next: chatglm3-6b (28 layers, 32 query heads on 2 KV
+   heads, partial rotary 0.5), minicpm-2b (40 layers, 36 heads of 64,
+   tied head), granite-20b (its first 20 of 52 layers, 44.8 GB; 48 query
+   heads on one KV head), llama-3.2-vision-11b (40 layers, every 5th a
+   cross-attention layer over seeded media embeddings (4, 1601, 4096))
+   and seamless-m4t-large-v2 (24 bidirectional encoder layers over seeded
+   frames (4, 4096, 1024), 24 decoder layers each with a cross block),
+   random float32 weights at full width: K5 must launch 28, 40, 20, 40
+   (32 self + 8 cross) and 72 (24 encoder + 24 self + 24 cross) times per
+   forward and per prefill, never in decode, and no other kernel; prefill
+   plus teacher-forced decode against the forward (< 2e-4; the cross K / V
+   computed once at prefill); the card-against-CPU forward runs the first
+   2 layers (5 for llama, which holds its first cross-attention layer; 2
+   encoder and 2 decoder layers for seamless); forward ms, prefill s and
+   decode ms per token by id; then K5's device time at each of the zoo's
+   calls (``ZOO_FLASH``) beside its plain version's, its bound and
+   ``scaled_dot_product_attention(enable_gqa=True)``.
 
 TF32 is off for every product and convolution in every phase.
 
-Prints the service's, telemetry's, FEMNIST's, the scenarios', Mamba's
-and yi's JSON lines, the card line, one
+Prints the service's, telemetry's, FEMNIST's, the scenarios', Mamba's,
+yi's and the zoo's JSON lines, the card line, one
 JSON line of the kernels (``{"kernels": [...]}``), then, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -2367,6 +2390,7 @@ SSD_SHAPES = ((1, 100, 2, 32, 16, 32), (2, 384, 24, 64, 128, 128),
 SSD_TOL = (dict(rtol=1e-4, atol=2e-4), dict(rtol=1e-4, atol=2e-5))
 # (BH, Sq, Sk, D, causal, window, bfloat16) of the flash attention checks:
 # tests/test_kernels.py's six shapes, Sq != Sk both ways, a non-causal
+# window, non-causal Sq > Sk with a ragged key tile and Sq < Sk without a
 # window, yi-6b's prefill shape in generate (batch 4 x 32 heads, prompt
 # 2000, hd 128: a ragged last tile) and its forward shape (2048; last, as
 # time_flash times it)
@@ -2379,11 +2403,33 @@ FLASH_SHAPES = ((2, 256, 256, 64, True, None, False),
                 (2, 100, 300, 64, True, None, False),
                 (2, 150, 130, 128, True, 40, False),
                 (2, 256, 256, 64, False, 48, True),
+                (2, 300, 77, 64, False, None, False),
+                (2, 70, 150, 64, False, None, False),
                 (128, 2000, 2000, 128, True, None, False),
                 (128, 2048, 2048, 128, True, None, False))
 # the reference tests' own tolerances (tests/test_kernels.py)
 FLASH_TOL = {False: 2e-5, True: 2e-2}
 YI_GROUP = 8  # yi-6b's query heads per KV head (32 / 4)
+# K5 as the zoo's forwards call it at batch 4 x 2048 (phase 13): (call,
+# BH = 4 x query heads, Sq, Sk, D, causal, kv_group), float32, no window;
+# each checked (phase 3) and timed beside its bound and SDPA
+ZOO_FLASH = (
+    ("chatglm3-6b self", 128, 2048, 2048, 128, True, 16),
+    ("minicpm-2b self", 144, 2048, 2048, 64, True, 1),
+    ("granite-20b self", 192, 2048, 2048, 128, True, 48),
+    ("llama-3.2-vision-11b self", 128, 2048, 2048, 128, True, 4),
+    ("llama-3.2-vision-11b cross", 128, 2048, 1601, 128, False, 4),
+    ("seamless-m4t-large-v2 encoder", 64, 4096, 4096, 64, False, 1),
+    ("seamless-m4t-large-v2 self", 64, 2048, 2048, 64, True, 1),
+    ("seamless-m4t-large-v2 cross", 64, 2048, 4096, 64, False, 1))
+# phase 13's ids: (id, layers kept, K5 launches per forward and per
+# prefill, layers in the card-vs-CPU forward). granite-20b keeps 20 of its
+# 52 layers (44.8 GB of float32 weights); llama's first 5 layers hold its
+# first cross-attention layer, seamless's first 2 decoder layers come with
+# its first 2 encoder layers.
+ZOO = (("chatglm3-6b", None, 28, 2), ("minicpm-2b", None, 40, 2),
+       ("granite-20b", 20, 20, 2), ("llama-3.2-vision-11b", None, 40, 5),
+       ("seamless-m4t-large-v2", None, 72, 2))
 LM_BATCH, LM_SEQ, LM_PROMPT, LM_GEN = 4, 2048, 2000, 64
 # prefill + decode against the teacher-forced forward (the bound of the
 # reference's tests/test_arch_smoke.py::test_decode_matches_forward), and
@@ -2485,17 +2531,22 @@ def check_flash(torch):
               f"{float((out.float() - want.float()).abs().max()):.3g}); "
               "skipping masked tiles is exact", flush=True)
     # yi-6b's 32 query heads on 4 KV heads, batch 4: the model's calls in
-    # generate's prefill (2000, ragged last tiles) and in the forward (2048)
-    for bh, s, _, d, causal, window, _ in FLASH_SHAPES[-2:]:
-        q, k, v = flash_gqa_lanes(torch, bh, s, d, s + 7)
-        out = flash_attention_bhsd(q, k, v, kv_group=YI_GROUP)
-        every = flash_attention_bhsd(q, k, v, kv_group=YI_GROUP,
+    # generate's prefill (2000, ragged last tiles) and in the forward
+    # (2048); then the zoo's calls (phase 13)
+    gqa = [(f"yi-6b {s}", bh, s, s, d, True, YI_GROUP)
+           for bh, s, _, d, _, _, _ in FLASH_SHAPES[-2:]] + list(ZOO_FLASH)
+    for call, bh, sq, sk, d, causal, group in gqa:
+        q, k, v = flash_gqa_lanes(torch, bh, sq, sk, d, group, sq + sk + 7)
+        out = flash_attention_bhsd(q, k, v, causal=causal, kv_group=group)
+        every = flash_attention_bhsd(q, k, v, causal=causal, kv_group=group,
                                      skip_tiles=False)
-        expanded = flash_attention_bhsd(q, k.repeat_interleave(YI_GROUP, 0),
-                                        v.repeat_interleave(YI_GROUP, 0))
-        want = flash_attention_ref(q, k, v, kv_group=YI_GROUP)
+        expanded = flash_attention_bhsd(q, k.repeat_interleave(group, 0),
+                                        v.repeat_interleave(group, 0),
+                                        causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal, kv_group=group)
         torch.cuda.synchronize()
-        tag = f"flash_attention {(bh, s, s, d)} kv_group={YI_GROUP}"
+        tag = (f"flash_attention {(bh, sq, sk, d)} causal={causal} "
+               f"kv_group={group} ({call})")
         err = max(err, compare(torch, tag, out, want, FLASH_TOL[False],
                                FLASH_TOL[False]))
         if not torch.isfinite(out).all():
@@ -2514,22 +2565,40 @@ def check_flash(torch):
     return err
 
 
-def flash_gqa_lanes(torch, bh, s, d, seed):
-    """q (BH, S, D) and k, v (BH / 8, S, D), standard normal, float32."""
+def flash_gqa_lanes(torch, bh, sq, sk, d, group, seed):
+    """q (BH, Sq, D) and k, v (BH / group, Sk, D), standard normal,
+    float32."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn((n, s, d), generator=g, device="cuda")
-            for n in (bh, bh // YI_GROUP, bh // YI_GROUP)]
+            for n, s in ((bh, sq), (bh // group, sk), (bh // group, sk))]
 
 
-def lm_path(torch, arch, kernel, cpu_layers=None):
-    """``arch`` at full width with random weights: a forward at batch
-    4 x 2048 and ``generate`` (prompt 2000, 64 new tokens), with the counts
-    at 0 before and read after; ``kernel`` must launch once per layer in
-    each and no other kernel may; prefill plus teacher-forced decode
-    against the forward, decode launching nothing; the card's forward
-    against the CPU's plain one at batch 1 x 256 on the first
-    ``cpu_layers`` layers (all by default) and the full head. Returns the
-    launches and a summary."""
+def stub_inputs(torch, cfg, batch):
+    """The reference's stubs, seeded standard normal on the card: a VLM's
+    media embeddings (B, n_media_tokens, d), an encoder-decoder's frame
+    embeddings (B, encoder_seq, d); None where the model reads none."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    media = (torch.randn((batch, cfg.n_media_tokens, cfg.d_model),
+                         generator=g, device="cuda")
+             if cfg.cross_attn_every else None)
+    frames = (torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                          generator=g, device="cuda")
+              if cfg.is_encoder_decoder else None)
+    return media, frames
+
+
+def lm_path(torch, arch, kernel, cpu_layers=None, layers=None,
+            per_call=None):
+    """``arch`` at full width with random weights (the first ``layers``
+    layers, all by default; a VLM's media and an encoder-decoder's frames
+    seeded on the card): a forward at batch 4 x 2048 and ``generate``
+    (prompt 2000, 64 new tokens), with the counts at 0 before and read
+    after; ``kernel`` must launch ``per_call`` times (once per layer by
+    default) in each and no other kernel may; prefill plus teacher-forced
+    decode against the forward, decode launching nothing; the card's
+    forward against the CPU's plain one at batch 1 x 256 on the first
+    ``cpu_layers`` layers (all by default; as many encoder layers) and the
+    full head. Returns the launches and a summary."""
     import copy
     import dataclasses
 
@@ -2538,18 +2607,24 @@ def lm_path(torch, arch, kernel, cpu_layers=None):
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if per_call is None:
+        per_call = cfg.n_layers
     t0 = time.perf_counter()
     params = M.init_params(torch.Generator(device="cuda").manual_seed(0),
                            cfg)
     tokens, labels = make_token_stream(
         torch.Generator(device="cuda").manual_seed(1), LM_BATCH, LM_SEQ,
         cfg.vocab_size)
+    media, frames = stub_inputs(torch, cfg, LM_BATCH)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"{arch}: {n_params} parameters on the card in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    batch = M.Batch(tokens=tokens, labels=labels)
-    prompt = M.Batch(tokens=tokens[:, :LM_PROMPT])
+    print(f"{arch}: {n_params} parameters ({cfg.n_layers} layers) on the "
+          f"card in {time.perf_counter() - t0:.2f} s", flush=True)
+    batch = M.Batch(tokens=tokens, labels=labels, media=media, frames=frames)
+    prompt = M.Batch(tokens=tokens[:, :LM_PROMPT], media=media,
+                     frames=frames)
 
     # the main path: a forward, then generate; counts from 0, and every
     # repeat_interleave (a KV-head expansion) counted
@@ -2576,11 +2651,11 @@ def lm_path(torch, arch, kernel, cpu_layers=None):
         raise AssertionError(f"{arch}: repeat_interleave ran on "
                              f"{expansions[:4]} ({len(expansions)} calls)")
     per_generate = counts[kernel] - per_forward[kernel]
-    if per_forward != launch_counts(**{kernel: cfg.n_layers}) or (
-            counts != launch_counts(**{kernel: 2 * cfg.n_layers})):
+    if per_forward != launch_counts(**{kernel: per_call}) or (
+            counts != launch_counts(**{kernel: 2 * per_call})):
         raise AssertionError(f"{arch}: {kernel} launches {per_forward} per "
                              f"forward and {per_generate} per generate, want "
-                             f"{cfg.n_layers} each and no other kernel")
+                             f"{per_call} each and no other kernel")
     if not (logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
             and torch.isfinite(logits).all()):
         raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
@@ -2608,9 +2683,10 @@ def lm_path(torch, arch, kernel, cpu_layers=None):
         lg, st = M.decode_step(params, tokens[:, t:t + 1], st, cfg)
         errs.append(float((lg[:, 0] - logits[:, t]).abs().max()))
     per_decode = read_counts()[kernel] - per_prefill
-    if per_decode or per_prefill != cfg.n_layers:
-        raise AssertionError(f"{arch}: decode launched {kernel}, or prefill "
-                             "did not launch it once per layer")
+    if per_decode or per_prefill != per_call:
+        raise AssertionError(f"{arch}: decode launched {kernel} "
+                             f"{per_decode} times, or prefill {per_prefill} "
+                             f"times, not {per_call}")
     if not max(errs) < DECODE_TOL:
         raise AssertionError(f"{arch}: decode vs forward {max(errs)}")
     print(f"{arch}: prefill + {len(errs) - 1} decode steps match the "
@@ -2621,19 +2697,30 @@ def lm_path(torch, arch, kernel, cpu_layers=None):
     # the card's kernel path against the CPU's plain path, same weights
     sub, sub_cfg = params, cfg
     if cpu_layers is not None:
-        sub_cfg = dataclasses.replace(cfg, n_layers=cpu_layers)
+        n_enc = min(cpu_layers, cfg.n_encoder_layers)
+        sub_cfg = dataclasses.replace(cfg, n_layers=cpu_layers,
+                                      n_encoder_layers=n_enc)
         sub = M.LM(params.embed, list(params.layers[:cpu_layers]),
-                   params.final_norm, params.lm_head)
-    small = tokens[:1, :256]
-    on_card, _ = M.forward(sub, M.Batch(tokens=small), sub_cfg)
+                   params.final_norm, params.lm_head,
+                   params.encoder and list(params.encoder[:n_enc]),
+                   params.enc_norm)
+    one = M.Batch(tokens=tokens[:1, :256],
+                  media=None if media is None else media[:1],
+                  frames=None if frames is None else frames[:1])
+    kinds = sorted({s.mixer for s in sub_cfg.layer_specs()}
+                   | ({"encoder", "cross block"}
+                      if sub_cfg.is_encoder_decoder else set()))
+    on_card, _ = M.forward(sub, one, sub_cfg)
     cpu_params = copy.deepcopy(sub).to("cpu")
-    on_cpu, _ = M.forward(cpu_params, M.Batch(tokens=small.cpu()), sub_cfg)
+    on_cpu, _ = M.forward(cpu_params, M.Batch(*(
+        None if t is None else t.cpu() for t in one)), sub_cfg)
     cpu_err = compare(torch, f"{arch} forward card vs CPU", on_card.cpu(),
                       on_cpu, **CPU_TOL)
-    print(f"{arch}: forward (1, 256) over {sub_cfg.n_layers} layers on the "
-          f"card vs the CPU's plain forward: max |d| {cpu_err:.3g} (|logit| "
-          f"up to {float(on_cpu.abs().max()):.3g})", flush=True)
-    del cpu_params, on_cpu, sub
+    print(f"{arch}: forward (1, 256) over {sub_cfg.n_layers} layers "
+          f"({', '.join(kinds)}) on the card vs the CPU's plain forward: "
+          f"max |d| {cpu_err:.3g} (|logit| up to "
+          f"{float(on_cpu.abs().max()):.3g})", flush=True)
+    del cpu_params, on_cpu, sub, on_card
 
     fwd_ms = []
     for _ in range(3):
@@ -2650,7 +2737,8 @@ def lm_path(torch, arch, kernel, cpu_layers=None):
         decode_ms_per_token=[out.decode_s / LM_GEN * 1e3,
                              again.decode_s / LM_GEN * 1e3],
         decode_vs_forward_max_abs=max(errs), card_vs_cpu_max_abs=cpu_err,
-        card_vs_cpu_layers=sub_cfg.n_layers,
+        card_vs_cpu_layers=sub_cfg.n_layers, card_vs_cpu_kinds=kinds,
+        layers=cfg.n_layers, kernel_per_call=per_call,
         sample_output=gen[0, :16].tolist())
     del logits
     summary["profile"] = profile_lm(torch, params, batch, prompt, cfg,
@@ -2920,37 +3008,61 @@ def cuda_core_flash(torch):
     return call
 
 
-def time_flash(torch):
-    """K5 as the model calls it at yi-6b's forward shape (q (128, 2048,
-    128) on 16 unexpanded KV heads, ``kv_group=8``, causal, float32), its
-    plain version and PyTorch's
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` (the
-    yardstick, never on the path) on the same inputs, device ms by CUDA
-    events; the earlier CUDA-core kernel on the expanded KV where its
-    source is at hand, timed in turns with this one."""
+def flash_row(torch, bh, sq, sk, d, causal, group, seed):
+    """K5 as a model calls it (q (BH, Sq, D) on BH / ``group`` unexpanded
+    KV heads, no window, float32), its plain version and PyTorch's
+    ``scaled_dot_product_attention(enable_gqa=True)`` (the yardstick,
+    never on the path) on the same inputs, device ms by CUDA events,
+    beside the bound. Returns the row and the inputs."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.ref import flash_attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    bh, s, _, d, causal, window, _ = FLASH_SHAPES[-1]
-    q, k, v = flash_gqa_lanes(torch, bh, s, d, 6)
+    q, k, v = flash_gqa_lanes(torch, bh, sq, sk, d, group, seed)
     b = LM_BATCH
 
     def kernel():
-        return flash_attention_bhsd(q, k, v, kv_group=YI_GROUP)
+        return flash_attention_bhsd(q, k, v, causal=causal, kv_group=group)
 
     def library():
-        return sdpa(q.view(b, -1, s, d), k.view(b, -1, s, d),
-                    v.view(b, -1, s, d), is_causal=True,
-                    enable_gqa=True).view(bh, s, d)
+        # (B, H, Sq, D), in whatever strides the chosen backend gives
+        return sdpa(q.view(b, -1, sq, d), k.view(b, -1, sk, d),
+                    v.view(b, -1, sk, d), is_causal=causal,
+                    enable_gqa=True)
 
-    lib_err = float((library() - kernel()).abs().max())
-    row = dict(shape=[bh, s, d], kv_heads=bh // YI_GROUP, causal=causal,
+    lib_err = float((library().reshape(bh, sq, d) - kernel()).abs().max())
+    row = dict(shape=[bh, sq, sk, d], kv_heads=bh // group, causal=causal,
                ms=time_device(torch, kernel, False),
                plain_ms=time_device(torch, lambda: flash_attention_ref(
-                   q, k, v, kv_group=YI_GROUP), False, iters=5),
+                   q, k, v, causal=causal, kv_group=group), False, iters=5),
                library_ms=time_device(torch, library, False),
                library_max_abs_diff=lib_err,
-               **flash_bound(bh, s, s, d, causal, window, 4, YI_GROUP))
+               **flash_bound(bh, sq, sk, d, causal, None, 4, group))
+    return row, (q, k, v, kernel)
+
+
+def print_flash_row(row, what):
+    print(f"flash_attention_bhsd at {row['shape']} ({what}) on "
+          f"{row['kv_heads']} KV heads, causal={row['causal']}: "
+          f"{row['ms']:.3f} ms device, plain {row['plain_ms']:.3f} ms, "
+          f"scaled_dot_product_attention {row['library_ms']:.3f} ms (max "
+          f"|d| {row['library_max_abs_diff']:.3g}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
+          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
+          f"all float32 on the CUDA cores {row['f32_ms']:.4f} ms)"
+          + (f"; the CUDA-core kernel {row['cuda_core_kernel']['ms']} ms "
+             f"against {row['cuda_core_kernel']['new_ms']} in turns"
+             if "cuda_core_kernel" in row else ""),
+          flush=True)
+
+
+def time_flash(torch):
+    """K5 at yi-6b's forward shape (q (128, 2048, 128) on 16 unexpanded KV
+    heads, ``kv_group=8``, causal), as :func:`flash_row` times it; the
+    earlier CUDA-core kernel on the expanded KV where its source is at
+    hand, timed in turns with this one."""
+    bh, s, _, d, causal, _, _ = FLASH_SHAPES[-1]
+    row, (q, k, v, kernel) = flash_row(torch, bh, s, s, d, causal, YI_GROUP,
+                                       6)
     old = cuda_core_flash(torch)
     if old is not None:
         ke, ve = (t.repeat_interleave(YI_GROUP, 0) for t in (k, v))
@@ -2962,18 +3074,38 @@ def time_flash(torch):
         row["cuda_core_kernel"] = dict(ms=[turns[0], turns[3]],
                                        new_ms=turns[1:3], max_abs_diff=err)
         del ke, ve
-    print(f"flash_attention_bhsd at {row['shape']} on {row['kv_heads']} KV "
-          f"heads, causal: {row['ms']:.3f} ms device, plain "
-          f"{row['plain_ms']:.3f} ms, scaled_dot_product_attention "
-          f"{row['library_ms']:.3f} ms (max |d| {lib_err:.3g}), bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
-          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
-          f"all float32 on the CUDA cores {row['f32_ms']:.4f} ms)"
-          + (f"; the CUDA-core kernel {row['cuda_core_kernel']['ms']} ms "
-             f"against {row['cuda_core_kernel']['new_ms']} in turns"
-             if "cuda_core_kernel" in row else ""),
-          flush=True)
+    print_flash_row(row, "yi-6b self")
     return row
+
+
+def time_zoo_flash(torch):
+    """K5 at each of the zoo's calls (``ZOO_FLASH``), as
+    :func:`flash_row` times them."""
+    rows = []
+    for call, bh, sq, sk, d, causal, group in ZOO_FLASH:
+        row, _ = flash_row(torch, bh, sq, sk, d, causal, group, 6)
+        print_flash_row(row, call)
+        rows.append(dict(call=call, **row))
+        torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------------
+# Phase 13: the zoo's dense, VLM and encoder-decoder ids at full width.
+# --------------------------------------------------------------------------
+
+def zoo_path(torch):
+    """Each id of ``ZOO`` through :func:`lm_path`, K5 its only kernel,
+    freeing the card between ids. Returns K5's launches by id and a
+    summary by id."""
+    launches, summary = {}, {}
+    for arch, layers, per_call, cpu_layers in ZOO:
+        counts, summary[arch] = lm_path(torch, arch, "flash_attention_bhsd",
+                                        cpu_layers=cpu_layers, layers=layers,
+                                        per_call=per_call)
+        launches[arch] = counts
+        torch.cuda.empty_cache()
+    return launches, summary
 
 
 def main() -> int:
@@ -3053,6 +3185,10 @@ def main() -> int:
     yi_launches, yi = lm_path(torch, "yi-6b", "flash_attention_bhsd",
                               cpu_layers=2)
     flash_time = time_flash(torch)
+    torch.cuda.empty_cache()
+    zoo_launches, zoo = zoo_path(torch)
+    zoo_flash = time_zoo_flash(torch)
+    flash_by_path = {"yi-6b": yi_launches, **zoo_launches}
 
     rows = []
     for name in ("scheduler_solve", "decision_fused"):
@@ -3096,11 +3232,13 @@ def main() -> int:
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
-        "launches": yi_launches["launches"],
+        "launches": sum(c["launches"] for c in flash_by_path.values()),
+        "launches_by_path": flash_by_path,
         "launches_per_forward": yi_launches["per_forward"],
         "launches_per_prefill": yi_launches["per_prefill"],
         "launches_per_decode": yi_launches["per_decode"],
-        "max_abs_err": err["flash_attention_bhsd"], **flash_time})
+        "max_abs_err": err["flash_attention_bhsd"], **flash_time,
+        "zoo_shapes": zoo_flash})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
     print(json.dumps({"telemetry": telemetry}), flush=True)
@@ -3108,6 +3246,7 @@ def main() -> int:
     print(json.dumps({"scenarios": scenarios}), flush=True)
     print(json.dumps({"mamba": mamba}), flush=True)
     print(json.dumps({"yi": yi}), flush=True)
+    print(json.dumps({"zoo": zoo}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

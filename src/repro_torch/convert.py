@@ -15,15 +15,20 @@ the port's float32 tensors:
 every leaf unchanged: dense weights are (in, out) in both packages, and
 both flatten NHWC images in (h, w, c) order.
 
-``lm_params_from_jax`` (the model zoo's decoder stacks) takes the
-reference's ``init_params`` tree, numpy leaves, and returns the port's
+``lm_params_from_jax`` (the model zoo's stacks) takes the reference's
+``init_params`` tree, numpy leaves, and returns the port's
 :class:`~repro_torch.models.model.LM`: the period-stacked
 ``params["period"]["layer<i>"]`` leaves, whose leading axis counts
 periods (``models/model.py`` in the reference), are unstacked into the
-layer list (Mamba layers: ``norm1`` and the mixer's leaves; dense layers:
-``norm1``, ``mixer.w{q,k,v,o}``, ``norm2``, ``mlp.w{i,g,o}``);
-``embed.emb``, ``final_norm.g`` and an untied ``lm_head.w`` carry over
-unchanged. Dense weights are (in, out) in both packages.
+layer list (Mamba layers: ``norm1`` and the mixer's leaves; attention
+and cross-attention layers: ``norm1``, ``mixer.w{q,k,v,o}``, ``norm2``,
+``mlp.w{i,g,o}``, and in an encoder-decoder's decoder ``norm_x`` and
+``cross.w{q,k,v,o}``); an encoder-decoder's ``params["encoder"]
+["layer0"]``, stacked over its encoder layers, into ``encoder`` (its
+mixers bidirectional) with ``enc_norm``; ``embed.emb``, ``final_norm.g``
+and an untied ``lm_head.w`` (a tied head has none) carry over unchanged.
+Dense weights are (in, out) in both packages. Prefix layers (MoE models'
+leading dense layers) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as M
-from repro_torch.models.attention import Attention
+from repro_torch.models.attention import Attention, CrossAttention
 from repro_torch.models.layers import Dense, Embedding, RMSNorm, SwiGLU
 from repro_torch.models.mamba import Mamba2Block
 
@@ -60,22 +65,34 @@ def _tensor(value, device) -> torch.Tensor:
     return torch.from_numpy(np.array(value)).to(device)
 
 
-def _layer(p: dict, k: int, spec, cfg, device) -> M.Layer:
-    """Layer ``k`` of one period-stacked reference layer ``p``."""
+def _layer(p: dict, k: int, spec, cfg, device,
+           causal: bool = True) -> M.Layer:
+    """Layer ``k`` of one period-stacked reference layer ``p``
+    (``causal=False``: an encoder layer)."""
     def leaf(v):
         return _tensor(v[k], device)
 
-    norm1 = RMSNorm(leaf(p["norm1"]["g"]), cfg.rmsnorm_eps)
+    def norm(name):
+        return RMSNorm(leaf(p[name]["g"]), cfg.rmsnorm_eps)
+
+    def weights(m):
+        return (leaf(m[n]["w"]) for n in ("wq", "wk", "wv", "wo"))
+
     m = p["mixer"]
     if spec.mixer == "mamba":
         mixer = {name: ({"w": leaf(v["w"])} if isinstance(v, dict)
                         else leaf(v)) for name, v in m.items()}
-        return M.Layer(norm1, Mamba2Block(mixer, cfg))
-    mixer = Attention(*(leaf(m[n]["w"]) for n in ("wq", "wk", "wv", "wo")),
-                      cfg)
+        return M.Layer(norm("norm1"), Mamba2Block(mixer, cfg))
+    if spec.mixer == "cross_attn":
+        mixer = CrossAttention(*weights(m), cfg)
+    else:
+        mixer = Attention(*weights(m), cfg, causal=causal)
+    cross = {}
+    if "cross" in p:
+        cross = dict(norm_x=norm("norm_x"),
+                     cross=CrossAttention(*weights(p["cross"]), cfg))
     mlp = SwiGLU(*(leaf(p["mlp"][n]["w"]) for n in ("wi", "wg", "wo")))
-    return M.Layer(norm1, mixer, RMSNorm(leaf(p["norm2"]["g"]),
-                                         cfg.rmsnorm_eps), mlp)
+    return M.Layer(norm("norm1"), mixer, norm("norm2"), mlp, **cross)
 
 
 def lm_params_from_jax(tree: dict, cfg, device="cuda") -> M.LM:
@@ -92,5 +109,12 @@ def lm_params_from_jax(tree: dict, cfg, device="cuda") -> M.LM:
                          cfg.rmsnorm_eps)
     head = (None if cfg.tie_embeddings else
             Dense(_tensor(tree["lm_head"]["w"], device)))
+    encoder = enc_norm = None
+    if cfg.is_encoder_decoder:
+        (enc_spec,), n_enc = cfg.encoder_period()
+        encoder = [_layer(tree["encoder"]["layer0"], k, enc_spec, cfg,
+                          device, causal=False) for k in range(n_enc)]
+        enc_norm = RMSNorm(_tensor(tree["enc_norm"]["g"], device),
+                           cfg.rmsnorm_eps)
     return M.LM(Embedding(_tensor(tree["embed"]["emb"], device)), layers,
-                final_norm, head)
+                final_norm, head, encoder, enc_norm)

@@ -1,14 +1,17 @@
 """Batched serving (twin of ``repro/launch/serve.py``): prefill a
 batch of prompts, then decode greedily, reporting per-phase latencies.
 
-Runs a reduced architecture (``mamba2-130m`` or ``yi-6b``; the
-reference's defaults: 2 layers, d_model 256) over the synthetic vocab;
-``--device`` picks the card (default ``cuda``, which raises without one)
-or ``cpu``. The full widths run through the same :func:`generate` in
-``chip_smoke.py``.
+Runs a reduced architecture (any id of ``configs.PORTED_IDS``:
+``mamba2-130m``, ``yi-6b``, ``chatglm3-6b``, ``minicpm-2b``,
+``granite-20b``, ``llama-3.2-vision-11b``, ``seamless-m4t-large-v2``;
+the reference's defaults: 2 layers, d_model 256) over the synthetic
+vocab, with the reference's zero stubs for the VLM's media and the
+encoder-decoder's frames; ``--device`` picks the card (default ``cuda``,
+which raises without one) or ``cpu``. The full widths run through the
+same :func:`generate` in ``chip_smoke.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-      --arch yi-6b --batch 4 --prompt-len 64 --gen 32
+      --arch llama-3.2-vision-11b --batch 4 --prompt-len 64 --gen 32
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ def _sync(device: torch.device):
 
 
 def generate(params: M.LM, batch: Batch, cfg, gen: int) -> Generation:
-    """Prefill ``batch.tokens`` (B, S), then ``gen`` greedy decode steps:
-    the first generated token is the prefill's argmax, each step feeds the
-    last token back (the reference's loop)."""
+    """Prefill ``batch.tokens`` (B, S) (with the batch's media or frames),
+    then ``gen`` greedy decode steps: the first generated token is the
+    prefill's argmax, each step feeds the last token back (the reference's
+    loop)."""
     device = batch.tokens.device
     cache_len = batch.tokens.shape[1] + gen
     t0 = time.perf_counter()
@@ -83,7 +87,13 @@ def main(argv=None):
     tokens = torch.randint(
         0, cfg.vocab_size, (b, args.prompt_len), device=device,
         generator=torch.Generator(device=device).manual_seed(args.seed + 1))
-    out = generate(params, Batch(tokens=tokens), cfg, args.gen)
+    # the reference's stubs: precomputed media and frame embeddings
+    media = (torch.zeros((b, cfg.n_media_tokens, cfg.d_model), device=device)
+             if cfg.cross_attn_every else None)
+    frames = (torch.zeros((b, cfg.encoder_seq or 16, cfg.d_model),
+                          device=device) if cfg.is_encoder_decoder else None)
+    out = generate(params, Batch(tokens=tokens, media=media, frames=frames),
+                   cfg, args.gen)
     print(json.dumps({
         "arch": cfg.name, "batch": b, "prompt_len": args.prompt_len,
         "generated": args.gen,

@@ -1,8 +1,9 @@
-"""Grouped-query self-attention with RoPE, sliding windows and KV caches
-(twin of ``repro/models/attention.py``).
+"""Grouped-query attention with RoPE, sliding windows, KV caches and
+cross-attention (twin of ``repro/models/attention.py``).
 
-Full-sequence attention (``apply_attention``) and prefill attention
-(``prefill_attention``) run through the flash kernel:
+Full-sequence attention (``apply_attention``, self- or cross-), prefill
+attention (``prefill_attention``) and prefill cross-attention
+(``cross_attention_cached`` over a prompt) run through the flash kernel:
 ``ops.flash_attention`` runs on q (B Hq, S, hd) and the unexpanded k / v
 (B KV, S, hd) with ``kv_group = Hq / KV``, in the reference's grouping
 (KV head j serves query heads j g .. j g + g - 1, as
@@ -11,10 +12,17 @@ not ``repeat``), the CUDA kernel for CUDA tensors and its plain version
 for CPU tensors. The reference computes these with its jnp
 ``_grouped_attention`` (its module docstring says the TPU prefill routes
 through the Pallas kernel; its code does not); on the prompt, causal with
-Sq == Sk, the two compute the same function. ``_grouped_attention`` is
+Sq == Sk, and unmasked (bidirectional encoder layers and cross-attention,
+any Sq and Sk), the two compute the same function. ``_grouped_attention`` is
 here too, the plain model-level twin the kernel path is held against.
-Decode (``decode_attention``) is plain PyTorch over the cache, as it is
-jnp in the reference.
+Decode (``decode_attention``, and ``cross_attention_cached`` with
+``decode=True``) is plain PyTorch over the cache, as it is jnp in the
+reference.
+
+Cross-attention (:class:`CrossAttention`, ``kv_x``) takes q from x and k /
+v from the media or encoder embeddings, with no RoPE on either side and
+no mask; serving computes each request's k / v once
+(``precompute_cross_kv``) and reads them at every step.
 
 Caches are the reference's: a cache of C slots, each slot holding the
 absolute position of its key (``slot_pos``, -1 empty), filled at
@@ -27,8 +35,9 @@ Decode masks the slots of positions after its own, so decoding twice from
 one state is exact as long as the first run did not roll the cache; once
 it has, the keys it overwrote are gone.
 
-Cross-attention (``kv_x``), ``kv_valid`` masks and ``attn_probs_bf16``
-raise ``NotImplementedError`` (ROADMAP §A item 10).
+``kv_valid`` masks and ``attn_probs_bf16`` (the reference passes them
+only from its dry run) raise ``NotImplementedError`` (ROADMAP §A items
+10 and 11).
 """
 
 from __future__ import annotations
@@ -55,12 +64,14 @@ class KVCache(NamedTuple):
 class Attention(nn.Module):
     """One attention mixer: ``wq`` (d, Hq hd), ``wk`` / ``wv`` (d, KV hd),
     ``wo`` (Hq hd, d), named as the reference's dict keys. Called as a
-    layer's mixer it is causal self-attention with the config's window:
-    ``forward`` full-sequence, ``prefill`` and ``decode`` with a cache."""
+    layer's mixer it is causal self-attention with the config's window
+    (``forward`` full-sequence, ``prefill`` and ``decode`` with a cache),
+    or, with ``causal=False``, an encoder layer's bidirectional
+    self-attention (``forward`` only)."""
 
-    def __init__(self, wq, wk, wv, wo, cfg: ModelConfig):
+    def __init__(self, wq, wk, wv, wo, cfg: ModelConfig, causal=True):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.causal = cfg, causal
         self.wq, self.wk, self.wv, self.wo = (Dense(w) for w in
                                               (wq, wk, wv, wo))
         inv, self.rot_dim = rope_frequencies(
@@ -68,17 +79,17 @@ class Attention(nn.Module):
         self.register_buffer("inv_freq", inv.to(wq.device), persistent=False)
 
     @classmethod
-    def init(cls, generator, cfg: ModelConfig, dtype,
-             device="cuda") -> "Attention":
+    def init(cls, generator, cfg: ModelConfig, dtype, device="cuda",
+             **kw) -> "Attention":
         """Drawn in the reference's order: wq, wk, wv, wo."""
         d, hd = cfg.d_model, cfg.resolved_head_dim
         shapes = ((d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
                   (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d))
         return cls(*(truncated_normal(generator, s, 0.02, dtype, device)
-                     for s in shapes), cfg)
+                     for s in shapes), cfg, **kw)
 
     def forward(self, x):
-        return apply_attention(self, x, self.cfg,
+        return apply_attention(self, x, self.cfg, causal=self.causal,
                                window=self.cfg.sliding_window)
 
     def prefill(self, x, cache_len: int):
@@ -95,21 +106,51 @@ class Attention(nn.Module):
                                 window=self.cfg.sliding_window)
 
 
-def _not_ported(cfg: ModelConfig, kv_x=None, kv_valid=None):
-    if kv_x is not None or kv_valid is not None or cfg.attn_probs_bf16:
+class CrossAttention(Attention):
+    """A cross-attention mixer (the same four weights): q from the layer's
+    input, k / v from the media or encoder embeddings, no RoPE, no mask.
+    ``forward`` takes those embeddings (``kv_x``); ``prefill`` and
+    ``decode`` take their k / v, precomputed once per request by
+    :func:`precompute_cross_kv`, and keep no per-token cache."""
+
+    def forward(self, x, kv_x):
+        return apply_attention(self, x, self.cfg, kv_x=kv_x)
+
+    def prefill(self, x, kv):
+        return cross_attention_cached(self, x, kv, self.cfg)
+
+    def decode(self, x, kv):
+        return cross_attention_cached(self, x, kv, self.cfg, decode=True)
+
+
+def init_attention(generator, cfg: ModelConfig, dtype, device="cuda",
+                   cross: bool = False) -> Attention:
+    """The reference's ``init_attention``: the same four weights, as a
+    :class:`CrossAttention` with ``cross``."""
+    return (CrossAttention if cross else Attention).init(generator, cfg,
+                                                         dtype, device)
+
+
+def _not_ported(cfg: ModelConfig, kv_valid=None):
+    if kv_valid is not None or cfg.attn_probs_bf16:
         raise NotImplementedError(
-            "cross-attention (kv_x), kv_valid masks and attn_probs_bf16 are "
-            "not ported yet (ROADMAP §A item 10)")
+            "kv_valid masks and attn_probs_bf16 are not ported yet (ROADMAP "
+            "§A item 10; the reference passes them from its dry run, item "
+            "11)")
 
 
-def _qkv(p: Attention, x, cfg: ModelConfig):
-    """Projections split into heads: q (B, S, Hq, hd), k / v (B, S, KV,
-    hd)."""
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    return (p.wq(x).reshape(b, s, cfg.n_heads, hd),
-            p.wk(x).reshape(b, s, cfg.n_kv_heads, hd),
-            p.wv(x).reshape(b, s, cfg.n_kv_heads, hd))
+def _heads(t, n: int, cfg: ModelConfig):
+    """(B, S, n hd) -> (B, S, n, hd)."""
+    return t.reshape(t.shape[0], t.shape[1], n, cfg.resolved_head_dim)
+
+
+def _qkv(p: Attention, x, cfg: ModelConfig, kv_x=None):
+    """Projections split into heads: q (B, S, Hq, hd) from x, k / v (B, Sk,
+    KV, hd) from ``kv_x`` (x by default)."""
+    src = x if kv_x is None else kv_x
+    return (_heads(p.wq(x), cfg.n_heads, cfg),
+            _heads(p.wk(src), cfg.n_kv_heads, cfg),
+            _heads(p.wv(src), cfg.n_kv_heads, cfg))
 
 
 def _rope(p: Attention, t, positions):
@@ -157,14 +198,18 @@ def _grouped_attention(q, k, v, *, causal, window, q_offset=0):
 
 def apply_attention(p: Attention, x, cfg: ModelConfig, *, positions=None,
                     causal=True, window=None, kv_x=None, kv_valid=None):
-    """Full (non-cached) self-attention over x (B, S, d): training,
-    scoring. ``positions`` (1 or B, S) default to 0 .. S - 1."""
-    _not_ported(cfg, kv_x, kv_valid)
+    """Full (non-cached) attention over x (B, S, d): training, scoring.
+    ``positions`` (1 or B, S) default to 0 .. S - 1. ``kv_x`` (B, Sk, d)
+    switches to cross-attention: no RoPE on either side, no mask."""
+    _not_ported(cfg, kv_valid)
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None]
-    q, k = _rope(p, q, positions), _rope(p, k, positions)
+    q, k, v = _qkv(p, x, cfg, kv_x)
+    if kv_x is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None]
+        q, k = _rope(p, q, positions), _rope(p, k, positions)
+    else:
+        causal = False
     # the reference applies a window only with causal masking
     out = _flash_attention(q, k, v, causal=causal,
                            window=window if causal else None)
@@ -244,3 +289,24 @@ def decode_attention(p: Attention, x, cfg: ModelConfig, cache: KVCache, *,
     out = torch.einsum("bkgst,btkd->bskgd", prob, cache.v.float())
     out = out.reshape(b, 1, -1).to(x.dtype)
     return p.wo(out), cache._replace(length=pos + 1)
+
+
+def precompute_cross_kv(p: Attention, media, cfg: ModelConfig):
+    """Cross-attention k / v (B, Sk, KV, hd) from the media or encoder
+    embeddings (B, Sk, d), computed once per request."""
+    return (_heads(p.wk(media), cfg.n_kv_heads, cfg),
+            _heads(p.wv(media), cfg.n_kv_heads, cfg))
+
+
+def cross_attention_cached(p: Attention, x, kv, cfg: ModelConfig, *,
+                           decode=False):
+    """Cross-attention of x (B, S, d) against precomputed ``kv``: the
+    prompt through the flash kernel, a decode step (``decode``, S = 1)
+    plain, as decode self-attention is."""
+    _not_ported(cfg)
+    b, s, _ = x.shape
+    q = _heads(p.wq(x), cfg.n_heads, cfg)
+    k, v = kv
+    attend = _grouped_attention if decode else _flash_attention
+    out = attend(q, k, v, causal=False, window=None)
+    return p.wo(out.reshape(b, s, -1))

@@ -67,6 +67,8 @@ OTHER_SHAPES = [
     (1, 150, 130, 128, True, 40),      # Sq > Sk with a window
     (2, 256, 256, 64, False, 48),      # non-causal window
     (1, 70, 200, 32, False, 100),      # non-causal window, Sq < Sk
+    (2, 48, 37, 64, False, None),      # non-causal, Sq > Sk, a ragged tile
+    (2, 70, 150, 64, False, None),     # non-causal, Sq < Sk, no window
 ]
 
 
@@ -217,10 +219,11 @@ def test_flash_wrapper_checks_kv_group():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kv_group", [2, 4, 8])
+@pytest.mark.parametrize("kv_group", [2, 4, 8, 16, 48])
 @pytest.mark.parametrize("sq,sk,d,causal,window", [
     (64, 64, 64, True, None), (100, 300, 32, True, None),
-    (150, 130, 128, True, 40), (70, 200, 64, False, 100)])
+    (150, 130, 128, True, 40), (70, 200, 64, False, 100),
+    (48, 37, 64, False, None), (70, 150, 64, False, None)])
 def test_flash_kv_group_equals_expanded(sq, sk, d, causal, window,
                                         kv_group, dtype):
     """The plain K5 on unexpanded KV heads (row-block bh reads KV head
@@ -352,6 +355,49 @@ def test_attention_matches_reference(ref, width):
         check_cache(cache, rcache)
 
 
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_cross_attention_matches_reference(ref, width):
+    """A cross-attention mixer against the reference's: ``apply_attention``
+    with ``kv_x`` (no RoPE, no mask), ``precompute_cross_kv`` and
+    ``cross_attention_cached`` over a prompt (the flash kernel's path) and
+    over one token (decode's plain path), at reduced llama-3.2-vision-11b
+    and at its full attention width (d_model 4096, 32 query heads on 8 KV
+    heads of 128; batch 1, 48 tokens over 100 media embeddings)."""
+    cfg = configs.get_config("llama-3.2-vision-11b")
+    rcfg = ref.configs.get_config("llama-3.2-vision-11b")
+    if width == "reduced":
+        cfg, rcfg = cfg.reduced(), rcfg.reduced()
+    rp = ref.attention.init_attention(ref.jax.random.PRNGKey(4), rcfg,
+                                      ref.jnp.float32, cross=True)
+    mixer = attn.CrossAttention(*(torch.from_numpy(np.array(rp[n]["w"]))
+                                  for n in ("wq", "wk", "wv", "wo")), cfg)
+    b, s, m = (2, 40, 16) if width == "reduced" else (1, 48, 100)
+    rng = np.random.default_rng(9)
+    x, media = (rng.standard_normal((b, n, cfg.d_model)).astype(np.float32)
+                for n in (s, m))
+    jx, jm = ref.jnp.asarray(x), ref.jnp.asarray(media)
+    tx, tm = torch.from_numpy(x), torch.from_numpy(media)
+    with torch.inference_mode():
+        got = mixer(tx, tm)
+        kv = attn.precompute_cross_kv(mixer, tm, cfg)
+        cached = mixer.prefill(tx, kv)
+        step = mixer.decode(tx[:, -1:], kv)
+    close(got, ref.attention.apply_attention(rp, jx, rcfg, kv_x=jm),
+          OUT_TOL)
+    rkv = ref.attention.precompute_cross_kv(rp, jm, rcfg)
+    for g, w in zip(kv, rkv):
+        assert tuple(g.shape) == w.shape == (b, m, cfg.n_kv_heads,
+                                             cfg.resolved_head_dim)
+        close(g, w, OUT_TOL)
+    close(cached, ref.attention.cross_attention_cached(rp, jx, rkv, rcfg),
+          OUT_TOL)
+    close(step, ref.attention.cross_attention_cached(rp, jx[:, -1:], rkv,
+                                                     rcfg), OUT_TOL)
+    assert isinstance(attn.init_attention(torch.Generator(), cfg,
+                                          torch.float32, "cpu", cross=True),
+                      attn.CrossAttention)
+
+
 @pytest.mark.parametrize("s,clen,window", [
     (40, 16, None),   # rolling: the prompt is longer than the cache
     (40, 16, 16),     # a window cache, sized to the window
@@ -421,10 +467,13 @@ def test_unported_attention_args_raise(ref):
     import dataclasses
     cfg, _, _, mixer = attention_pair(ref, "reduced")
     x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="§A item 10"):
-        attn.apply_attention(mixer, x, cfg, kv_x=x)
+    # cross-attention (kv_x) runs since the zoo's second slice
+    assert attn.apply_attention(mixer, x, cfg, kv_x=x).shape == x.shape
     with pytest.raises(NotImplementedError, match="§A item 10"):
         attn.apply_attention(mixer, x, cfg,
+                             kv_valid=torch.ones(4, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="§A item 10"):
+        attn.apply_attention(mixer, x, cfg, kv_x=x,
                              kv_valid=torch.ones(4, dtype=torch.bool))
     bf16 = dataclasses.replace(cfg, attn_probs_bf16=True)
     with pytest.raises(NotImplementedError, match="§A item 10"):

@@ -516,7 +516,9 @@ def test_all_configs_and_ssd_auto(ref):
     got = pcfgs.all_configs()
     want = ref.configs.all_configs()
     assert list(got) == [k for k in want if k in got]
-    assert set(got) == {"mamba2-130m", "yi-6b"}
+    assert set(got) == set(pcfgs.PORTED_IDS) == {
+        "mamba2-130m", "yi-6b", "chatglm3-6b", "minicpm-2b", "granite-20b",
+        "llama-3.2-vision-11b", "seamless-m4t-large-v2"}
     for name, cfg in got.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want[name])
     rng = np.random.default_rng(11)

@@ -23,12 +23,16 @@ atol 2e-5, as on the CPU (float32
 sums in other orders; both sides full float32, TF32 off); mamba2-130m's
 forward and prefill launch it once per layer (24), decode never. The
 flash attention kernel against its plain version at the reference tests'
-shapes, yi-6b's (128, 2048, 128) and Sq != Sk: 2e-5 in float32 and 2e-2
-in bfloat16, the reference tests' own; skipping the masked key tiles
-changes no bit; on unexpanded KV heads (``kv_group`` 8 and 2) it equals
-itself on the ``repeat_interleave``-expanded heads bit for bit; reduced
-yi-6b at its full head_dim (128) launches it once per layer in forward
-and prefill, never in decode, and expands no KV head. The solve kernel on
+shapes, yi-6b's (128, 2048, 128), Sq != Sk, non-causal with a ragged key
+count (llama-3.2-vision-11b's cross-attention over 1,601 media
+embeddings) and seamless-m4t-large-v2's encoder and cross shapes: 2e-5
+in float32 and 2e-2 in bfloat16, the reference tests' own; skipping the
+masked key tiles changes no bit; on unexpanded KV heads (``kv_group`` 2,
+4, 8, 16 and 48) it equals itself on the ``repeat_interleave``-expanded
+heads bit for bit; reduced yi-6b at its full head_dim (128) launches it
+once per layer in forward and prefill, never in decode, and expands no
+KV head; so do reduced llama-3.2-vision-11b's cross-attention layer and
+seamless-m4t-large-v2's encoder layers and cross blocks. The solve kernel on
 the sweep's flattened seeds equals itself per seed bit for bit, returns q
 and P as the two rows of one allocation, and the sweep launches it once a
 round for every seed. The population engine launches K2 with its
@@ -532,13 +536,20 @@ def test_mamba_launches_ssd_scan_per_layer(cuda):
 
 # (bh, Sq, Sk, D, causal, window): the reference tests' shapes, Sq != Sk,
 # a non-causal window and yi-6b's shapes at batch 4: generate's prefill of
-# 2000 and the forward's 2048
+# 2000 and the forward's 2048; non-causal Sq > Sk with a ragged key tile
+# and Sq < Sk; llama-3.2-vision-11b's cross-attention over 1,601 media
+# embeddings, seamless-m4t-large-v2's encoder (4,096 frames) and its
+# cross-attention over them, at batch 4
 FLASH_SHAPES = [(2, 256, 256, 64, True, None), (1, 200, 200, 64, True, None),
                 (2, 384, 384, 64, True, 128), (3, 64, 64, 128, False, None),
                 (1, 128, 128, 32, True, 32), (2, 100, 300, 64, True, None),
                 (2, 150, 130, 128, True, 40), (2, 256, 256, 64, False, 48),
                 (128, 2000, 2000, 128, True, None),
-                (128, 2048, 2048, 128, True, None)]
+                (128, 2048, 2048, 128, True, None),
+                (2, 48, 37, 64, False, None), (2, 70, 150, 64, False, None),
+                (128, 2048, 1601, 128, False, None),
+                (64, 4096, 4096, 64, False, None),
+                (64, 2048, 4096, 64, False, None)]
 
 
 def flash_lanes(bh, sq, sk, d, dtype, device, seed=0):
@@ -570,7 +581,11 @@ def test_flash_attention_kernel_matches_plain(cuda, bh, sq, sk, d, causal,
     (128, 2048, 2048, 128, True, None, 8),   # yi-6b's forward
     (128, 2000, 2000, 128, True, None, 8),   # yi-6b's prefill
     (4, 150, 130, 128, True, 40, 2), (8, 100, 300, 64, True, None, 2),
-    (4, 256, 256, 32, False, 48, 2)])
+    (4, 256, 256, 32, False, 48, 2),
+    (128, 2048, 2048, 128, True, None, 16),  # chatglm3-6b's forward
+    (192, 2048, 2048, 128, True, None, 48),  # granite-20b's forward
+    (128, 2048, 1601, 128, False, None, 4),  # llama-vision's cross layer
+    (96, 48, 37, 64, False, None, 48)])
 def test_flash_attention_kv_group_equals_expanded(cuda, bh, sq, sk, d,
                                                   causal, window, kv_group,
                                                   dtype):
@@ -655,3 +670,53 @@ def test_yi_launches_flash_attention_per_layer(cuda):
         lg, st = M.decode_step(params, tok[:, t:t + 1], st, cfg)
         assert float((lg[:, 0] - logits[:, t]).abs().max()) < 2e-4
     assert flash_attention_bhsd.launches == 2 * cfg.n_layers
+
+
+def no_kv_expansion(monkeypatch):
+    """A list that records the shape of every ``repeat_interleave``."""
+    calls = []
+    interleave = torch.Tensor.repeat_interleave
+
+    def counting(self, *args, **kw):
+        calls.append(tuple(self.shape))
+        return interleave(self, *args, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "repeat_interleave", counting)
+    return calls
+
+
+@pytest.mark.parametrize("arch,per_call", [
+    ("llama-3.2-vision-11b", 2),      # a self- and a cross-attention layer
+    ("seamless-m4t-large-v2", 6)])    # 2 encoder layers, 2 x (self, cross)
+def test_cross_and_encoder_layers_launch_flash_attention(cuda, monkeypatch,
+                                                         arch, per_call):
+    """Reduced llama-3.2-vision-11b (a cross-attention layer over 100
+    media embeddings) and seamless-m4t-large-v2 (bidirectional encoder
+    layers over 200 frames, a cross block in each decoder layer), d_model
+    512 (head dim 128), batch 2 x 256: K5 launches once per self-, cross-
+    and encoder attention call in the forward and the prefill, never in
+    decode; no KV head is expanded, and decode reproduces the forward's
+    logits."""
+    cfg = get_config(arch).reduced(d_model=512)
+    assert cfg.resolved_head_dim == 128
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                        generator=g)
+    media = (torch.randn((2, 100, cfg.d_model), device=cuda, generator=g)
+             if cfg.cross_attn_every else None)
+    frames = (torch.randn((2, 200, cfg.d_model), device=cuda, generator=g)
+              if cfg.is_encoder_decoder else None)
+    calls = no_kv_expansion(monkeypatch)
+    flash_attention_bhsd.launches = 0
+    logits, _ = M.forward(params, M.Batch(tok, media=media, frames=frames),
+                          cfg)
+    assert flash_attention_bhsd.launches == per_call
+    _, st = M.prefill(params, M.Batch(tok[:, :200], media=media,
+                                      frames=frames), cfg, 256)
+    assert flash_attention_bhsd.launches == 2 * per_call
+    for t in range(200, 204):
+        lg, st = M.decode_step(params, tok[:, t:t + 1], st, cfg)
+        assert float((lg[:, 0] - logits[:, t]).abs().max()) < 2e-4
+    assert flash_attention_bhsd.launches == 2 * per_call
+    assert calls == []
