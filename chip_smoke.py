@@ -24,8 +24,11 @@ Phases; any failure exits non-zero before the result line is printed:
    rows, bit for bit, also at storage offset 1; and the SSD scan (K4,
    through ``ops.ssd``, which pads)
    at (b, S, H, P, N) = (1, 100, 2, 32, 16) chunk 32, (2, 384, 24, 64,
-   128), generate's prefill (4, 2000, 24, 64, 128) and the forward shape
-   (4, 2048, 24, 64, 128) chunk 128, from a zero and a random state (y
+   128), generate's prefill (4, 2000, 24, 64, 128), the forward shape
+   (4, 2048, 24, 64, 128) and jamba-v0.1-52b's prefill and forward
+   (4, 2000 and 2048, 128, 64, 16: N = 16, padded to 32 state columns)
+   chunk 128, from a zero and a random
+   state (y
    rtol 1e-4 / atol 2e-4, the final state rtol 1e-4 / atol 2e-5: float32
    sums in another order, the kernel's products 3xTF32); and flash
    attention (K5) at the reference tests' shapes (S = 200, windows 128
@@ -39,9 +42,15 @@ Phases; any failure exits non-zero before the result line is printed:
    (``ZOO_FLASH``: chatglm3-6b's ``kv_group`` 16, minicpm-2b's D = 64,
    granite-20b's 48, llama-3.2-vision-11b's self and cross-attention over
    1,601 media keys, seamless-m4t-large-v2's encoder over 4,096 frames,
-   its decoder's self and cross-attention): bit for bit the kernel on the
-   expanded KV and with the masked tiles run, and 2e-5 from the plain
-   version; ``ptxas`` must report no spills in K4 and K5;
+   its decoder's self and cross-attention; phase 14's mixtral-8x22b
+   (96, 8192 and its prefill's 8000, 128) causal with its window of 4,096
+   and ``kv_group`` 6, jamba-v0.1-52b's (128, 2048 and 2000, 128)
+   ``kv_group`` 4 and kimi-k2-1t-a32b's (64, 1024 and 1000, 128)
+   ``kv_group`` 8): bit for bit the
+   kernel on the expanded KV and with the masked tiles run, and 2e-5
+   from the plain version (run on whole KV groups at a time, so that no
+   block of scores passes 4 GB); ``ptxas`` must report no spills in K4
+   and K5;
 4. drive the main path at full width through ``run_simulation``: the
    paper's CIFAR-10 configuration (100 clients, 500 examples each, 2000
    test images, CNN 32/64/120, lambda 10, m_cap 32, I = 10, batch 32),
@@ -186,12 +195,48 @@ Phases; any failure exits non-zero before the result line is printed:
    encoder and 2 decoder layers for seamless); forward ms, prefill s and
    decode ms per token by id; then K5's device time at each of the zoo's
    calls (``ZOO_FLASH``) beside its plain version's, its bound and
-   ``scaled_dot_product_attention(enable_gqa=True)``.
+   ``scaled_dot_product_attention(enable_gqa=True)`` (with a window: the
+   band as its boolean mask, memory-efficient backend);
+14. the MoE zoo the same way (``MOE_ZOO``), one id after another, each
+   freed before the next, random float32 weights at published widths:
+   mixtral-8x22b (its first 4 of 56 layers, 41.68 GB; 8 experts top-2,
+   window 4,096; forward 2 x 8192, prefill 2 x 8000 into a cache of
+   ``cache_len`` 8192, so 4,096 rolling slots, and 16 decode steps past
+   the window: K5 4 launches a forward and a prefill, each with
+   ``window=4096``), jamba-v0.1-52b (its first period, 8 of 32 layers:
+   one attention layer, 7 Mamba, 4 MoE of 16 experts top-2; 53.07 GB;
+   forward 4 x 2048, prefill 4 x 2000: K5 1 and K4 7 launches a forward
+   and a prefill) and kimi-k2-1t-a32b (its dense prefix layer and one MoE
+   layer of 384 experts top-8, 2 of 61 layers, 79.69 GB, drawn in place;
+   forward 1 x 1024, prefill 1 x 1000: K5 2 launches), none in decode,
+   no other kernel and no ``repeat_interleave``; the (token, k) pairs
+   that capacity dropped in the forward and in ``generate``, and the
+   largest expert load, counted by hooks in runs of their own (no timed
+   run carries them); prefill plus 16 teacher-forced decode steps
+   against the forward (< 2e-4; where capacity dropped pairs, forward,
+   prefill and decode again at a capacity that drops none, since a
+   forward and a prefill over other token counts drop other pairs); the
+   card against the CPU at 1 x 256 on mixtral's first layer, jamba's
+   first 5 (the attention layer and 2 MoE layers; host copies made
+   parameter by parameter) and kimi's prefix layer (the head and the
+   embedding with it); the first MoE layer past those on the card: its
+   router against the CPU's on the same input (experts equal where the
+   k-th / (k+1)-th margin exceeds 1e-5, the slots of the config's
+   dispatch, drops included, equal where no near-tie can move them), then
+   its output at the config's capacity and at one that drops nothing
+   against the explicit mixture of each token's kept top-k experts (rtol
+   1e-4 / atol 1e-4, the reference's
+   ``test_high_capacity_equals_dense_mixture``; kimi's 67.6 GB MoE layer
+   does not go to the host); forward ms, prefill s, decode ms per token,
+   a profile and ``torch.cuda.max_memory_allocated`` by id; then K4's
+   device time at jamba's shape beside its plain version and its bound
+   (phase 3 checks K4 at jamba's forward and prefill shapes, and K5 at
+   each id's forward and prefill calls, ``ZOO_FLASH``).
 
 TF32 is off for every product and convolution in every phase.
 
 Prints the service's, telemetry's, FEMNIST's, the scenarios', Mamba's,
-yi's and the zoo's JSON lines, the card line, one
+yi's, the zoo's and the MoE zoo's JSON lines, the card line, one
 JSON line of the kernels (``{"kernels": [...]}``), then, last,
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -206,6 +251,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -2385,6 +2431,11 @@ def timings(torch, scfg, ch, ops):
 # dt = 0) and the forward shape at batch 4 x 2048 (last: time_ssd times it).
 SSD_SHAPES = ((1, 100, 2, 32, 16, 32), (2, 384, 24, 64, 128, 128),
               (4, 2000, 24, 64, 128, 128), (4, 2048, 24, 64, 128, 128))
+# jamba-v0.1-52b's Mamba layers in phase 14's prefill (4 x 2000, padded
+# to 2048 with dt = 0) and forward (4 x 2048; time_ssd times it): 128
+# heads of 64, N = 16 (padded to 32 state columns in the kernel), chunk 128
+JAMBA_SSD_PREFILL = (4, 2000, 128, 64, 16, 128)
+JAMBA_SSD = (4, 2048, 128, 64, 16, 128)
 # y, then the final state: float32 sums in another order than the plain
 # version's (as on the CPU, tests/test_torch_ssd.py)
 SSD_TOL = (dict(rtol=1e-4, atol=2e-4), dict(rtol=1e-4, atol=2e-5))
@@ -2410,27 +2461,41 @@ FLASH_SHAPES = ((2, 256, 256, 64, True, None, False),
 # the reference tests' own tolerances (tests/test_kernels.py)
 FLASH_TOL = {False: 2e-5, True: 2e-2}
 YI_GROUP = 8  # yi-6b's query heads per KV head (32 / 4)
-# K5 as the zoo's forwards call it at batch 4 x 2048 (phase 13): (call,
-# BH = 4 x query heads, Sq, Sk, D, causal, kv_group), float32, no window;
-# each checked (phase 3) and timed beside its bound and SDPA
+# K5 as the zoo's forwards call it (phases 13 and 14): (call, BH = batch x
+# query heads, Sq, Sk, D, causal, kv_group, window), float32; batch 4 x
+# 2048 in phase 13; in phase 14 mixtral's 2 x 8192 with its window of 4096,
+# jamba's 4 x 2048 and kimi's 1 x 1024, and each one's prefill (8000, 2000
+# and 1000: ragged last tiles, mixtral's through the window); each checked
+# (phase 3) and timed beside its bound and SDPA
 ZOO_FLASH = (
-    ("chatglm3-6b self", 128, 2048, 2048, 128, True, 16),
-    ("minicpm-2b self", 144, 2048, 2048, 64, True, 1),
-    ("granite-20b self", 192, 2048, 2048, 128, True, 48),
-    ("llama-3.2-vision-11b self", 128, 2048, 2048, 128, True, 4),
-    ("llama-3.2-vision-11b cross", 128, 2048, 1601, 128, False, 4),
-    ("seamless-m4t-large-v2 encoder", 64, 4096, 4096, 64, False, 1),
-    ("seamless-m4t-large-v2 self", 64, 2048, 2048, 64, True, 1),
-    ("seamless-m4t-large-v2 cross", 64, 2048, 4096, 64, False, 1))
+    ("chatglm3-6b self", 128, 2048, 2048, 128, True, 16, None),
+    ("minicpm-2b self", 144, 2048, 2048, 64, True, 1, None),
+    ("granite-20b self", 192, 2048, 2048, 128, True, 48, None),
+    ("llama-3.2-vision-11b self", 128, 2048, 2048, 128, True, 4, None),
+    ("llama-3.2-vision-11b cross", 128, 2048, 1601, 128, False, 4, None),
+    ("seamless-m4t-large-v2 encoder", 64, 4096, 4096, 64, False, 1, None),
+    ("seamless-m4t-large-v2 self", 64, 2048, 2048, 64, True, 1, None),
+    ("seamless-m4t-large-v2 cross", 64, 2048, 4096, 64, False, 1, None),
+    ("mixtral-8x22b self", 96, 8192, 8192, 128, True, 6, 4096),
+    ("mixtral-8x22b prefill", 96, 8000, 8000, 128, True, 6, 4096),
+    ("jamba-v0.1-52b self", 128, 2048, 2048, 128, True, 4, None),
+    ("jamba-v0.1-52b prefill", 128, 2000, 2000, 128, True, 4, None),
+    ("kimi-k2-1t-a32b self", 64, 1024, 1024, 128, True, 8, None),
+    ("kimi-k2-1t-a32b prefill", 64, 1000, 1000, 128, True, 8, None))
 # phase 13's ids: (id, layers kept, K5 launches per forward and per
 # prefill, layers in the card-vs-CPU forward). granite-20b keeps 20 of its
 # 52 layers (44.8 GB of float32 weights); llama's first 5 layers hold its
 # first cross-attention layer, seamless's first 2 decoder layers come with
 # its first 2 encoder layers.
-ZOO = (("chatglm3-6b", None, 28, 2), ("minicpm-2b", None, 40, 2),
-       ("granite-20b", 20, 20, 2), ("llama-3.2-vision-11b", None, 40, 5),
-       ("seamless-m4t-large-v2", None, 72, 2))
+ZOO = tuple((arch, layers, {"flash_attention_bhsd": per_call}, cpu_layers)
+            for arch, layers, per_call, cpu_layers in (
+                ("chatglm3-6b", None, 28, 2), ("minicpm-2b", None, 40, 2),
+                ("granite-20b", 20, 20, 2),
+                ("llama-3.2-vision-11b", None, 40, 5),
+                ("seamless-m4t-large-v2", None, 72, 2)))
 LM_BATCH, LM_SEQ, LM_PROMPT, LM_GEN = 4, 2048, 2000, 64
+# the plain attention's score blocks, at most this many bytes at a time
+PLAIN_SCORE_BYTES = 4e9
 # prefill + decode against the teacher-forced forward (the bound of the
 # reference's tests/test_arch_smoke.py::test_decode_matches_forward), and
 # the card's forward against the CPU's plain forward
@@ -2458,7 +2523,8 @@ def check_ssd(torch):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssd_chunked_ref
     err = 0.0
-    for b, s, h, p, n, chunk in SSD_SHAPES:
+    for b, s, h, p, n, chunk in SSD_SHAPES + (JAMBA_SSD_PREFILL,
+                                              JAMBA_SSD):
         x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, s)
         for h0 in (None, torch.randn((b, h, n, p), device="cuda")):
             y, h_final = ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0,
@@ -2533,20 +2599,20 @@ def check_flash(torch):
     # yi-6b's 32 query heads on 4 KV heads, batch 4: the model's calls in
     # generate's prefill (2000, ragged last tiles) and in the forward
     # (2048); then the zoo's calls (phase 13)
-    gqa = [(f"yi-6b {s}", bh, s, s, d, True, YI_GROUP)
+    gqa = [(f"yi-6b {s}", bh, s, s, d, True, YI_GROUP, None)
            for bh, s, _, d, _, _, _ in FLASH_SHAPES[-2:]] + list(ZOO_FLASH)
-    for call, bh, sq, sk, d, causal, group in gqa:
+    for call, bh, sq, sk, d, causal, group, window in gqa:
         q, k, v = flash_gqa_lanes(torch, bh, sq, sk, d, group, sq + sk + 7)
-        out = flash_attention_bhsd(q, k, v, causal=causal, kv_group=group)
-        every = flash_attention_bhsd(q, k, v, causal=causal, kv_group=group,
-                                     skip_tiles=False)
+        kw = dict(causal=causal, window=window)
+        out = flash_attention_bhsd(q, k, v, kv_group=group, **kw)
+        every = flash_attention_bhsd(q, k, v, kv_group=group,
+                                     skip_tiles=False, **kw)
         expanded = flash_attention_bhsd(q, k.repeat_interleave(group, 0),
-                                        v.repeat_interleave(group, 0),
-                                        causal=causal)
-        want = flash_attention_ref(q, k, v, causal=causal, kv_group=group)
+                                        v.repeat_interleave(group, 0), **kw)
+        want = plain_flash(torch, q, k, v, group, **kw)
         torch.cuda.synchronize()
         tag = (f"flash_attention {(bh, sq, sk, d)} causal={causal} "
-               f"kv_group={group} ({call})")
+               f"window={window} kv_group={group} ({call})")
         err = max(err, compare(torch, tag, out, want, FLASH_TOL[False],
                                FLASH_TOL[False]))
         if not torch.isfinite(out).all():
@@ -2563,6 +2629,23 @@ def check_flash(torch):
               f"{float((out - want).abs().max()):.3g})", flush=True)
         del q, k, v, out, every, expanded, want
     return err
+
+
+def plain_flash(torch, q, k, v, group, **kw):
+    """K5's plain version on q (BH, Sq, D) and k / v (BH / group, Sk, D),
+    whole KV groups at a time so that no block of scores passes
+    ``PLAIN_SCORE_BYTES`` (each query row is its own softmax, so the
+    blocks are the same function)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    bh, sq, _ = q.shape
+    heads = group * max(1, int(PLAIN_SCORE_BYTES // (4 * sq * k.shape[1]
+                                                     * group)))
+    if heads >= bh:
+        return flash_attention_ref(q, k, v, kv_group=group, **kw)
+    return torch.cat([flash_attention_ref(
+        q[i:i + heads], k[i // group:(i + heads) // group],
+        v[i // group:(i + heads) // group], kv_group=group, **kw)
+        for i in range(0, bh, heads)])
 
 
 def flash_gqa_lanes(torch, bh, sq, sk, d, group, seed):
@@ -2587,43 +2670,152 @@ def stub_inputs(torch, cfg, batch):
     return media, frames
 
 
-def lm_path(torch, arch, kernel, cpu_layers=None, layers=None,
-            per_call=None):
+class LMShape(NamedTuple):
+    """A model path's sizes: the forward's (batch, seq); generate's prompt
+    and new tokens; the teacher-forced check's cache length (0: seq) and
+    decode steps (0: from the prompt to seq - 1)."""
+
+    batch: int = LM_BATCH
+    seq: int = LM_SEQ
+    prompt: int = LM_PROMPT
+    gen: int = LM_GEN
+    cache_len: int = 0
+    decode_steps: int = 0
+
+
+def host_copy(torch, module):
+    """``module`` on the CPU, copied parameter by parameter (a deepcopy on
+    the card first would hold it twice there)."""
+    import copy
+    memo = {id(p): torch.nn.Parameter(p.detach().cpu(), requires_grad=False)
+            for p in module.parameters()}
+    return copy.deepcopy(module, memo).to("cpu")
+
+
+def moe_layers(params):
+    """The MoE mlps of ``params``' layers, by layer index."""
+    from repro_torch.models.moe import MoE
+    return {i: layer.mlp for i, layer in enumerate(params.layers)
+            if isinstance(layer.mlp, MoE)}
+
+
+class MoETally:
+    """Forward hooks on every MoE mlp: the (token, k) pairs that its
+    capacity dropped, all pairs, and the largest expert load, over the
+    calls made while it is on (routing recomputed from each call's input;
+    ``with`` adds and removes the hooks). The hooks add device work, so no
+    run under them is timed."""
+
+    def __init__(self, params):
+        self.mlps = moe_layers(params)
+        self.dropped = self.pairs = self.max_load = self.tokens = 0
+        self._calls = []
+
+    def _hook(self, mlp, args, _out):
+        import torch
+        from repro_torch.models import moe
+        x = args[0]
+        xt = x.reshape(-1, x.shape[-1])
+        r = moe.route(mlp, xt, mlp.cfg)
+        cap = moe.capacity(xt.shape[0], mlp.cfg)
+        kept = moe.dispatch(r, cap, mlp.cfg).dest < mlp.cfg.n_experts * cap
+        # read on exit: no synchronisation inside the pass
+        self._calls.append(((~kept).sum(), kept.numel(), xt.shape[0],
+                            torch.bincount(r.ids.reshape(-1),
+                                           minlength=mlp.cfg.n_experts)
+                            .max()))
+
+    def __enter__(self):
+        self.handles = [m.register_forward_hook(self._hook)
+                        for m in self.mlps.values()]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        for dropped, pairs, tokens, load in self._calls:
+            self.dropped += int(dropped)
+            self.pairs += pairs
+            self.tokens = max(self.tokens, tokens)
+            self.max_load = max(self.max_load, int(load))
+        self._calls.clear()
+
+
+def set_capacity_factor(params, cf):
+    """Every MoE mlp's capacity factor (its module keeps its config)."""
+    for mlp in moe_layers(params).values():
+        mlp.cfg = dataclasses.replace(mlp.cfg, capacity_factor=cf)
+
+
+def decode_window(shape):
+    """The forward's positions the decode check reads: the prompt's last,
+    then one per teacher-forced step."""
+    steps = shape.decode_steps or shape.seq - 1 - shape.prompt
+    return slice(shape.prompt - 1, shape.prompt + steps)
+
+
+def decode_check(torch, params, tokens, prompt, want, cfg, shape, kernels):
+    """Prefill of ``prompt`` plus teacher-forced decode of the next steps
+    against ``want``, the forward's logits at ``decode_window(shape)``;
+    returns (max |d|, prefill launches, decode launches, steps)."""
+    from repro_torch.models import model as M
+    cache_len = shape.cache_len or shape.seq
+    steps = want.shape[1] - 1
+    reset_counts()
+    lg, st = M.prefill(params, prompt, cfg, cache_len)
+    per_prefill = read_counts()
+    errs = [float((lg[:, 0] - want[:, 0]).abs().max())]
+    for i, t in enumerate(range(shape.prompt, shape.prompt + steps)):
+        lg, st = M.decode_step(params, tokens[:, t:t + 1], st, cfg)
+        errs.append(float((lg[:, 0] - want[:, i + 1]).abs().max()))
+    counts = read_counts()
+    per_decode = {k: counts[k] - per_prefill[k] for k in counts}
+    del st
+    return max(errs), per_prefill, per_decode, steps
+
+
+def lm_path(torch, arch, kernels, cpu_layers=None, layers=None,
+            shape=LMShape()):
     """``arch`` at full width with random weights (the first ``layers``
     layers, all by default; a VLM's media and an encoder-decoder's frames
-    seeded on the card): a forward at batch 4 x 2048 and ``generate``
-    (prompt 2000, 64 new tokens), with the counts at 0 before and read
-    after; ``kernel`` must launch ``per_call`` times (once per layer by
-    default) in each and no other kernel may; prefill plus teacher-forced
-    decode against the forward, decode launching nothing; the card's
-    forward against the CPU's plain one at batch 1 x 256 on the first
-    ``cpu_layers`` layers (all by default; as many encoder layers) and the
-    full head. Returns the launches and a summary."""
-    import copy
-    import dataclasses
-
+    seeded on the card): a forward at ``shape.batch`` x ``shape.seq`` and
+    ``generate`` (``shape.prompt``, ``shape.gen`` new tokens), with the
+    counts at 0 before and read after; each kernel of ``kernels`` must
+    launch its count (``None``: once per layer) in each and no other
+    kernel may, nor ``repeat_interleave``; prefill plus teacher-forced
+    decode against the forward, decode launching nothing (with MoE layers
+    at a capacity where nothing drops, when the model's own drops some:
+    other token counts drop other pairs); the card's forward against the
+    CPU's plain one at batch 1 x 256 on the first ``cpu_layers`` layers
+    (all by default; as many encoder layers) and the full head; the pairs
+    MoE capacity dropped (counted in runs of their own, untimed) and the
+    peak of allocated memory. Returns the launches by kernel and a
+    summary."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
+    from repro_torch.models.moe import capacity
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    if per_call is None:
-        per_call = cfg.n_layers
+    kernels = {k: cfg.n_layers if n is None else n
+               for k, n in kernels.items()}
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(torch.Generator(device="cuda").manual_seed(0),
                            cfg)
     tokens, labels = make_token_stream(
-        torch.Generator(device="cuda").manual_seed(1), LM_BATCH, LM_SEQ,
-        cfg.vocab_size)
-    media, frames = stub_inputs(torch, cfg, LM_BATCH)
+        torch.Generator(device="cuda").manual_seed(1), shape.batch,
+        shape.seq, cfg.vocab_size)
+    media, frames = stub_inputs(torch, cfg, shape.batch)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"{arch}: {n_params} parameters ({cfg.n_layers} layers) on the "
-          f"card in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"{arch}: {n_params} parameters ({cfg.n_layers} layers, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     batch = M.Batch(tokens=tokens, labels=labels, media=media, frames=frames)
-    prompt = M.Batch(tokens=tokens[:, :LM_PROMPT], media=media,
+    prompt = M.Batch(tokens=tokens[:, :shape.prompt], media=media,
                      frames=frames)
 
     # the main path: a forward, then generate; counts from 0, and every
@@ -2639,60 +2831,102 @@ def lm_path(torch, arch, kernel, cpu_layers=None, layers=None,
     torch.Tensor.repeat_interleave = counting
     try:
         t0 = time.perf_counter()
-        logits, _ = M.forward(params, batch, cfg)
+        logits, aux = M.forward(params, batch, cfg)
         torch.cuda.synchronize()
         first_forward_s = time.perf_counter() - t0
         per_forward = read_counts()
-        out = generate(params, prompt, cfg, LM_GEN)
+        out = generate(params, prompt, cfg, shape.gen)
     finally:
         torch.Tensor.repeat_interleave = interleave
     counts = read_counts()
     if expansions:
         raise AssertionError(f"{arch}: repeat_interleave ran on "
                              f"{expansions[:4]} ({len(expansions)} calls)")
-    per_generate = counts[kernel] - per_forward[kernel]
-    if per_forward != launch_counts(**{kernel: per_call}) or (
-            counts != launch_counts(**{kernel: 2 * per_call})):
-        raise AssertionError(f"{arch}: {kernel} launches {per_forward} per "
-                             f"forward and {per_generate} per generate, want "
-                             f"{per_call} each and no other kernel")
-    if not (logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+    per_generate = {k: counts[k] - per_forward[k] for k in kernels}
+    if per_forward != launch_counts(**kernels) or counts != launch_counts(
+            **{k: 2 * n for k, n in kernels.items()}):
+        raise AssertionError(f"{arch}: launches {per_forward} per forward "
+                             f"and {per_generate} per generate, want "
+                             f"{kernels} each and no other kernel")
+    if not (logits.shape == (shape.batch, shape.seq, cfg.vocab_size)
             and torch.isfinite(logits).all()):
         raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
+    if cfg.n_experts and not float(aux) > 0.0:
+        raise AssertionError(f"{arch}: MoE aux loss {float(aux)}")
+    # what the decode check reads; the rest is freed before the loss's
+    # forward (kimi's card holds 79.69 GB of weights)
+    logits = logits[:, decode_window(shape)].clone()
     gen = out.tokens
-    if not (gen.shape == (LM_BATCH, LM_GEN) and int(gen.min()) >= 0
+    if not (gen.shape == (shape.batch, shape.gen) and int(gen.min()) >= 0
             and int(gen.max()) < cfg.vocab_size):
         raise AssertionError(f"{arch}: bad tokens {tuple(gen.shape)}")
-    loss = float(M.loss_fn(params, batch, cfg))
+    # the pairs capacity dropped, counted by hooks on the loss's forward
+    # (the same batch) and on a generate of their own, neither timed
+    with MoETally(params) as fwd_drops:
+        loss = float(M.loss_fn(params, batch, cfg))
+    with MoETally(params) as gen_drops:
+        if cfg.n_experts:
+            generate(params, prompt, cfg, shape.gen)
     if not 0.0 < loss < 2 * math.log(cfg.vocab_size):
         raise AssertionError(f"{arch}: loss {loss}")
-    print(f"{arch} forward {tuple(tokens.shape)}: {kernel} launched "
-          f"{per_forward[kernel]} times (first call "
-          f"{first_forward_s * 1e3:.1f} ms), loss {loss:.4f} (ln V = "
-          f"{math.log(cfg.vocab_size):.4f}); generate: prompt {LM_PROMPT}, "
-          f"{LM_GEN} tokens, {kernel} {per_generate} launches, prefill "
-          f"{out.prefill_s:.3f} s, decode "
-          f"{out.decode_s / LM_GEN * 1e3:.2f} ms/token", flush=True)
+    launched = ", ".join(f"{k} {per_forward[k]}" for k in kernels)
+    print(f"{arch} forward {tuple(tokens.shape)}: {launched} launches "
+          f"(first call {first_forward_s * 1e3:.1f} ms), loss {loss:.4f} "
+          f"(ln V = {math.log(cfg.vocab_size):.4f}, aux {float(aux):.4g}); "
+          f"generate: prompt {shape.prompt}, {shape.gen} tokens, "
+          f"{per_generate} launches, prefill {out.prefill_s:.3f} s, decode "
+          f"{out.decode_s / shape.gen * 1e3:.2f} ms/token", flush=True)
+    drops = {}
+    if cfg.n_experts:
+        drops = dict(forward=[fwd_drops.dropped, fwd_drops.pairs],
+                     generate=[gen_drops.dropped, gen_drops.pairs],
+                     forward_max_load=fwd_drops.max_load,
+                     forward_capacity=capacity(fwd_drops.tokens, cfg))
+        print(f"{arch}: MoE capacity dropped {fwd_drops.dropped} of "
+              f"{fwd_drops.pairs} (token, k) pairs in the forward "
+              f"({fwd_drops.dropped / fwd_drops.pairs:.3%}; largest expert "
+              f"load {fwd_drops.max_load}, capacity "
+              f"{drops['forward_capacity']}) and {gen_drops.dropped} of "
+              f"{gen_drops.pairs} in generate", flush=True)
 
-    # prefill + teacher-forced decode reproduce the forward's logits
-    reset_counts()
-    lg, st = M.prefill(params, prompt, cfg, LM_SEQ)
-    per_prefill = read_counts()[kernel]
-    errs = [float((lg[:, 0] - logits[:, LM_PROMPT - 1]).abs().max())]
-    for t in range(LM_PROMPT, LM_SEQ - 1):
-        lg, st = M.decode_step(params, tokens[:, t:t + 1], st, cfg)
-        errs.append(float((lg[:, 0] - logits[:, t]).abs().max()))
-    per_decode = read_counts()[kernel] - per_prefill
-    if per_decode or per_prefill != per_call:
-        raise AssertionError(f"{arch}: decode launched {kernel} "
-                             f"{per_decode} times, or prefill {per_prefill} "
-                             f"times, not {per_call}")
-    if not max(errs) < DECODE_TOL:
-        raise AssertionError(f"{arch}: decode vs forward {max(errs)}")
-    print(f"{arch}: prefill + {len(errs) - 1} decode steps match the "
-          f"forward's logits, max |d| {max(errs):.3g} (< {DECODE_TOL}); "
-          f"decode launched no {kernel}", flush=True)
-    del st
+    # prefill + teacher-forced decode reproduce the forward's logits; the
+    # forward and the prefill see other token counts, so where capacity
+    # dropped pairs the check runs at a capacity that drops none
+    check_cf = None
+    if drops and (fwd_drops.dropped or gen_drops.dropped):
+        check_cf = 1.5 * fwd_drops.max_load * cfg.n_experts / (
+            fwd_drops.tokens * cfg.top_k)
+        set_capacity_factor(params, check_cf)
+        with MoETally(params) as check_drops:
+            check_logits, _ = M.forward(params, batch, cfg)
+        check_logits = check_logits[:, decode_window(shape)].clone()
+        if check_drops.dropped:
+            raise AssertionError(f"{arch}: capacity factor {check_cf} "
+                                 f"still drops {check_drops.dropped} pairs")
+    else:
+        check_logits = logits
+    with MoETally(params) as check_drops:
+        err, per_prefill, per_decode, steps = decode_check(
+            torch, params, tokens, prompt, check_logits, cfg, shape,
+            kernels)
+    if check_cf is not None:
+        set_capacity_factor(params, cfg.capacity_factor)
+        del check_logits
+        if check_drops.dropped:
+            raise AssertionError(f"{arch}: the decode check dropped "
+                                 f"{check_drops.dropped} pairs")
+    if per_decode != launch_counts() or per_prefill != launch_counts(
+            **kernels):
+        raise AssertionError(f"{arch}: prefill launched {per_prefill}, "
+                             f"decode {per_decode}; want {kernels}, none")
+    if not err < DECODE_TOL:
+        raise AssertionError(f"{arch}: decode vs forward {err}")
+    print(f"{arch}: prefill ({shape.prompt}, cache "
+          f"{shape.cache_len or shape.seq}) + {steps} decode steps match "
+          f"the forward's logits, max |d| {err:.3g} (< {DECODE_TOL})"
+          + (f" at capacity factor {check_cf:.3g}, nothing dropped"
+             if check_cf is not None else "")
+          + f"; decode launched no {', '.join(kernels)}", flush=True)
 
     # the card's kernel path against the CPU's plain path, same weights
     sub, sub_cfg = params, cfg
@@ -2707,11 +2941,11 @@ def lm_path(torch, arch, kernel, cpu_layers=None, layers=None,
     one = M.Batch(tokens=tokens[:1, :256],
                   media=None if media is None else media[:1],
                   frames=None if frames is None else frames[:1])
-    kinds = sorted({s.mixer for s in sub_cfg.layer_specs()}
+    kinds = sorted({f"{s.mixer}+{s.mlp}" for s in sub_cfg.layer_specs()}
                    | ({"encoder", "cross block"}
                       if sub_cfg.is_encoder_decoder else set()))
     on_card, _ = M.forward(sub, one, sub_cfg)
-    cpu_params = copy.deepcopy(sub).to("cpu")
+    cpu_params = host_copy(torch, sub)
     on_cpu, _ = M.forward(cpu_params, M.Batch(*(
         None if t is None else t.cpu() for t in one)), sub_cfg)
     cpu_err = compare(torch, f"{arch} forward card vs CPU", on_card.cpu(),
@@ -2721,6 +2955,10 @@ def lm_path(torch, arch, kernel, cpu_layers=None, layers=None,
           f"max |d| {cpu_err:.3g} (|logit| up to "
           f"{float(on_cpu.abs().max()):.3g})", flush=True)
     del cpu_params, on_cpu, sub, on_card
+    mixture = None
+    if cpu_layers is not None and any(i >= cpu_layers
+                                      for i in moe_layers(params)):
+        mixture = moe_mixture_check(torch, params, one, cfg, cpu_layers)
 
     fwd_ms = []
     for _ in range(3):
@@ -2728,35 +2966,145 @@ def lm_path(torch, arch, kernel, cpu_layers=None, layers=None,
         M.forward(params, batch, cfg)
         torch.cuda.synchronize()
         fwd_ms.append((time.perf_counter() - t0) * 1e3)
-    again = generate(params, prompt, cfg, LM_GEN)
+    again = generate(params, prompt, cfg, shape.gen)
     summary = dict(
-        config=cfg.name, n_params=n_params, batch=LM_BATCH, seq=LM_SEQ,
-        prompt=LM_PROMPT, generated=LM_GEN, loss=loss,
-        forward_ms=sorted(fwd_ms)[1],
+        config=cfg.name, n_params=n_params, batch=shape.batch,
+        seq=shape.seq, prompt=shape.prompt, generated=shape.gen, loss=loss,
+        aux=float(aux), forward_ms=sorted(fwd_ms)[1],
         prefill_s=[out.prefill_s, again.prefill_s],
-        decode_ms_per_token=[out.decode_s / LM_GEN * 1e3,
-                             again.decode_s / LM_GEN * 1e3],
-        decode_vs_forward_max_abs=max(errs), card_vs_cpu_max_abs=cpu_err,
+        decode_ms_per_token=[out.decode_s / shape.gen * 1e3,
+                             again.decode_s / shape.gen * 1e3],
+        decode_vs_forward_max_abs=err, decode_steps=steps,
+        decode_check_capacity_factor=check_cf, card_vs_cpu_max_abs=cpu_err,
         card_vs_cpu_layers=sub_cfg.n_layers, card_vs_cpu_kinds=kinds,
-        layers=cfg.n_layers, kernel_per_call=per_call,
+        layers=cfg.n_layers, kernel_per_call=kernels,
         sample_output=gen[0, :16].tolist())
+    if drops:
+        summary.update(moe_dropped=drops, moe_mixture=mixture)
     del logits
     summary["profile"] = profile_lm(torch, params, batch, prompt, cfg,
-                                    kernel)
-    return dict(launches=counts[kernel], per_forward=per_forward[kernel],
-                per_generate=per_generate, per_prefill=per_prefill,
-                per_decode=per_decode), summary
+                                    kernels, shape)
+    summary["max_memory_allocated_gb"] = (
+        torch.cuda.max_memory_allocated() / 1e9)
+    return {k: dict(launches=counts[k], per_forward=per_forward[k],
+                    per_generate=per_generate[k],
+                    per_prefill=per_prefill[k], per_decode=per_decode[k])
+            for k in kernels}, summary
 
 
-def profile_lm(torch, params, batch, prompt, cfg, kernel):
+# a token's k-th / (k+1)-th router probability margin above which its
+# experts must be the same on the card and the CPU (tests/test_torch_moe.py)
+ROUTER_MARGIN = 1e-5
+
+
+def moe_mixture_check(torch, params, one, cfg, first):
+    """The first MoE layer at or past ``first`` on the card, on its input
+    in a forward of ``one``, for a layer too large to copy to the host:
+    its router (copied to the host with that input) against the CPU's, the
+    experts equal on every token whose margin exceeds ``ROUTER_MARGIN``
+    and the weights within rtol 1e-4 / atol 1e-5; at the config's capacity
+    each kept or dropped (token, expert) pair's slot against the CPU's
+    dispatch, wherever no near-tie on another token can move it; then its
+    output, at the config's capacity and at one that drops nothing,
+    against the explicit mixture of each token's kept top-k experts with
+    the same weights (the reference's tests/test_moe.py::test_high_
+    capacity_equals_dense_mixture, rtol 1e-4 / atol 1e-4)."""
+    import types
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    i = min(j for j in moe_layers(params) if j >= first)
+    mlp = params.layers[i].mlp
+    seen = []
+    hook = mlp.register_forward_pre_hook(
+        lambda _m, args: seen.append(args[0].reshape(-1, cfg.d_model)))
+    try:
+        M.forward(params, one, cfg)
+    finally:
+        hook.remove()
+    xt = seen[0]
+    t, k, e = xt.shape[0], cfg.top_k, cfg.n_experts
+    r = moe.route(mlp, xt, cfg)
+    host = types.SimpleNamespace(router=types.SimpleNamespace(
+        w=mlp.router.w.detach().cpu()))
+    r_cpu = moe.route(host, xt.cpu(), cfg)
+    top = torch.sort(r_cpu.probs, dim=-1, descending=True).values
+    trusted = (top[:, k - 1] - top[:, k]) > ROUTER_MARGIN
+    ids, perm = torch.sort(r.ids.cpu(), dim=-1)
+    ids_cpu, perm_cpu = torch.sort(r_cpu.ids, dim=-1)
+    if not torch.equal(ids[trusted], ids_cpu[trusted]):
+        raise AssertionError(f"{cfg.name} layer {i}: the card's experts "
+                             "differ from the CPU's beyond the margin rule")
+    w_err = compare(torch, f"{cfg.name} layer {i} router weights",
+                    torch.gather(r.weights.cpu(), 1, perm)[trusted],
+                    torch.gather(r_cpu.weights, 1, perm_cpu)[trusted],
+                    1e-4, 1e-5)
+    cap = moe.capacity(t, cfg)
+    dest = torch.gather(moe.dispatch(r, cap, cfg).dest.cpu().reshape(t, k),
+                        1, perm)
+    dest_cpu = torch.gather(moe.dispatch(r_cpu, cap, cfg).dest.reshape(t, k),
+                            1, perm_cpu)
+    # a near-tie swaps a token between its k-th and (k+1)-th experts on one
+    # side, which moves only those experts' later slots
+    near = torch.zeros(e + 1, dtype=torch.bool)
+    for side in (r.probs.cpu(), r_cpu.probs):
+        ranked = torch.sort(side, dim=-1, descending=True, stable=True)[1]
+        near[ranked[~trusted, k - 1:k + 1].reshape(-1)] = True
+    held = trusted[:, None] & ~near[ids]
+    if not torch.equal(dest[held], dest_cpu[held]):
+        raise AssertionError(f"{cfg.name} layer {i}: the card's dispatch "
+                             f"at capacity {cap} differs from the CPU's")
+    dropped = int((dest_cpu >= e * cap).sum())
+    print(f"{cfg.name}: layer {i}'s router on the card (1, 256) against "
+          f"the CPU's: experts equal on {int(trusted.sum())} of {t} tokens "
+          f"with a margin above {ROUTER_MARGIN}, weights max |d| "
+          f"{w_err:.3g}; at capacity {cap} the slots of {int(held.sum())} "
+          f"of {t * k} pairs equal the CPU's ({dropped} dropped there)",
+          flush=True)
+
+    load = int(torch.bincount(r.ids.reshape(-1), minlength=e).max())
+    wide = dataclasses.replace(cfg, capacity_factor=load * e / (t * k))
+    if moe.capacity(t, wide) < load:
+        raise AssertionError(f"{cfg.name}: capacity below the load {load}")
+    errs = {}
+    for name, c in (("config", cfg), ("dropless", wide)):
+        slots = moe.capacity(t, c)
+        kept = (moe.dispatch(r, slots, c).dest < e * slots).reshape(t, k)
+        y, _ = moe.apply_moe(mlp, xt, c)
+        want = torch.zeros_like(xt)
+        for x in torch.unique(r.ids[kept]).tolist():
+            rows, cols = ((r.ids == x) & kept).nonzero(as_tuple=True)
+            xe = xt[rows]
+            h = torch.nn.functional.silu(xe @ mlp.wg[x]) * (xe @ mlp.wi[x])
+            want.index_add_(0, rows, r.weights[rows, cols, None]
+                            * (h @ mlp.wo[x]))
+        errs[name] = compare(torch, f"{cfg.name} layer {i} MoE at the "
+                             f"{name} capacity vs its mixture", y, want,
+                             1e-4, 1e-4)
+        errs[f"{name}_dropped"] = int((~kept).sum())
+    print(f"{cfg.name}: layer {i}'s MoE on the card (1, 256) against the "
+          f"explicit mixture of each token's kept top {k} of {e} experts: "
+          f"at capacity {cap} ({errs['config_dropped']} pairs dropped) max "
+          f"|d| {errs['config']:.3g}, at {moe.capacity(t, wide)} >= the "
+          f"largest load {load} max |d| {errs['dropless']:.3g}", flush=True)
+    return dict(layer=i, tokens=t, largest_load=load,
+                capacity=moe.capacity(t, wide), max_abs=errs["dropless"],
+                config_capacity=cap, config_dropped=errs["config_dropped"],
+                config_max_abs=errs["config"],
+                router_trusted_tokens=int(trusted.sum()),
+                router_weights_max_abs=w_err,
+                dispatch_pairs_held=int(held.sum()),
+                cpu_dropped=dropped)
+
+
+def profile_lm(torch, params, batch, prompt, cfg, kernels, shape):
     """One forward and 16 decode steps under torch.profiler: device time by
-    kernel, ``kernel``'s share and the device's busy share of the wall
-    time."""
+    kernel, each of ``kernels``' share and the device's busy share of the
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
     out = {}
-    _, st = M.prefill(params, prompt, cfg, LM_SEQ)
+    _, st = M.prefill(params, prompt, cfg, shape.cache_len or shape.seq)
     nxt = prompt.tokens[:, -1:]
 
     def decode16():
@@ -2764,8 +3112,8 @@ def profile_lm(torch, params, batch, prompt, cfg, kernel):
         for _ in range(16):
             _, s = M.decode_step(params, nxt, s, cfg)
 
-    # the compiled kernel's symbol carries the source's name
-    symbol = kernel.removesuffix("_bhsd")
+    # the compiled kernels' symbols carry their sources' names
+    symbols = {k: k.removesuffix("_bhsd") for k in kernels}
     for label, fn in (("forward", lambda: M.forward(params, batch, cfg)),
                       ("decode16", decode16)):
         torch.cuda.synchronize()
@@ -2779,16 +3127,19 @@ def profile_lm(torch, params, batch, prompt, cfg, kernel):
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(r[0] for r in rows)
-        ours = sum(r[0] for r in rows if symbol in r[2])
+        ours = {k: sum(r[0] for r in rows if sym in r[2])
+                for k, sym in symbols.items()}
+        shares = ", ".join(f"{k} {ms:.2f} ms ({ms / max(busy, 1e-9):.1%} "
+                           "of kernels)" for k, ms in ours.items())
         print(f"profile of {cfg.name} {label}: wall {wall_ms:.1f} ms, "
               f"kernels {busy:.2f} ms ({busy / wall_ms:.1%} of wall), "
-              f"{kernel} {ours:.2f} ms ({ours / max(busy, 1e-9):.1%} of "
-              f"kernels), {sum(r[1] for r in rows)} device ops; top:",
+              f"{shares}, {sum(r[1] for r in rows)} device ops; top:",
               flush=True)
         top = sorted(rows, reverse=True)[:8]
         for ms, count, key in top:
             print(f"  {ms:10.3f} ms {count:6d}x  {key[:90]}", flush=True)
-        out[label] = dict(wall_ms=wall_ms, device_ms=busy, kernel_ms=ours,
+        out[label] = dict(wall_ms=wall_ms, device_ms=busy,
+                          kernel_ms=sum(ours.values()), kernels_ms=ours,
                           device_ops=sum(r[1] for r in rows),
                           top=[[key[:60], ms, count] for ms, count, key
                                in top[:5]])
@@ -2903,14 +3254,14 @@ def ssd_pass_ms(torch, fn, calls=10):
     return out
 
 
-def time_ssd(torch):
-    """K4 and its plain version at the forward shape (with the final
-    state), device ms by CUDA events, each device kernel's share by the
-    profiler; the earlier CUDA-core kernel where its source is at hand,
-    timed in turns with this one."""
+def time_ssd(torch, shape=SSD_SHAPES[-1]):
+    """K4 and its plain version at a forward shape (mamba2-130m's by
+    default; with the final state), device ms by CUDA events, each device
+    kernel's share by the profiler; the earlier CUDA-core kernel where its
+    source is at hand, timed in turns with this one."""
     from repro_torch.kernels.ref import ssd_chunked_ref
     from repro_torch.kernels.ssd_scan import ssd_scan
-    b, s, h, p, n, chunk = SSD_SHAPES[-1]
+    b, s, h, p, n, chunk = shape
     x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, 5)
 
     def kernel():
@@ -3008,41 +3359,60 @@ def cuda_core_flash(torch):
     return call
 
 
-def flash_row(torch, bh, sq, sk, d, causal, group, seed):
+def flash_row(torch, bh, sq, sk, d, causal, group, seed, window=None):
     """K5 as a model calls it (q (BH, Sq, D) on BH / ``group`` unexpanded
-    KV heads, no window, float32), its plain version and PyTorch's
-    ``scaled_dot_product_attention(enable_gqa=True)`` (the yardstick,
-    never on the path) on the same inputs, device ms by CUDA events,
-    beside the bound. Returns the row and the inputs."""
+    KV heads, float32, ``window`` with ``causal``), its plain version and
+    PyTorch's ``scaled_dot_product_attention`` (the yardstick, never on
+    the path) on the same inputs (as (4, BH / 4, S, D): every BH / 4 here
+    is a multiple of ``group``, so the heads group as K5's), device ms
+    by CUDA events, beside the bound. SDPA takes the unexpanded heads
+    (``enable_gqa=True``) without a window; with one, the band (k <= q,
+    k > q - window) as its boolean mask over KV heads expanded outside the
+    timing, on the memory-efficient backend (the math backend would hold
+    the whole (batch, heads, Sq, Sk) scores). Returns the row and the
+    inputs."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import flash_mask
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = flash_gqa_lanes(torch, bh, sq, sk, d, group, seed)
     b = LM_BATCH
 
     def kernel():
-        return flash_attention_bhsd(q, k, v, causal=causal, kv_group=group)
+        return flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                    kv_group=group)
 
-    def library():
-        # (B, H, Sq, D), in whatever strides the chosen backend gives
-        return sdpa(q.view(b, -1, sq, d), k.view(b, -1, sk, d),
-                    v.view(b, -1, sk, d), is_causal=causal,
-                    enable_gqa=True)
+    if window is None:
+        def library():
+            # (B, H, Sq, D), in whatever strides the chosen backend gives
+            return sdpa(q.view(b, -1, sq, d), k.view(b, -1, sk, d),
+                        v.view(b, -1, sk, d), is_causal=causal,
+                        enable_gqa=True)
+    else:
+        band = flash_mask(sq, sk, causal, window, "cuda")
+        ke, ve = (t.repeat_interleave(group, 0).view(b, -1, sk, d)
+                  for t in (k, v))
+
+        def library():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return sdpa(q.view(b, -1, sq, d), ke, ve, attn_mask=band)
 
     lib_err = float((library().reshape(bh, sq, d) - kernel()).abs().max())
     row = dict(shape=[bh, sq, sk, d], kv_heads=bh // group, causal=causal,
-               ms=time_device(torch, kernel, False),
-               plain_ms=time_device(torch, lambda: flash_attention_ref(
-                   q, k, v, causal=causal, kv_group=group), False, iters=5),
+               window=window, ms=time_device(torch, kernel, False),
+               plain_ms=time_device(torch, lambda: plain_flash(
+                   torch, q, k, v, group, causal=causal, window=window),
+                   False, iters=5),
                library_ms=time_device(torch, library, False),
                library_max_abs_diff=lib_err,
-               **flash_bound(bh, sq, sk, d, causal, None, 4, group))
+               **flash_bound(bh, sq, sk, d, causal, window, 4, group))
     return row, (q, k, v, kernel)
 
 
 def print_flash_row(row, what):
     print(f"flash_attention_bhsd at {row['shape']} ({what}) on "
-          f"{row['kv_heads']} KV heads, causal={row['causal']}: "
+          f"{row['kv_heads']} KV heads, causal={row['causal']}, "
+          f"window={row['window']}: "
           f"{row['ms']:.3f} ms device, plain {row['plain_ms']:.3f} ms, "
           f"scaled_dot_product_attention {row['library_ms']:.3f} ms (max "
           f"|d| {row['library_max_abs_diff']:.3g}), bound "
@@ -3082,8 +3452,8 @@ def time_zoo_flash(torch):
     """K5 at each of the zoo's calls (``ZOO_FLASH``), as
     :func:`flash_row` times them."""
     rows = []
-    for call, bh, sq, sk, d, causal, group in ZOO_FLASH:
-        row, _ = flash_row(torch, bh, sq, sk, d, causal, group, 6)
+    for call, bh, sq, sk, d, causal, group, window in ZOO_FLASH:
+        row, _ = flash_row(torch, bh, sq, sk, d, causal, group, 6, window)
         print_flash_row(row, call)
         rows.append(dict(call=call, **row))
         torch.cuda.empty_cache()
@@ -3094,18 +3464,39 @@ def time_zoo_flash(torch):
 # Phase 13: the zoo's dense, VLM and encoder-decoder ids at full width.
 # --------------------------------------------------------------------------
 
-def zoo_path(torch):
-    """Each id of ``ZOO`` through :func:`lm_path`, K5 its only kernel,
-    freeing the card between ids. Returns K5's launches by id and a
-    summary by id."""
+def zoo_path(torch, zoo):
+    """Each id of ``zoo`` (``ZOO``, phase 13, or ``MOE_ZOO``, phase 14)
+    through :func:`lm_path`, freeing the card between ids. Returns the
+    launches by id and kernel and a summary by id."""
     launches, summary = {}, {}
-    for arch, layers, per_call, cpu_layers in ZOO:
-        counts, summary[arch] = lm_path(torch, arch, "flash_attention_bhsd",
-                                        cpu_layers=cpu_layers, layers=layers,
-                                        per_call=per_call)
-        launches[arch] = counts
+    for arch, layers, kernels, cpu_layers, *shape in zoo:
+        launches[arch], summary[arch] = lm_path(
+            torch, arch, kernels, cpu_layers=cpu_layers, layers=layers,
+            shape=shape[0] if shape else LMShape())
         torch.cuda.empty_cache()
     return launches, summary
+
+
+# --------------------------------------------------------------------------
+# Phase 14: the MoE zoo at full width, K5's window and the rolling cache.
+# --------------------------------------------------------------------------
+
+# (id, layers kept, launches per forward and per prefill, layers in the
+# card-vs-CPU forward, sizes (batch, seq, prompt, generated, cache_len,
+# decode steps)). mixtral keeps 4 of 56 layers (41.68 GB), its prompt of
+# 8,000 rolls a 4,096-slot window cache and its 16 decode steps lie past
+# the window; jamba its first period, 8 of 32 layers (one attention, 7
+# Mamba, 4 MoE; 53.07 GB), its first 5 (the attention layer and 2 MoE
+# layers) on the CPU; kimi its dense prefix layer and 1 MoE layer of 384
+# experts (79.69 GB), the prefix layer on the CPU and the MoE layer held
+# against its dense mixture on the card.
+MOE_ZOO = (
+    ("mixtral-8x22b", 4, {"flash_attention_bhsd": 4}, 1,
+     LMShape(2, 8192, 8000, 16, 8192, 16)),
+    ("jamba-v0.1-52b", 8, {"flash_attention_bhsd": 1, "ssd_scan": 7}, 5,
+     LMShape(4, 2048, 2000, 16, 2048, 16)),
+    ("kimi-k2-1t-a32b", 2, {"flash_attention_bhsd": 2}, 1,
+     LMShape(1, 1024, 1000, 16, 1024, 16)))
 
 
 def main() -> int:
@@ -3179,16 +3570,24 @@ def main() -> int:
     k3_by_path = {"service": svc_counts["decision_fused_batched"],
                   "telemetry": tele_launches["decision_fused_batched"]}
     launches["decision_fused_batched"] = sum(k3_by_path.values())
-    mamba_launches, mamba = lm_path(torch, "mamba2-130m", "ssd_scan")
+    mamba_launches, mamba = lm_path(torch, "mamba2-130m", {"ssd_scan": None})
     ssd_time = time_ssd(torch)
     torch.cuda.empty_cache()
-    yi_launches, yi = lm_path(torch, "yi-6b", "flash_attention_bhsd",
+    yi_launches, yi = lm_path(torch, "yi-6b", {"flash_attention_bhsd": None},
                               cpu_layers=2)
     flash_time = time_flash(torch)
     torch.cuda.empty_cache()
-    zoo_launches, zoo = zoo_path(torch)
+    zoo_launches, zoo = zoo_path(torch, ZOO)
     zoo_flash = time_zoo_flash(torch)
-    flash_by_path = {"yi-6b": yi_launches, **zoo_launches}
+    torch.cuda.empty_cache()
+    moe_launches, moe_zoo = zoo_path(torch, MOE_ZOO)
+    jamba_ssd_time = time_ssd(torch, JAMBA_SSD)
+    flash_by_path = {arch: c["flash_attention_bhsd"] for arch, c in (
+        ("yi-6b", yi_launches), *zoo_launches.items(),
+        *moe_launches.items())}
+    ssd_by_path = {"mamba2-130m": mamba_launches["ssd_scan"],
+                   "jamba-v0.1-52b": moe_launches["jamba-v0.1-52b"][
+                       "ssd_scan"]}
 
     rows = []
     for name in ("scheduler_solve", "decision_fused"):
@@ -3224,19 +3623,21 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:72",
-        "launches": mamba_launches["launches"],
-        "launches_per_forward": mamba_launches["per_forward"],
-        "launches_per_generate": mamba_launches["per_generate"],
-        "max_abs_err": err["ssd_scan"], "library_ms": None, **ssd_time})
+        "launches": sum(c["launches"] for c in ssd_by_path.values()),
+        "launches_by_path": ssd_by_path,
+        "launches_per_forward": ssd_by_path["mamba2-130m"]["per_forward"],
+        "launches_per_generate": ssd_by_path["mamba2-130m"]["per_generate"],
+        "max_abs_err": err["ssd_scan"], "library_ms": None, **ssd_time,
+        "jamba_shape": jamba_ssd_time})
     rows.append({
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "launches": sum(c["launches"] for c in flash_by_path.values()),
         "launches_by_path": flash_by_path,
-        "launches_per_forward": yi_launches["per_forward"],
-        "launches_per_prefill": yi_launches["per_prefill"],
-        "launches_per_decode": yi_launches["per_decode"],
+        "launches_per_forward": flash_by_path["yi-6b"]["per_forward"],
+        "launches_per_prefill": flash_by_path["yi-6b"]["per_prefill"],
+        "launches_per_decode": flash_by_path["yi-6b"]["per_decode"],
         "max_abs_err": err["flash_attention_bhsd"], **flash_time,
         "zoo_shapes": zoo_flash})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
@@ -3247,6 +3648,7 @@ def main() -> int:
     print(json.dumps({"mamba": mamba}), flush=True)
     print(json.dumps({"yi": yi}), flush=True)
     print(json.dumps({"zoo": zoo}), flush=True)
+    print(json.dumps({"moe": moe_zoo}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

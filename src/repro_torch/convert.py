@@ -17,18 +17,21 @@ both flatten NHWC images in (h, w, c) order.
 
 ``lm_params_from_jax`` (the model zoo's stacks) takes the reference's
 ``init_params`` tree, numpy leaves, and returns the port's
-:class:`~repro_torch.models.model.LM`: the period-stacked
-``params["period"]["layer<i>"]`` leaves, whose leading axis counts
-periods (``models/model.py`` in the reference), are unstacked into the
-layer list (Mamba layers: ``norm1`` and the mixer's leaves; attention
-and cross-attention layers: ``norm1``, ``mixer.w{q,k,v,o}``, ``norm2``,
-``mlp.w{i,g,o}``, and in an encoder-decoder's decoder ``norm_x`` and
-``cross.w{q,k,v,o}``); an encoder-decoder's ``params["encoder"]
-["layer0"]``, stacked over its encoder layers, into ``encoder`` (its
-mixers bidirectional) with ``enc_norm``; ``embed.emb``, ``final_norm.g``
-and an untied ``lm_head.w`` (a tied head has none) carry over unchanged.
-Dense weights are (in, out) in both packages. Prefix layers (MoE models'
-leading dense layers) raise ``NotImplementedError``.
+:class:`~repro_torch.models.model.LM`: the ``params["prefix"]`` list
+(Kimi's leading dense layer; one unstacked tree per layer) comes first in
+the layer list, then the period-stacked ``params["period"]["layer<i>"]``
+leaves, whose leading axis counts periods (``models/model.py`` in the
+reference), unstacked layer by layer. Each layer carries ``norm1`` and
+its mixer (a Mamba mixer's leaves, or ``mixer.w{q,k,v,o}`` of an
+attention or cross-attention mixer), in an encoder-decoder's decoder
+``norm_x`` and ``cross.w{q,k,v,o}``, and where it has an mlp ``norm2``
+and either ``mlp.w{i,g,o}.w`` (dense) or the MoE's ``mlp.router.w``,
+``mlp.wi``, ``mlp.wg`` and ``mlp.wo`` (stacked over experts); an
+encoder-decoder's ``params["encoder"]["layer0"]``, stacked over its
+encoder layers, goes into ``encoder`` (its mixers bidirectional) with
+``enc_norm``; ``embed.emb``, ``final_norm.g`` and an untied
+``lm_head.w`` (a tied head has none) carry over unchanged. Dense weights
+are (in, out) in both packages.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from repro_torch.models import model as M
 from repro_torch.models.attention import Attention, CrossAttention
 from repro_torch.models.layers import Dense, Embedding, RMSNorm, SwiGLU
 from repro_torch.models.mamba import Mamba2Block
+from repro_torch.models.moe import MoE
 
 _CONV = ("c1w", "c2w")
 
@@ -65,12 +69,13 @@ def _tensor(value, device) -> torch.Tensor:
     return torch.from_numpy(np.array(value)).to(device)
 
 
-def _layer(p: dict, k: int, spec, cfg, device,
+def _layer(p: dict, k: int | None, spec, cfg, device,
            causal: bool = True) -> M.Layer:
-    """Layer ``k`` of one period-stacked reference layer ``p``
-    (``causal=False``: an encoder layer)."""
+    """Layer ``k`` of one period-stacked reference layer ``p``, or the
+    unstacked layer ``p`` with ``k=None`` (a prefix layer);
+    ``causal=False``: an encoder layer."""
     def leaf(v):
-        return _tensor(v[k], device)
+        return _tensor(v if k is None else v[k], device)
 
     def norm(name):
         return RMSNorm(leaf(p[name]["g"]), cfg.rmsnorm_eps)
@@ -80,19 +85,26 @@ def _layer(p: dict, k: int, spec, cfg, device,
 
     m = p["mixer"]
     if spec.mixer == "mamba":
-        mixer = {name: ({"w": leaf(v["w"])} if isinstance(v, dict)
-                        else leaf(v)) for name, v in m.items()}
-        return M.Layer(norm("norm1"), Mamba2Block(mixer, cfg))
-    if spec.mixer == "cross_attn":
+        mixer = Mamba2Block({name: ({"w": leaf(v["w"])} if isinstance(v, dict)
+                                    else leaf(v)) for name, v in m.items()},
+                            cfg)
+    elif spec.mixer == "cross_attn":
         mixer = CrossAttention(*weights(m), cfg)
     else:
         mixer = Attention(*weights(m), cfg, causal=causal)
-    cross = {}
+    rest = {}
     if "cross" in p:
-        cross = dict(norm_x=norm("norm_x"),
-                     cross=CrossAttention(*weights(p["cross"]), cfg))
-    mlp = SwiGLU(*(leaf(p["mlp"][n]["w"]) for n in ("wi", "wg", "wo")))
-    return M.Layer(norm("norm1"), mixer, norm("norm2"), mlp, **cross)
+        rest = dict(norm_x=norm("norm_x"),
+                    cross=CrossAttention(*weights(p["cross"]), cfg))
+    if spec.mlp == "moe":
+        mlp = p["mlp"]
+        rest.update(norm2=norm("norm2"), mlp=MoE(
+            leaf(mlp["router"]["w"]), leaf(mlp["wi"]), leaf(mlp["wg"]),
+            leaf(mlp["wo"]), cfg))
+    elif spec.mlp == "dense":
+        rest.update(norm2=norm("norm2"), mlp=SwiGLU(
+            *(leaf(p["mlp"][n]["w"]) for n in ("wi", "wg", "wo"))))
+    return M.Layer(norm("norm1"), mixer, **rest)
 
 
 def lm_params_from_jax(tree: dict, cfg, device="cuda") -> M.LM:
@@ -100,11 +112,10 @@ def lm_params_from_jax(tree: dict, cfg, device="cuda") -> M.LM:
     :class:`~repro_torch.models.model.LM` on ``device``."""
     M.check_config(cfg)
     prefix, period, n_periods = cfg.period_decomposition()
-    if prefix or tree.get("prefix"):
-        raise NotImplementedError("prefix layers are not ported yet "
-                                  "(ROADMAP §A item 10)")
-    layers = [_layer(tree["period"][f"layer{i}"], k, spec, cfg, device)
-              for k in range(n_periods) for i, spec in enumerate(period)]
+    layers = [_layer(p, None, spec, cfg, device)
+              for p, spec in zip(tree["prefix"], prefix, strict=True)]
+    layers += [_layer(tree["period"][f"layer{i}"], k, spec, cfg, device)
+               for k in range(n_periods) for i, spec in enumerate(period)]
     final_norm = RMSNorm(_tensor(tree["final_norm"]["g"], device),
                          cfg.rmsnorm_eps)
     head = (None if cfg.tie_embeddings else

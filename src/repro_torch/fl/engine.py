@@ -67,7 +67,7 @@ from repro_torch.core.policies import (POLICY_DRAWS, PolicyState,
                                        policy_raw)
 from repro_torch.core.policies import _lookup as lookup_policy
 from repro_torch.core.scheduler import (SchedulerConfig, as_operands,
-                                        estimate_avg_selected)
+                                        estimate_avg_selected, solve_round)
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl.decision import (AccountCoeffs, DecisionCoeffs,
                                      decision_coeffs, decision_step,
@@ -246,10 +246,20 @@ def default_draws(sim: SimConfig, ds: FederatedDataset) -> GeneratorDraws:
                           channel=sim.channel)
 
 
-def make_solve_fn(scfg: SchedulerConfig, ch: ChannelConfig):
-    """``solve(gains, z) -> (q, P)`` through the solve kernel
-    (``solver="cuda"``), with the configs' scalars as the reference's
-    ``make_solve_fn(solver="pallas")`` passes them."""
+def make_solve_fn(scfg: SchedulerConfig, ch: ChannelConfig,
+                  solver: str = "cuda"):
+    """``solve(gains, z) -> (q, P)``: through the solve kernel with
+    ``solver="cuda"`` (the default; its plain version on CPU tensors), with
+    the configs' scalars as the reference's ``make_solve_fn(
+    solver="pallas")`` passes them, or the plain ``core.solve_round`` with
+    ``solver="stitched"``, the twin of the reference's ``solver="jnp"``.
+    Either accepts any 1-D client slice."""
+    if solver == "stitched":
+        return lambda gains, z: solve_round(gains, z, scfg, ch)
+    if solver != "cuda":
+        raise ValueError(f"unknown solver {solver!r} (want 'stitched'|"
+                         "'cuda')")
+
     def solve(gains, z):
         return scheduler_solve(
             gains, z, n=scfg.n_clients, v=scfg.V, lam=scfg.lam,

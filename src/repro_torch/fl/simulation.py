@@ -18,9 +18,11 @@ import torch
 from repro_torch.core.channel import ChannelConfig, make_channel
 from repro_torch.core.scheduler import SchedulerConfig, estimate_avg_selected
 from repro_torch.data.synthetic import FederatedDataset
-from repro_torch.fl.engine import Draws, SimConfig, run_simulation_scan
+from repro_torch.fl.engine import (Draws, SimConfig, make_solve_fn,
+                                   run_simulation_scan, run_sweep)
 
-__all__ = ["SimConfig", "run_simulation", "match_uniform_m",
+__all__ = ["SimConfig", "run_simulation", "run_simulation_scan",
+           "run_sweep", "make_solve_fn", "match_uniform_m",
            "time_to_accuracy"]
 
 

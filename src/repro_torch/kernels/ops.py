@@ -11,7 +11,8 @@ returns the final one on request, so the full-sequence forward and the
 serving prefill both go through it. ``ssd_auto`` runs the sequential
 oracle on CPU tensors and ``ssd`` on CUDA tensors, as the reference's
 runs its oracle off a TPU. ``ssd_decode_step`` is
-plain PyTorch, as it is jnp in the reference.
+plain PyTorch, as it is jnp in the reference. ``scheduler_solve`` is
+re-exported, as the reference's module does.
 """
 
 from __future__ import annotations
@@ -21,7 +22,18 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.scheduler_solve import scheduler_solve
 from repro_torch.kernels.ssd_scan import ssd_scan
+
+__all__ = ["flash_attention", "ssd", "ssd_decode_step", "scheduler_solve",
+           "attention_auto", "ssd_auto", "on_tpu"]
+
+
+def on_tpu() -> bool:
+    """False: the port dispatches on each tensor's device (CUDA kernels
+    for CUDA tensors, plain versions for CPU tensors) and runs on no
+    TPU."""
+    return False
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,

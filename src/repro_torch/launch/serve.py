@@ -1,14 +1,15 @@
 """Batched serving (twin of ``repro/launch/serve.py``): prefill a
 batch of prompts, then decode greedily, reporting per-phase latencies.
 
-Runs a reduced architecture (any id of ``configs.PORTED_IDS``:
-``mamba2-130m``, ``yi-6b``, ``chatglm3-6b``, ``minicpm-2b``,
-``granite-20b``, ``llama-3.2-vision-11b``, ``seamless-m4t-large-v2``;
-the reference's defaults: 2 layers, d_model 256) over the synthetic
-vocab, with the reference's zero stubs for the VLM's media and the
-encoder-decoder's frames; ``--device`` picks the card (default ``cuda``,
-which raises without one) or ``cpu``. The full widths run through the
-same :func:`generate` in ``chip_smoke.py``.
+Runs a reduced architecture (any of the ten ids of
+``configs.ARCH_IDS``, the MoE ids ``mixtral-8x22b`` (its sliding-window
+cache rolls once prompt and generation pass the reduced window of 64),
+``jamba-v0.1-52b`` and ``kimi-k2-1t-a32b`` included; the reference's
+defaults: 2 layers, d_model 256, a hybrid keeps one period) over the
+synthetic vocab, with the reference's zero stubs for the VLM's media
+and the encoder-decoder's frames; ``--device`` picks the card (default
+``cuda``, which raises without one) or ``cpu``. The full widths run
+through the same :func:`generate` in ``chip_smoke.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch llama-3.2-vision-11b --batch 4 --prompt-len 64 --gen 32

@@ -5,9 +5,8 @@ Every architecture of the zoo is a ``ModelConfig`` plus a *layer pattern*:
 the stack splits into a repeated "period" of layers after optional prefix
 layers. The reference scans the period over stacked parameters; the port
 runs its layers as a Python loop over an ``nn.ModuleList``
-(``models/model.py``). The port runs seven of the ten ids so far
-(``configs.PORTED_IDS``); the MoE models ``mixtral-8x22b``,
-``jamba-v0.1-52b`` and ``kimi-k2-1t-a32b`` wait (ROADMAP §A item 10).
+(``models/model.py``), the prefix first. The port runs all ten ids
+(``configs.PORTED_IDS``).
 """
 
 from __future__ import annotations

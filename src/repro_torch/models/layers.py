@@ -21,9 +21,14 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def truncated_normal(generator, shape, scale, dtype, device):
-    """scale * N(0, 1) truncated to +-2, drawn in float32 on ``device``."""
+    """scale * N(0, 1) truncated to +-2, drawn in float32 on ``device``.
+    A float32 draw is scaled in place (the bits of ``w * scale``), so the
+    only full-size tensor is the result: a 22.5 GB expert stack needs no
+    second one."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    if dtype == torch.float32:
+        return w.mul_(scale)
     return (w * scale).to(dtype)
 
 

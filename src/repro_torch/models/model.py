@@ -1,8 +1,6 @@
-"""Model assembly: decoder-only stacks, the VLM's cross-attention layers
-and the encoder-decoder (twin of ``repro/models/model.py``, for the
-seven ids the port runs: ``mamba2-130m``, ``yi-6b``, ``chatglm3-6b``,
-``minicpm-2b``, ``granite-20b``, ``llama-3.2-vision-11b`` and
-``seamless-m4t-large-v2``).
+"""Model assembly: decoder-only, hybrid and MoE stacks, the VLM's
+cross-attention layers and the encoder-decoder (twin of
+``repro/models/model.py``, for all ten ids of ``configs.ARCH_IDS``).
 
 The parameters are one ``nn.Module``, :class:`LM`: ``embed.emb``,
 ``final_norm.g``, ``lm_head.w`` for an untied head (a tied head reads
@@ -11,13 +9,18 @@ The parameters are one ``nn.Module``, :class:`LM`: ``embed.emb``,
 :class:`~repro_torch.models.attention.Attention` or a
 :class:`~repro_torch.models.attention.CrossAttention` over the batch's
 media), in an encoder-decoder's decoder ``norm_x`` and a ``cross``
-block over the encoder's output, and for dense layers ``norm2`` and a
-:class:`~repro_torch.models.layers.SwiGLU` ``mlp``; an encoder-decoder
-adds ``encoder`` (bidirectional attention layers with RoPE over the
-batch's frames) and ``enc_norm``. The reference stacks the period's
-layers and runs them with ``lax.scan``; the port runs them as a Python
-loop. :func:`repro_torch.convert.lm_params_from_jax` carries the
-reference's parameters across.
+block over the encoder's output, and where the layer has an mlp
+``norm2`` and the ``mlp``: a :class:`~repro_torch.models.layers.SwiGLU`
+or a :class:`~repro_torch.models.moe.MoE`, after any mixer (Jamba's
+Mamba layers carry either, Mixtral's and Kimi's attention layers the
+MoE); an encoder-decoder adds ``encoder`` (bidirectional attention layers
+with RoPE over the batch's frames) and ``enc_norm``. The layers run in
+``cfg.layer_specs()`` order: the dense prefix
+(``cfg.period_decomposition()``'s first part, Kimi's first layer) first,
+then the periods. The reference stacks the period's layers and runs them
+with ``lax.scan``; the port runs them as a Python loop.
+:func:`repro_torch.convert.lm_params_from_jax` carries the reference's
+parameters across.
 
 Entry points, as the reference's, with the module in place of the
 parameter tree: ``forward`` and ``loss_fn`` (full sequence), ``prefill``
@@ -27,9 +30,12 @@ window, or none for a cross-attention mixer; each request's cross
 K / V, of the media and of the encoder's output, computed once at
 prefill and carried in ``ServeState.cross_kv``). They run under
 ``torch.inference_mode()``; training and gradients wait for a later
-slice. MoE layers and Mamba layers with an mlp (``mixtral-8x22b``,
-``jamba-v0.1-52b``, ``kimi-k2-1t-a32b``) raise ``NotImplementedError``
-(ROADMAP §A item 10).
+slice. ``forward`` returns the MoE layers' load-balance losses summed,
+and ``loss_fn`` adds them, as the reference's ``_apply_layer`` does;
+``prefill`` and ``decode_step`` drop them. A layer outside
+``PORTED_LAYERS`` (a cross-attention mixer with an MoE mlp, an attention
+mixer without an mlp: no id of the zoo has one) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,12 +48,16 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (_dtype, Dense, Embedding, RMSNorm,
                                        SwiGLU)
 
 PORTED_LAYERS = (LayerSpec(mixer="mamba", mlp="none"),
+                 LayerSpec(mixer="mamba", mlp="dense"),
+                 LayerSpec(mixer="mamba", mlp="moe"),
                  LayerSpec(mixer="attn", mlp="dense"),
+                 LayerSpec(mixer="attn", mlp="moe"),
                  LayerSpec(mixer="cross_attn", mlp="dense"))
 
 
@@ -63,9 +73,8 @@ class Batch(NamedTuple):
 def _check_spec(spec: LayerSpec):
     if spec not in PORTED_LAYERS:
         raise NotImplementedError(
-            f"layer {spec} is not ported yet: the port runs mamba mixers "
-            "without an mlp and self- or cross-attention with a dense mlp "
-            "(ROADMAP §A item 10)")
+            f"layer {spec} is not ported: the port runs the layers of the "
+            f"zoo's ids, {PORTED_LAYERS}")
 
 
 def check_config(cfg: ModelConfig):
@@ -77,14 +86,17 @@ def check_config(cfg: ModelConfig):
 class Layer(nn.Module):
     """Pre-norm residual layer: ``norm1`` and the mixer; in an
     encoder-decoder's decoder, ``norm_x`` and the ``cross`` block over the
-    encoder's output; then ``norm2`` and the mlp where the layer has one.
-    The mixer's ``forward``, ``prefill`` and ``decode`` carry its own cache
-    kind; a cross-attention mixer reads the media (``forward``) or their
-    precomputed K / V (``prefill``, ``decode``), the ``cross`` block the
-    encoder's output or its K / V."""
+    encoder's output; then ``norm2`` and the mlp (dense or MoE) where the
+    layer has one. The mixer's ``forward``, ``prefill`` and ``decode``
+    carry its own cache kind; a cross-attention mixer reads the media
+    (``forward``) or their precomputed K / V (``prefill``, ``decode``), the
+    ``cross`` block the encoder's output or its K / V. ``forward`` returns
+    (x, the MoE's aux loss or None), ``prefill`` and ``decode`` (x,
+    cache)."""
 
     def __init__(self, norm1: RMSNorm, mixer: nn.Module,
-                 norm2: RMSNorm | None = None, mlp: SwiGLU | None = None,
+                 norm2: RMSNorm | None = None,
+                 mlp: SwiGLU | moe_mod.MoE | None = None,
                  norm_x: RMSNorm | None = None,
                  cross: attn.CrossAttention | None = None):
         super().__init__()
@@ -96,15 +108,20 @@ class Layer(nn.Module):
     def cross_mixer(self) -> bool:
         return isinstance(self.mixer, attn.CrossAttention)
 
-    def _rest(self, x, h, cross):
+    def _rest(self, x, h, cross, aux=True):
         """The mixer's residual ``h``, then the cross block's (``cross`` of
-        its normed input) and the mlp's."""
+        its normed input) and the mlp's. Returns (x, the MoE's aux loss, or
+        None where there is none or ``aux`` is False)."""
         x = x + h.to(x.dtype)
         if self.cross is not None:
             x = x + cross(self.norm_x(x)).to(x.dtype)
         if self.mlp is None:
-            return x
-        return x + self.mlp(self.norm2(x)).to(x.dtype)
+            return x, None
+        if isinstance(self.mlp, moe_mod.MoE):
+            h, aux = self.mlp(self.norm2(x), aux)
+        else:
+            h, aux = self.mlp(self.norm2(x)), None
+        return x + h.to(x.dtype), aux
 
     def forward(self, x, media=None, enc_out=None):
         h = self.norm1(x)
@@ -117,7 +134,8 @@ class Layer(nn.Module):
             h, cache = self.mixer.prefill(h, media_kv), None
         else:
             h, cache = self.mixer.prefill(h, cache_len)
-        x = self._rest(x, h, lambda y: self.cross.prefill(y, enc_kv))
+        x, _ = self._rest(x, h, lambda y: self.cross.prefill(y, enc_kv),
+                          aux=False)
         return x, cache
 
     def decode(self, x, cache, media_kv=None, enc_kv=None):
@@ -126,7 +144,8 @@ class Layer(nn.Module):
             h = self.mixer.decode(h, media_kv)
         else:
             h, cache = self.mixer.decode(h, cache)
-        x = self._rest(x, h, lambda y: self.cross.decode(y, enc_kv))
+        x, _ = self._rest(x, h, lambda y: self.cross.decode(y, enc_kv),
+                          aux=False)
         return x, cache
 
 
@@ -155,30 +174,36 @@ def _init_layer(generator, spec: LayerSpec, cfg: ModelConfig, dtype,
                 causal: bool = True) -> Layer:
     """Drawn in the reference's order: the mixer, the cross block, the
     mlp. ``causal=False`` makes an encoder layer."""
+    _check_spec(spec)
     d, eps = cfg.d_model, cfg.rmsnorm_eps
     norm1 = RMSNorm.init(d, dtype, device, eps)
     if spec.mixer == "mamba":
-        return Layer(norm1, mam.init_mamba(generator, cfg, dtype, device))
-    if causal:
+        mixer = mam.init_mamba(generator, cfg, dtype, device)
+    elif causal:
         mixer = attn.init_attention(generator, cfg, dtype, device,
                                     cross=spec.mixer == "cross_attn")
     else:
         mixer = attn.Attention.init(generator, cfg, dtype, device,
                                     causal=False)
-    cross = {}
+    rest = {}
     if with_cross:
-        cross = dict(norm_x=RMSNorm.init(d, dtype, device, eps),
-                     cross=attn.init_attention(generator, cfg, dtype,
-                                               device, cross=True))
-    return Layer(norm1, mixer, RMSNorm.init(d, dtype, device, eps),
-                 SwiGLU.init(generator, d, cfg.d_ff, dtype, device), **cross)
+        rest = dict(norm_x=RMSNorm.init(d, dtype, device, eps),
+                    cross=attn.init_attention(generator, cfg, dtype,
+                                              device, cross=True))
+    if spec.mlp == "moe":
+        rest["mlp"] = moe_mod.init_moe(generator, cfg, dtype, device)
+    elif spec.mlp == "dense":
+        rest["mlp"] = SwiGLU.init(generator, d, cfg.d_ff, dtype, device)
+    if spec.mlp != "none":
+        rest["norm2"] = RMSNorm.init(d, dtype, device, eps)
+    return Layer(norm1, mixer, **rest)
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device="cuda") -> LM:
     """Random weights drawn on ``generator`` (which lives on ``device``)
     with the reference's initializers, in its order: embedding, head,
-    layers, encoder."""
+    layers (the dense prefix first), encoder."""
     check_config(cfg)
     dtype = _dtype(cfg.param_dtype)
     d, eps = cfg.d_model, cfg.rmsnorm_eps
@@ -206,7 +231,7 @@ def _encode(params: LM, frames, cfg: ModelConfig):
                          "batch.frames")
     x = frames
     for layer in params.encoder:
-        x = layer(x)
+        x, _ = layer(x)
     return params.enc_norm(x)
 
 
@@ -226,21 +251,24 @@ def logits_from_hidden(params: LM, x, cfg: ModelConfig):
 
 @torch.inference_mode()
 def forward(params: LM, batch: Batch, cfg: ModelConfig):
-    """Full-sequence forward. Returns (logits, aux_loss)."""
+    """Full-sequence forward. Returns (logits, aux_loss): the MoE layers'
+    load-balance losses summed in layer order, zero without MoE."""
     x = params.embed(batch.tokens)
     enc_out = (_encode(params, batch.frames, cfg) if cfg.is_encoder_decoder
                else None)
     media = _media(batch, cfg)
-    for layer in params.layers:
-        x = layer(x, media, enc_out)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in params.layers:
+        x, a = layer(x, media, enc_out)
+        if a is not None:
+            aux = aux + a
     return logits_from_hidden(params, x, cfg), aux
 
 
 @torch.inference_mode()
 def loss_fn(params: LM, batch: Batch, cfg: ModelConfig):
-    """Mean next-token cross-entropy (+ aux, zero without MoE). fp32
-    softmax."""
+    """Mean next-token cross-entropy (+ the router's aux loss, zero
+    without MoE). fp32 softmax."""
     logits, aux = forward(params, batch, cfg)
     logp = F.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, batch.labels[..., None])[..., 0]

@@ -38,7 +38,12 @@ and P as the two rows of one allocation, and the sweep launches it once a
 round for every seed. The population engine launches K2 with its
 activity mask under cuda_fused and K1 under cuda, keeps inactive lanes
 out, and with ``population=()`` takes the population-free decisions bit
-for bit.
+for bit. The MoE (``models/moe.py``, plain PyTorch) on the card agrees
+with the CPU and gives the same bits run to run; K5 with mixtral's window
+of 4,096 over 8,192 tokens and K4 at jamba's N = 16 agree with their
+plain versions; the reduced MoE ids launch K5 (and jamba K4) per
+attention (Mamba) layer in forward and prefill, never in decode, and
+decode past mixtral's window reproduces the forward.
 """
 
 import dataclasses
@@ -720,3 +725,126 @@ def test_cross_and_encoder_layers_launch_flash_attention(cuda, monkeypatch,
         assert float((lg[:, 0] - logits[:, t]).abs().max()) < 2e-4
     assert flash_attention_bhsd.launches == 2 * per_call
     assert calls == []
+
+
+def test_apply_moe_on_the_card_matches_the_cpu(cuda):
+    """The MoE at a kimi-like 64 experts top-8 (d 512, ff 256) and at
+    mixtral's 8 top-2 on 2 x 300 tokens. At the configs' capacity factor
+    1.25 (the 64-expert case drops pairs) the card's output is the same
+    bits run to run (the combine gathers each token's k slots in a fixed
+    order; no atomics). At a factor of E / k, where nothing drops and a
+    token's output depends on its own choices only: the card's experts
+    are the CPU's on every token whose k-th / (k+1)-th router margin
+    exceeds 1e-5, and on every token whose choices agree the output is
+    the CPU's (rtol 1e-4 / atol 1e-5: float32 products in cuBLAS's
+    order)."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+    for e, k in ((64, 8), (8, 2)):
+        cfg = ModelConfig(name="t", arch_type="moe", n_layers=1, d_model=512,
+                          n_heads=4, n_kv_heads=4, d_ff=256, vocab_size=64,
+                          n_experts=e, top_k=k, moe_d_ff=256)
+        p = moe.init_moe(torch.Generator(device=cuda).manual_seed(e), cfg,
+                         torch.float32, cuda)
+        x = torch.randn((2, 300, 512), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+        y, _ = moe.apply_moe(p, x, cfg)
+        again, _ = moe.apply_moe(p, x, cfg)
+        assert torch.equal(y, again)
+
+        wide = dataclasses.replace(cfg, capacity_factor=e / k)
+        p_cpu = moe.MoE(*(t.cpu() for t in (p.router.w, p.wi, p.wg, p.wo)),
+                        wide)
+        y, _ = moe.apply_moe(p, x, wide)
+        y_cpu, _ = moe.apply_moe(p_cpu, x.cpu(), wide)
+        xt = x.reshape(-1, 512)
+        r, r_cpu = moe.route(p, xt, wide), moe.route(p_cpu, xt.cpu(), wide)
+        top = torch.sort(r_cpu.probs, dim=-1, descending=True).values
+        trusted = (top[:, k - 1] - top[:, k]) > 1e-5
+        assert trusted.float().mean() > 0.5
+        assert torch.equal(r.ids.cpu()[trusted], r_cpu.ids[trusted])
+        same = (r.ids.cpu() == r_cpu.ids).all(dim=1)
+        torch.testing.assert_close(y.reshape(-1, 512).cpu()[same],
+                                   y_cpu.reshape(-1, 512)[same], rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_flash_attention_mixtral_window_matches_plain(cuda):
+    """K5 with mixtral's window of 4,096 over its forward's 8,192 tokens
+    and its prefill's 8,000 (a ragged last tile), on 12 query heads
+    sharing 2 KV heads (``kv_group`` 6): within 2e-5 of its plain version,
+    the same bits with the masked key tiles run, and the same bits as on
+    the expanded heads."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for s in (8192, 8000):
+        q = torch.randn((12, s, 128), generator=g, device=cuda)
+        k, v = (torch.randn((2, s, 128), generator=g, device=cuda)
+                for _ in range(2))
+        out = flash_attention_bhsd(q, k, v, causal=True, window=4096,
+                                   kv_group=6)
+        every = flash_attention_bhsd(q, k, v, causal=True, window=4096,
+                                     kv_group=6, skip_tiles=False)
+        expanded = flash_attention_bhsd(q, k.repeat_interleave(6, 0),
+                                        v.repeat_interleave(6, 0),
+                                        causal=True, window=4096)
+        want = flash_attention_ref(q, k, v, causal=True, window=4096,
+                                   kv_group=6)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+        assert torch.equal(out, every) and torch.equal(out, expanded)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_jamba_state_width_matches_plain(cuda, with_h0):
+    """K4 at jamba-v0.1-52b's Mamba width (128 heads of 64, N = 16, padded
+    to 32 state columns in the kernel, chunk 128) over its prefill, batch
+    4 x 2,000 tokens (padded to 2,048): y rtol 1e-4 / atol 2e-4, the final
+    state rtol 1e-4 / atol 2e-5."""
+    b, s, h, p, n, chunk = 4, 2000, 128, 64, 16, 128
+    x, dt, a, bm, cm = ssd_lanes(b, s, h, p, n, cuda, seed=16)
+    h0 = torch.randn((b, h, n, p), device=cuda) if with_h0 else None
+    y, h_final = kernel_ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0,
+                                return_state=True)
+    xp, dtp, bmp, cmp = kernel_ops.pad_to_chunk(chunk, x, dt, bm, cm)
+    y0, h0_final = ssd_chunked_ref(xp, dtp, a, bmp, cmp, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y0[:, :s], rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(h_final, h0_final, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch,flash,ssd", [("mixtral-8x22b", 2, 0),
+                                            ("jamba-v0.1-52b", 1, 7),
+                                            ("kimi-k2-1t-a32b", 2, 0)])
+def test_moe_ids_decode_past_the_window(cuda, monkeypatch, arch, flash,
+                                        ssd):
+    """The reduced MoE ids at d_model 512 (head dim 128), capacity factor
+    E / k (nothing drops, so decode can match the forward), batch 2 x 200:
+    K5 (with mixtral's window, 64) and K4 launch their counts in the
+    forward and the prefill, never in decode, no KV head is expanded, and
+    prefill of 100 plus decode to 199 (mixtral's 64-slot cache wraps)
+    reproduces the forward's logits within 2e-4."""
+    cfg = get_config(arch).reduced(d_model=512)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                              / cfg.top_k)
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    calls = no_kv_expansion(monkeypatch)
+    flash_attention_bhsd.launches = ssd_scan.launches = 0
+    logits, aux = M.forward(params, M.Batch(tokens=tok), cfg)
+    assert (flash_attention_bhsd.launches, ssd_scan.launches) == (flash, ssd)
+    assert float(aux) > 0.0
+    lg, st = M.prefill(params, M.Batch(tokens=tok[:, :100]), cfg, 200)
+    assert (flash_attention_bhsd.launches, ssd_scan.launches) == (
+        2 * flash, 2 * ssd)
+    errs = [float((lg[:, 0] - logits[:, 99]).abs().max())]
+    for t in range(100, 199):
+        lg, st = M.decode_step(params, tok[:, t:t + 1], st, cfg)
+        errs.append(float((lg[:, 0] - logits[:, t]).abs().max()))
+    assert (flash_attention_bhsd.launches, ssd_scan.launches) == (
+        2 * flash, 2 * ssd)
+    assert max(errs) < 2e-4 and calls == []
+    if cfg.sliding_window:
+        slots = [c for c in st.layers if c is not None and hasattr(c, "k")]
+        assert all(int(c.slot_pos.max()) == 198 and c.k.shape[1] == 64
+                   for c in slots)

@@ -96,23 +96,27 @@ def test_configs_match_reference(ref):
 
 
 def test_unported_layers_raise():
+    """The MoE stacks and a hybrid's Mamba layers with an mlp run since
+    the MoE slice (tests/test_torch_moe.py), cross-attention layers and
+    the encoder-decoder since the zoo's second slice
+    (tests/test_torch_zoo.py); a layer no id of the zoo has, a
+    cross-attention mixer with an MoE mlp, still raises."""
     moe = ModelConfig(name="m", arch_type="moe", n_layers=2, d_model=64,
                       n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=32,
                       n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="§A item 10"):
-        M.init_params(torch.Generator().manual_seed(0), moe, device="cpu")
-    spec = moe.layer_specs()[0]
-    with pytest.raises(NotImplementedError, match="§A item 10"):
-        M._layer_cache_init(spec, moe, 1, 8, torch.float32, "cpu")
-    # a hybrid's Mamba layers carry an mlp (jamba)
     hybrid = dataclasses.replace(moe, n_experts=0, top_k=0, attn_period=2,
                                  attn_offset=1)
-    with pytest.raises(NotImplementedError, match="§A item 10"):
-        M.init_params(torch.Generator().manual_seed(0), hybrid, device="cpu")
-    # cross-attention layers and the encoder-decoder run since the zoo's
-    # second slice (tests/test_torch_zoo.py)
     vlm = dataclasses.replace(moe, n_experts=0, top_k=0, cross_attn_every=2)
-    M.init_params(torch.Generator().manual_seed(0), vlm, device="cpu")
+    for cfg in (moe, hybrid, vlm):
+        M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    moe_vlm = dataclasses.replace(moe, cross_attn_every=2)
+    spec = moe_vlm.layer_specs()[1]
+    assert (spec.mixer, spec.mlp) == ("cross_attn", "moe")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        M.init_params(torch.Generator().manual_seed(0), moe_vlm,
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        M._layer_cache_init(spec, moe_vlm, 1, 8, torch.float32, "cpu")
 
 
 def test_init_params_matches_reference_layout(ref, lm):

@@ -69,7 +69,8 @@ def reference() -> types.SimpleNamespace:
                  flash_attention="kernels.flash_attention",
                  bound="core.bound", mlp="models.mlp",
                  femnist="configs.femnist_cnn", population="fl.population",
-                 grid="fl.grid", tournament="fl.tournament")
+                 grid="fl.grid", tournament="fl.tournament",
+                 moe="models.moe")
     mods = {k: importlib.import_module(f"repro.{v}") for k, v in names.items()}
     return types.SimpleNamespace(jax=jax, jnp=jnp, **mods)
 

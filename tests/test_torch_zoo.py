@@ -55,7 +55,8 @@ FULL = {"chatglm3-6b": (25.0e9, 128, 16, 2),
         "granite-20b": (112.7e9, 128, 48, 2),
         "llama-3.2-vision-11b": (39.1e9, 128, 4, 2),
         "seamless-m4t-large-v2": (8.1e9, 64, 1, 6)}
-STILL_RAISING = ("mixtral-8x22b", "jamba-v0.1-52b", "kimi-k2-1t-a32b")
+# every id runs since the MoE slice (tests/test_torch_moe.py)
+STILL_RAISING = ()
 
 
 @pytest.fixture(scope="module")
@@ -154,6 +155,10 @@ def test_unported_ids_still_raise():
     for name in STILL_RAISING:
         with pytest.raises(NotImplementedError, match="§A item 10"):
             configs.get_config(name)
+    for name in configs.ARCH_IDS:
+        assert configs.get_config(name).name == name
+    with pytest.raises(KeyError):
+        configs.get_config("no-such-arch")
 
 
 def test_init_params_matches_reference_layout(ref, lm):
