@@ -231,14 +231,44 @@ Phases; any failure exits non-zero before the result line is printed:
    a profile and ``torch.cuda.max_memory_allocated`` by id; then K4's
    device time at jamba's shape beside its plain version and its bound
    (phase 3 checks K4 at jamba's forward and prefill shapes, and K5 at
-   each id's forward and prefill calls, ``ZOO_FLASH``).
+   each id's forward and prefill calls, ``ZOO_FLASH``);
+15. training on the card (``train_path``): K5's backward kernel
+   (``csrc/flash_attention_bwd.cu``) against its plain version
+   (``flash_attention_bwd_ref``, on the card) at ``FLASH_BWD_SHAPES``:
+   yi-6b's (128, 2048, 128) causal ``kv_group`` 8, minicpm-2b's D = 64,
+   mixtral-8x22b's window of 4,096 at (12, 8192, 128) ``kv_group`` 6,
+   llama-3.2-vision-11b's non-causal ragged cross (2048 x 1,601)
+   ``kv_group`` 4 and transformer_lm's D = 16 padded to 32; dq, dk, dv
+   within 1e-4 of each one's largest |plain| entry, the same bits with
+   the masked tiles run, and the grouped call against the call on the
+   expanded KV (dq bit-equal, dk and dv summed back per group within
+   3e-5); its device ms at yi's shape beside its plain version's, the
+   bound (five products over the live pairs in 3xTF32, 2.08 ms) and
+   ``torch.autograd.grad`` through ``scaled_dot_product_attention(
+   enable_gqa=True)``; then yi-6b at published widths, 4 of its 32
+   layers, float32, batch 4 x 2048: a step with K5 against the same step
+   with ``_grouped_attention`` on the card on the batch's first sequence
+   (loss rtol 1e-5, gradients 1e-4 of each leaf's largest |plain|), then,
+   counts at 0, 3 SGD steps (``make_train_step`` over ``functional_call``
+   of the LM module) and one Adam step (``optim.adam``), K5 and its
+   backward exactly 4 launches each a step, the losses finite; the step's
+   seconds (median of the last 2) and ``max_memory_allocated``; then the
+   ``transformer_lm`` leg of ``examples/model_zoo_fl.py`` (N = 40, 10
+   rounds, ``cuda_fused``) on the card, its draws recorded, and on the
+   CPU from the same draws and weights: K2 once a round, K5's forward and
+   backward once per layer a local step inside ``vmap(grad)`` (and the
+   forward once per layer an evaluation), the selections equal but at
+   lanes within 1e-6 of q, the final accuracy within 10 of the 6,400 test
+   tokens; and ``ops.ssd`` raising ``NotImplementedError`` on the card
+   under grad (K4 has no backward yet).
 
 TF32 is off for every product and convolution in every phase.
 
 Prints the service's, telemetry's, FEMNIST's, the scenarios', Mamba's,
-yi's, the zoo's and the MoE zoo's JSON lines, the card line, one
-JSON line of the kernels (``{"kernels": [...]}``), then, last,
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+yi's, the zoo's, the MoE zoo's and training's JSON lines, the card line,
+one JSON line of the kernels (``{"kernels": [...]}``, K5's backward a row
+of its own), then, last, ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -247,6 +277,7 @@ import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1040,14 +1071,16 @@ def scenarios_path(torch, cifar, femnist):
 def counters():
     from repro_torch.kernels.decision_fused import (decision_fused,
                                                     decision_fused_batched)
-    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.scheduler_solve import scheduler_solve
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"scheduler_solve": scheduler_solve,
             "decision_fused": decision_fused,
             "decision_fused_batched": decision_fused_batched,
             "ssd_scan": ssd_scan,
-            "flash_attention_bhsd": flash_attention_bhsd}
+            "flash_attention_bhsd": flash_attention_bhsd,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def reset_counts():
@@ -3499,6 +3532,524 @@ MOE_ZOO = (
      LMShape(1, 1024, 1000, 16, 1024, 16)))
 
 
+# --------------------------------------------------------------------------
+# Phase 15: training on the card, K5's backward kernel.
+# --------------------------------------------------------------------------
+
+# (call, BH, Sq, Sk, D, causal, kv_group, window) of the K5-backward
+# checks: yi-6b's causal GQA, minicpm-2b's D = 64, mixtral-8x22b's window
+# of 4,096 (BH cut to 12, so the plain version's (BH, 8192, 8192) blocks
+# stay ~3 GB), llama-3.2-vision-11b's non-causal ragged cross shape, and
+# transformer_lm's D = 16 padded to 32 (the FL leg's 6 participants x 8
+# sequences x 2 heads of 16 tokens, scale 16^-0.5)
+FLASH_BWD_SHAPES = (
+    ("yi-6b self", 128, 2048, 2048, 128, True, 8, None),
+    ("minicpm-2b self", 144, 2048, 2048, 64, True, 1, None),
+    ("mixtral-8x22b self", 12, 8192, 8192, 128, True, 6, 4096),
+    ("llama-3.2-vision-11b cross", 128, 2048, 1601, 128, False, 4, None),
+    ("transformer_lm (D 16 padded)", 96, 16, 16, 32, True, 1, None))
+# of each gradient's largest |plain| entry, float32: the kernel's float32
+# FMAs sum in another order than the plain version's cuBLAS products
+FLASH_BWD_TOL = 1e-4
+# the expanded KV call's dK and dV, summed back per group, against the
+# grouped call (which sums the group's heads inside its loop), of the
+# largest |entry|: the same products in another order of the group sum
+# (6.4e-6 at yi's kv_group 8 on an H100)
+FLASH_BWD_GROUP_TOL = 3e-5
+TRAIN_LAYERS, TRAIN_SGD_STEPS, TRAIN_GAMMA = 4, 3, 1e-3
+# a step with K5 against the same step with _grouped_attention on the
+# card, on the batch's first sequence (the plain path's autograd holds
+# (4, 32, 2048, 2048) float32 scores a layer: at the full batch of 4 it
+# does not fit beside the model): the loss rtol, and each gradient leaf's
+# max |d| over its largest |plain| entry
+# (1.2e-5 measured on an H100)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# the FL transformer_lm leg's final accuracy, card against CPU: 10 of the
+# 400 x 16 test tokens (an argmax near a tie can flip)
+FL_ACC_TOL = 10 / 6400
+# the FL transformer_lm leg against the CPU: the gradients of the engine's
+# m_cap participants (vmap(grad)) at the initial weights, and the global
+# params after the run's rounds; each leaf's max |d| over its largest
+# |CPU| entry
+FL_GRAD_TOL, FL_PARAM_TOL = 1e-4, 1e-4
+
+
+def flash_bwd_bound(bh, sq, sk, d, causal, window, itemsize, kv_group=1):
+    """Least time of one K5-backward call. Bytes: q, o, dO and dq (BH
+    heads) and k, v, dk, dv (BH / kv_group) read or written once.
+    Operations: per live (q, k) pair the five products of the gradient
+    (q k^T, dO V^T, P^T dO, dS K, dS^T q), 2 D each, in 3xTF32 at the TF32
+    rate, and its exp, subtract and product (P, dP - delta, P (dP -
+    delta)) on the CUDA cores; the bound is the largest of the three."""
+    from repro_torch.kernels.ref import flash_mask
+    live = int(flash_mask(sq, sk, causal, window, "cpu").sum())
+    n_bytes = itemsize * d * (4 * bh * sq + 4 * (bh // kv_group) * sk)
+    products = bh * live * 5 * 2 * d
+    elementwise = bh * live * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_tc = 3 * products / TF32_OPS_PER_S * 1e3
+    t_cuda = elementwise / F32_OPS_PER_S * 1e3
+    t = max(t_bytes, t_tc, t_cuda)
+    return dict(bound_ms=t,
+                bound_by="bytes" if t == t_bytes else "operations",
+                bound_detail=("bytes" if t == t_bytes else
+                              "tensor-core operations (3xTF32)"
+                              if t == t_tc else "CUDA-core operations"),
+                bytes=n_bytes, flops=products + elementwise,
+                f32_ms=max(t_bytes, (products + elementwise)
+                           / F32_OPS_PER_S * 1e3))
+
+
+def bwd_lanes(torch, bh, sq, sk, d, group, seed):
+    """q, k, v (as flash_gqa_lanes) and a standard normal dO."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    q, k, v = flash_gqa_lanes(torch, bh, sq, sk, d, group, seed)
+    return q, k, v, torch.randn(q.shape, device="cuda", generator=(
+        torch.Generator(device="cuda").manual_seed(seed + 1)))
+
+
+def check_flash_bwd(torch):
+    """K5-backward against its plain version at ``FLASH_BWD_SHAPES``, the
+    same bits with the masked tiles run, and the grouped call against the
+    call on the expanded KV summed back per group. Returns the largest
+    |d| over the checks."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    err = 0.0
+    for call, bh, sq, sk, d, causal, group, window in FLASH_BWD_SHAPES:
+        q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, sq + sk + d)
+        kw = dict(causal=causal, window=window, kv_group=group)
+        if "padded" in call:
+            # D = 16 padded with zero columns, as ops.flash_attention runs it
+            for t in (q, k, v, do):
+                t[..., 16:] = 0.0
+            kw["scale"] = 16 ** -0.5
+        with torch.no_grad():
+            o = flash_attention_bhsd(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, o, do, **kw)
+        every = flash_attention_bwd(q, k, v, o, do, skip_tiles=False, **kw)
+        want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        tag = (f"flash_attention_bwd {(bh, sq, sk, d)} causal={causal} "
+               f"window={window} kv_group={group} ({call})")
+        rels = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            diff = float((g - w).abs().max())
+            rels.append(diff / float(w.abs().max()))
+            err = max(err, diff)
+            if not (torch.isfinite(g).all() and rels[-1] <= FLASH_BWD_TOL):
+                raise AssertionError(f"{tag}: {name} off its plain version "
+                                     f"by {rels[-1]:.3g} of max |plain|")
+        if not all(torch.equal(a, b) for a, b in zip(got, every)):
+            raise AssertionError(f"{tag}: running the masked tiles changed "
+                                 "the result")
+        group_rel = 0.0
+        if group > 1:
+            kw_e = dict(kw, kv_group=1)
+            dq, dk, dv = flash_attention_bwd(
+                q, k.repeat_interleave(group, 0),
+                v.repeat_interleave(group, 0), o, do, **kw_e)
+            if not torch.equal(dq, got[0]):
+                raise AssertionError(f"{tag}: dq differs on the expanded KV")
+            for g, e in ((got[1], dk), (got[2], dv)):
+                e = e.unflatten(0, (-1, group)).sum(1)
+                group_rel = max(group_rel, float((g - e).abs().max())
+                                / float(e.abs().max()))
+            if group_rel > FLASH_BWD_GROUP_TOL:
+                raise AssertionError(f"{tag}: dk / dv off the expanded call "
+                                     f"summed per group by {group_rel:.3g}")
+            del dq, dk, dv
+        print(f"{tag} agrees with its plain version (dq, dk, dv max |d| / "
+              f"max |plain|: {', '.join(f'{r:.3g}' for r in rels)}); "
+              "running the masked tiles gives the same bits"
+              + (f"; the expanded call: dq bit-equal, dk / dv summed per "
+                 f"group within {group_rel:.3g}" if group > 1 else ""),
+              flush=True)
+        del q, k, v, do, o, got, every, want
+        torch.cuda.empty_cache()
+    return err
+
+
+def time_flash_bwd(torch):
+    """K5-backward at yi-6b's shape (q (128, 2048, 128) on 16 KV heads,
+    causal): device ms, its plain version's, and the library's:
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention(
+    enable_gqa=True)`` (the yardstick; the port never calls it), each by
+    CUDA events, beside the bound."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    call, bh, sq, sk, d, causal, group, _ = FLASH_BWD_SHAPES[0]
+    q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, 6)
+    with torch.no_grad():
+        o = flash_attention_bhsd(q, k, v, causal=causal, kv_group=group)
+    b = LM_BATCH
+    ql, kl, vl = (t.view(b, -1, t.shape[1], d).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=causal, enable_gqa=True)
+    dol = do.view(out.shape)
+
+    def library():
+        return torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True)
+
+    lib_dq = library()[0].reshape(bh, sq, d)
+    kernel_dq = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                    kv_group=group)[0]
+    row = dict(call=call, shape=[bh, sq, sk, d], kv_heads=bh // group,
+               causal=causal,
+               ms=time_device(torch, lambda: flash_attention_bwd(
+                   q, k, v, o, do, causal=causal, kv_group=group), False),
+               plain_ms=time_device(torch, lambda: flash_attention_bwd_ref(
+                   q, k, v, o, do, causal=causal, kv_group=group), False,
+                   iters=5),
+               library_ms=time_device(torch, library, False),
+               library_dq_max_abs_diff=float((lib_dq - kernel_dq).abs()
+                                             .max()),
+               **flash_bwd_bound(bh, sq, sk, d, causal, None, 4, group))
+    print(f"flash_attention_bwd at {row['shape']} ({call}) on "
+          f"{row['kv_heads']} KV heads, causal: {row['ms']:.3f} ms device, "
+          f"plain {row['plain_ms']:.3f} ms, autograd through "
+          f"scaled_dot_product_attention {row['library_ms']:.3f} ms (dq max "
+          f"|d| {row['library_dq_max_abs_diff']:.3g}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
+          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
+          f"all float32 on the CUDA cores {row['f32_ms']:.4f} ms)",
+          flush=True)
+    return row
+
+
+def train_yi(torch):
+    """yi-6b at published widths, its first ``TRAIN_LAYERS`` of 32 layers,
+    float32, at batch 4 x 2048 (phase 9's shape): a step's loss and
+    gradients with K5 against the same with ``_grouped_attention`` on the
+    card, on the batch's first sequence; then, counts at 0,
+    ``TRAIN_SGD_STEPS`` SGD steps
+    (``make_train_step`` over ``functional_call`` of the LM module) and one
+    Adam step (``optim.adam``), K5 and its backward launching once per
+    layer a step. Returns the launches and a summary."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.fl.round import make_train_step
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens, labels = make_token_stream(
+        torch.Generator(device="cuda").manual_seed(1), LM_BATCH, LM_SEQ,
+        cfg.vocab_size)
+    batch = M.Batch(tokens=tokens, labels=labels)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    n_params = sum(p.numel() for p in params.values())
+    torch.cuda.synchronize()
+    print(f"yi-6b train: {n_params} parameters ({TRAIN_LAYERS} layers, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def loss_fn(p, b):
+        return torch.func.functional_call(model, p, (b, cfg))
+
+    per_layer = launch_counts(flash_attention_bhsd=TRAIN_LAYERS,
+                              flash_attention_bwd=TRAIN_LAYERS)
+    first = M.Batch(tokens=tokens[:1], labels=labels[:1])
+    reset_counts()
+    grads, loss = torch.func.grad_and_value(loss_fn)(params, first)
+    if read_counts() != per_layer:
+        raise AssertionError(f"yi-6b train: a step launched {read_counts()},"
+                             f" want {per_layer}")
+    # the same step with the plain grouped attention (the check only)
+    flash = attn._flash_attention
+    attn._flash_attention = attn._grouped_attention
+    try:
+        plain_grads, plain_loss = torch.func.grad_and_value(loss_fn)(
+            params, first)
+    finally:
+        attn._flash_attention = flash
+    loss_rel = abs(float(loss) / float(plain_loss) - 1.0)
+    grad_rel = max(float((grads[k] - g).abs().max()) / float(g.abs().max())
+                   for k, g in plain_grads.items())
+    print(f"yi-6b train: a step on 1 x {LM_SEQ} with K5 against the plain "
+          f"grouped attention: loss {float(loss):.7f} / "
+          f"{float(plain_loss):.7f} (rel "
+          f"{loss_rel:.3g}), gradients max |d| / max |plain| {grad_rel:.3g}",
+          flush=True)
+    if not (math.isfinite(float(loss)) and loss_rel <= TRAIN_LOSS_TOL
+            and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"yi-6b train: K5's step off the plain step "
+                             f"(loss {loss_rel:.3g}, gradients "
+                             f"{grad_rel:.3g})")
+    del grads, plain_grads
+    torch.cuda.empty_cache()
+
+    # the main path: SGD steps, then an Adam step, counts from 0
+    step = make_train_step(loss_fn, TRAIN_GAMMA)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, secs = [], []
+    for _ in range(TRAIN_SGD_STEPS):
+        before = read_counts()
+        t = time.perf_counter()
+        params, loss = step(params, batch)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t)
+        after = read_counts()
+        if {k: after[k] - before[k] for k in after} != per_layer:
+            raise AssertionError(f"yi-6b train: SGD step launched "
+                                 f"{after} - {before}, want {per_layer}")
+    sgd_peak = torch.cuda.max_memory_allocated()
+    init, update = optim.adam()
+    state = init(params)
+    before = read_counts()
+    t = time.perf_counter()
+    grads, loss = torch.func.grad_and_value(loss_fn)(params, batch)
+    params, state = update(grads, state, params, TRAIN_GAMMA)
+    adam_loss = float(loss)
+    adam_s = time.perf_counter() - t
+    launches = read_counts()
+    if {k: launches[k] - before[k] for k in launches} != per_layer:
+        raise AssertionError(f"yi-6b train: the Adam step launched "
+                             f"{launches} - {before}, want {per_layer}")
+    if not (all(math.isfinite(x) for x in losses + [adam_loss])
+            and int(state.step) == 1
+            and all(bool(torch.isfinite(p).all()) for p in params.values())):
+        raise AssertionError(f"yi-6b train: losses {losses}, Adam "
+                             f"{adam_loss}")
+    summary = dict(layers=TRAIN_LAYERS, batch=[LM_BATCH, LM_SEQ],
+                   params=n_params, sgd_losses=losses, sgd_step_s=secs,
+                   step_s=statistics.median(secs[1:]),
+                   sgd_peak_bytes=sgd_peak, adam_loss=adam_loss,
+                   adam_step_s=adam_s,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   check=dict(loss_rel=loss_rel, grad_rel=grad_rel))
+    print(f"yi-6b train: SGD losses {losses}, step s {secs} (median of the "
+          f"last {len(secs) - 1}: {summary['step_s']:.3f}), peak "
+          f"{sgd_peak / 1e9:.2f} GB; Adam step {adam_s:.3f} s, loss "
+          f"{adam_loss:.6f}, peak {summary['peak_bytes'] / 1e9:.2f} GB; "
+          f"launches {launches}", flush=True)
+    del model, params, state, grads
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+class RecordedDraws:
+    """A draws source that records every draw it hands out (by method and
+    round), so the same draws can be replayed elsewhere."""
+
+    def __init__(self, draws):
+        self.draws, self.log = draws, {}
+
+    def __getattr__(self, name):
+        fn = getattr(self.draws, name)
+
+        def call(*args):
+            if (name, args) not in self.log:
+                self.log[(name, args)] = fn(*args)
+            return self.log[(name, args)]
+        return call
+
+
+class ReplayedDraws:
+    """A :class:`RecordedDraws` log moved to another device."""
+
+    def __init__(self, log, device):
+        def move(x):
+            if isinstance(x, (tuple, list)):
+                return type(x)(move(y) for y in x)
+            if isinstance(x, dict):
+                return {k: move(y) for k, y in x.items()}
+            return x.to(device) if hasattr(x, "to") else x
+        self.log = {k: move(v) for k, v in log.items()}
+
+    def __getattr__(self, name):
+        return lambda *args: self.log[(name, args)]
+
+
+def leaf_errors(card, cpu):
+    """Each leaf's max |card - CPU| over its largest |CPU| entry."""
+    return {k: float((card[k].cpu() - c).abs().max()) / float(c.abs().max())
+            for k, c in cpu.items()}
+
+
+def fl_lm_grads(torch, zoo, ds, params):
+    """The FL engine's participant gradient, vmap(grad(lm_loss)) over the
+    first ``m_cap`` clients' first batch at the initial weights, on the
+    card and on the CPU: one K5 forward and one backward launch per layer
+    for all participants (the vmap rules fold them into BH), each leaf
+    within ``FL_GRAD_TOL``. (The participants' updates y - x are not
+    compared: both sides round w - gamma g to float32, and a weight's ulp
+    is not small against a few steps' update at gamma 0.01.) Returns the
+    largest leaf error."""
+    from repro_torch.models.registry import make_model
+    m, b = zoo.BASE["m_cap"], zoo.BASE["batch"]
+    batch = (ds.client_images[:m, :b], ds.client_labels[:m, :b])
+    grad = torch.func.vmap(
+        torch.func.grad(make_model("transformer_lm", ds).loss_fn),
+        in_dims=(None, 0))
+    reset_counts()
+    card = grad(params, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = launch_counts(flash_attention_bhsd=2, flash_attention_bwd=2)
+    if launches != want:
+        raise AssertionError(f"FL transformer_lm vmap(grad): launches "
+                             f"{launches}, want {want}")
+    cpu = grad({k: p.cpu() for k, p in params.items()},
+               tuple(t.cpu() for t in batch))
+    errs = leaf_errors(card, cpu)
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= FL_GRAD_TOL:
+        raise AssertionError(f"FL transformer_lm vmap(grad) over {m} "
+                             f"participants: {worst} off by {errs[worst]} "
+                             f"of its largest |CPU| (> {FL_GRAD_TOL})")
+    print(f"FL transformer_lm: vmap(grad(lm_loss)) over {m} participants "
+          f"x {b} sequences on the card vs the CPU: each leaf's max |d| / "
+          f"max |CPU| <= {errs[worst]:.3g} ({worst}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return errs[worst]
+
+
+def fl_lm_final_params(torch, zoo, ds, host, log, params):
+    """The leg's rounds once more through the engine's chunk runner on the
+    card and on the CPU, from the recorded draws and the same initial
+    weights: the global params after the last round, each leaf within
+    ``FL_PARAM_TOL`` and moved from its start. Returns the largest leaf
+    error and the smallest move."""
+    from repro_torch.fl.engine import init_carry, make_chunk_runner
+    finals = []
+    for data, device, start in ((ds, "cuda", params),
+                                (host, "cpu", {k: p.cpu() for k, p in
+                                               params.items()})):
+        sim, scfg, ch, sig = zoo.configs("transformer_lm", (), device)
+        draws = ReplayedDraws(log, device)
+        run = make_chunk_runner(data, sim, scfg, ch, sig, draws)
+        carry, _, _ = run(init_carry(draws, start, scfg, sim, sig, ch),
+                          sim.rounds)
+        finals.append(carry[0])
+    errs = leaf_errors(*finals)
+    worst = max(errs, key=errs.get)
+    moved = min(float((p - params[k].cpu()).abs().max()) / float(
+        params[k].abs().max()) for k, p in finals[1].items())
+    if not (errs[worst] <= FL_PARAM_TOL and moved > 0):
+        raise AssertionError(f"FL transformer_lm final params: {worst} off "
+                             f"by {errs[worst]} of its largest |CPU| (> "
+                             f"{FL_PARAM_TOL}), smallest move {moved}")
+    print(f"FL transformer_lm: global params after {sim.rounds} rounds on "
+          f"the card vs the CPU: each leaf's max |d| / max |CPU| <= "
+          f"{errs[worst]:.3g} ({worst}); each leaf moved by at least "
+          f"{moved:.3g} of its largest initial |entry|", flush=True)
+    return errs[worst], moved
+
+
+def fl_lm_leg(torch):
+    """The ``transformer_lm`` leg of ``examples/model_zoo_fl.py`` (N = 40,
+    10 rounds, cuda_fused) on the card, its draws recorded, then on the
+    CPU from the same draws and weights: K2 once a round, K5's forward
+    and backward inside vmap(grad) (D = 16 padded to 32) once per layer a
+    local step and K5 once per layer an evaluation, the same selections
+    but at lanes within FLIP_GAP of q, the final accuracy within
+    ``FL_ACC_TOL``; then the participants' gradients and the final global
+    params against the CPU (:func:`fl_lm_grads`,
+    :func:`fl_lm_final_params`). Returns the launches and a summary."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import FederatedDataset
+    from repro_torch.examples import model_zoo_fl as zoo
+    from repro_torch.fl.engine import default_draws
+    _, ds = zoo.datasets(torch.device("cuda"))
+    sim, *_ = zoo.configs("transformer_lm", (), ds.device)
+    draws = RecordedDraws(default_draws(sim, ds))
+    reset_counts()
+    t = time.perf_counter()
+    hist, params = zoo.leg("transformer_lm", (), ds, draws=draws,
+                           keep_selection=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    launches = read_counts()
+    rounds, steps, layers = (zoo.BASE["rounds"], zoo.BASE["local_steps"], 2)
+    evals = len(hist["round"])
+    want = launch_counts(
+        decision_fused=rounds,
+        flash_attention_bhsd=layers * (rounds * steps + evals),
+        flash_attention_bwd=layers * rounds * steps)
+    if launches != want:
+        raise AssertionError(f"FL transformer_lm: launches {launches}, want "
+                             f"{want}")
+    host = FederatedDataset(*(t.cpu() for t in (
+        ds.client_images, ds.client_labels, ds.test_images,
+        ds.test_labels)), n_classes=ds.n_classes)
+    t = time.perf_counter()
+    cpu_hist, _ = zoo.leg("transformer_lm", (), host,
+                          draws=ReplayedDraws(draws.log, "cpu"),
+                          params={k: p.cpu() for k, p in params.items()},
+                          keep_selection=True)
+    cpu_s = time.perf_counter() - t
+    u = np.stack([draws.log[("selection_u", (r,))].cpu().numpy()
+                  for r in range(rounds)])
+    flips = same_selections("FL transformer_lm card vs CPU",
+                            hist["selected"], cpu_hist["selected"], u,
+                            hist["q"])
+    acc, cpu_acc = float(hist["test_acc"][-1]), float(cpu_hist["test_acc"][-1])
+    if not (abs(acc - cpu_acc) <= FL_ACC_TOL
+            and np.isfinite(hist["comm_time"]).all()):
+        raise AssertionError(f"FL transformer_lm: accuracy {acc} on the "
+                             f"card, {cpu_acc} on the CPU")
+    grad_err = fl_lm_grads(torch, zoo, ds, params)
+    param_err, moved = fl_lm_final_params(torch, zoo, ds, host, draws.log,
+                                          params)
+    summary = dict(rounds=rounds, card_s=card_s, cpu_s=cpu_s, flips=flips,
+                   vmap_grad_rel_err=grad_err, final_params_rel_err=param_err,
+                   final_params_min_move=moved,
+                   test_acc=hist["test_acc"].tolist(),
+                   cpu_test_acc=cpu_hist["test_acc"].tolist(),
+                   comm_time=float(hist["comm_time"][-1]),
+                   n_selected=hist["n_selected"].tolist())
+    print(f"FL transformer_lm: {rounds} rounds in {card_s:.2f} s on the card"
+          f" ({cpu_s:.2f} s on the CPU), launches {launches}; selections "
+          f"equal but {flips} lanes within {FLIP_GAP} of q; accuracy "
+          f"{hist['test_acc'].tolist()} (CPU {cpu_hist['test_acc'].tolist()})",
+          flush=True)
+    return launches, summary
+
+
+def ssd_refuses_grad(torch):
+    """ops.ssd on the card under grad raises NotImplementedError (K4 has
+    no backward yet) and runs under no_grad."""
+    from repro_torch.kernels import ops
+    x, dt, a, bm, cm = ssd_lanes(torch, 1, 128, 2, 32, 16, 3)
+    x.requires_grad_()
+    try:
+        ops.ssd(x, dt, a, bm, cm, chunk=32)
+    except NotImplementedError as e:
+        if "item 13" not in str(e):
+            raise AssertionError(f"ops.ssd under grad: {e}") from e
+    else:
+        raise AssertionError("ops.ssd ran under grad on the card")
+    with torch.no_grad():
+        ops.ssd(x, dt, a, bm, cm, chunk=32)
+    print("ops.ssd raises NotImplementedError on the card under grad "
+          "(ROADMAP §A item 13) and runs under no_grad", flush=True)
+
+
+def train_path(torch):
+    """Phase 15. Returns the K5-backward check's error, its timing row,
+    the launches by path and the summary."""
+    t0 = time.perf_counter()
+    err = check_flash_bwd(torch)
+    row = time_flash_bwd(torch)
+    torch.cuda.empty_cache()
+    yi_launches, yi = train_yi(torch)
+    fl_launches, fl = fl_lm_leg(torch)
+    ssd_refuses_grad(torch)
+    wall = time.perf_counter() - t0
+    print(f"phase 15 took {wall:.1f} s", flush=True)
+    return err, row, {"yi-6b train": yi_launches,
+                      "transformer_lm FL": fl_launches}, dict(
+        yi=yi, fl=fl, wall_s=wall)
+
+
 def main() -> int:
     try:
         import torch
@@ -3532,7 +4083,8 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers",
                                        "spill", "Performance Loss")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    for name in ("decision_fused", "ssd_scan", "flash_attention"):
+    for name in ("decision_fused", "ssd_scan", "flash_attention",
+                 "flash_attention_bwd"):
         check_no_spills(name, logs.get(name, ""))
 
     ch, scfg = CONFIG.channel(), CONFIG.scheduler(lam=10.0)
@@ -3582,9 +4134,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches, moe_zoo = zoo_path(torch, MOE_ZOO)
     jamba_ssd_time = time_ssd(torch, JAMBA_SSD)
+    torch.cuda.empty_cache()
+    err["flash_attention_bwd"], bwd_time, train_launches, train = (
+        train_path(torch))
+    by_path["transformer_lm FL"] = {
+        k: train_launches["transformer_lm FL"][k]
+        for k in ("scheduler_solve", "decision_fused")}
+    for name in ("scheduler_solve", "decision_fused"):
+        launches[name] = sum(p[name] for p in by_path.values())
     flash_by_path = {arch: c["flash_attention_bhsd"] for arch, c in (
         ("yi-6b", yi_launches), *zoo_launches.items(),
         *moe_launches.items())}
+    flash_by_path.update({path: dict(launches=c["flash_attention_bhsd"])
+                          for path, c in train_launches.items()})
+    bwd_by_path = {path: c["flash_attention_bwd"]
+                   for path, c in train_launches.items()}
     ssd_by_path = {"mamba2-130m": mamba_launches["ssd_scan"],
                    "jamba-v0.1-52b": moe_launches["jamba-v0.1-52b"][
                        "ssd_scan"]}
@@ -3640,6 +4204,15 @@ def main() -> int:
         "launches_per_decode": flash_by_path["yi-6b"]["per_decode"],
         "max_abs_err": err["flash_attention_bhsd"], **flash_time,
         "zoo_shapes": zoo_flash})
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "backward_of": "flash_attention_bhsd",
+        "launches": sum(bwd_by_path.values()),
+        "launches_by_path": bwd_by_path,
+        "launches_per_train_step": TRAIN_LAYERS,
+        "max_abs_err": err["flash_attention_bwd"], **bwd_time})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
     print(json.dumps({"telemetry": telemetry}), flush=True)
@@ -3649,6 +4222,7 @@ def main() -> int:
     print(json.dumps({"yi": yi}), flush=True)
     print(json.dumps({"zoo": zoo}), flush=True)
     print(json.dumps({"moe": moe_zoo}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

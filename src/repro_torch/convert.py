@@ -32,6 +32,12 @@ encoder layers, goes into ``encoder`` (its mixers bidirectional) with
 ``enc_norm``; ``embed.emb``, ``final_norm.g`` and an untied
 ``lm_head.w`` (a tied head has none) carry over unchanged. Dense weights
 are (in, out) in both packages.
+
+``transformer_lm_params_from_jax`` (the registry's small LM) takes the
+reference's ``init_lm`` tree (``emb``, the ``layers`` list of ``ln1`` /
+``attn`` / ``ln2`` / ``mlp`` dicts, ``lnf``), numpy leaves, and returns
+the port's flat dict (``models/transformer_lm.py``): ``emb.emb``,
+``layers.<i>.attn.wq.w`` and so on, every leaf unchanged.
 """
 
 from __future__ import annotations
@@ -129,3 +135,19 @@ def lm_params_from_jax(tree: dict, cfg, device="cuda") -> M.LM:
                            cfg.rmsnorm_eps)
     return M.LM(Embedding(_tensor(tree["embed"]["emb"], device)), layers,
                 final_norm, head, encoder, enc_norm)
+
+
+def transformer_lm_params_from_jax(tree: dict, device="cuda") -> dict:
+    """The reference's ``init_lm`` tree (numpy leaves) -> the port's flat
+    parameter dict, named as ``models/transformer_lm.py`` names it."""
+    out = {"emb.emb": tree["emb"]["emb"]}
+    for i, layer in enumerate(tree["layers"]):
+        out[f"layers.{i}.ln1.g"] = layer["ln1"]["g"]
+        for n in ("wq", "wk", "wv", "wo"):
+            out[f"layers.{i}.attn.{n}.w"] = layer["attn"][n]["w"]
+        out[f"layers.{i}.ln2.g"] = layer["ln2"]["g"]
+        for n in ("wi", "wg", "wo"):
+            out[f"layers.{i}.mlp.{n}.w"] = layer["mlp"][n]["w"]
+    out["lnf.g"] = tree["lnf"]["g"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in out.items()}

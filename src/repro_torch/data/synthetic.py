@@ -5,9 +5,11 @@ labels (N, per_client) (int64 here, PyTorch's index type), and a common
 test split; :func:`make_token_stream` makes an LM batch. Tensors live on
 the run's device. :func:`make_cifar10_like` is the paper's i.i.d.
 CIFAR-10 stand-in, :func:`make_femnist_like` its non-i.i.d. FEMNIST one
-(one writer per client). :func:`from_numpy` carries the reference's generated
-arrays across (parity tests); the makers draw their own on a
-``torch.Generator`` (standalone runs).
+(one writer per client), :func:`make_lm_federated` the token streams of
+``transformer_lm`` (int64 sequences in the images' place).
+:func:`from_numpy` carries the reference's generated arrays across
+(parity tests); the makers draw their own on a ``torch.Generator``
+(standalone runs).
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import torch
 class FederatedDataset:
     """Client-partitioned dataset with a common test split."""
 
-    client_images: torch.Tensor   # (N, per_client, H, W, C) float32
-    client_labels: torch.Tensor   # (N, per_client) int64
-    test_images: torch.Tensor     # (T, H, W, C) float32
-    test_labels: torch.Tensor     # (T,) int64
+    client_images: torch.Tensor   # (N, per_client, H, W, C) float32, or
+                                  # (N, per_client, S) int64 tokens
+    client_labels: torch.Tensor   # (N, per_client) int64, or (N,
+                                  # per_client, S) next tokens
+    test_images: torch.Tensor     # (T, H, W, C) float32, or (T, S) tokens
+    test_labels: torch.Tensor     # (T,) int64, or (T, S)
     n_classes: int
 
     @property
@@ -39,16 +43,20 @@ class FederatedDataset:
 
 def from_numpy(client_images, client_labels, test_images, test_labels,
                n_classes: int, device="cuda") -> FederatedDataset:
-    """A dataset from host arrays (e.g. the reference's), on ``device``."""
-    def f32(x):
-        return torch.from_numpy(np.array(x, np.float32)).to(device)
+    """A dataset from host arrays (e.g. the reference's), on ``device``:
+    float inputs as float32, integer inputs (token sequences) and the
+    labels as int64."""
+    def inputs(x):
+        x = np.asarray(x)
+        return (idx(x) if np.issubdtype(x.dtype, np.integer)
+                else torch.from_numpy(np.array(x, np.float32)).to(device))
 
     def idx(x):
         return torch.from_numpy(np.array(x, np.int64)).to(device)
 
-    return FederatedDataset(client_images=f32(client_images),
+    return FederatedDataset(client_images=inputs(client_images),
                             client_labels=idx(client_labels),
-                            test_images=f32(test_images),
+                            test_images=inputs(test_images),
                             test_labels=idx(test_labels),
                             n_classes=int(n_classes))
 
@@ -139,11 +147,36 @@ def gather_batches(ds: FederatedDataset, generator: torch.Generator,
     """Per-client local-step minibatches drawn on ``generator`` (on the
     dataset's device): images (N, steps, batch, H, W, C) and labels (N,
     steps, batch)."""
-    n, per_client = ds.client_labels.shape
+    n, per_client = ds.client_labels.shape[:2]
     idx = torch.randint(0, per_client, (n, steps, batch),
                         generator=generator, device=ds.device)
     rows = torch.arange(n, device=ds.device)[:, None, None]
     return ds.client_images[rows, idx], ds.client_labels[rows, idx]
+
+
+def make_lm_federated(generator: torch.Generator, n_clients: int = 40,
+                      per_client: int = 32, seq: int = 16, vocab: int = 32,
+                      n_test: int = 512, device="cuda") -> FederatedDataset:
+    """Federated token streams for ``model="transformer_lm"``: the image
+    datasets' container, ``client_images`` holding the (N, per_client, seq)
+    int64 token sequences and ``client_labels`` the next-token targets
+    (:func:`make_token_stream`'s roll convention, along the sequence).
+    Non-i.i.d. as :func:`make_femnist_like`: each client draws its tokens
+    from its own Dirichlet(0.3) unigram mix (normalised Gamma(0.3) draws);
+    the test split from the clients' mean mix. ``generator`` must live on
+    ``device``; the draws are the reference's recipe, not its numbers."""
+    mix = torch.softmax(_gamma(generator, 0.3, (n_clients, vocab), device),
+                        dim=-1)
+    tokens = torch.multinomial(mix, per_client * seq, replacement=True,
+                               generator=generator).reshape(
+                                   n_clients, per_client, seq)
+    test = torch.multinomial(mix.mean(0), n_test * seq, replacement=True,
+                             generator=generator).reshape(n_test, seq)
+    return FederatedDataset(client_images=tokens,
+                            client_labels=torch.roll(tokens, -1, dims=-1),
+                            test_images=test,
+                            test_labels=torch.roll(test, -1, dims=-1),
+                            n_classes=vocab)
 
 
 def make_token_stream(generator: torch.Generator, batch: int, seq: int,

@@ -11,6 +11,16 @@ kernel's contract). Unlike the TPU kernel it does not pad q or o: the
 kernel bounds-checks the ragged edge of Sq, and its prepare pass writes
 the split K and V^T into scratch padded with zero keys to a multiple of
 the 32-key tile.
+
+``flash_attention_bwd`` is its gradient: ``csrc/flash_attention_bwd.cu``
+(three device kernels, a port of its own: the TPU kernel has no backward)
+for CUDA tensors, :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`
+for CPU tensors. :class:`FlashAttention` ties the two into one
+``torch.autograd.Function`` (its backward is :class:`FlashAttentionBwd`),
+with ``vmap`` rules that fold a vmapped axis into BH, so ``torch.func.grad``
+and ``torch.func.vmap(torch.func.grad(...))`` run both kernels; the bare
+wrappers return tensors without a gradient and, on the card, raise when
+grad mode is on and an input requires one.
 """
 
 from __future__ import annotations
@@ -23,7 +33,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import (ptr, raise_on_error, stream_of,
                                          unsupported_device)
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref)
 
 # The shapes the kernel takes (csrc/flash_attention.cu): blocks of 128
 # query rows (two wgmma warpgroups of 64), 32-key stages, head dims of
@@ -32,6 +43,8 @@ HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_BLOCKS = (1 << 31) - 1  # the grid's x extent: BH x ceil(Sq / 128)
 BLOCK_ROWS, K_TILE = 128, 32
+# csrc/flash_attention_bwd.cu: 64 query rows or keys per block
+BWD_TILE = 64
 # A block's dynamic shared memory may not pass 227 KB.
 MAX_SMEM_BYTES = 232_448
 
@@ -107,6 +120,16 @@ def _check_args(q, k, v, window, kv_group):
                          f"window {window} a query row sees no key")
 
 
+def _no_grad_input(kernel: str, *tensors):
+    """Raise where grad mode is on and an input requires a gradient: the
+    kernel's output would carry none, and the gradient upstream would be
+    cut without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: an input requires a gradient, which "
+                           "the bare kernel would cut; differentiate "
+                           "through ops.flash_attention (FlashAttention)")
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous with its data on a 16-byte boundary (the kernel's
     vector loads)."""
@@ -147,6 +170,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    scale=scale, kv_group=kv_group)
     if q.device.type != "cuda":
         unsupported_device("flash_attention_bhsd", q.device)
+    _no_grad_input("flash_attention_bhsd", q, k, v)
     bh, sq, d = q.shape
     sk = k.shape[1]
     check_kernel_shape(bh, d, sq, sk, kv_group)
@@ -166,3 +190,149 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bhsd.launches = 0
+
+
+@functools.cache
+def _bwd_lib():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None, kv_group: int = 1,
+                        skip_tiles: bool = True):
+    """The gradients (dq, dk, dv) of :func:`flash_attention_bhsd` at (q, k,
+    v), given its output ``o`` and the output's gradient ``do`` (both
+    (BH, Sq, D) in q's type); the arguments as the forward's. dk and dv
+    hold BH / kv_group heads, each the sum over its query heads.
+
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (lse and delta,
+    then dK and dV, then dQ: three device kernels) on the current stream
+    and count one launch in ``flash_attention_bwd.launches``; CPU tensors
+    run :func:`flash_attention_bwd_ref`. ``skip_tiles=False`` runs the
+    tiles whose pairs are all masked (same result; for tests).
+    """
+    _check_args(q, k, v, window, kv_group)
+    for name, t in (("o", o), ("do", do)):
+        if t.dtype != q.dtype or t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"want q's {tuple(q.shape)} {q.dtype} on "
+                             f"{q.device}")
+    if scale is None:
+        scale = float(q.shape[2]) ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window, scale=scale,
+                                       kv_group=kv_group)
+    if q.device.type != "cuda":
+        unsupported_device("flash_attention_bwd", q.device)
+    _no_grad_input("flash_attention_bwd", q, k, v, o, do)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    check_kernel_shape(bh, d, sq, sk, kv_group)
+    if bh * -(-max(sq, sk) // BWD_TILE) > MAX_BLOCKS:
+        raise ValueError(f"flash_attention_bwd: BH {bh} x S {max(sq, sk)} "
+                         f"is over the grid's {MAX_BLOCKS} blocks of "
+                         f"{BWD_TILE}")
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, bh, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = _bwd_lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(dq),
+                          ptr(dk), ptr(dv), ptr(stats[0]), ptr(stats[1]), bh,
+                          kv_group, sq, sk, d,
+                          int(q.dtype == torch.bfloat16), int(causal),
+                          0 if window is None else int(window), scale,
+                          int(skip_tiles), stream_of(q.device))
+    raise_on_error("flash_attention_bwd", code)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _fold(info, in_dims, tensors):
+    """Each tensor with its vmapped axis (``in_dims``; None: expanded to
+    ``info.batch_size``) folded into its leading head axis: (m, n, S, D)
+    -> (m n, S, D), batch row-blocks first."""
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = (t.expand(info.batch_size, *t.shape) if dim is None
+             else t.movedim(dim, 0))
+        out.append(t.reshape(-1, *t.shape[2:]))
+    return out
+
+
+def _unfold(info, t):
+    return t.unflatten(0, (info.batch_size, -1))
+
+
+class FlashAttention(torch.autograd.Function):
+    """K5 with its gradient: ``FlashAttention.apply(q, k, v, causal,
+    window, scale, kv_group)`` is :func:`flash_attention_bhsd`,
+    and its backward :class:`FlashAttentionBwd` (the backward kernel on the
+    card, :func:`flash_attention_bwd_ref` on the CPU).
+
+    The ``vmap`` rule folds the vmapped axis into BH: q (m, BH, S, D) ->
+    (m BH, S, D), k and v (m, BH / g, S, D) -> (m BH / g, S, D), so
+    row-block m BH + bh still reads KV head m BH / g + bh // g, and one
+    launch serves the whole batch."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale, kv_group):
+        with torch.no_grad():
+            return flash_attention_bhsd(q, k, v, causal=causal,
+                                        window=window, scale=scale,
+                                        kv_group=kv_group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, *ctx.opts = inputs
+        ctx.save_for_backward(q, k, v, output)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBwd.apply(q, k, v, o, do, *ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, *opts):
+        q, k, v = _fold(info, in_dims[:3], (q, k, v))
+        return _unfold(info, FlashAttention.apply(q, k, v, *opts)), 0
+
+
+class FlashAttentionBwd(torch.autograd.Function):
+    """:func:`flash_attention_bwd` as a Function, so that the backward of
+    :class:`FlashAttention` runs batched under ``vmap(grad(...))`` through
+    its own ``vmap`` rule (the fold of :class:`FlashAttention`'s). It has
+    no gradient of its own."""
+
+    @staticmethod
+    def forward(q, k, v, o, do, causal, window, scale, kv_group):
+        with torch.no_grad():
+            return flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       window=window, scale=scale,
+                                       kv_group=kv_group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash attention has no second derivative "
+                                  "in the port")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, do, *opts):
+        q, k, v, o, do = _fold(info, in_dims[:5], (q, k, v, o, do))
+        grads = FlashAttentionBwd.apply(q, k, v, o, do, *opts)
+        return tuple(_unfold(info, g) for g in grads), (0, 0, 0)

@@ -10,6 +10,9 @@ and key positions both start at 0, the window is one-sided; the wrapper
 ``attention_ref`` is the reference's dense oracle, which places the
 queries at the end of the keys and makes a non-causal window two-sided:
 the two agree where Sq == Sk and a window comes with ``causal``.
+``flash_attention_bwd_ref`` is the gradient of ``flash_attention_ref``
+in the order of ``csrc/flash_attention_bwd.cu``, the function that
+kernel computes.
 
 ``ssd_chunked_ref`` is the function ``csrc/ssd_scan.cu`` computes, op for
 op in the order of the reference's Pallas kernel
@@ -101,6 +104,44 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     return (torch.bmm(p, v.float()) / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
+                            window=None, scale=None, kv_group: int = 1):
+    """The gradients (dq, dk, dv) of :func:`flash_attention_ref` at
+    (q, k, v), given its output ``o`` and the output's gradient ``do``, in
+    the backward kernel's op order (``csrc/flash_attention_bwd.cu``), float32
+    throughout: each row's lse = max + log(sum exp(s - max)) recomputed from
+    s = (q scale) k^T on the visible keys, delta = rowsum(do o), P =
+    exp(s - lse) (0 where masked), dV = P^T dO, dP = dO V^T, dS = P (dP -
+    delta), dQ = scale (dS K), dK = dS^T (q scale); dk and dv of KV head j
+    are the sums over its query heads j kv_group .. j kv_group + kv_group -
+    1. Returned in the inputs' types."""
+    bh, sq, d = q.shape
+    if scale is None:
+        scale = float(d) ** -0.5
+    kf, vf = k.float(), v.float()
+    if kv_group > 1:
+        kf = kf.repeat_interleave(kv_group, dim=0)
+        vf = vf.repeat_interleave(kv_group, dim=0)
+    qs = q.float() * scale
+    s = torch.bmm(qs, kf.transpose(1, 2))
+    mask = flash_mask(sq, k.shape[1], causal, window, q.device)[None]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    dv = torch.bmm(p.transpose(1, 2), dof)
+    dp = torch.bmm(dof, vf.transpose(1, 2))
+    ds = p * (dp - delta)
+    dq = scale * torch.bmm(ds, kf)
+    dk = torch.bmm(ds.transpose(1, 2), qs)
+    if kv_group > 1:
+        dk = dk.unflatten(0, (-1, kv_group)).sum(1)
+        dv = dv.unflatten(0, (-1, kv_group)).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssd_ref(x, dt, a, bm, cm, h0=None):

@@ -110,8 +110,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (b, H, N, P) with ``return_state``.
 
     CUDA tensors launch the kernel's four passes on the current stream (no
-    synchronisation) and count one launch in ``ssd_scan.launches``; CPU
-    tensors run the plain version.
+    synchronisation) and count one launch in ``ssd_scan.launches``; with
+    grad mode on and an input requiring a gradient they raise
+    ``NotImplementedError`` (the kernel has no backward yet, ROADMAP §A
+    item 13). CPU tensors run the plain version, which autograd
+    differentiates.
     """
     _check_args(x, dt, a, bm, cm, h0, chunk)
     if x.device.type == "cpu":
@@ -119,6 +122,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return (y, h_final) if return_state else y
     if x.device.type != "cuda":
         unsupported_device("ssd_scan", x.device)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, bm, cm, h0)):
+        raise NotImplementedError(
+            "ssd_scan: the SSD scan kernel (K4) has no backward kernel yet "
+            "(ROADMAP §A item 13), so Mamba layers do not train on the card")
     b, s, h, p = x.shape
     n = bm.shape[-1]
     check_kernel_shape(chunk, n, p)

@@ -1,1 +1,1 @@
-"""Entry points (twin of ``repro/launch``): ``serve``."""
+"""Entry points (twin of ``repro/launch``): ``serve`` and ``train``."""

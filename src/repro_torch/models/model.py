@@ -28,9 +28,16 @@ and ``decode_step`` (serving, one cache per layer: the Mamba state, a KV
 cache of ``cache_len`` slots, ``min(cache_len, sliding_window)`` with a
 window, or none for a cross-attention mixer; each request's cross
 K / V, of the media and of the encoder's output, computed once at
-prefill and carried in ``ServeState.cross_kv``). They run under
-``torch.inference_mode()``; training and gradients wait for a later
-slice. ``forward`` returns the MoE layers' load-balance losses summed,
+prefill and carried in ``ServeState.cross_kv``). ``forward`` and
+``loss_fn`` follow the caller's grad mode: they train, attention's
+gradient going through K5's backward kernel on the card
+(``kernels/flash_attention.py::FlashAttention``; a Mamba layer does not
+train on the card yet: ``ops.ssd`` raises there under grad, ROADMAP §A
+item 13). ``LM.forward`` is ``loss_fn``, so
+``torch.func.functional_call(lm, params, (batch, cfg))`` is the loss over
+a dict of parameters (``fl/round.py::make_train_step`` takes it).
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
+``forward`` returns the MoE layers' load-balance losses summed,
 and ``loss_fn`` adds them, as the reference's ``_apply_layer`` does;
 ``prefill`` and ``decode_step`` drop them. A layer outside
 ``PORTED_LAYERS`` (a cross-attention mixer with an MoE mlp, an attention
@@ -164,6 +171,11 @@ class LM(nn.Module):
         self.encoder = None if encoder is None else nn.ModuleList(encoder)
         self.enc_norm = enc_norm
 
+    def forward(self, batch: Batch, cfg: ModelConfig):
+        """:func:`loss_fn` of this module, the call that
+        ``torch.func.functional_call(lm, params, (batch, cfg))`` runs."""
+        return loss_fn(self, batch, cfg)
+
 
 # the names of the Mamba-only classes these replaced
 MambaLM, MambaLayer = LM, Layer
@@ -249,7 +261,6 @@ def logits_from_hidden(params: LM, x, cfg: ModelConfig):
     return params.lm_head(x)
 
 
-@torch.inference_mode()
 def forward(params: LM, batch: Batch, cfg: ModelConfig):
     """Full-sequence forward. Returns (logits, aux_loss): the MoE layers'
     load-balance losses summed in layer order, zero without MoE."""
@@ -265,7 +276,6 @@ def forward(params: LM, batch: Batch, cfg: ModelConfig):
     return logits_from_hidden(params, x, cfg), aux
 
 
-@torch.inference_mode()
 def loss_fn(params: LM, batch: Batch, cfg: ModelConfig):
     """Mean next-token cross-entropy (+ the router's aux loss, zero
     without MoE). fp32 softmax."""

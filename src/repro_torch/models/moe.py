@@ -102,15 +102,16 @@ def dispatch(r: Routing, cap: int, cfg: ModelConfig) -> Dispatch:
     pos_in_e = torch.arange(t * k, device=se.device) - starts[se]
     keep = pos_in_e < cap
     dest_sorted = torch.where(keep, se * cap + pos_in_e, e * cap)
-    dest = torch.empty_like(dest_sorted)
-    dest[order] = dest_sorted
+    # out-of-place scatters, so that a gradient reaches the router's
+    # weights through buf_w under torch.func.grad as under autograd
+    dest = torch.empty_like(dest_sorted).index_put((order,), dest_sorted)
     # every dropped pair lands on the overflow row, which is cut off
     buf_tok = torch.full((e * cap + 1,), t, dtype=torch.int64,
-                         device=se.device)
-    buf_tok[dest_sorted] = order // k
+                         device=se.device).index_put((dest_sorted,),
+                                                     order // k)
     buf_w = torch.zeros((e * cap + 1,), dtype=torch.float32,
-                        device=se.device)
-    buf_w[dest_sorted] = r.weights.reshape(-1)[order]
+                        device=se.device).index_put(
+        (dest_sorted,), r.weights.reshape(-1)[order])
     return Dispatch(dest, buf_tok[:-1], buf_w[:-1])
 
 

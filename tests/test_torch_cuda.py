@@ -43,7 +43,17 @@ with the CPU and gives the same bits run to run; K5 with mixtral's window
 of 4,096 over 8,192 tokens and K4 at jamba's N = 16 agree with their
 plain versions; the reduced MoE ids launch K5 (and jamba K4) per
 attention (Mamba) layer in forward and prefill, never in decode, and
-decode past mixtral's window reproduces the forward.
+decode past mixtral's window reproduces the forward. K5's backward
+kernel against its plain version at phase 15's shapes (reduced BH), 1e-4
+of each gradient's largest |plain| in float32 (2e-2 in bfloat16), the
+same bits with the masked tiles run and from run to run, and on the
+expanded KV heads (dq bit-equal; dk and dv summed back per group within
+3e-5 of their largest entry: the group's sum in another order); gradients through ``ops.flash_attention``
+(D = 16 padded) equal the CPU's; bare K5 and ``ops.ssd`` raise under grad
+instead of cutting it; a reduced train step of each attention and MoE id
+on the card equals the CPU's (loss rtol 1e-5, gradients 1e-4 of each
+leaf's largest |CPU|), launching K5's forward and backward once per
+attention call.
 """
 
 import dataclasses
@@ -848,3 +858,237 @@ def test_moe_ids_decode_past_the_window(cuda, monkeypatch, arch, flash,
         slots = [c for c in st.layers if c is not None and hasattr(c, "k")]
         assert all(int(c.slot_pos.max()) == 198 and c.k.shape[1] == 64
                    for c in slots)
+
+
+# ---------------------------------------------------------------- training
+
+# (BH, Sq, Sk, D, causal, window, kv_group): chip_smoke.py phase 15's
+# K5-backward shapes at a reduced BH: yi-6b's causal GQA, minicpm-2b's D =
+# 64, mixtral-8x22b's window of 4,096 over 8,192 tokens, llama-3.2-vision-
+# 11b's non-causal ragged cross-attention; plus short and ragged ones
+BWD_SHAPES = [(16, 2048, 2048, 128, True, None, 8),
+              (16, 2048, 2048, 64, True, None, 1),
+              (6, 8192, 8192, 128, True, 4096, 6),
+              (8, 2048, 1601, 128, False, None, 4),
+              (4, 100, 100, 32, True, None, 2),
+              (6, 100, 70, 64, False, 48, 3),
+              (3, 70, 150, 128, True, 40, 1)]
+BWD_TOL = 1e-4      # of max |plain| per gradient, float32
+
+
+def bwd_lanes(bh, sq, sk, d, group, device, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(dtype)
+            for s in ((bh, sq, d), (bh // group, sk, d), (bh // group, sk, d),
+                      (bh, sq, d))]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window,group", BWD_SHAPES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, bh, sq, sk, d,
+                                                  causal, window, group):
+    """K5's backward kernel against its plain version, the same bits with
+    the masked tiles run, from run to run, and on the expanded KV heads
+    summed back per group."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    q, k, v, do = bwd_lanes(bh, sq, sk, d, group, cuda, seed=sq + d)
+    kw = dict(causal=causal, window=window, kv_group=group)
+    o = flash_attention_bhsd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= BWD_TOL * float(w.abs().max())
+    for g, w in zip(flash_attention_bwd(q, k, v, o, do, skip_tiles=False,
+                                        **kw), got):
+        assert torch.equal(g, w)
+    for g, w in zip(flash_attention_bwd(q, k, v, o, do, **kw), got):
+        assert torch.equal(g, w)
+    if group > 1:
+        ke, ve = (t.repeat_interleave(group, 0) for t in (k, v))
+        dq, dk, dv = flash_attention_bwd(q, ke, ve, o, do, causal=causal,
+                                         window=window)
+        assert torch.equal(dq, got[0])
+        for e, g in ((dk, got[1]), (dv, got[2])):
+            e = e.unflatten(0, (-1, group)).sum(1)
+            assert float((e - g).abs().max()) <= 3e-5 * float(
+                e.abs().max())
+
+
+def test_flash_attention_bwd_bfloat16(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    q, k, v, do = bwd_lanes(4, 256, 256, 64, 2, cuda, torch.bfloat16)
+    o = flash_attention_bhsd(q, k, v, kv_group=2)
+    got = flash_attention_bwd(q, k, v, o, do, kv_group=2)
+    want = flash_attention_bwd_ref(q, k, v, o, do, kv_group=2)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert float((g.float() - w.float()).abs().max()) <= (
+            2e-2 * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("d,group", [(16, 2), (64, 1), (128, 4)])
+def test_ops_flash_attention_gradients_equal_the_cpus(cuda, d, group):
+    """Autograd through ``ops.flash_attention`` (K5 and its backward; D =
+    16 padded to 32) on the card against the same on the CPU."""
+    arrays = bwd_lanes(8, 96, 96, d, group, "cpu", seed=d)
+    grads = []
+    for device in ("cpu", cuda):
+        q, k, v = (t.to(device).requires_grad_() for t in arrays[:3])
+        o = kernel_ops.flash_attention(q, k, v, kv_group=group)
+        grads.append(torch.autograd.grad(o, (q, k, v),
+                                         arrays[3].to(device)))
+    for c, g in zip(*grads):
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * float(
+            c.abs().max())
+
+
+@pytest.mark.parametrize("d,group,kv_batched", [(16, 2, True),
+                                                 (64, 4, False)])
+def test_flash_attention_vmap_grad_equals_the_cpus(cuda, d, group,
+                                                   kv_batched):
+    """``vmap(grad(...))`` through ``ops.flash_attention`` over 6 rows: the
+    vmap rules fold the rows into BH (row-block m BH + bh reads KV head m
+    BH / g + bh // g; unbatched K and V expanded first), one forward and
+    one backward launch for all rows; the card's gradients against the
+    CPU's within 1e-4 of each one's largest |CPU| entry."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    rows = 6
+    q, k, v, do = bwd_lanes(rows * 8, 80, 80, d, group, "cpu", seed=d)
+    q, do = (t.unflatten(0, (rows, 8)) for t in (q, do))
+    if kv_batched:
+        k, v = (t.unflatten(0, (rows, 8 // group)) for t in (k, v))
+    else:
+        k, v = (t[:8 // group] for t in (k, v))
+
+    def loss(q, k, v, do):
+        return (kernel_ops.flash_attention(q, k, v, kv_group=group)
+                * do).sum()
+
+    grad = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)),
+                           in_dims=(0, 0 if kv_batched else None,
+                                    0 if kv_batched else None, 0))
+    out = []
+    for device in ("cpu", cuda):
+        flash_attention_bhsd.launches = flash_attention_bwd.launches = 0
+        out.append(grad(*(t.to(device) for t in (q, k, v, do))))
+        if device is cuda:
+            assert (flash_attention_bhsd.launches,
+                    flash_attention_bwd.launches) == (1, 1)
+    for c, g in zip(*out):
+        assert g.shape == c.shape
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * float(
+            c.abs().max())
+
+
+def test_lm_participant_gradients_on_the_card_equal_the_cpus(cuda):
+    """The FL engine's participant gradient, ``vmap(grad(lm_loss))`` of
+    the registry's ``transformer_lm`` over 6 participants: K5 and its
+    backward once per layer for all of them, and each leaf of the card's
+    gradients within 1e-4 of its largest |CPU| entry."""
+    from repro_torch.data.synthetic import make_lm_federated
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    host = make_lm_federated(torch.Generator().manual_seed(0), n_clients=6,
+                             per_client=8, seq=16, vocab=32, n_test=8,
+                             device="cpu")
+    spec = make_model("transformer_lm", host)
+    start = spec.init_fn(torch.Generator().manual_seed(1))
+    grad = torch.func.vmap(torch.func.grad(spec.loss_fn), in_dims=(None, 0))
+    out = []
+    for device in ("cpu", cuda):
+        flash_attention_bhsd.launches = flash_attention_bwd.launches = 0
+        out.append(grad({k: w.to(device) for k, w in start.items()},
+                        (host.client_images.to(device),
+                         host.client_labels.to(device))))
+        if device is cuda:
+            assert (flash_attention_bhsd.launches,
+                    flash_attention_bwd.launches) == (2, 2)
+    for name, c in out[0].items():
+        scale = float(c.abs().max())
+        assert scale > 0, name
+        assert float((out[1][name].cpu() - c).abs().max()) <= 1e-4 * scale, \
+            name
+
+
+def test_bare_kernels_refuse_to_cut_a_gradient(cuda):
+    """With grad mode on, a bare K5 call on an input that requires a
+    gradient raises, and so does ops.ssd (K4 has no backward yet, ROADMAP
+    §A item 13); under no_grad both run."""
+    q, k, v, _ = bwd_lanes(2, 64, 64, 64, 1, cuda)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="cut"):
+        flash_attention_bhsd(q, k, v)
+    with torch.no_grad():
+        flash_attention_bhsd(q, k, v)
+    x, dt, a, bm, cm = ssd_lanes(1, 128, 2, 32, 16, cuda)
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 13"):
+        kernel_ops.ssd(x, dt, a, bm, cm, chunk=32)
+    with torch.no_grad():
+        kernel_ops.ssd(x, dt, a, bm, cm, chunk=32)
+
+
+TRAIN_IDS = ["yi-6b", "chatglm3-6b", "minicpm-2b", "granite-20b",
+             "llama-3.2-vision-11b", "seamless-m4t-large-v2",
+             "mixtral-8x22b", "kimi-k2-1t-a32b"]
+
+
+def step_batch(cfg, device, b=2, s=16):
+    g = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    media = (torch.randn((b, cfg.n_media_tokens, cfg.d_model), generator=g)
+             if cfg.cross_attn_every else None)
+    frames = (torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g)
+              if cfg.is_encoder_decoder else None)
+    return M.Batch(tokens=tok.to(device), labels=tok.roll(-1, 1).to(device),
+                   media=None if media is None else media.to(device),
+                   frames=None if frames is None else frames.to(device))
+
+
+@pytest.mark.parametrize("arch", TRAIN_IDS)
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced train step (``functional_call`` of the LM module,
+    ``make_train_step``): the card's loss and gradients against the CPU's
+    on the same weights; K5 and its backward launch once per attention
+    call. Loss rtol 1e-5; gradients 1e-4 of each leaf's largest |CPU|."""
+    import copy
+
+    from repro_torch.fl.round import make_train_step
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    cfg = get_config(arch).reduced()
+    host = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    out = []
+    for model, device in ((host, "cpu"), (card, cuda)):
+        params = {k: p.detach() for k, p in model.named_parameters()}
+
+        def loss_fn(p, b, model=model):
+            return torch.func.functional_call(model, p, (b, cfg))
+
+        flash_attention_bhsd.launches = flash_attention_bwd.launches = 0
+        grads, loss = torch.func.grad_and_value(loss_fn)(
+            params, step_batch(cfg, device))
+        out.append((grads, loss, flash_attention_bhsd.launches,
+                    flash_attention_bwd.launches))
+        new, _ = make_train_step(loss_fn, 0.01)(params,
+                                                step_batch(cfg, device))
+        assert all(bool(torch.isfinite(w).all()) for w in new.values())
+    (cg, closs, _, _), (gg, gloss, fwd, bwd) = out
+    np.testing.assert_allclose(float(gloss), float(closs), rtol=1e-5)
+    assert fwd == bwd > 0
+    for name, c in cg.items():
+        scale = float(c.abs().max())
+        assert scale > 0, name
+        assert float((gg[name].cpu() - c).abs().max()) <= 1e-4 * scale, name
+
+
+def test_mamba_layers_do_not_train_on_the_card(cuda):
+    """jamba's Mamba layers reach ops.ssd, which raises under grad on the
+    card (ROADMAP §A item 13)."""
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    model = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    with pytest.raises(NotImplementedError, match="item 13"):
+        torch.func.grad(lambda p: torch.func.functional_call(
+            model, p, (step_batch(cfg, cuda), cfg)))(params)

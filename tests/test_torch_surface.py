@@ -26,15 +26,12 @@ REFERENCE = Path(__file__).resolve().parents[1] / "src" / "repro"
 
 # names of a reference __all__ the port does not have yet, by ROADMAP §A
 # item: 5 the legacy loop engine (left out on purpose), 8 multi-device,
-# 10 training (optim/), 11 launch planning (sharding/)
+# 11 launch planning (sharding/); item 10's optim/ is ported
 OPEN = {
     "repro_torch.fl": {"run_simulation_loop": 5,
                        "make_sharded_round_update": 8,
                        "make_schedule_runner": 8},
     "repro_torch.fl.simulation": {"run_simulation_loop": 5},
-    "repro_torch.optim": dict.fromkeys(
-        ["adam", "momentum", "sgd", "clip_by_global_norm", "OptState",
-         "constant_schedule", "wsd_schedule"], 10),
     "repro_torch.sharding": dict.fromkeys(
         ["batch_pspec", "param_pspecs", "ShardingMode",
          "serve_batch_pspec"], 11),
@@ -106,6 +103,28 @@ def test_item_12_exports():
                  "decision_fused_batched", "ssd_scan",
                  "flash_attention_bhsd"):
         assert callable(getattr(kernels, name)), name
+
+
+def test_item_10_training_surface():
+    """Item 10's training: optim (with get_schedule), the registry's
+    transformer_lm resolving on token data, make_lm_federated exported,
+    launch.train and distributed.main_print."""
+    from repro_torch import data, optim
+    from repro_torch.launch import distributed, train
+    from repro_torch.models.registry import MODELS, make_model
+    assert set(MODELS) == {"cnn", "mlp", "transformer_lm"}
+    ds = data.make_lm_federated(torch.Generator().manual_seed(0),
+                                n_clients=3, per_client=4, seq=8, vocab=16,
+                                n_test=4, device="cpu")
+    spec = make_model("transformer_lm", ds, n_layers=1)
+    assert spec.name == "transformer_lm"
+    assert set(spec.init_fn(torch.Generator().manual_seed(0))) == {
+        "emb.emb", "layers.0.ln1.g", "layers.0.attn.wq.w",
+        "layers.0.attn.wk.w", "layers.0.attn.wv.w", "layers.0.attn.wo.w",
+        "layers.0.ln2.g", "layers.0.mlp.wi.w", "layers.0.mlp.wg.w",
+        "layers.0.mlp.wo.w", "lnf.g"}
+    assert callable(optim.get_schedule) and callable(train.run_lm)
+    assert callable(train.run_fl) and callable(distributed.main_print)
 
 
 # ------------------------------------------------------------ make_solve_fn
