@@ -233,26 +233,37 @@ Phases; any failure exits non-zero before the result line is printed:
    (phase 3 checks K4 at jamba's forward and prefill shapes, and K5 at
    each id's forward and prefill calls, ``ZOO_FLASH``);
 15. training on the card (``train_path``): K5's backward kernel
-   (``csrc/flash_attention_bwd.cu``) against its plain version
-   (``flash_attention_bwd_ref``, on the card) at ``FLASH_BWD_SHAPES``:
-   yi-6b's (128, 2048, 128) causal ``kv_group`` 8, minicpm-2b's D = 64,
-   mixtral-8x22b's window of 4,096 at (12, 8192, 128) ``kv_group`` 6,
-   llama-3.2-vision-11b's non-causal ragged cross (2048 x 1,601)
-   ``kv_group`` 4 and transformer_lm's D = 16 padded to 32; dq, dk, dv
-   within 1e-4 of each one's largest |plain| entry, the same bits with
-   the masked tiles run, and the grouped call against the call on the
-   expanded KV (dq bit-equal, dk and dv summed back per group within
-   3e-5); its device ms at yi's shape beside its plain version's, the
-   bound (five products over the live pairs in 3xTF32, 2.08 ms) and
-   ``torch.autograd.grad`` through ``scaled_dot_product_attention(
-   enable_gqa=True)``; then yi-6b at published widths, 4 of its 32
-   layers, float32, batch 4 x 2048: a step with K5 against the same step
-   with ``_grouped_attention`` on the card on the batch's first sequence
-   (loss rtol 1e-5, gradients 1e-4 of each leaf's largest |plain|), then,
-   counts at 0, 3 SGD steps (``make_train_step`` over ``functional_call``
-   of the LM module) and one Adam step (``optim.adam``), K5 and its
-   backward exactly 4 launches each a step, the losses finite; the step's
-   seconds (median of the last 2) and ``max_memory_allocated``; then the
+   (``csrc/flash_attention_bwd.cu``: 3xTF32 ``wgmma`` fed by TMA, a
+   prepare pass, dK / dV and dQ, on the lse K5 writes) against its plain
+   version (``flash_attention_bwd_ref``, on the card) at
+   ``FLASH_BWD_SHAPES``: yi-6b's (128, 2048, 128) causal ``kv_group`` 8,
+   minicpm-2b's D = 64, mixtral-8x22b's window of 4,096 at (12, 8192,
+   128) ``kv_group`` 6, llama-3.2-vision-11b's non-causal ragged cross
+   (2048 x 1,601) ``kv_group`` 4 and transformer_lm's D = 16 padded to
+   32; dq, dk, dv within 1e-4 of each one's largest |plain| entry, the
+   same bits with the masked tiles run (lse from its own K5 run) and on a
+   rerun, and the grouped call against the call on the expanded KV (dq
+   bit-equal, dk and dv summed back per group within 3e-5); at each of
+   those calls its device ms beside its plain version's, the bound (five
+   products over the live pairs in 3xTF32; 2.08 ms at yi's) and
+   ``torch.autograd.grad`` through ``scaled_dot_product_attention``
+   (``enable_gqa=True``; mixtral's with the band as its boolean mask on
+   the memory-efficient backend), and, where
+   ``build/flash_attention_bwd_pr23.cu`` holds the PR-23 design
+   (``git show ba41782:src/repro_torch/kernels/csrc/flash_attention_bwd.cu``),
+   that kernel in turns with this one; then yi-6b at published widths, 4
+   of its 32 layers, float32, batch 4 x 2048: a step with K5 against the
+   same step with ``_grouped_attention`` on the card on the batch's first
+   sequence (loss rtol 1e-5, gradients 1e-4 of each leaf's largest
+   |plain|), then, counts at 0, 3 SGD steps (``make_train_step`` over
+   ``functional_call`` of the LM module) and one Adam step
+   (``optim.adam``), K5 and its backward exactly 4 launches each a step,
+   the losses finite; the step's seconds (median of the last 2) and
+   ``max_memory_allocated``; one more SGD step under ``torch.profiler``
+   (its launches not counted): device time by kernel, K5's and its
+   backward's shares, and the same step's device time with the PR-23
+   backward's time in place of this one's where that source is at hand;
+   then the
    ``transformer_lm`` leg of ``examples/model_zoo_fl.py`` (N = 40, 10
    rounds, ``cuda_fused``) on the card, its draws recorded, and on the
    CPU from the same draws and weights: K2 once a round, K5's forward and
@@ -1090,6 +1101,13 @@ def reset_counts():
 
 def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def set_counts(counts):
+    """Put the counts back as :func:`read_counts` read them (around a run
+    made to measure, not on a path)."""
+    for k, fn in counters().items():
+        fn.launches = counts[k]
 
 
 def launch_counts(**nonzero):
@@ -3548,8 +3566,9 @@ FLASH_BWD_SHAPES = (
     ("mixtral-8x22b self", 12, 8192, 8192, 128, True, 6, 4096),
     ("llama-3.2-vision-11b cross", 128, 2048, 1601, 128, False, 4, None),
     ("transformer_lm (D 16 padded)", 96, 16, 16, 32, True, 1, None))
-# of each gradient's largest |plain| entry, float32: the kernel's float32
-# FMAs sum in another order than the plain version's cuBLAS products
+# of each gradient's largest |plain| entry, float32: the kernel's 3xTF32
+# products (lo.lo dropped, ~2^-22) sum in another order than the plain
+# version's cuBLAS products (3.6e-6 at most on an H100)
 FLASH_BWD_TOL = 1e-4
 # the expanded KV call's dK and dV, summed back per group, against the
 # grouped call (which sums the group's heads inside its loop), of the
@@ -3626,9 +3645,12 @@ def check_flash_bwd(torch):
                 t[..., 16:] = 0.0
             kw["scale"] = 16 ** -0.5
         with torch.no_grad():
-            o = flash_attention_bhsd(q, k, v, **kw)
-        got = flash_attention_bwd(q, k, v, o, do, **kw)
+            o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+        # the main path's call (the forward's lse), then the bare one (its
+        # own K5 run for lse) with the masked tiles run, and a rerun
+        got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
         every = flash_attention_bwd(q, k, v, o, do, skip_tiles=False, **kw)
+        again = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
         want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
         torch.cuda.synchronize()
         tag = (f"flash_attention_bwd {(bh, sq, sk, d)} causal={causal} "
@@ -3644,6 +3666,8 @@ def check_flash_bwd(torch):
         if not all(torch.equal(a, b) for a, b in zip(got, every)):
             raise AssertionError(f"{tag}: running the masked tiles changed "
                                  "the result")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: a rerun changed the result")
         group_rel = 0.0
         if group > 1:
             kw_e = dict(kw, kv_group=1)
@@ -3662,62 +3686,175 @@ def check_flash_bwd(torch):
             del dq, dk, dv
         print(f"{tag} agrees with its plain version (dq, dk, dv max |d| / "
               f"max |plain|: {', '.join(f'{r:.3g}' for r in rels)}); "
-              "running the masked tiles gives the same bits"
+              "running the masked tiles and a rerun give the same bits"
               + (f"; the expanded call: dq bit-equal, dk / dv summed per "
                  f"group within {group_rel:.3g}" if group > 1 else ""),
               flush=True)
-        del q, k, v, do, o, got, every, want
+        del q, k, v, do, o, lse, got, every, again, want
         torch.cuda.empty_cache()
     return err
 
 
-def time_flash_bwd(torch):
-    """K5-backward at yi-6b's shape (q (128, 2048, 128) on 16 KV heads,
-    causal): device ms, its plain version's, and the library's:
-    ``torch.autograd.grad`` through ``scaled_dot_product_attention(
-    enable_gqa=True)`` (the yardstick; the port never calls it), each by
-    CUDA events, beside the bound."""
+def pr23_flash_bwd(torch):
+    """The PR-23 K5 backward (float32 FMAs on the CUDA cores, three
+    kernels, commit ba41782) from ``build/flash_attention_bwd_pr23.cu``,
+    as a function of (q, k, v, o, do, causal, window, scale, kv_group);
+    None when that file is absent."""
+    import ctypes
+    lib = earlier_kernel("flash_attention_bwd_pr23")
+    if lib is None:
+        return None
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v, o, do, causal, window, scale, kv_group):
+        bh, sq, d = q.shape
+        out = [torch.empty_like(t) for t in (q, k, v)]
+        stats = torch.empty((2, bh, sq), dtype=torch.float32, device="cuda")
+        code = fn(*(t.data_ptr() for t in (q, k, v, o, do, *out)),
+                  stats[0].data_ptr(), stats[1].data_ptr(), bh, kv_group,
+                  sq, k.shape[1], d, 0, int(causal),
+                  0 if window is None else window, scale, 1,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"PR-23 flash_attention_bwd: cudaError {code}")
+        return out
+    return call
+
+
+def flash_bwd_row(torch, call, bh, sq, sk, d, causal, group, window, old):
+    """K5-backward at one ``FLASH_BWD_SHAPES`` call as the main path runs
+    it (the forward's lse), float32: device ms, its plain version's, the
+    bound, and the library's: ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` (the yardstick; the port never calls
+    it) on (4, BH / 4, S, D) views, with ``enable_gqa=True`` and no
+    window, else the band (k <= q, k > q - window) as its boolean mask
+    over KV heads expanded outside the timing, on the memory-efficient
+    backend, as :func:`flash_row` times the forward; the PR-23 design
+    (``old``) in turns with this one where its source is at hand."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                      flash_attention_bwd)
-    from repro_torch.kernels.ref import flash_attention_bwd_ref
-    call, bh, sq, sk, d, causal, group, _ = FLASH_BWD_SHAPES[0]
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_mask
     q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, 6)
+    kw = dict(causal=causal, window=window, kv_group=group,
+              scale=d ** -0.5)
+    if "padded" in call:
+        for t in (q, k, v, do):
+            t[..., 16:] = 0.0
+        kw["scale"] = 16 ** -0.5
     with torch.no_grad():
-        o = flash_attention_bhsd(q, k, v, causal=causal, kv_group=group)
+        o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+
+    def kernel():
+        return flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+
     b = LM_BATCH
-    ql, kl, vl = (t.view(b, -1, t.shape[1], d).detach().requires_grad_()
-                  for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        ql, kl, vl, is_causal=causal, enable_gqa=True)
+    if window is None:
+        ql, kl, vl = (t.view(b, -1, t.shape[1], d).detach().requires_grad_()
+                      for t in (q, k, v))
+        with torch.enable_grad():
+            out = torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=causal, enable_gqa=True,
+                scale=kw["scale"])
+    else:
+        band = flash_mask(sq, sk, causal, window, "cuda")
+        ql, kl, vl = (t.view(b, -1, t.shape[1], d).detach().requires_grad_()
+                      for t in (q, k.repeat_interleave(group, 0),
+                                v.repeat_interleave(group, 0)))
+        with torch.enable_grad(), sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=band, scale=kw["scale"])
     dol = do.view(out.shape)
 
     def library():
         return torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True)
 
     lib_dq = library()[0].reshape(bh, sq, d)
-    kernel_dq = flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                    kv_group=group)[0]
+    new = kernel()
     row = dict(call=call, shape=[bh, sq, sk, d], kv_heads=bh // group,
-               causal=causal,
-               ms=time_device(torch, lambda: flash_attention_bwd(
-                   q, k, v, o, do, causal=causal, kv_group=group), False),
+               causal=causal, window=window,
+               ms=time_device(torch, kernel, False),
                plain_ms=time_device(torch, lambda: flash_attention_bwd_ref(
-                   q, k, v, o, do, causal=causal, kv_group=group), False,
-                   iters=5),
+                   q, k, v, o, do, **kw), False, iters=3),
                library_ms=time_device(torch, library, False),
-               library_dq_max_abs_diff=float((lib_dq - kernel_dq).abs()
-                                             .max()),
-               **flash_bwd_bound(bh, sq, sk, d, causal, None, 4, group))
+               library_dq_max_abs_diff=float((lib_dq - new[0]).abs().max()),
+               **flash_bwd_bound(bh, sq, sk, d, causal, window, 4, group))
+    if old is not None:
+        args = (q, k, v, o, do, causal, window, kw["scale"], group)
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(old(*args), new))
+        turns = [time_device(torch, lambda: old(*args), False, iters=5),
+                 time_device(torch, kernel, False),
+                 time_device(torch, kernel, False),
+                 time_device(torch, lambda: old(*args), False, iters=5)]
+        row["pr23_kernel"] = dict(ms=[turns[0], turns[3]], new_ms=turns[1:3],
+                                  max_abs_diff=diff)
     print(f"flash_attention_bwd at {row['shape']} ({call}) on "
-          f"{row['kv_heads']} KV heads, causal: {row['ms']:.3f} ms device, "
-          f"plain {row['plain_ms']:.3f} ms, autograd through "
-          f"scaled_dot_product_attention {row['library_ms']:.3f} ms (dq max "
-          f"|d| {row['library_dq_max_abs_diff']:.3g}), bound "
+          f"{row['kv_heads']} KV heads, causal={causal}, window={window}: "
+          f"{row['ms']:.3f} ms device, plain {row['plain_ms']:.3f} ms, "
+          f"autograd through scaled_dot_product_attention "
+          f"{row['library_ms']:.3f} ms (dq max |d| "
+          f"{row['library_dq_max_abs_diff']:.3g}), bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
           f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
-          f"all float32 on the CUDA cores {row['f32_ms']:.4f} ms)",
-          flush=True)
+          f"all float32 on the CUDA cores {row['f32_ms']:.4f} ms)"
+          + (f"; the PR-23 kernel {row['pr23_kernel']['ms']} ms against "
+             f"{row['pr23_kernel']['new_ms']} in turns (max |d| "
+             f"{row['pr23_kernel']['max_abs_diff']:.3g})"
+             if old is not None else ""), flush=True)
     return row
+
+
+def time_flash_bwd(torch):
+    """K5-backward at every ``FLASH_BWD_SHAPES`` call (:func:`flash_bwd_row`);
+    the first, yi-6b's, is the kernels line's row."""
+    old = pr23_flash_bwd(torch)
+    rows = []
+    for call, bh, sq, sk, d, causal, group, window in FLASH_BWD_SHAPES:
+        rows.append(flash_bwd_row(torch, call, bh, sq, sk, d, causal, group,
+                                  window, old))
+        torch.cuda.empty_cache()
+    return dict(rows[0], shapes=rows[1:])
+
+
+def profile_train_step(torch, step):
+    """One more SGD step under torch.profiler: wall ms, device ms by
+    kernel, the device's busy share, and the shares of K5 (its prepare
+    pass and attention kernel) and of its backward (prepare, dK / dV, dQ),
+    by their device kernels' symbols."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[0] for r in rows)
+    symbols = {"flash_attention_bhsd": ("flash_attention_kernel",
+                                        "flash_attention_prepare_kv"),
+               "flash_attention_bwd": ("flash_bwd_",),
+               "gemm": ("gemm", "Gemm")}
+    ours = {k: sum(r[0] for r in rows if any(x in r[2] for x in syms))
+            for k, syms in symbols.items()}
+    top = sorted(rows, reverse=True)[:12]
+    print(f"profile of a yi-6b SGD step: wall {wall_ms:.1f} ms, kernels "
+          f"{busy:.1f} ms ({busy / wall_ms:.1%} of wall), "
+          + ", ".join(f"{k} {ms:.2f} ms ({ms / max(busy, 1e-9):.1%})"
+                      for k, ms in ours.items())
+          + f", {sum(r[1] for r in rows)} device ops; top:", flush=True)
+    for ms, count, key in top:
+        print(f"  {ms:10.3f} ms {count:6d}x  {key[:100]}", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=busy, kernels_ms=ours,
+                device_ops=sum(r[1] for r in rows),
+                top=[[key[:80], ms, count] for ms, count, key in top])
 
 
 def train_yi(torch):
@@ -3800,6 +3937,12 @@ def train_yi(torch):
             raise AssertionError(f"yi-6b train: SGD step launched "
                                  f"{after} - {before}, want {per_layer}")
     sgd_peak = torch.cuda.max_memory_allocated()
+    # one more SGD step under the profiler (its launches not counted, its
+    # update dropped)
+    counts = read_counts()
+    profiled = profile_train_step(torch, lambda: step(params, batch))
+    set_counts(counts)
+    torch.cuda.empty_cache()
     init, update = optim.adam()
     state = init(params)
     before = read_counts()
@@ -3823,7 +3966,8 @@ def train_yi(torch):
                    sgd_peak_bytes=sgd_peak, adam_loss=adam_loss,
                    adam_step_s=adam_s,
                    peak_bytes=torch.cuda.max_memory_allocated(),
-                   check=dict(loss_rel=loss_rel, grad_rel=grad_rel))
+                   check=dict(loss_rel=loss_rel, grad_rel=grad_rel),
+                   profile=profiled)
     print(f"yi-6b train: SGD losses {losses}, step s {secs} (median of the "
           f"last {len(secs) - 1}: {summary['step_s']:.3f}), peak "
           f"{sgd_peak / 1e9:.2f} GB; Adam step {adam_s:.3f} s, loss "
@@ -4041,6 +4185,21 @@ def train_path(torch):
     row = time_flash_bwd(torch)
     torch.cuda.empty_cache()
     yi_launches, yi = train_yi(torch)
+    prof = yi["profile"]
+    bwd_ms = prof["kernels_ms"]["flash_attention_bwd"]
+    if "pr23_kernel" in row:
+        # the same step with the PR-23 backward: its kernel time at yi's
+        # shape in this run in place of the new kernel's profiled time
+        old_ms = TRAIN_LAYERS * statistics.mean(row["pr23_kernel"]["ms"])
+        prof["with_pr23_bwd"] = dict(
+            device_ms=prof["device_ms"] - bwd_ms + old_ms,
+            flash_attention_bwd_ms=old_ms)
+    print(f"yi-6b SGD step, device time: K5 "
+          f"{prof['kernels_ms']['flash_attention_bhsd']:.2f} ms, its "
+          f"backward {bwd_ms:.2f} ms of {prof['device_ms']:.1f} ms"
+          + (f"; with the PR-23 backward {old_ms:.2f} ms of "
+             f"{prof['with_pr23_bwd']['device_ms']:.1f} ms"
+             if "pr23_kernel" in row else ""), flush=True)
     fl_launches, fl = fl_lm_leg(torch)
     ssd_refuses_grad(torch)
     wall = time.perf_counter() - t0

@@ -17,8 +17,11 @@
 // tile, in the TPU kernel's order: s = (q scale) k^T; masked scores set to
 // -1e30, never -inf; m' = max(m, rowmax s); alpha = exp(m - m');
 // p = exp(s - m'); l = alpha l + rowsum p; acc = acc alpha + p v; at the
-// end o = acc / max(l, 1e-30), in q's type. Keys past Sk get p = 0 and
-// leave m, l and acc as they were. exp is 2^(x log2 e) on the
+// end o = acc / max(l, 1e-30), in q's type, and, when the caller passes
+// an lse array (kernels/flash_attention.py::FlashAttention does, for the
+// backward kernel csrc/flash_attention_bwd.cu), each row's m + log(l),
+// written after the loop (o's bits do not depend on it). Keys past Sk get
+// p = 0 and leave m, l and acc as they were. exp is 2^(x log2 e) on the
 // special-function unit (ex2.approx, ~2 ulp): expf's longer sequence sat
 // on the critical path of the softmax.
 //
@@ -532,9 +535,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_khi,
 // A consumer warpgroup: rows q0 + 64 w .. of head bh.
 template <int D, typename T>
 __device__ __forceinline__ void consume(const T* __restrict__ q,
-                                        T* __restrict__ o, int Sq, int Sk,
-                                        int kv_group, int causal, int window,
-                                        float scale, int skip) {
+                                        T* __restrict__ o,
+                                        float* __restrict__ lse, int Sq,
+                                        int Sk, int kv_group, int causal,
+                                        int window, float scale, int skip) {
   using L = Layout<D>;
   const Work wk = block_work(Sq, Sk, kv_group, causal, window, skip);
   const int bh = wk.bh, q0 = wk.q0, kt_begin = wk.kt_begin,
@@ -606,11 +610,14 @@ __device__ __forceinline__ void consume(const T* __restrict__ q,
   tile_step<D, false>(n_tiles - 1, kt_begin, st, qh, qlo, p, w, tile, acc, m,
                       l);
 
-  // acc[4 c + 2 i + e] is row row0 + 8 i, column 8 c + 2 t + e
+  // acc[4 c + 2 i + e] is row row0 + 8 i, column 8 c + 2 t + e; lse
+  // (when asked for) is the row's m + log(l), for the backward kernel
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = tile.row0 + 8 * i;
     if (r < Sq) {
+      if (lse != nullptr && t == 0)
+        lse[(int64_t)bh * Sq + r] = m[i] + logf(l[i]);
       const float den = fmaxf(l[i], 1e-30f);
       T* out = o + ((int64_t)bh * Sq + r) * D + 2 * t;
 #pragma unroll
@@ -628,8 +635,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const __grid_constant__ CUtensorMap tm_vthi,
                            const __grid_constant__ CUtensorMap tm_vtlo,
                            const T* __restrict__ q, T* __restrict__ o,
-                           int Sq, int Sk, int Skp, int kv_group, int causal,
-                           int window, float scale, int skip) {
+                           float* __restrict__ lse, int Sq, int Sk, int Skp,
+                           int kv_group, int causal, int window, float scale,
+                           int skip) {
   using L = Layout<D>;
   constexpr int kS = L::kStages;
   if (threadIdx.x == 0) {
@@ -653,60 +661,17 @@ __global__ void __launch_bounds__(kThreads, 1)
                  block_work(Sq, Sk, kv_group, causal, window, skip), Skp);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    consume<D, T>(q, o, Sq, Sk, kv_group, causal, window, scale, skip);
+    consume<D, T>(q, o, lse, Sq, Sk, kv_group, causal, window, scale,
+                  skip);
   }
 }
 
 // ------------------------------------------------------------------ host
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda; null when the driver has none.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D float32 map over (outer, inner) with boxes of (box_outer, 32) and
-// the 128-byte swizzle; 0 on success.
-int tensor_map(EncodeTiled encode, CUtensorMap* map, float* data,
-               uint64_t inner, uint64_t outer, uint32_t box_outer) {
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * sizeof(float)};
-  const cuuint32_t box[2] = {32, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, data, dims,
-                     strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     CU_TENSOR_MAP_SWIZZLE_128B,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-constexpr int kMapError = 10000;  // + the CUresult of a failed encode
-
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* work,
-           int bh, int kv_group, int sq, int sk, int causal, int window,
-           float scale, int skip, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           float* work, int bh, int kv_group, int sq, int sk, int causal,
+           int window, float scale, int skip, cudaStream_t stream) {
   const int bhkv = bh / kv_group;
   const int skp = (sk + kBk - 1) / kBk * kBk;
   const int64_t part = (int64_t)bhkv * skp * D;
@@ -736,25 +701,26 @@ int launch(const void* q, const void* k, const void* v, void* o, float* work,
   const int grid = bh * ((sq + kBlockRows - 1) / kBlockRows);
   kernel<<<grid, kThreads, Layout<D>::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const T*>(q),
-      static_cast<T*>(o), sq, sk, skp, kv_group, causal, window, scale, skip);
+      static_cast<T*>(o), lse, sq, sk, skp, kv_group, causal, window, scale,
+      skip);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o,
-             float* work, int bh, int kv_group, int sq, int sk, int d,
-             int causal, int window, float scale, int skip,
+             float* lse, float* work, int bh, int kv_group, int sq, int sk,
+             int d, int causal, int window, float scale, int skip,
              cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<32, T>(q, k, v, o, work, bh, kv_group, sq, sk, causal,
-                           window, scale, skip, stream);
+      return launch<32, T>(q, k, v, o, lse, work, bh, kv_group, sq, sk,
+                           causal, window, scale, skip, stream);
     case 64:
-      return launch<64, T>(q, k, v, o, work, bh, kv_group, sq, sk, causal,
-                           window, scale, skip, stream);
+      return launch<64, T>(q, k, v, o, lse, work, bh, kv_group, sq, sk,
+                           causal, window, scale, skip, stream);
     case 128:
-      return launch<128, T>(q, k, v, o, work, bh, kv_group, sq, sk, causal,
-                            window, scale, skip, stream);
+      return launch<128, T>(q, k, v, o, lse, work, bh, kv_group, sq, sk,
+                            causal, window, scale, skip, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -764,7 +730,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
 
 // q (bh, sq, d), k / v (bh / kv_group, sk, d), o (bh, sq, d): contiguous,
 // 16-byte aligned, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1) on
-// the device; work: 4 (bh / kv_group) ceil(sk / 32) 32 d float32 scratch;
+// the device; lse: null, or (bh, sq) float32 for each row's log-sum-exp
+// (the backward's statistics; o is the same either way); work: 4 (bh /
+// kv_group) ceil(sk / 32) 32 d float32 scratch;
 // d in {32, 64, 128}; bh divisible by kv_group; ceil(sq / 64) <= 65535;
 // window <= 0 for none; skip = 1 skips the tiles no row of a query tile
 // can see (kernels/flash_attention.py checks shapes, types and shared
@@ -773,14 +741,15 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
 // cudaGetLastError() (or the error of raising the shared memory limit, or
 // 10000 + the CUresult of a tensor map the driver refused).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* work,
-                                   int bh, int kv_group, int sq, int sk,
-                                   int d, int bf16, int causal, int window,
-                                   float scale, int skip, void* stream) {
+                                   const void* v, void* o, void* lse,
+                                   void* work, int bh, int kv_group, int sq,
+                                   int sk, int d, int bf16, int causal,
+                                   int window, float scale, int skip,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(work);
-  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, w, bh, kv_group, sq, sk,
-                                        d, causal, window, scale, skip, s)
-              : launch_d<float>(q, k, v, o, w, bh, kv_group, sq, sk, d,
+  float *w = static_cast<float*>(work), *l = static_cast<float*>(lse);
+  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, l, w, bh, kv_group, sq,
+                                        sk, d, causal, window, scale, skip, s)
+              : launch_d<float>(q, k, v, o, l, w, bh, kv_group, sq, sk, d,
                                 causal, window, scale, skip, s);
 }

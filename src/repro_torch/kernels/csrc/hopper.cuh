@@ -1,7 +1,9 @@
 // PTX helpers for Hopper (sm_90a) kernels written by hand: shared-memory
-// addresses, TF32 rounding, mbarriers, 2-D TMA loads, wgmma descriptors
-// and products with TF32 operands. Included by flash_attention.cu and
-// ssd_scan.cu; each builds into its own library.
+// addresses, TF32 rounding, mbarriers, named barriers, 2-D TMA loads and
+// their tensor maps, 1-D bulk copies, wgmma descriptors and products with
+// TF32 operands.
+// Included by flash_attention.cu, flash_attention_bwd.cu and ssd_scan.cu;
+// each builds into its own library.
 #pragma once
 
 #include <cuda.h>
@@ -60,6 +62,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// A 1-D bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -216,11 +229,104 @@ __device__ __forceinline__ void wgmma_rs32(float* d, const uint32_t* a,
         "n"(OB));
 }
 
+// D (64 x 64) += A (64 x 8, registers) B (64 x 8)^T, B through b + OB.
+template <int OB>
+__device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %37, 0;\nadd.s64 db, %36, %38;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(OB));
+}
+
+// Keeps registers read by an asynchronous product (its A fragments) live
+// until the product is waited for, so the compiler reuses none of them.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Named barrier ``id`` over ``n`` threads: wait for all of them, or
+// arrive without waiting (a producer's side of a hand-off).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Shared-memory stores made by this thread visible to wgmma and TMA (the
+// async proxy); a barrier over the writers follows.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // The 1024-byte aligned base of the dynamic shared memory (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes); the launch adds 1 KB for it.
 __device__ __forceinline__ uint32_t smem_base() {
   extern __shared__ uint8_t smem_raw[];
   return (smem_u32(smem_raw) + 1023) & ~1023u;
 }
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda; null when the driver has none.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D float32 map over (outer, inner) with boxes of (box_outer, 32) and
+// the 128-byte swizzle; 0 on success.
+inline int tensor_map(EncodeTiled encode, CUtensorMap* map, float* data,
+                      uint64_t inner, uint64_t outer, uint32_t box_outer) {
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * sizeof(float)};
+  const cuuint32_t box[2] = {32, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, data, dims,
+                     strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int kMapError = 10000;  // + the CUresult of a failed encode
 
 }  // namespace hopper

@@ -10,17 +10,22 @@ KV head, the grouping of ``repeat_interleave``; ``kv_group=1`` is the TPU
 kernel's contract). Unlike the TPU kernel it does not pad q or o: the
 kernel bounds-checks the ragged edge of Sq, and its prepare pass writes
 the split K and V^T into scratch padded with zero keys to a multiple of
-the 32-key tile.
+the 32-key tile. With ``return_lse=True`` it also returns each row's
+log-sum-exp (BH, Sq), the statistics of the backward.
 
 ``flash_attention_bwd`` is its gradient: ``csrc/flash_attention_bwd.cu``
-(three device kernels, a port of its own: the TPU kernel has no backward)
-for CUDA tensors, :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`
-for CPU tensors. :class:`FlashAttention` ties the two into one
-``torch.autograd.Function`` (its backward is :class:`FlashAttentionBwd`),
-with ``vmap`` rules that fold a vmapped axis into BH, so ``torch.func.grad``
-and ``torch.func.vmap(torch.func.grad(...))`` run both kernels; the bare
-wrappers return tensors without a gradient and, on the card, raise when
-grad mode is on and an input requires one.
+(3xTF32 ``wgmma`` fed by TMA, three device kernels: a prepare pass, dK /
+dV, dQ; a port of its own, the TPU kernel has no backward) for CUDA
+tensors, :func:`repro_torch.kernels.ref.flash_attention_bwd_ref` for CPU
+tensors. It takes the forward's lse; without one it runs K5 once more
+for it. :class:`FlashAttention` ties the two together
+(:class:`FlashAttentionWithLse`, a ``torch.autograd.Function`` whose
+forward has K5 write lse and whose backward is
+:class:`FlashAttentionBwd`), with ``vmap`` rules that fold a vmapped axis
+into BH, so ``torch.func.grad`` and ``torch.func.vmap(torch.func.grad(
+...))`` run both kernels; the bare wrappers return tensors without a
+gradient and, on the card, raise when grad mode is on and an input
+requires one.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._launch import (ptr, raise_on_error, stream_of,
                                          unsupported_device)
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
-                                     flash_attention_ref)
+                                     flash_attention_ref, flash_lse_ref)
 
 # The shapes the kernel takes (csrc/flash_attention.cu): blocks of 128
 # query rows (two wgmma warpgroups of 64), 32-key stages, head dims of
@@ -43,8 +48,10 @@ HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_BLOCKS = (1 << 31) - 1  # the grid's x extent: BH x ceil(Sq / 128)
 BLOCK_ROWS, K_TILE = 128, 32
-# csrc/flash_attention_bwd.cu: 64 query rows or keys per block
-BWD_TILE = 64
+# csrc/flash_attention_bwd.cu: 64 resident keys (dK / dV) or query rows
+# (dQ) a block, 32 streamed rows a step; its scratch pads each head's rows
+# to a multiple of 64
+BWD_TILE, BWD_STEP = 64, 32
 # A block's dynamic shared memory may not pass 227 KB.
 MAX_SMEM_BYTES = 232_448
 
@@ -59,6 +66,54 @@ def smem_bytes(d: int) -> int:
     stages = 2 if d == 128 else 4
     return (4 * BLOCK_ROWS * d + 2 * 4 * BLOCK_ROWS * K_TILE
             + stages * 4 * 4 * K_TILE * d + 4 * 8 * stages + 1024)
+
+
+def bwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block of either backward kernel
+    (csrc/flash_attention_bwd.cu ``Layout``): the two warpgroups'
+    resident lo tiles (64, D), per stage (2 at D = 128, else 4) the
+    streamed tiles X0 and X1 hi and lo (32, D) and its rows' lse and
+    delta, the P and dS exchange tiles hi and lo (64, 32), all float32;
+    two mbarriers per stage and 1 KB to align the base for the 128-byte
+    swizzle."""
+    stages = 2 if d == 128 else 4
+    return (2 * 4 * BWD_TILE * d + stages * (4 * 4 * BWD_STEP * d
+                                            + 2 * 4 * BWD_STEP + 16)
+            + 2 * 2 * 4 * BWD_TILE * BWD_STEP + 1024)
+
+
+def bwd_padded(n: int) -> int:
+    """Rows of a head in the backward's scratch: ``n`` rounded up to 64."""
+    return -(-n // BWD_TILE) * BWD_TILE
+
+
+def bwd_work_floats(bh: int, sq: int, sk: int, d: int, kv_group: int) -> int:
+    """The backward's float32 scratch: q scale and dO split into hi and lo
+    (BH padded query heads), K and V split (BH / kv_group padded key
+    heads), delta and lse (the padded rows')."""
+    qrows, krows = bh * bwd_padded(sq), bh // kv_group * bwd_padded(sk)
+    return 4 * (qrows + krows) * d + 2 * qrows
+
+
+def check_bwd_shape(bh: int, d: int, sq: int = 1, sk: int = 1,
+                    kv_group: int = 1):
+    """Raise for a (BH, D, Sq, Sk, kv_group) the backward kernels do not
+    take (beyond what K5, whose lse they read, does not take)."""
+    check_kernel_shape(bh, d, sq, sk, kv_group)
+    blocks = max(bh * -(-sq // BWD_TILE), bh // kv_group * -(-sk // BWD_TILE))
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"flash_attention_bwd: BH {bh} x S {max(sq, sk)} "
+                         f"is over the grid's {MAX_BLOCKS} blocks of "
+                         f"{BWD_TILE}")
+    # the tensor maps' row coordinates are 32-bit
+    if max(bh * bwd_padded(sq), bh // kv_group * bwd_padded(sk)) >= 1 << 31:
+        raise ValueError(f"flash_attention_bwd: BH {bh} x Sq {sq} or "
+                         f"{bh // kv_group} x Sk {sk} padded rows are over "
+                         f"the tensor maps' 2^31 rows")
+    need = bwd_smem_bytes(d)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"flash_attention_bwd: D = {d} needs {need} B of "
+                         f"shared memory per block, over {MAX_SMEM_BYTES}")
 
 
 def padded_keys(sk: int) -> int:
@@ -140,53 +195,70 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _lib():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int | None = None,
-                         scale: float | None = None, kv_group: int = 1,
-                         skip_tiles: bool = True) -> torch.Tensor:
-    """Attention over q (BH, Sq, D), k / v (BH / kv_group, Sk, D), float32
-    or bfloat16 (all one type), positions from 0 on both sides; query
-    row-block ``bh`` attends to KV head ``bh // kv_group``; ``window``
-    keeps keys ``k > q - window``; ``scale`` defaults to D^-0.5. Returns
-    (BH, Sq, D) in q's type.
-
-    CUDA tensors launch the kernel (its prepare pass, then the attention
-    kernel) on the current stream (no synchronisation) and count one
-    launch in ``flash_attention_bhsd.launches``; CPU tensors run the plain
-    version. ``skip_tiles=False`` makes the kernel run the key tiles that
-    no row of a query tile can see (same result; for tests).
-    """
-    _check_args(q, k, v, window, kv_group)
-    if scale is None:
-        scale = float(q.shape[2]) ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale, kv_group=kv_group)
-    if q.device.type != "cuda":
-        unsupported_device("flash_attention_bhsd", q.device)
-    _no_grad_input("flash_attention_bhsd", q, k, v)
+def _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles,
+                lse=None) -> torch.Tensor:
+    """K5 on checked, aligned CUDA tensors; each row's log-sum-exp into
+    ``lse`` (BH, Sq) float32 where given. Returns o."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    check_kernel_shape(bh, d, sq, sk, kv_group)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     # K_hi, K_lo, V^T_hi, V^T_lo of the unexpanded heads, zero-padded keys
     work = torch.empty(4 * k.shape[0] * padded_keys(sk) * d,
                        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        code = _lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(work), bh,
-                      kv_group, sq, sk, d, int(q.dtype == torch.bfloat16),
+        code = _lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(work),
+                      bh, kv_group, sq, sk, d, int(q.dtype == torch.bfloat16),
                       int(causal), 0 if window is None else int(window),
                       scale, int(skip_tiles), stream_of(q.device))
     raise_on_error("flash_attention_bhsd", code)
-    flash_attention_bhsd.launches += 1
     return o
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         scale: float | None = None, kv_group: int = 1,
+                         skip_tiles: bool = True, return_lse: bool = False):
+    """Attention over q (BH, Sq, D), k / v (BH / kv_group, Sk, D), float32
+    or bfloat16 (all one type), positions from 0 on both sides; query
+    row-block ``bh`` attends to KV head ``bh // kv_group``; ``window``
+    keeps keys ``k > q - window``; ``scale`` defaults to D^-0.5. Returns
+    (BH, Sq, D) in q's type; with ``return_lse``, also each row's
+    log-sum-exp of its scaled scores (BH, Sq) float32, which
+    :func:`flash_attention_bwd` takes (o is the same bits either way).
+
+    CUDA tensors launch the kernel (its prepare pass, then the attention
+    kernel) on the current stream (no synchronisation) and count one
+    launch in ``flash_attention_bhsd.launches``; CPU tensors run the plain
+    version (and :func:`repro_torch.kernels.ref.flash_lse_ref`).
+    ``skip_tiles=False`` makes the kernel run the key tiles that no row of
+    a query tile can see (same result; for tests).
+    """
+    _check_args(q, k, v, window, kv_group)
+    if scale is None:
+        scale = float(q.shape[2]) ** -0.5
+    if q.device.type == "cpu":
+        kw = dict(causal=causal, window=window, scale=scale,
+                  kv_group=kv_group)
+        o = flash_attention_ref(q, k, v, **kw)
+        return (o, flash_lse_ref(q, k, **kw)) if return_lse else o
+    if q.device.type != "cuda":
+        unsupported_device("flash_attention_bhsd", q.device)
+    _no_grad_input("flash_attention_bhsd", q, k, v)
+    bh, sq, d = q.shape
+    check_kernel_shape(bh, d, sq, k.shape[1], kv_group)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    o = _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles,
+                    lse)
+    flash_attention_bhsd.launches += 1
+    return (o, lse) if return_lse else o
 
 
 flash_attention_bhsd.launches = 0
@@ -205,17 +277,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         scale: float | None = None, kv_group: int = 1,
-                        skip_tiles: bool = True):
+                        skip_tiles: bool = True,
+                        lse: torch.Tensor | None = None):
     """The gradients (dq, dk, dv) of :func:`flash_attention_bhsd` at (q, k,
     v), given its output ``o`` and the output's gradient ``do`` (both
-    (BH, Sq, D) in q's type); the arguments as the forward's. dk and dv
-    hold BH / kv_group heads, each the sum over its query heads.
+    (BH, Sq, D) in q's type); the arguments as the forward's; ``lse``
+    (BH, Sq) float32 the forward's row statistics (``return_lse=True``).
+    dk and dv hold BH / kv_group heads, each the sum over its query heads.
 
-    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (lse and delta,
+    CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (a prepare pass,
     then dK and dV, then dQ: three device kernels) on the current stream
-    and count one launch in ``flash_attention_bwd.launches``; CPU tensors
-    run :func:`flash_attention_bwd_ref`. ``skip_tiles=False`` runs the
-    tiles whose pairs are all masked (same result; for tests).
+    and count one launch in ``flash_attention_bwd.launches``; without
+    ``lse`` it first runs K5 for it (not counted as a K5 launch). CPU
+    tensors run :func:`flash_attention_bwd_ref`. ``skip_tiles=False`` runs
+    the steps whose pairs are all masked (same result; for tests).
     """
     _check_args(q, k, v, window, kv_group)
     for name, t in (("o", o), ("do", do)):
@@ -224,32 +299,38 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}, "
                              f"want q's {tuple(q.shape)} {q.dtype} on "
                              f"{q.device}")
+    if lse is not None and (lse.dtype != torch.float32
+                            or lse.shape != q.shape[:2]
+                            or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}, want "
+                         f"{tuple(q.shape[:2])} float32 on {q.device}")
     if scale is None:
         scale = float(q.shape[2]) ** -0.5
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                        window=window, scale=scale,
-                                       kv_group=kv_group)
+                                       kv_group=kv_group, lse=lse)
     if q.device.type != "cuda":
         unsupported_device("flash_attention_bwd", q.device)
     _no_grad_input("flash_attention_bwd", q, k, v, o, do)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    check_kernel_shape(bh, d, sq, sk, kv_group)
-    if bh * -(-max(sq, sk) // BWD_TILE) > MAX_BLOCKS:
-        raise ValueError(f"flash_attention_bwd: BH {bh} x S {max(sq, sk)} "
-                         f"is over the grid's {MAX_BLOCKS} blocks of "
-                         f"{BWD_TILE}")
+    check_bwd_shape(bh, d, sq, sk, kv_group)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    if lse is None:
+        lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles, lse)
+    lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((2, bh, sq), dtype=torch.float32, device=q.device)
+    work = torch.empty(bwd_work_floats(bh, sq, sk, d, kv_group),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        code = _bwd_lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(dq),
-                          ptr(dk), ptr(dv), ptr(stats[0]), ptr(stats[1]), bh,
-                          kv_group, sq, sk, d,
-                          int(q.dtype == torch.bfloat16), int(causal),
-                          0 if window is None else int(window), scale,
-                          int(skip_tiles), stream_of(q.device))
+        code = _bwd_lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
+                          ptr(dq), ptr(dk), ptr(dv), ptr(work), bh, kv_group,
+                          sq, sk, d, int(q.dtype == torch.bfloat16),
+                          int(causal), 0 if window is None else int(window),
+                          scale, int(skip_tiles), stream_of(q.device))
     raise_on_error("flash_attention_bwd", code)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -274,11 +355,12 @@ def _unfold(info, t):
     return t.unflatten(0, (info.batch_size, -1))
 
 
-class FlashAttention(torch.autograd.Function):
-    """K5 with its gradient: ``FlashAttention.apply(q, k, v, causal,
-    window, scale, kv_group)`` is :func:`flash_attention_bhsd`,
-    and its backward :class:`FlashAttentionBwd` (the backward kernel on the
-    card, :func:`flash_attention_bwd_ref` on the CPU).
+class FlashAttentionWithLse(torch.autograd.Function):
+    """K5 with its gradient: ``apply(q, k, v, causal, window, scale,
+    kv_group)`` is :func:`flash_attention_bhsd` with ``return_lse=True``,
+    (o, lse), lse not differentiable; its backward is
+    :class:`FlashAttentionBwd` on the saved lse (the backward kernel on
+    the card, :func:`flash_attention_bwd_ref` on the CPU).
 
     The ``vmap`` rule folds the vmapped axis into BH: q (m, BH, S, D) ->
     (m BH, S, D), k and v (m, BH / g, S, D) -> (m BH / g, S, D), so
@@ -290,37 +372,51 @@ class FlashAttention(torch.autograd.Function):
         with torch.no_grad():
             return flash_attention_bhsd(q, k, v, causal=causal,
                                         window=window, scale=scale,
-                                        kv_group=kv_group)
+                                        kv_group=kv_group, return_lse=True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, *ctx.opts = inputs
-        ctx.save_for_backward(q, k, v, output)
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = FlashAttentionBwd.apply(q, k, v, o, do, *ctx.opts)
+    def backward(ctx, do, _):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBwd.apply(q, k, v, o, do, lse, *ctx.opts)
         return dq, dk, dv, None, None, None, None
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, *opts):
         q, k, v = _fold(info, in_dims[:3], (q, k, v))
-        return _unfold(info, FlashAttention.apply(q, k, v, *opts)), 0
+        o, lse = FlashAttentionWithLse.apply(q, k, v, *opts)
+        return (_unfold(info, o), _unfold(info, lse)), (0, 0)
+
+
+class FlashAttention:
+    """``FlashAttention.apply(q, k, v, causal, window, scale, kv_group)``:
+    the output o of :class:`FlashAttentionWithLse`, differentiable through
+    K5's backward kernel."""
+
+    @staticmethod
+    def apply(q, k, v, causal, window, scale, kv_group):
+        return FlashAttentionWithLse.apply(q, k, v, causal, window, scale,
+                                           kv_group)[0]
 
 
 class FlashAttentionBwd(torch.autograd.Function):
-    """:func:`flash_attention_bwd` as a Function, so that the backward of
-    :class:`FlashAttention` runs batched under ``vmap(grad(...))`` through
-    its own ``vmap`` rule (the fold of :class:`FlashAttention`'s). It has
-    no gradient of its own."""
+    """:func:`flash_attention_bwd` (given the forward's lse) as a
+    Function, so that the backward of :class:`FlashAttentionWithLse` runs
+    batched under ``vmap(grad(...))`` through its own ``vmap`` rule (the
+    same fold). It has no gradient of its own."""
 
     @staticmethod
-    def forward(q, k, v, o, do, causal, window, scale, kv_group):
+    def forward(q, k, v, o, do, lse, causal, window, scale, kv_group):
         with torch.no_grad():
             return flash_attention_bwd(q, k, v, o, do, causal=causal,
                                        window=window, scale=scale,
-                                       kv_group=kv_group)
+                                       kv_group=kv_group, lse=lse)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -332,7 +428,7 @@ class FlashAttentionBwd(torch.autograd.Function):
                                   "in the port")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, o, do, *opts):
-        q, k, v, o, do = _fold(info, in_dims[:5], (q, k, v, o, do))
-        grads = FlashAttentionBwd.apply(q, k, v, o, do, *opts)
+    def vmap(info, in_dims, q, k, v, o, do, lse, *opts):
+        q, k, v, o, do, lse = _fold(info, in_dims[:6], (q, k, v, o, do, lse))
+        grads = FlashAttentionBwd.apply(q, k, v, o, do, lse, *opts)
         return tuple(_unfold(info, g) for g in grads), (0, 0, 0)

@@ -11,8 +11,9 @@ and key positions both start at 0, the window is one-sided; the wrapper
 queries at the end of the keys and makes a non-causal window two-sided:
 the two agree where Sq == Sk and a window comes with ``causal``.
 ``flash_attention_bwd_ref`` is the gradient of ``flash_attention_ref``
-in the order of ``csrc/flash_attention_bwd.cu``, the function that
-kernel computes.
+by the recomputation ``csrc/flash_attention_bwd.cu`` runs (P from each
+row's lse, delta, dP, dS), the function that kernel computes;
+``flash_lse_ref`` is the per-row log-sum-exp K5 writes for it.
 
 ``ssd_chunked_ref`` is the function ``csrc/ssd_scan.cu`` computes, op for
 op in the order of the reference's Pallas kernel
@@ -106,30 +107,56 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     return (torch.bmm(p, v.float()) / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
+def _flash_scores(q, k, causal, window, scale, kv_group):
+    """q scale, the expanded k, and s = (q scale) k^T with masked scores
+    -1e30, all float32."""
+    kf = k.float()
+    if kv_group > 1:
+        kf = kf.repeat_interleave(kv_group, dim=0)
+    qs = q.float() * scale
+    s = torch.bmm(qs, kf.transpose(1, 2))
+    mask = flash_mask(q.shape[1], k.shape[1], causal, window, q.device)[None]
+    return qs, kf, torch.where(mask, s, NEG_INF), mask
+
+
+def _row_lse(s):
+    m = s.amax(dim=-1, keepdim=True)
+    return m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+
+
+def flash_lse_ref(q, k, *, causal: bool = True, window=None, scale=None,
+                  kv_group: int = 1):
+    """Each query row's log-sum-exp over its visible keys, (BH, Sq)
+    float32: max + log(sum exp(s - max)) of s = (q scale) k^T, what K5
+    writes beside o for the backward (``flash_attention_bhsd(...,
+    return_lse=True)``), computed as :func:`flash_attention_bwd_ref`
+    computes it."""
+    if scale is None:
+        scale = float(q.shape[2]) ** -0.5
+    _, _, s, _ = _flash_scores(q, k, causal, window, scale, kv_group)
+    return _row_lse(s)[..., 0]
+
+
 def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
-                            window=None, scale=None, kv_group: int = 1):
+                            window=None, scale=None, kv_group: int = 1,
+                            lse=None):
     """The gradients (dq, dk, dv) of :func:`flash_attention_ref` at
-    (q, k, v), given its output ``o`` and the output's gradient ``do``, in
-    the backward kernel's op order (``csrc/flash_attention_bwd.cu``), float32
-    throughout: each row's lse = max + log(sum exp(s - max)) recomputed from
-    s = (q scale) k^T on the visible keys, delta = rowsum(do o), P =
-    exp(s - lse) (0 where masked), dV = P^T dO, dP = dO V^T, dS = P (dP -
-    delta), dQ = scale (dS K), dK = dS^T (q scale); dk and dv of KV head j
-    are the sums over its query heads j kv_group .. j kv_group + kv_group -
-    1. Returned in the inputs' types."""
+    (q, k, v), given its output ``o`` and the output's gradient ``do``,
+    float32 throughout: each row's lse (the forward's, ``lse`` (BH, Sq),
+    where given, else max + log(sum exp(s - max)) recomputed from s =
+    (q scale) k^T on the visible keys, as :func:`flash_lse_ref`), delta =
+    rowsum(do o), P = exp(s - lse) (0 where masked), dV = P^T dO, dP =
+    dO V^T, dS = P (dP - delta), dQ = scale (dS K), dK = dS^T (q scale);
+    dk and dv of KV head j are the sums over its query heads j kv_group ..
+    j kv_group + kv_group - 1. Returned in the inputs' types."""
     bh, sq, d = q.shape
     if scale is None:
         scale = float(d) ** -0.5
-    kf, vf = k.float(), v.float()
+    qs, kf, s, mask = _flash_scores(q, k, causal, window, scale, kv_group)
+    vf = v.float()
     if kv_group > 1:
-        kf = kf.repeat_interleave(kv_group, dim=0)
         vf = vf.repeat_interleave(kv_group, dim=0)
-    qs = q.float() * scale
-    s = torch.bmm(qs, kf.transpose(1, 2))
-    mask = flash_mask(sq, k.shape[1], causal, window, q.device)[None]
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    lse = _row_lse(s) if lse is None else lse.float()[..., None]
     dof = do.float()
     delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - lse), 0.0)

@@ -865,14 +865,27 @@ def test_moe_ids_decode_past_the_window(cuda, monkeypatch, arch, flash,
 # (BH, Sq, Sk, D, causal, window, kv_group): chip_smoke.py phase 15's
 # K5-backward shapes at a reduced BH: yi-6b's causal GQA, minicpm-2b's D =
 # 64, mixtral-8x22b's window of 4,096 over 8,192 tokens, llama-3.2-vision-
-# 11b's non-causal ragged cross-attention; plus short and ragged ones
+# 11b's non-causal ragged cross-attention; plus short and ragged ones; and
+# the edges of the kernel's tiling (64 resident rows a block, 32 streamed
+# a step, heads padded to 64 rows): Sq 1 (non-causal, so the row sees 37
+# keys), 16 (the FL leg's), 65 and 2,000; Sk ragged against both tiles;
+# window rows whose first key tiles are all masked; D 32 with a window;
+# granite-20b's kv_group 48
 BWD_SHAPES = [(16, 2048, 2048, 128, True, None, 8),
               (16, 2048, 2048, 64, True, None, 1),
               (6, 8192, 8192, 128, True, 4096, 6),
               (8, 2048, 1601, 128, False, None, 4),
               (4, 100, 100, 32, True, None, 2),
               (6, 100, 70, 64, False, 48, 3),
-              (3, 70, 150, 128, True, 40, 1)]
+              (3, 70, 150, 128, True, 40, 1),
+              (4, 1, 37, 64, False, None, 2),
+              (96, 16, 16, 32, True, None, 1),
+              (4, 65, 65, 128, True, None, 2),
+              (8, 2000, 2000, 128, True, None, 4),
+              (4, 130, 97, 64, False, None, 1),
+              (2, 600, 600, 64, True, 100, 1),
+              (4, 200, 200, 32, True, 50, 2),
+              (48, 300, 300, 128, True, None, 48)]
 BWD_TOL = 1e-4      # of max |plain| per gradient, float32
 
 
@@ -886,15 +899,16 @@ def bwd_lanes(bh, sq, sk, d, group, device, dtype=torch.float32, seed=0):
 @pytest.mark.parametrize("bh,sq,sk,d,causal,window,group", BWD_SHAPES)
 def test_flash_attention_bwd_kernel_matches_plain(cuda, bh, sq, sk, d,
                                                   causal, window, group):
-    """K5's backward kernel against its plain version, the same bits with
-    the masked tiles run, from run to run, and on the expanded KV heads
-    summed back per group."""
+    """K5's backward kernel (on the forward's lse, as the main path runs
+    it) against its plain version, the same bits with the masked tiles run
+    (and lse from its own K5 run), from run to run, and on the expanded KV
+    heads summed back per group."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.ref import flash_attention_bwd_ref
     q, k, v, do = bwd_lanes(bh, sq, sk, d, group, cuda, seed=sq + d)
     kw = dict(causal=causal, window=window, kv_group=group)
-    o = flash_attention_bhsd(q, k, v, **kw)
-    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
@@ -915,17 +929,47 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, bh, sq, sk, d,
                 e.abs().max())
 
 
-def test_flash_attention_bwd_bfloat16(cuda):
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window", FLASH_SHAPES[:8])
+def test_flash_attention_lse_matches_plain(cuda, bh, sq, sk, d, causal,
+                                           window):
+    """The lse K5 writes for the backward (``return_lse=True``) against the
+    plain log-sum-exp within 2e-5 (scores of a few units; ex2.approx and
+    3xTF32), and o the same bits with and without it."""
+    from repro_torch.kernels.ref import flash_lse_ref
+    q, k, v = flash_lanes(bh, sq, sk, d, torch.float32, cuda)
+    o, lse = flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    assert lse.shape == (bh, sq) and lse.dtype == torch.float32
+    assert torch.equal(o, flash_attention_bhsd(q, k, v, causal=causal,
+                                               window=window))
+    want = flash_lse_ref(q, k, causal=causal, window=window)
+    assert float((lse - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_bfloat16(cuda, d):
+    """bfloat16 inputs and gradients (the kernel widens them exactly into
+    its hi parts): against the plain version within a bfloat16 rounding,
+    the same bits with the masked tiles run and from run to run, and dq
+    bit-equal on the expanded KV."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.ref import flash_attention_bwd_ref
-    q, k, v, do = bwd_lanes(4, 256, 256, 64, 2, cuda, torch.bfloat16)
-    o = flash_attention_bhsd(q, k, v, kv_group=2)
-    got = flash_attention_bwd(q, k, v, o, do, kv_group=2)
+    q, k, v, do = bwd_lanes(4, 256, 256, d, 2, cuda, torch.bfloat16)
+    o, lse = flash_attention_bhsd(q, k, v, kv_group=2, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, kv_group=2, lse=lse)
     want = flash_attention_bwd_ref(q, k, v, o, do, kv_group=2)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert float((g.float() - w.float()).abs().max()) <= (
             2e-2 * float(w.float().abs().max()))
+    for again in (flash_attention_bwd(q, k, v, o, do, kv_group=2,
+                                      skip_tiles=False),
+                  flash_attention_bwd(q, k, v, o, do, kv_group=2, lse=lse)):
+        for g, w in zip(again, got):
+            assert torch.equal(g, w)
+    dq, _, _ = flash_attention_bwd(q, k.repeat_interleave(2, 0),
+                                   v.repeat_interleave(2, 0), o, do)
+    assert torch.equal(dq, got[0])
 
 
 @pytest.mark.parametrize("d,group", [(16, 2), (64, 1), (128, 4)])

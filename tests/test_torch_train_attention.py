@@ -7,7 +7,8 @@ autograd wiring (``kernels/flash_attention.py``, ``kernels/ops.py``).
   (``kv_group`` > 1) shapes, and against ``jax.grad`` of the reference's
   dense ``attention_ref`` where the two define the same function (Sq ==
   Sk causal, with and without a window; unmasked);
-* ``ops.flash_attention`` through ``FlashAttention``: its gradient, the
+* ``ops.flash_attention`` through ``FlashAttention``: its gradient (on
+  the forward's lse) against autograd and against ``jax.grad``, the
   head-dim padding (16 -> 32, the scale of the unpadded D), and
   ``torch.func.grad`` and ``torch.func.vmap(torch.func.grad(...))``
   against per-sample gradients (the FL engine's participants);
@@ -102,6 +103,32 @@ def test_bwd_ref_matches_jax_grad(ref, causal, window, sq):
     o = flash_attention_ref(tq, tk, tv, causal=causal, window=window)
     got = flash_attention_bwd_ref(tq, tk, tv, o, torch.from_numpy(do),
                                   causal=causal, window=window)
+    for g, w in zip(got, want):
+        rel_close(g.numpy(), w, 2e-5)
+
+
+@pytest.mark.parametrize("causal,window,sq", [(True, None, 48),
+                                              (True, 12, 48),
+                                              (False, None, 33)])
+def test_flash_attention_function_matches_jax_grad(ref, causal, window, sq):
+    """Autograd through ``ops.flash_attention`` on CPU tensors, whose
+    backward takes the forward's lse (``FlashAttentionWithLse``), equals
+    jax.grad of the reference's ``attention_ref`` where the two define the
+    same function."""
+    bh, d = 3, 64
+    q, k, v, do = lanes(bh, sq, sq, d, 1, sq + 1)
+    jnp = ref.jnp
+
+    def f(q, k, v):
+        o = ref.ref.attention_ref(q, k, v, causal=causal, window=window)
+        return jnp.sum(o * jnp.asarray(do))
+
+    want = ref.jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                              jnp.asarray(v))
+    a = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*a, causal=causal,
+                                                  window=window), a,
+                              torch.from_numpy(do))
     for g, w in zip(got, want):
         rel_close(g.numpy(), w, 2e-5)
 
