@@ -8,8 +8,8 @@ Phases; any failure exits non-zero before the result line is printed:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together), timing the build and printing
-   each kernel's registers and spills from ``ptxas``; K2/K3, K4 and K5
-   must not spill;
+   each kernel's registers and spills from ``ptxas``; K2/K3, K4, K5 and
+   the two backwards must not spill;
 3. hold each kernel against its plain PyTorch version on the card: the
    solve at N in {1, 100, 1025, 3597, 1048576} and at the sweep's 4 x
    3597 = 14388 flattened lanes, bit for bit (and at q rtol 1e-5 / atol
@@ -270,16 +270,41 @@ Phases; any failure exits non-zero before the result line is printed:
    backward once per layer a local step inside ``vmap(grad)`` (and the
    forward once per layer an evaluation), the selections equal but at
    lanes within 1e-6 of q, the final accuracy within 10 of the 6,400 test
-   tokens; and ``ops.ssd`` raising ``NotImplementedError`` on the card
-   under grad (K4 has no backward yet).
+   tokens;
+16. Mamba training on the card (``ssd_train_path``): K4's backward kernel
+   (``csrc/ssd_scan_bwd.cu``: five device kernels on the scratch K4's
+   forward saves, 3xTF32 ``mma.sync``, no atomics) through
+   ``ops.ssd`` under ``torch.func.grad`` against its plain version
+   (``ssd_scan_bwd_ref``, on the card) at ``SSD_BWD_SHAPES``: phase 3's
+   SSD shapes (the padded (1, 100, ...) and prefill (4, 2000, 24, 64,
+   128), mamba2-130m's (4, 2048, 24, 64, 128)) and jamba-v0.1-52b's (4,
+   2048, 128, 64, 16), from a zero state and with an initial state and
+   the final state's cotangent: dx, ddt, da, dB, dC, dh0 within 1e-4 of
+   each one's largest |plain| entry, the same bits on a rerun, one K4 and
+   one backward launch a call; ``vmap(grad)`` over 3 samples with their
+   own a, one launch each way, bit-equal to the per-sample gradients; its
+   device ms at mamba's and jamba's shapes beside its plain version's and
+   its bound (``ssd_bwd_bound``: 16.7 GFLOP at mamba's, 3xTF32), each of
+   its five device kernels' share by the profiler (no single PyTorch call
+   computes it), and, where ``build/ssd_scan_bwd_cuda_cores.cu`` holds its
+   CUDA-core design (float32 FMAs), that design in turns with this one;
+   then, per id of ``SSD_TRAIN``, a reduced config's step on
+   the card against the CPU (loss rtol 1e-5, gradients 1e-4 of each
+   leaf's largest |CPU|) and, counts at 0, 3 SGD steps at published
+   widths, float32: mamba2-130m whole (24 layers) at 4 x 2048, K4 and its
+   backward 24 + 24 launches a step; jamba-v0.1-52b's first 2 of 32
+   layers (Mamba + dense MLP, Mamba + MoE; 14.9 GB) at 2 x 2048, 2 + 2;
+   the losses and weights finite, the step's seconds (median of the last
+   2) and peak memory, and one more step under ``torch.profiler`` (its
+   launches not counted): device time by kernel.
 
 TF32 is off for every product and convolution in every phase.
 
 Prints the service's, telemetry's, FEMNIST's, the scenarios', Mamba's,
-yi's, the zoo's, the MoE zoo's and training's JSON lines, the card line,
-one JSON line of the kernels (``{"kernels": [...]}``, K5's backward a row
-of its own), then, last, ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX.
+yi's, the zoo's, the MoE zoo's, training's and Mamba training's JSON
+lines, the card line, one JSON line of the kernels (``{"kernels":
+[...]}``, K5's and K4's backwards rows of their own), then, last,
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1085,13 +1110,14 @@ def counters():
     from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                      flash_attention_bwd)
     from repro_torch.kernels.scheduler_solve import scheduler_solve
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"scheduler_solve": scheduler_solve,
             "decision_fused": decision_fused,
             "decision_fused_batched": decision_fused_batched,
             "ssd_scan": ssd_scan,
             "flash_attention_bhsd": flash_attention_bhsd,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def reset_counts():
@@ -3293,7 +3319,10 @@ def ssd_pass_ms(torch, fn, calls=10):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU and CUDA activities: late in the run a CUDA-only session records
+    # no kernel (seen at jamba's shape, phase 14)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -3821,11 +3850,21 @@ def time_flash_bwd(torch):
     return dict(rows[0], shapes=rows[1:])
 
 
-def profile_train_step(torch, step):
+# the port's kernels and the GEMMs in a profiled step, by the symbols of
+# their device kernels
+TRAIN_SYMBOLS = {"flash_attention_bhsd": ("flash_attention_kernel",
+                                          "flash_attention_prepare_kv"),
+                 "flash_attention_bwd": ("flash_bwd_",),
+                 "gemm": ("gemm", "Gemm")}
+
+
+def profile_train_step(torch, step, label="a yi-6b SGD step",
+                       symbols=TRAIN_SYMBOLS):
     """One more SGD step under torch.profiler: wall ms, device ms by
-    kernel, the device's busy share, and the shares of K5 (its prepare
-    pass and attention kernel) and of its backward (prepare, dK / dV, dQ),
-    by their device kernels' symbols."""
+    kernel, the device's busy share, and the shares of each of
+    ``symbols``' kernels (K5: its prepare pass and attention kernel; its
+    backward: prepare, dK / dV, dQ; K4's four passes and its backward's
+    five), by their device kernels' symbols."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3838,14 +3877,10 @@ def profile_train_step(torch, step):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[0] for r in rows)
-    symbols = {"flash_attention_bhsd": ("flash_attention_kernel",
-                                        "flash_attention_prepare_kv"),
-               "flash_attention_bwd": ("flash_bwd_",),
-               "gemm": ("gemm", "Gemm")}
     ours = {k: sum(r[0] for r in rows if any(x in r[2] for x in syms))
             for k, syms in symbols.items()}
     top = sorted(rows, reverse=True)[:12]
-    print(f"profile of a yi-6b SGD step: wall {wall_ms:.1f} ms, kernels "
+    print(f"profile of {label}: wall {wall_ms:.1f} ms, kernels "
           f"{busy:.1f} ms ({busy / wall_ms:.1%} of wall), "
           + ", ".join(f"{k} {ms:.2f} ms ({ms / max(busy, 1e-9):.1%})"
                       for k, ms in ours.items())
@@ -4158,25 +4193,6 @@ def fl_lm_leg(torch):
     return launches, summary
 
 
-def ssd_refuses_grad(torch):
-    """ops.ssd on the card under grad raises NotImplementedError (K4 has
-    no backward yet) and runs under no_grad."""
-    from repro_torch.kernels import ops
-    x, dt, a, bm, cm = ssd_lanes(torch, 1, 128, 2, 32, 16, 3)
-    x.requires_grad_()
-    try:
-        ops.ssd(x, dt, a, bm, cm, chunk=32)
-    except NotImplementedError as e:
-        if "item 13" not in str(e):
-            raise AssertionError(f"ops.ssd under grad: {e}") from e
-    else:
-        raise AssertionError("ops.ssd ran under grad on the card")
-    with torch.no_grad():
-        ops.ssd(x, dt, a, bm, cm, chunk=32)
-    print("ops.ssd raises NotImplementedError on the card under grad "
-          "(ROADMAP §A item 13) and runs under no_grad", flush=True)
-
-
 def train_path(torch):
     """Phase 15. Returns the K5-backward check's error, its timing row,
     the launches by path and the summary."""
@@ -4201,13 +4217,423 @@ def train_path(torch):
              f"{prof['with_pr23_bwd']['device_ms']:.1f} ms"
              if "pr23_kernel" in row else ""), flush=True)
     fl_launches, fl = fl_lm_leg(torch)
-    ssd_refuses_grad(torch)
     wall = time.perf_counter() - t0
     print(f"phase 15 took {wall:.1f} s", flush=True)
     return err, row, {"yi-6b train": yi_launches,
                       "transformer_lm FL": fl_launches}, dict(
         yi=yi, fl=fl, wall_s=wall)
 
+
+
+# --------------------------------------------------------------------------
+# Phase 16: Mamba training on the card, K4's backward kernel.
+# --------------------------------------------------------------------------
+
+# (b, S, H, P, N, chunk) of the K4-backward checks: phase 3's SSD shapes
+# (the reference tests' padded (1, 100, ...), a mid shape, the padded
+# prefill (4, 2000, ...) and mamba2-130m's training shape (4, 2048, 24, 64,
+# 128)) and jamba-v0.1-52b's (4, 2048, 128, 64, 16) (last two: timed)
+SSD_BWD_SHAPES = SSD_SHAPES + (JAMBA_SSD,)
+# of each gradient's largest |plain| entry: the kernel's 3xTF32 products
+# (lo.lo dropped, ~2^-22) sum in another order than the plain version's
+# einsums, around K4's 3xTF32 forward; da, one sum over every (b, S), is
+# the loosest (1.3e-5 at most on an H100, the rest under 1.1e-6)
+SSD_BWD_TOL = 1e-4
+# (id, layers kept, batch, seq): mamba2-130m whole (24 Mamba layers, 0.52
+# GB of float32 weights); jamba-v0.1-52b's first 2 of 32 layers (Mamba +
+# dense MLP, Mamba + MoE of 16 experts: 3.73 B parameters, 14.9 GB), the
+# batch cut to 2 x 2048 so that the weights, their gradients, the stepped
+# weights and the activations stay under the card's 80 GB
+SSD_TRAIN = (("mamba2-130m", None, 4, 2048), ("jamba-v0.1-52b", 2, 2, 2048))
+# the reduced configs' step on the card against the CPU (2 x 256 tokens:
+# 8 chunks of 32): the loss rtol, and each gradient leaf's max |d| over
+# its largest |CPU| entry
+SSD_STEP_LOSS_TOL, SSD_STEP_GRAD_TOL = 1e-5, 1e-4
+
+
+def ssd_bwd_bound(b, s, h, p, n, chunk, with_state):
+    """Least time of one K4-backward call. Bytes: the function's inputs
+    (x, dt, a, B, C, dy; with the state h0 and its cotangent) read once and
+    its gradients written once, at HBM rate (the forward's saved states
+    are a choice of the design, not counted). Operations: per (batch,
+    head, chunk) exp(lc) C^T dy, B dS, dy S^T and x dS^T (2 L N P each) and
+    G = dy x^T and M^T dy over the causal triangle (2 tri P each); per
+    (batch, chunk) dCB B and dCB^T C over the triangle (2 tri N each),
+    dCB summed over the heads first; each a float32 product that
+    float32-accurate tensor-core work takes as three TF32 products (3xTF32)
+    at the TF32 rate; the weights, the lc terms and the head sums on the
+    CUDA cores at the float32 rate. The bound is the largest of the three
+    times; ``f32_ms`` is everything in float32 on the CUDA cores, the
+    bound of a design without tensor cores (this one's)."""
+    nc = s // chunk
+    tri = chunk * (chunk + 1) // 2
+    state = b * h * n * p if with_state else 0
+    # x, dy, dx; dt, ddt; a, da; B, C, dB, dC; h0, dh, dh0
+    n_bytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n
+                   + 3 * state)
+    products = b * nc * (h * (4 * 2 * chunk * n * p + 2 * 2 * tri * p)
+                         + 2 * 2 * tri * n)
+    other = (b * h * nc * (10 * tri + 4 * chunk * p + 4 * chunk * n
+                           + 20 * chunk + 2 * n * p)
+             + 2 * b * s * h * n)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_tc = 3 * products / TF32_OPS_PER_S * 1e3
+    t_cuda = other / F32_OPS_PER_S * 1e3
+    t = max(t_bytes, t_tc, t_cuda)
+    return dict(bound_ms=t,
+                bound_by="bytes" if t == t_bytes else "operations",
+                bound_detail=("bytes" if t == t_bytes else
+                              "tensor-core operations (3xTF32)"
+                              if t == t_tc else "CUDA-core operations"),
+                bytes=n_bytes, flops=products + other,
+                tensor_core_ms=t_tc, cuda_core_ms=t_cuda, bytes_ms=t_bytes,
+                f32_ms=max(t_bytes, (products + other) / F32_OPS_PER_S
+                           * 1e3))
+
+
+def ssd_grads(torch, x, dt, a, bm, cm, h0, dy, dh, chunk):
+    """``ops.ssd``'s gradients in (x, dt, a, bm, cm[, h0]) of sum(y dy)
+    [+ sum(h_final dh)], through ``torch.func.grad`` as training takes
+    them."""
+    from repro_torch.kernels import ops
+
+    def loss(x, dt, a, bm, cm, h0):
+        y, h_final = ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0,
+                             return_state=True)
+        return (y * dy).sum() + (0.0 if dh is None else (h_final * dh).sum())
+    argnums = tuple(range(5 if h0 is None else 6))
+    return torch.func.grad(loss, argnums=argnums)(x, dt, a, bm, cm, h0)
+
+
+def check_ssd_bwd(torch):
+    """K4's backward (through ``ops.ssd`` under ``torch.func.grad``, one K4
+    and one backward launch a call) against ``ssd_scan_bwd_ref`` on the
+    same padded inputs at ``SSD_BWD_SHAPES``, from a zero state and with
+    an initial state and the final state's cotangent, the same bits on a
+    rerun; then ``vmap(grad)`` over 3 samples, each with its own a, at
+    (2, 256, 24, 64, 128): one launch each way, bit-equal to the
+    per-sample gradients. Returns the largest |d| over the checks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    err = 0.0
+    names = ("dx", "ddt", "da", "dbm", "dcm", "dh0")
+    for b, s, h, p, n, chunk in SSD_BWD_SHAPES:
+        x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, s + n)
+        g = torch.Generator(device="cuda").manual_seed(s + 1)
+        dy = torch.randn(x.shape, device="cuda", generator=g)
+        for state in (False, True):
+            h0, dh = ((torch.randn((b, h, n, p), device="cuda", generator=g)
+                       for _ in range(2)) if state else (None, None))
+            reset_counts()
+            got = ssd_grads(torch, x, dt, a, bm, cm, h0, dy, dh, chunk)
+            if read_counts() != launch_counts(ssd_scan=1, ssd_scan_bwd=1):
+                raise AssertionError(f"ssd_scan_bwd check launched "
+                                     f"{read_counts()}")
+            again = ssd_grads(torch, x, dt, a, bm, cm, h0, dy, dh, chunk)
+            xp, dtp, bmp, cmp = ops.pad_to_chunk(chunk, x, dt, bm, cm)
+            dyp = ops.pad_to_chunk(chunk, dy, dt, bm, cm)[0]
+            want = ssd_scan_bwd_ref(xp, dtp, a, bmp, cmp, dyp, chunk=chunk,
+                                    h0=h0, dh=dh)
+            want = [want[0][:, :s], want[1][:, :s], want[2],
+                    want[3][:, :s], want[4][:, :s], want[5]][:len(got)]
+            torch.cuda.synchronize()
+            tag = f"ssd_scan_bwd {(b, s, h, p, n)} chunk {chunk} state={state}"
+            rels = []
+            for name, gg, ww in zip(names, got, want):
+                diff = float((gg - ww).abs().max())
+                rels.append(diff / float(ww.abs().max()))
+                err = max(err, diff)
+                if not (torch.isfinite(gg).all() and rels[-1] <= SSD_BWD_TOL):
+                    raise AssertionError(f"{tag}: {name} off its plain "
+                                         f"version by {rels[-1]:.3g} of max "
+                                         "|plain|")
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"{tag}: a rerun changed the result")
+            print(f"{tag} agrees with its plain version ("
+                  + ", ".join(f"{k} {r:.3g}" for k, r in zip(names, rels))
+                  + " of max |plain|); a rerun gives the same bits",
+                  flush=True)
+            del got, again, want
+        del x, dt, a, bm, cm, dy
+        torch.cuda.empty_cache()
+
+    samples = [ssd_lanes(torch, 2, 256, 24, 64, 128, 60 + i)
+               for i in range(3)]
+    xs = torch.stack([t[0] for t in samples])
+    as_ = torch.stack([t[2] for t in samples])
+    _, dt, _, bm, cm = samples[0]
+
+    def loss(a, x):
+        return ops.ssd(x, dt, a, bm, cm, chunk=128).square().sum()
+    reset_counts()
+    got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)))(as_, xs)
+    if read_counts() != launch_counts(ssd_scan=1, ssd_scan_bwd=1):
+        raise AssertionError(f"vmap(grad) through ops.ssd launched "
+                             f"{read_counts()}, want one each way")
+    for i in range(3):
+        want = torch.func.grad(loss, argnums=(0, 1))(as_[i], xs[i])
+        if not (torch.equal(got[0][i], want[0])
+                and torch.equal(got[1][i], want[1])):
+            raise AssertionError(f"vmap(grad) through ops.ssd: sample {i} "
+                                 "differs from its own grad")
+    print("vmap(grad) through ops.ssd over 3 samples (each its own a) at "
+          "(2, 256, 24, 64, 128): one K4 and one backward launch, bit-equal "
+          "to the per-sample gradients", flush=True)
+    return err
+
+
+def cuda_core_ssd_bwd(torch):
+    """The CUDA-core design of K4's backward (every product as float32 FMAs
+    on the CUDA cores, the same five passes and C interface) from
+    ``build/ssd_scan_bwd_cuda_cores.cu``, as a function of (x, dt, a, bm,
+    cm, dy, chunk, saved) returning the gradients; None when that file is
+    absent."""
+    import ctypes
+
+    from repro_torch.kernels.ssd_scan import a_group, bwd_work_floats
+    lib = earlier_kernel("ssd_scan_bwd_cuda_cores")
+    if lib is None:
+        return None
+    fn = lib.ssd_scan_bwd_f32
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(x, dt, a, bm, cm, dy, chunk, saved):
+        b, s, h, p = x.shape
+        n = bm.shape[-1]
+        out = [torch.empty_like(t) for t in (x, dt, a, bm, cm)] + [
+            torch.empty((b, h, n, p), device="cuda")]
+        work = torch.empty(bwd_work_floats(b, s, h, p, n, chunk),
+                           device="cuda")
+        code = fn(*(t.data_ptr() for t in (x, dt, a)), a_group(a, b),
+                  *(t.data_ptr() for t in (bm, cm, dy)), None,
+                  *(t.data_ptr() for t in (*saved, *out, work)), b, s, h, p,
+                  n, chunk, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"CUDA-core ssd_scan_bwd: cudaError {code}")
+        return out
+    return call
+
+
+# K4's backward device kernels, launched in this order by one call
+SSD_BWD_PASSES = ("ssd_bwd_chunk_dstate", "ssd_bwd_state_pass",
+                  "ssd_bwd_chunk<", "ssd_bwd_reduce_bc", "ssd_bwd_reduce_a")
+
+
+def time_ssd_bwd(torch, shape):
+    """K4's backward at a training shape (no initial state, as the models
+    train), on its forward's saved scratch: device ms by CUDA events
+    behind the spin kernel, each device kernel's share by the profiler,
+    its plain version's ms, the bound (:func:`ssd_bwd_bound`); no single
+    PyTorch call computes it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import _launch_fwd, ssd_scan_bwd
+    b, s, h, p, n, chunk = shape
+    x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, 6)
+    dy = torch.randn(x.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(7))
+    saved = _launch_fwd(x, dt, a, bm, cm, None, chunk)[2:]
+
+    def kernel():
+        return ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=chunk, saved=saved)
+
+    counts = read_counts()
+    kernel()
+    torch.cuda.synchronize()
+    # CPU and CUDA activities: late in the run a CUDA-only session records
+    # no kernel (seen at jamba's shape, phase 14)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kernel()
+        torch.cuda.synchronize()
+    passes = dict.fromkeys(SSD_BWD_PASSES, 0.0)
+    for e in prof.key_averages():
+        for name in SSD_BWD_PASSES:
+            if name in e.key:
+                passes[name] += e.self_device_time_total / 1e3 / 10
+    row = dict(shape=[b, s, h, p, n], chunk=chunk,
+               ms=time_device(torch, kernel, False),
+               plain_ms=time_device(torch, lambda: ssd_scan_bwd_ref(
+                   x, dt, a, bm, cm, dy, chunk=chunk), False, iters=5),
+               library_ms=None, device_kernels_ms=passes,
+               **ssd_bwd_bound(b, s, h, p, n, chunk, False))
+    old = cuda_core_ssd_bwd(torch)
+    if old is not None:
+        new = kernel()
+        err = max(float((u - v).abs().max() / v.abs().max())
+                  for u, v in zip(new, old(x, dt, a, bm, cm, dy, chunk,
+                                           saved)))
+        turns = [time_device(torch, lambda: old(x, dt, a, bm, cm, dy, chunk,
+                                                saved), False),
+                 time_device(torch, kernel, False),
+                 time_device(torch, kernel, False),
+                 time_device(torch, lambda: old(x, dt, a, bm, cm, dy, chunk,
+                                                saved), False)]
+        row["cuda_core_kernel"] = dict(ms=[turns[0], turns[3]],
+                                       new_ms=turns[1:3], max_rel_diff=err)
+    set_counts(counts)
+    print(f"ssd_scan_bwd at {row['shape']}: {row['ms']:.3f} ms device ("
+          + ", ".join(f"{k.removeprefix('ssd_bwd_').rstrip('<')} {v:.4f}"
+                      for k, v in passes.items())
+          + f" ms by the profiler), plain {row['plain_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
+          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
+          f"all float32 on the CUDA cores {row['f32_ms']:.4f} ms); no "
+          "single PyTorch call computes it"
+          + (f"; the CUDA-core design {row['cuda_core_kernel']['ms']} ms "
+             f"against {row['cuda_core_kernel']['new_ms']} in turns"
+             if "cuda_core_kernel" in row else ""), flush=True)
+    return row
+
+
+def reduced_step_check(torch, arch):
+    """A step of ``arch``'s reduced config on the card against the same
+    step on the CPU (same weights, 2 x 256 seeded tokens): K4 and its
+    backward launch once per Mamba layer (K5 and its backward once per
+    attention layer); the loss within ``SSD_STEP_LOSS_TOL`` and every
+    gradient within ``SSD_STEP_GRAD_TOL`` of its leaf's largest |CPU|.
+    Returns the largest relative gradient difference."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch).reduced()
+    mamba = sum(spec.mixer == "mamba" for spec in cfg.layer_specs())
+    host = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = copy.deepcopy(host).to("cuda")
+    tok = torch.randint(0, cfg.vocab_size, (2, 256),
+                        generator=torch.Generator().manual_seed(1))
+    out = []
+    for model, device in ((host, "cpu"), (card, "cuda")):
+        params = {k: w.detach() for k, w in model.named_parameters()}
+        batch = M.Batch(tokens=tok.to(device),
+                        labels=tok.roll(-1, 1).to(device))
+        counts = read_counts()
+        reset_counts()
+        grads, loss = torch.func.grad_and_value(
+            lambda p, b, model=model: torch.func.functional_call(
+                model, p, (b, cfg)))(params, batch)
+        launches = read_counts()
+        set_counts(counts)
+        out.append((grads, float(loss), launches))
+    (cpu_g, cpu_loss, _), (gpu_g, gpu_loss, launches) = out
+    attn = len(cfg.layer_specs()) - mamba
+    want = launch_counts(ssd_scan=mamba, ssd_scan_bwd=mamba,
+                         flash_attention_bhsd=attn, flash_attention_bwd=attn)
+    if launches != want:
+        raise AssertionError(f"{arch} reduced step launched {launches}, "
+                             f"want {want}")
+    loss_rel = abs(gpu_loss / cpu_loss - 1.0)
+    grad_rel = max(float((gpu_g[k].cpu() - g).abs().max())
+                   / float(g.abs().max()) for k, g in cpu_g.items())
+    print(f"{arch} reduced ({cfg.n_layers} layers, d_model {cfg.d_model}): "
+          f"a step on 2 x 256 on the card against the CPU: loss {gpu_loss:.7f}"
+          f" / {cpu_loss:.7f} (rel {loss_rel:.3g}), gradients max |d| / max "
+          f"|CPU| {grad_rel:.3g}", flush=True)
+    if not (loss_rel <= SSD_STEP_LOSS_TOL and grad_rel <= SSD_STEP_GRAD_TOL):
+        raise AssertionError(f"{arch} reduced step off the CPU's (loss "
+                             f"{loss_rel:.3g}, gradients {grad_rel:.3g})")
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel)
+
+
+def train_ssd_model(torch, arch, layers, b, s):
+    """``arch`` at published widths (its first ``layers`` layers, all when
+    None), float32, random weights from a seed, at batch ``b`` x ``s``:
+    with the counts at 0, ``TRAIN_SGD_STEPS`` SGD steps (``make_train_step``
+    over ``functional_call`` of the LM module), K4 and its backward
+    launching once per Mamba layer a step (K5 and its backward once per
+    attention layer), the losses and the stepped weights finite; the
+    step's seconds and peak memory; one more step under the profiler (its
+    launches not counted). Returns the launches and a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.fl.round import make_train_step
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    mamba = sum(spec.mixer == "mamba" for spec in cfg.layer_specs())
+    attn = len(cfg.layer_specs()) - mamba
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens, labels = make_token_stream(
+        torch.Generator(device="cuda").manual_seed(1), b, s, cfg.vocab_size)
+    batch = M.Batch(tokens=tokens, labels=labels)
+    params = {k: w.detach() for k, w in model.named_parameters()}
+    n_params = sum(w.numel() for w in params.values())
+    torch.cuda.synchronize()
+    print(f"{arch} train: {n_params} parameters ({cfg.n_layers} layers: "
+          f"{mamba} Mamba, {attn} attention; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def loss_fn(p, bt):
+        return torch.func.functional_call(model, p, (bt, cfg))
+
+    per_step = launch_counts(ssd_scan=mamba, ssd_scan_bwd=mamba,
+                             flash_attention_bhsd=attn,
+                             flash_attention_bwd=attn)
+    step = make_train_step(loss_fn, TRAIN_GAMMA)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, secs = [], []
+    for _ in range(TRAIN_SGD_STEPS):
+        before = read_counts()
+        t = time.perf_counter()
+        params, loss = step(params, batch)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t)
+        after = read_counts()
+        if {k: after[k] - before[k] for k in after} != per_step:
+            raise AssertionError(f"{arch} train: an SGD step launched "
+                                 f"{after} - {before}, want {per_step}")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(math.isfinite(x) for x in losses)
+            and all(bool(torch.isfinite(w).all()) for w in params.values())):
+        raise AssertionError(f"{arch} train: losses {losses}")
+    profiled = profile_train_step(
+        torch, lambda: step(params, batch), f"a {arch} SGD step",
+        dict(TRAIN_SYMBOLS, ssd_scan=SSD_PASSES,
+             ssd_scan_bwd=("ssd_bwd_",)))
+    set_counts(launches)
+    summary = dict(layers=cfg.n_layers, mamba_layers=mamba,
+                   attention_layers=attn, batch=[b, s], params=n_params,
+                   sgd_losses=losses, sgd_step_s=secs,
+                   step_s=statistics.median(secs[1:]), peak_bytes=peak,
+                   launches_per_step=per_step, profile=profiled)
+    print(f"{arch} train: SGD losses {losses}, step s {secs} (median of the "
+          f"last {len(secs) - 1}: {summary['step_s']:.3f}), peak "
+          f"{peak / 1e9:.2f} GB; launches {launches}", flush=True)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def ssd_train_path(torch):
+    """Phase 16. Returns the K4-backward check's error, its timing rows
+    (mamba's shape, jamba's), the launches by path and the summary."""
+    t0 = time.perf_counter()
+    err = check_ssd_bwd(torch)
+    row = time_ssd_bwd(torch, SSD_SHAPES[-1])
+    jamba_row = time_ssd_bwd(torch, JAMBA_SSD)
+    torch.cuda.empty_cache()
+    launches, summary = {}, {}
+    for arch, layers, b, s in SSD_TRAIN:
+        check = reduced_step_check(torch, arch)
+        launches[f"{arch} train"], summary[arch] = train_ssd_model(
+            torch, arch, layers, b, s)
+        summary[arch]["reduced_check"] = check
+    wall = time.perf_counter() - t0
+    print(f"phase 16 took {wall:.1f} s", flush=True)
+    return err, dict(row, jamba_shape=jamba_row), launches, dict(
+        summary, wall_s=wall)
 
 def main() -> int:
     try:
@@ -4242,8 +4668,8 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers",
                                        "spill", "Performance Loss")):
                 print(f"  {name}: {line.strip()}", flush=True)
-    for name in ("decision_fused", "ssd_scan", "flash_attention",
-                 "flash_attention_bwd"):
+    for name in ("decision_fused", "ssd_scan", "ssd_scan_bwd",
+                 "flash_attention", "flash_attention_bwd"):
         check_no_spills(name, logs.get(name, ""))
 
     ch, scfg = CONFIG.channel(), CONFIG.scheduler(lam=10.0)
@@ -4296,6 +4722,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     err["flash_attention_bwd"], bwd_time, train_launches, train = (
         train_path(torch))
+    torch.cuda.empty_cache()
+    err["ssd_scan_bwd"], ssd_bwd_time, ssd_train_launches, ssd_train = (
+        ssd_train_path(torch))
     by_path["transformer_lm FL"] = {
         k: train_launches["transformer_lm FL"][k]
         for k in ("scheduler_solve", "decision_fused")}
@@ -4311,6 +4740,10 @@ def main() -> int:
     ssd_by_path = {"mamba2-130m": mamba_launches["ssd_scan"],
                    "jamba-v0.1-52b": moe_launches["jamba-v0.1-52b"][
                        "ssd_scan"]}
+    ssd_by_path.update({path: dict(launches=c["ssd_scan"])
+                        for path, c in ssd_train_launches.items()})
+    ssd_bwd_by_path = {path: c["ssd_scan_bwd"]
+                       for path, c in ssd_train_launches.items()}
 
     rows = []
     for name in ("scheduler_solve", "decision_fused"):
@@ -4372,6 +4805,16 @@ def main() -> int:
         "launches_by_path": bwd_by_path,
         "launches_per_train_step": TRAIN_LAYERS,
         "max_abs_err": err["flash_attention_bwd"], **bwd_time})
+    rows.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:72",
+        "backward_of": "ssd_scan",
+        "launches": sum(ssd_bwd_by_path.values()),
+        "launches_by_path": ssd_bwd_by_path,
+        "launches_per_train_step": {
+            arch: ssd_train[arch]["mamba_layers"] for arch, *_ in SSD_TRAIN},
+        "max_abs_err": err["ssd_scan_bwd"], **ssd_bwd_time})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
     print(json.dumps({"telemetry": telemetry}), flush=True)
@@ -4382,6 +4825,7 @@ def main() -> int:
     print(json.dumps({"zoo": zoo}), flush=True)
     print(json.dumps({"moe": moe_zoo}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"mamba_train": ssd_train}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("scheduler_solve", "decision_fused", "ssd_scan", "flash_attention",
-           "flash_attention_bwd")
+SOURCES = ("scheduler_solve", "decision_fused", "ssd_scan", "ssd_scan_bwd",
+           "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

@@ -63,6 +63,24 @@ def raise_on_error(kernel: str, code: int):
                            f"{code}")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its data on a 16-byte boundary (a kernel's
+    vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def no_grad_input(kernel: str, entry: str, *tensors):
+    """Raise where grad mode is on and an input requires a gradient: the
+    bare kernel's output would carry none, and the gradient upstream would
+    be cut without a word. ``entry`` names the differentiable route."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: an input requires a gradient, which "
+                           f"the bare kernel would cut; differentiate "
+                           f"through {entry}")
+
+
 def unsupported_device(kernel: str, device: torch.device):
     raise ValueError(f"{kernel}: tensors on {device}; the kernel runs on "
                      f"CUDA and its plain version on the CPU")

@@ -265,7 +265,7 @@ template <int NP>
 __global__ void __launch_bounds__(kThreads, 2)
     ssd_scan_chunk_state(const float* __restrict__ x,
                          const float* __restrict__ dt,
-                         const float* __restrict__ a,
+                         const float* __restrict__ a, int a_group,
                          const float* __restrict__ bm,
                          float* __restrict__ lc_out,
                          float* __restrict__ states, int S, int H, int P,
@@ -280,6 +280,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const uint32_t raw = buf + buf_bytes(NP);
   constexpr int kRaw = raw1_bytes(NP);
   const bool b_aligned = N % 4 == 0;
+  // a's row for this batch element (formed here: inside the cumsum's
+  // branch the division costs pass 1 a spill at NP = 128)
+  const float* arow = a + (b / a_group) * H + h;
 
   auto fetch = [&](int k) {
     if (k < nk) {
@@ -313,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int l = tid; l < L; l += kThreads) dts[l] = dt[(row0 + l) * H + h];
   __syncthreads();
   if (tid == 0) {
-    const float ah = a[h];
+    const float ah = *arow;
     float acc = dts[0] * ah;
     lcs[0] = acc;
 #pragma unroll 8
@@ -751,15 +754,15 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 template <int NP>
 cudaError_t launch_chunk_state(const float* x, const float* dt, const float* a,
-                               const float* bm, float* lc, float* states,
-                               int batch, int S, int H, int P, int N, int L,
-                               cudaStream_t stream) {
+                               int a_group, const float* bm, float* lc,
+                               float* states, int batch, int S, int H, int P,
+                               int N, int L, cudaStream_t stream) {
   const int bytes = buf_bytes(NP) + 2 * raw1_bytes(NP) + 1024;
   cudaError_t err = allow_smem(ssd_scan_chunk_state<NP>, bytes);
   if (err != cudaSuccess) return err;
   ssd_scan_chunk_state<NP><<<dim3(S / L, H, batch), kThreads, bytes,
-                             stream>>>(x, dt, a, bm, lc, states, S, H, P, N,
-                                       L);
+                             stream>>>(x, dt, a, a_group, bm, lc, states, S,
+                                       H, P, N, L);
   return cudaGetLastError();
 }
 
@@ -781,40 +784,38 @@ cudaError_t launch_chunk_out(const float* x, const float* dt, const float* cm,
 
 }  // namespace
 
-// x (batch, S, H, P), dt (batch, S, H), a (H,), bm / cm (batch, S, N),
-// all contiguous float32 on the device; S a multiple of chunk; chunk in
-// {32, 64, 128}, P in {32, 64}, N at most 128 (kernels/ssd_scan.py checks
-// the shape before the launch). h0 (batch, H, N, P) or NULL for a zero
-// state; h_out the same shape, or NULL to skip the final state; work
-// kernels/ssd_scan.py::work_floats floats, 16-byte aligned: lc (batch, H,
-// S), the chunk states (batch, S / chunk, H, P, Np) with Np = N rounded up
-// to 32, then C B^T (batch, S / chunk, chunk, chunk). Launches the four
-// passes on ``stream`` and returns the first cudaError (of raising a
-// kernel's shared memory limit or of a launch), 0 if none.
+// x (batch, S, H, P), dt (batch, S, H), a (batch / a_group, H): batch
+// element i reads row i / a_group; bm / cm (batch, S, N), all contiguous
+// float32 on the device; S a multiple of chunk; chunk in {32, 64, 128}, P
+// in {32, 64}, N at most 128 (kernels/ssd_scan.py checks the shape before
+// the launch). h0 (batch, H, N, P) or NULL for a zero state; h_out the
+// same shape, or NULL to skip the final state. The passes' scratch, which
+// the backward (csrc/ssd_scan_bwd.cu) reads, 16-byte aligned: lc (batch,
+// H, S), the states entering each chunk (batch, S / chunk, H, P, Np) with
+// Np = N rounded up to 32, and C B^T (batch, S / chunk, chunk, chunk).
+// Launches the four passes on ``stream`` and returns the first cudaError
+// (of raising a kernel's shared memory limit or of a launch), 0 if none.
 extern "C" int ssd_scan_f32(const float* x, const float* dt, const float* a,
-                            const float* bm, const float* cm, const float* h0,
-                            float* y, float* h_out, float* work, int batch,
+                            int a_group, const float* bm, const float* cm,
+                            const float* h0, float* y, float* h_out,
+                            float* lc, float* states, float* cb, int batch,
                             int S, int H, int P, int N, int chunk,
                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int L = chunk, nc = S / L, NP = state_cols(N);
-  float* lc = work;
-  float* states = lc + (int64_t)batch * H * S;
-  float* cb = states + (int64_t)batch * nc * H * P * NP;
-
   cudaError_t err;
   switch (NP) {
     case 32:
-      err = launch_chunk_state<32>(x, dt, a, bm, lc, states, batch, S, H, P,
-                                   N, L, st);
+      err = launch_chunk_state<32>(x, dt, a, a_group, bm, lc, states,
+                                   batch, S, H, P, N, L, st);
       break;
     case 64:
-      err = launch_chunk_state<64>(x, dt, a, bm, lc, states, batch, S, H, P,
-                                   N, L, st);
+      err = launch_chunk_state<64>(x, dt, a, a_group, bm, lc, states,
+                                   batch, S, H, P, N, L, st);
       break;
     default:
-      err = launch_chunk_state<128>(x, dt, a, bm, lc, states, batch, S, H, P,
-                                    N, L, st);
+      err = launch_chunk_state<128>(x, dt, a, a_group, bm, lc, states,
+                                    batch, S, H, P, N, L, st);
   }
   if (err != cudaSuccess) return (int)err;
 

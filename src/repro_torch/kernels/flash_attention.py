@@ -36,7 +36,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (ptr, raise_on_error, stream_of,
+from repro_torch.kernels._launch import (aligned16, no_grad_input, ptr,
+                                         raise_on_error, stream_of,
                                          unsupported_device)
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref, flash_lse_ref)
@@ -175,23 +176,6 @@ def _check_args(q, k, v, window, kv_group):
                          f"window {window} a query row sees no key")
 
 
-def _no_grad_input(kernel: str, *tensors):
-    """Raise where grad mode is on and an input requires a gradient: the
-    kernel's output would carry none, and the gradient upstream would be
-    cut without a word."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{kernel}: an input requires a gradient, which "
-                           "the bare kernel would cut; differentiate "
-                           "through ops.flash_attention (FlashAttention)")
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous with its data on a 16-byte boundary (the kernel's
-    vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 @functools.cache
 def _lib():
     fn = _build.load("flash_attention").flash_attention_fwd
@@ -249,10 +233,11 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (o, flash_lse_ref(q, k, **kw)) if return_lse else o
     if q.device.type != "cuda":
         unsupported_device("flash_attention_bhsd", q.device)
-    _no_grad_input("flash_attention_bhsd", q, k, v)
+    no_grad_input("flash_attention_bhsd",
+                  "ops.flash_attention (FlashAttention)", q, k, v)
     bh, sq, d = q.shape
     check_kernel_shape(bh, d, sq, k.shape[1], kv_group)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     o = _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles,
@@ -313,11 +298,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        kv_group=kv_group, lse=lse)
     if q.device.type != "cuda":
         unsupported_device("flash_attention_bwd", q.device)
-    _no_grad_input("flash_attention_bwd", q, k, v, o, do)
+    no_grad_input("flash_attention_bwd",
+                  "ops.flash_attention (FlashAttention)", q, k, v, o, do)
     bh, sq, d = q.shape
     sk = k.shape[1]
     check_bwd_shape(bh, d, sq, sk, kv_group)
-    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    q, k, v, o, do = (aligned16(t) for t in (q, k, v, o, do))
     if lse is None:
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles, lse)

@@ -7,11 +7,11 @@ tensors, its plain version for CPU tensors, differentiable (K5's backward
 kernel on the card), with a head dim between K5's padded up.
 ``attention_auto`` runs the dense oracle on CPU tensors and the kernel on
 CUDA tensors, as the reference's runs the oracle off a TPU. ``ssd`` pads
-S to a multiple of the chunk and runs :func:`ssd_scan` the same way (on
-the card it refuses to run under grad: K4 has no backward yet). Unlike
-the reference's ``ssd``, it takes an initial state and returns the final
-one on request, so the full-sequence forward and the serving prefill
-both go through it. ``ssd_auto`` runs the sequential
+S to a multiple of the chunk and runs K4 the same way, differentiable
+(:class:`~repro_torch.kernels.ssd_scan.SsdScan`: K4's backward kernel on
+the card). Unlike the reference's ``ssd``, it takes an initial state and
+returns the final one on request, so the full-sequence forward, the
+serving prefill and training all go through it. ``ssd_auto`` runs the sequential
 oracle on CPU tensors and ``ssd`` on CUDA tensors, as the reference's
 runs its oracle off a TPU. ``ssd_decode_step`` is
 plain PyTorch, as it is jnp in the reference. ``scheduler_solve`` is
@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import HEAD_DIMS, FlashAttention
 from repro_torch.kernels.scheduler_solve import scheduler_solve
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import SsdScan
 
 __all__ = ["flash_attention", "ssd", "ssd_decode_step", "scheduler_solve",
            "attention_auto", "ssd_auto", "on_tpu"]
@@ -96,17 +96,15 @@ def ssd(x, dt, a, bm, cm, *, chunk: int = 128, h0=None,
         return_state: bool = False):
     """Chunked SSD over x (b, S, H, P) for any S: pads to a chunk multiple
     and cuts y back to S. Returns y, or (y, h_final) with
-    ``return_state``. On the card K4 has no backward yet: with grad mode
-    on and an input requiring a gradient :func:`ssd_scan` raises
-    ``NotImplementedError`` (ROADMAP §A item 13) instead of cutting the
-    gradient; on the CPU the plain version differentiates."""
+    ``return_state``. Differentiable in x, dt, a, bm, cm and h0 through
+    :class:`~repro_torch.kernels.ssd_scan.SsdScan`: K4 and its backward
+    kernel for CUDA tensors, the plain chunked version and
+    ``ssd_scan_bwd_ref`` for CPU tensors; under ``vmap`` one launch each
+    way serves every sample."""
     s = x.shape[1]
     x, dt, bm, cm = pad_to_chunk(chunk, x, dt, bm, cm)
-    out = ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=h0,
-                   return_state=return_state)
-    if return_state:
-        return out[0][:, :s], out[1]
-    return out[:, :s]
+    y, h_final, *_ = SsdScan.apply(x, dt, a, bm, cm, h0, chunk)
+    return (y[:, :s], h_final) if return_state else y[:, :s]
 
 
 def ssd_auto(x, dt, a, bm, cm, *, chunk: int = 128):

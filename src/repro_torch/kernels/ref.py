@@ -21,9 +21,15 @@ op in the order of the reference's Pallas kernel
 (``kernels/ssd_scan.py``) runs it for CPU tensors and ``chip_smoke.py``
 holds the kernel against it on the card. ``ssd_ref`` is the sequential
 recurrence, the ground truth both are tested against.
+``ssd_scan_bwd_ref`` is the gradient of ``ssd_chunked_ref`` by the
+formulas ``csrc/ssd_scan_bwd.cu`` computes (a reverse pass over the chunk
+states, then each chunk's gradients), not by autograd.
 
 SSD shapes: x (b, S, H, P), dt (b, S, H), a (H,), bm / cm (b, S, N),
-state (b, H, N, P); both return ``(y, h_final)``.
+state (b, H, N, P); both return ``(y, h_final)``. The chunked version
+and its gradient also take a as (R, H) with R dividing b: batch element
+i reads row i // (b / R) (a vmapped ``ops.ssd`` folds its samples into
+the batch, each with its own a).
 
 ``scheduler_solve_ref`` is the solve kernel's oracle, the paper core's
 stitched Theorem-2 solve; the kernel's own plain version, which follows
@@ -191,6 +197,15 @@ def ssd_ref(x, dt, a, bm, cm, h0=None):
     return torch.stack(ys, dim=1).to(x.dtype), state
 
 
+def a_rows(a, b: int):
+    """a as float32, broadcastable against (b, L, H): (H,) as it is, (R,
+    H) repeated to (b, 1, H), batch element i on row i // (b / R)."""
+    af = a.float()
+    if af.ndim == 1:
+        return af
+    return af.repeat_interleave(b // af.shape[0], dim=0)[:, None, :]
+
+
 def ssd_chunked_ref(x, dt, a, bm, cm, *, chunk: int = 128, h0=None):
     """Chunked SSD (the dual form of arXiv 2405.21060), one chunk at a time
     over all (batch, head) pairs. S must be a multiple of ``chunk``.
@@ -208,7 +223,7 @@ def ssd_chunked_ref(x, dt, a, bm, cm, *, chunk: int = 128, h0=None):
     nc = s // chunk
     xf = x.float().reshape(b, nc, chunk, h, p)
     dtf = dt.float().reshape(b, nc, chunk, h)
-    af = a.float()
+    af = a_rows(a, b)
     bmf = bm.float().reshape(b, nc, chunk, n)
     cmf = cm.float().reshape(b, nc, chunk, n)
     state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
@@ -234,6 +249,104 @@ def ssd_chunked_ref(x, dt, a, bm, cm, *, chunk: int = 128, h0=None):
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, h, p).to(x.dtype)
     return y, state
+
+
+def ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, *, chunk: int = 128, h0=None,
+                     dh=None):
+    """The gradients (dx, ddt, da, dbm, dcm, dh0) of
+    :func:`ssd_chunked_ref`'s (y, h_final) at (x, dt, a, bm, cm, h0), given
+    dy (b, S, H, P) and dh (b, H, N, P) or None for 0; da has a's shape,
+    dh0 is (b, H, N, P) (the gradient of a zero ``h0`` when it is None).
+    float32.
+
+    Per chunk, with lc the cumsum of dt a, w_ts = exp(min(lc_t - lc_s, 0))
+    (s <= t), M = (C B^T) w dt_s, bw = exp(lc_L - lc) dt, S the state
+    entering the chunk and dS the gradient of the one leaving it:
+
+    * dS of the chunk before: exp(lc_L) dS + sum_t exp(lc_t) C_t dy_t^T;
+    * G = dy x^T (per head); dx = M^T dy + bw (B dS);
+    * dCB = sum_h G w dt_s; dC = dCB B + sum_h exp(lc) (dy S^T);
+      dB = dCB^T C + sum_h bw (x dS^T);
+    * dlc: the row sums less the column sums of G M below the diagonal,
+      plus dy . y_inter, plus the state update's terms (exp(lc_L) <S, dS>
+      and sum_s bw_s <B_s x_s^T, dS> on the last row, minus bw_s <B_s
+      x_s^T, dS> on row s);
+    * dg, the reverse cumsum of dlc in the chunk; ddt = a dg + sum_t G C.B
+      w + exp(lc_L - lc) <B x^T, dS>; da = sum over (b, S) of dt dg.
+
+    Only exponentials of differences that are <= 0 are formed (and
+    exp(lc), lc <= 0 for a < 0), as the forward forms them."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    if s % chunk:
+        raise ValueError(f"ssd_scan_bwd_ref: S={s} is not a multiple of the "
+                         f"chunk {chunk} (ops.ssd pads)")
+    nc = s // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dyf = dy.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    af = a_rows(a, b)
+    bmf = bm.float().reshape(b, nc, chunk, n)
+    cmf = cm.float().reshape(b, nc, chunk, n)
+    t_idx = torch.arange(chunk, device=x.device)
+    causal = (t_idx[:, None] >= t_idx[None, :])[None, :, :, None]
+    below = (t_idx[:, None] > t_idx[None, :])[None, :, :, None]
+
+    # the forward's per-chunk quantities and the states entering each chunk
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    per_chunk = []
+    for c in range(nc):
+        xc, dtc, bc = xf[:, c], dtf[:, c], bmf[:, c]
+        lc = torch.cumsum(dtc * af, dim=1)                       # (b,L,h)
+        bw = torch.exp(lc[:, -1:, :] - lc) * dtc                 # (b,L,h)
+        per_chunk.append((lc, bw, state))
+        state = torch.exp(lc[:, -1, :])[:, :, None, None] * state + \
+            torch.einsum("bln,blh,blhp->bhnp", bc, bw, xc)
+
+    ds = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+          if dh is None else dh.float())
+    dx = torch.empty_like(xf)
+    ddt = torch.empty_like(dtf)
+    dbm = torch.empty_like(bmf)
+    dcm = torch.empty_like(cmf)
+    da_b = torch.zeros((b, h), dtype=torch.float32, device=x.device)
+    for c in reversed(range(nc)):
+        xc, dyc, dtc = xf[:, c], dyf[:, c], dtf[:, c]
+        bc, cc = bmf[:, c], cmf[:, c]
+        lc, bw, s_prev = per_chunk[c]
+        elc = torch.exp(lc)                                      # (b,L,h)
+        decay = lc[:, :, None, :] - lc[:, None, :, :]            # (b,L,L,h)
+        w = torch.where(causal, torch.exp(torch.clamp_max(decay, 0.0)), 0.0)
+        live = below & (decay <= 0.0)
+        cb = torch.einsum("bln,bmn->blm", cc, bc)                # (b,L,L)
+        m = cb[..., None] * w * dtc[:, None, :, :]               # (b,L,L,h)
+        g = torch.einsum("blhp,bmhp->blmh", dyc, xc)             # (b,L,L,h)
+        b_ds = torch.einsum("bmn,bhnp->bmhp", bc, ds)            # (b,L,h,p)
+        dx[:, c] = torch.einsum("blmh,blhp->bmhp", m, dyc) + \
+            bw[..., None] * b_ds
+        dcb = (g * w * dtc[:, None, :, :]).sum(-1)               # (b,L,L)
+        dc_state = elc[..., None] * torch.einsum("bhnp,blhp->blhn",
+                                                 s_prev, dyc)
+        db_state = bw[..., None] * torch.einsum("bhnp,bmhp->bmhn", ds, xc)
+        dcm[:, c] = torch.einsum("blm,bmn->bln", dcb, bc) + dc_state.sum(2)
+        dbm[:, c] = torch.einsum("blm,bln->bmn", dcb, cc) + db_state.sum(2)
+        q = torch.where(live, g * m, 0.0)
+        r = (xc * b_ds).sum(-1)                                  # (b,L,h)
+        term = bw * r
+        dlc = q.sum(2) - q.sum(1) + (dc_state * cc[:, :, None, :]).sum(-1)
+        dlc = dlc - term
+        dlc[:, -1] += elc[:, -1] * (s_prev * ds).sum((-1, -2)) + term.sum(1)
+        dg = torch.flip(torch.cumsum(torch.flip(dlc, (1,)), dim=1), (1,))
+        ddt[:, c] = af * dg + (g * cb[..., None] * w).sum(1) + \
+            torch.exp(lc[:, -1:, :] - lc) * r
+        da_b += (dtc * dg).sum(1)
+        ds = torch.exp(lc[:, -1, :])[:, :, None, None] * ds + \
+            torch.einsum("bln,blh,blhp->bhnp", cc, elc, dyc)
+    da = (da_b.sum(0) if a.ndim == 1
+          else da_b.reshape(a.shape[0], -1, h).sum(1))
+    return (dx.reshape(b, s, h, p).to(x.dtype), ddt.reshape(b, s, h),
+            da.to(a.dtype), dbm.reshape(b, s, n), dcm.reshape(b, s, n), ds)
 
 
 def scheduler_solve_ref(gains, z, *, n, v, lam, ell, bandwidth, noise,

@@ -1,11 +1,22 @@
 """Chunked SSD scan kernel (replaces the Pallas TPU kernel
-``repro/kernels/ssd_scan.py::ssd_scan``).
+``repro/kernels/ssd_scan.py::ssd_scan``) and its backward.
 
 ``ssd_scan`` launches ``csrc/ssd_scan.cu`` for CUDA tensors and runs the
 plain version, :func:`repro_torch.kernels.ref.ssd_chunked_ref`, for CPU
 tensors. Unlike the TPU kernel it takes an initial state ``h0`` and can
 write the final state, so the serving prefill runs it too. S must be a
 multiple of ``chunk``; :func:`repro_torch.kernels.ops.ssd` pads.
+
+``ssd_scan_bwd`` is its gradient: ``csrc/ssd_scan_bwd.cu`` for CUDA
+tensors (a kernel of the port's own: the TPU kernel has no backward),
+:func:`repro_torch.kernels.ref.ssd_scan_bwd_ref` for CPU tensors.
+:class:`SsdScan` joins the two as a ``torch.autograd.Function`` with
+``vmap`` rules, the route ``ops.ssd`` takes; the bare ``ssd_scan`` on the
+card refuses inputs that require a gradient.
+
+``a`` is (H,) or (R, H) with R dividing the batch b: batch element i
+reads row i // (b / R) (the ``vmap`` rules fold the samples, each with its
+own a, into the batch).
 """
 
 from __future__ import annotations
@@ -16,9 +27,10 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (ptr, raise_on_error, stream_of,
+from repro_torch.kernels._launch import (aligned16, no_grad_input, ptr,
+                                         raise_on_error, stream_of,
                                          unsupported_device)
-from repro_torch.kernels.ref import ssd_chunked_ref
+from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_bwd_ref
 
 # The shapes the kernel takes (csrc/ssd_scan.cu): wgmma tiles of 64 rows
 # over K slabs of 32, P and the chunk padded to 64 rows, N to 32, 64 or 128
@@ -28,6 +40,9 @@ HEAD_DIMS = (32, 64)
 MAX_STATE = 128
 # A block's dynamic shared memory may not pass 227 KB.
 MAX_SMEM_BYTES = 232_448
+# The backward's layout (csrc/ssd_scan_bwd.cu): 8 warps as 2 x 4 tiles,
+# 32 state columns a slab.
+BWD_WARPS, BWD_SLAB = (2, 4), 32
 
 
 def state_cols(n: int) -> int:
@@ -47,103 +62,326 @@ def smem_bytes(chunk: int, n: int, p: int) -> int:
     return max(block(max(state_cols(n), chunk)), block(p) + 2 * 16384)
 
 
-def work_floats(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
-    """float32 scratch of one call (csrc/ssd_scan.cu ssd_scan_f32): lc
-    (b, H, S), the chunk states (b, S / chunk, H, P, state_cols(N)) and
+def saved_shapes(b: int, s: int, h: int, p: int, n: int,
+                 chunk: int) -> tuple:
+    """The forward's scratch, which the backward reads: lc (b, H, S), the
+    states entering each chunk (b, S / chunk, H, P, state_cols(N)) and
     C B^T (b, S / chunk, chunk, chunk)."""
     nc = s // chunk
-    return b * h * s + b * nc * h * p * state_cols(n) + b * nc * chunk * chunk
+    return ((b, h, s), (b, nc, h, p, state_cols(n)), (b, nc, chunk, chunk))
+
+
+def bwd_smem_bytes(chunk: int, n: int, p: int) -> int:
+    """Dynamic shared memory of the backward's largest block
+    (csrc/ssd_scan_bwd.cu), its tiles' rows padded by 4 or 8 floats for
+    the mma fragment loads: pass 1 holds dy (L rows of P + 8), exp(lc) C
+    (L rows of Np + 8) and exp(lc); pass 3 dy and x (L rows of P + 4), M
+    (L rows of L + 8) or the slabs of B, C (L rows of 36, 40), S and dS (P
+    rows of 40, 36), dCB (L rows of L + 4), 4 + 4 + 2 + 2 rows of L of
+    partial sums, ten arrays of L and 32 floats."""
+    lo = chunk
+    wr, wc = BWD_WARPS
+    pass1 = lo * (p + 8) + lo * (state_cols(n) + 8) + lo
+    slabs = lo * 36 + lo * 40 + p * 40 + p * 36
+    pass3 = (2 * lo * (p + 4) + max(lo * (lo + 8), slabs) + lo * (lo + 4)
+             + 2 * wc * lo + 2 * wr * lo + 10 * lo + 32)
+    return 4 * max(pass1, pass3)
+
+
+def bwd_work_floats(b: int, s: int, h: int, p: int, n: int,
+                    chunk: int) -> int:
+    """float32 scratch of one backward call: dS (b, S / chunk, H, P,
+    state_cols(N)), the heads' shares of dB and dC (b, S, H, N) each and
+    the chunks' shares of da (b, S / chunk, H)."""
+    nc = s // chunk
+    return (b * nc * h * p * state_cols(n) + 2 * b * s * h * n
+            + b * nc * h)
 
 
 def check_kernel_shape(chunk: int, n: int, p: int):
-    """Raise for a (chunk, N, P) the kernel does not take."""
+    """Raise for a (chunk, N, P) the kernels (forward and backward) do not
+    take."""
     if chunk not in CHUNKS or p not in HEAD_DIMS or not 1 <= n <= MAX_STATE:
         raise ValueError(f"ssd_scan: the kernel takes chunk in {CHUNKS}, P "
                          f"in {HEAD_DIMS} and N <= {MAX_STATE}; got chunk "
                          f"{chunk}, N {n}, P {p}")
-    need = smem_bytes(chunk, n, p)
+    need = max(smem_bytes(chunk, n, p), bwd_smem_bytes(chunk, n, p))
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"ssd_scan: (chunk, N, P) = ({chunk}, {n}, {p}) "
                          f"needs {need} B of shared memory per block, over "
                          f"{MAX_SMEM_BYTES}")
 
 
-def _check_args(x, dt, a, bm, cm, h0, chunk):
+def a_group(a: torch.Tensor, b: int) -> int:
+    """Batch elements per row of ``a``: b for a (H,), b / R for (R, H)."""
+    return b if a.ndim == 1 else b // a.shape[0]
+
+
+def _check_args(kernel, x, dt, a, bm, cm, h0, chunk, **more):
     if x.ndim != 4:
-        raise ValueError(f"ssd_scan: x must be (b, S, H, P), got "
+        raise ValueError(f"{kernel}: x must be (b, S, H, P), got "
                          f"{tuple(x.shape)}")
     b, s, h, p = x.shape
     n = bm.shape[-1]
-    want = dict(x=(b, s, h, p), dt=(b, s, h), a=(h,), bm=(b, s, n),
-                cm=(b, s, n))
-    if h0 is not None:
-        want["h0"] = (b, h, n, p)
-    got = dict(x=x, dt=dt, a=a, bm=bm, cm=cm, h0=h0)
-    for name, shape in want.items():
-        t = got[name]
+    if a.ndim == 2 and a.shape[0] >= 1 and b % a.shape[0] == 0:
+        a_shape = (a.shape[0], h)
+    else:
+        a_shape = (h,)
+    want = dict(x=(b, s, h, p), dt=(b, s, h), a=a_shape, bm=(b, s, n),
+                cm=(b, s, n), h0=(b, h, n, p), dy=(b, s, h, p),
+                dh=(b, h, n, p))
+    got = dict(x=x, dt=dt, a=a, bm=bm, cm=cm, h0=h0, **more)
+    for name, t in got.items():
+        if t is None:
+            continue
         if t.dtype != torch.float32:
-            raise TypeError(f"ssd_scan: {name} must be float32, got "
+            raise TypeError(f"{kernel}: {name} must be float32, got "
                             f"{t.dtype}")
-        if tuple(t.shape) != shape or t.device != x.device:
-            raise ValueError(f"ssd_scan: {name} is {tuple(t.shape)} on "
-                             f"{t.device}, want {shape} on {x.device}")
+        if tuple(t.shape) != want[name] or t.device != x.device:
+            raise ValueError(f"{kernel}: {name} is {tuple(t.shape)} on "
+                             f"{t.device}, want {want[name]} on {x.device} "
+                             "(a may be (H,) or (R, H), R dividing b)")
     if s % chunk:
-        raise ValueError(f"ssd_scan: S={s} is not a multiple of the chunk "
+        raise ValueError(f"{kernel}: S={s} is not a multiple of the chunk "
                          f"{chunk} (ops.ssd pads)")
 
 
 @functools.cache
 def _lib():
     fn = _build.load("ssd_scan").ssd_scan_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bwd_lib():
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_f32
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_fwd(x, dt, a, bm, cm, h0, chunk):
+    """K4 on checked CUDA tensors: (y, h_final, lc, states, cb), the last
+    three the scratch the backward reads (:func:`saved_shapes`)."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    check_kernel_shape(chunk, n, p)
+    x, dt, a, bm, cm = (aligned16(t) for t in (x, dt, a, bm, cm))
+    h0 = None if h0 is None else aligned16(h0)
+    y = torch.empty_like(x)
+    h_final = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    lc, states, cb = (torch.empty(sh, dtype=torch.float32, device=x.device)
+                      for sh in saved_shapes(b, s, h, p, n, chunk))
+    with torch.cuda.device(x.device):
+        code = _lib()(ptr(x), ptr(dt), ptr(a), a_group(a, b), ptr(bm),
+                      ptr(cm), ptr(h0), ptr(y), ptr(h_final), ptr(lc),
+                      ptr(states), ptr(cb), b, s, h, p, n, chunk,
+                      stream_of(x.device))
+    raise_on_error("ssd_scan", code)
+    return y, h_final, lc, states, cb
+
+
+def _forward(x, dt, a, bm, cm, h0, chunk):
+    """(y, h_final, lc, states, cb): K4 for CUDA tensors (one launch
+    counted), the plain version for CPU tensors (the saved scratch empty,
+    (b, 0) each: the plain backward recomputes it)."""
+    if x.device.type == "cpu":
+        y, h_final = ssd_chunked_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+        empty = x.new_empty((x.shape[0], 0))
+        return y, h_final, empty, empty.clone(), empty.clone()
+    if x.device.type != "cuda":
+        unsupported_device("ssd_scan", x.device)
+    out = _launch_fwd(x, dt, a, bm, cm, h0, chunk)
+    ssd_scan.launches += 1
+    return out
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              bm: torch.Tensor, cm: torch.Tensor, *, chunk: int = 128,
              h0: torch.Tensor | None = None, return_state: bool = False):
-    """Chunked SSD over x (b, S, H, P), dt (b, S, H), a (H,), bm / cm
-    (b, S, N), all float32, S a multiple of ``chunk``; ``h0`` (b, H, N, P)
-    or None for zeros. Returns y (b, S, H, P), and the final state
-    (b, H, N, P) with ``return_state``.
+    """Chunked SSD over x (b, S, H, P), dt (b, S, H), a (H,) or (R, H),
+    bm / cm (b, S, N), all float32, S a multiple of ``chunk``; ``h0`` (b,
+    H, N, P) or None for zeros. Returns y (b, S, H, P), and the final
+    state (b, H, N, P) with ``return_state``.
 
     CUDA tensors launch the kernel's four passes on the current stream (no
     synchronisation) and count one launch in ``ssd_scan.launches``; with
     grad mode on and an input requiring a gradient they raise
-    ``NotImplementedError`` (the kernel has no backward yet, ROADMAP §A
-    item 13). CPU tensors run the plain version, which autograd
-    differentiates.
+    ``RuntimeError`` (the bare kernel would cut the gradient: differentiate
+    through ``ops.ssd``, :class:`SsdScan`). CPU tensors run the plain
+    version, which autograd differentiates.
     """
-    _check_args(x, dt, a, bm, cm, h0, chunk)
-    if x.device.type == "cpu":
-        y, h_final = ssd_chunked_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
-        return (y, h_final) if return_state else y
-    if x.device.type != "cuda":
-        unsupported_device("ssd_scan", x.device)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dt, a, bm, cm, h0)):
-        raise NotImplementedError(
-            "ssd_scan: the SSD scan kernel (K4) has no backward kernel yet "
-            "(ROADMAP §A item 13), so Mamba layers do not train on the card")
-    b, s, h, p = x.shape
-    n = bm.shape[-1]
-    check_kernel_shape(chunk, n, p)
-    x, dt, a, bm, cm = (t.contiguous() for t in (x, dt, a, bm, cm))
-    h0 = None if h0 is None else h0.contiguous()
-    y = torch.empty_like(x)
-    h_final = (torch.empty((b, h, n, p), dtype=torch.float32,
-                           device=x.device) if return_state else None)
-    work = torch.empty(work_floats(b, s, h, p, n, chunk), dtype=torch.float32,
-                       device=x.device)
-    with torch.cuda.device(x.device):
-        code = _lib()(ptr(x), ptr(dt), ptr(a), ptr(bm), ptr(cm), ptr(h0),
-                      ptr(y), ptr(h_final), ptr(work), b, s, h, p, n, chunk,
-                      stream_of(x.device))
-    raise_on_error("ssd_scan", code)
-    ssd_scan.launches += 1
+    _check_args("ssd_scan", x, dt, a, bm, cm, h0, chunk)
+    if x.device.type == "cuda":
+        no_grad_input("ssd_scan", "ops.ssd (SsdScan)", x, dt, a, bm, cm, h0)
+    y, h_final, *_ = _forward(x, dt, a, bm, cm, h0, chunk)
     return (y, h_final) if return_state else y
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 bm: torch.Tensor, cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 128, h0: torch.Tensor | None = None,
+                 dh: torch.Tensor | None = None, saved=None):
+    """The gradients (dx, ddt, da, dbm, dcm, dh0) of :func:`ssd_scan`'s (y,
+    final state) at (x, dt, a, bm, cm, h0), given dy (b, S, H, P) and dh
+    (b, H, N, P) or None for 0. da has a's shape; dh0 is (b, H, N, P), the
+    gradient of a zero initial state where ``h0`` is None. ``saved`` is
+    the forward's (lc, states, cb) (:class:`SsdScan` keeps them).
+
+    CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` (five device kernels) on
+    the current stream and count one launch in ``ssd_scan_bwd.launches``;
+    without ``saved`` it first runs K4 for them (not counted as a K4
+    launch). CPU tensors run :func:`ssd_scan_bwd_ref` (``saved`` unused).
+    """
+    _check_args("ssd_scan_bwd", x, dt, a, bm, cm, h0, chunk, dy=dy, dh=dh)
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, chunk=chunk, h0=h0,
+                                dh=dh)
+    if x.device.type != "cuda":
+        unsupported_device("ssd_scan_bwd", x.device)
+    no_grad_input("ssd_scan_bwd", "ops.ssd (SsdScan)", x, dt, a, bm, cm, h0,
+                  dy, dh)
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    check_kernel_shape(chunk, n, p)
+    if saved is None:
+        saved = _launch_fwd(x, dt, a, bm, cm, h0, chunk)[2:]
+    for t, sh in zip(saved, saved_shapes(b, s, h, p, n, chunk)):
+        if tuple(t.shape) != sh or t.dtype != torch.float32:
+            raise ValueError(f"ssd_scan_bwd: saved scratch {tuple(t.shape)} "
+                             f"{t.dtype}, want {sh} float32")
+    x, dt, a, bm, cm, dy = (t.contiguous() for t in (x, dt, a, bm, cm, dy))
+    dh = None if dh is None else dh.contiguous()
+    lc, states, cb = (t.contiguous() for t in saved)
+    dx, ddt, da = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(a)
+    dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
+    dh0 = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    work = torch.empty(bwd_work_floats(b, s, h, p, n, chunk),
+                       dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _bwd_lib()(ptr(x), ptr(dt), ptr(a), a_group(a, b), ptr(bm),
+                          ptr(cm), ptr(dy), ptr(dh), ptr(lc), ptr(states),
+                          ptr(cb), ptr(dx), ptr(ddt), ptr(da), ptr(dbm),
+                          ptr(dcm), ptr(dh0), ptr(work), b, s, h, p, n, chunk,
+                          stream_of(x.device))
+    raise_on_error("ssd_scan_bwd", code)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da, dbm, dcm, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+def _fold(info, in_dims, tensors):
+    """Each tensor (or None) with its vmapped axis (None: expanded to
+    ``info.batch_size``) folded into its leading batch axis: (m, b, ...)
+    -> (m b, ...), samples first."""
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        if t is not None:
+            t = (t.expand(info.batch_size, *t.shape) if dim is None
+                 else t.movedim(dim, 0))
+            t = t.flatten(0, 1)
+        out.append(t)
+    return out
+
+
+def _fold_a(info, dim, a):
+    """a of every sample as rows: (m, H) for a per-sample (H,), (m R, H)
+    for (R, H); an unbatched a is repeated per sample."""
+    a = a.expand(info.batch_size, *a.shape) if dim is None else a.movedim(
+        dim, 0)
+    return a.reshape(-1, a.shape[-1])
+
+
+def _unfold(info, t):
+    return t.unflatten(0, (info.batch_size, -1))
+
+
+class SsdScan(torch.autograd.Function):
+    """K4 with its gradient: ``apply(x, dt, a, bm, cm, h0, chunk)`` returns
+    (y, h_final, lc, states, cb), the last three the forward's scratch (not
+    differentiable; empty on the CPU). y and h_final are differentiable in
+    x, dt, a, bm, cm and h0 (None for zeros) through :class:`SsdScanBwd`
+    (the backward kernel on the card, :func:`ssd_scan_bwd_ref` on the
+    CPU).
+
+    The ``vmap`` rule folds the vmapped axis into the batch, (m, b, ...)
+    -> (m b, ...), and a into rows (:func:`_fold_a`), so one launch serves
+    every sample."""
+
+    @staticmethod
+    def forward(x, dt, a, bm, cm, h0, chunk):
+        _check_args("ssd_scan", x, dt, a, bm, cm, h0, chunk)
+        with torch.no_grad():
+            return _forward(x, dt, a, bm, cm, h0, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, a, bm, cm, h0, ctx.chunk = inputs
+        _, _, *saved = output
+        ctx.mark_non_differentiable(*saved)
+        ctx.save_for_backward(x, dt, a, bm, cm, h0, *saved)
+
+    @staticmethod
+    def backward(ctx, dy, dh, *_):
+        x, dt, a, bm, cm, h0, *saved = ctx.saved_tensors
+        dx, ddt, da, dbm, dcm, dh0 = SsdScanBwd.apply(
+            x, dt, a, bm, cm, h0, dy, dh, *saved, ctx.chunk)
+        return dx, ddt, da, dbm, dcm, None if h0 is None else dh0, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, a, bm, cm, h0, chunk):
+        x, dt, bm, cm, h0 = _fold(info, in_dims[:2] + in_dims[3:6],
+                                  (x, dt, bm, cm, h0))
+        out = SsdScan.apply(x, dt, _fold_a(info, in_dims[2], a), bm, cm, h0,
+                            chunk)
+        return tuple(_unfold(info, t) for t in out), (0,) * 5
+
+
+class SsdScanBwd(torch.autograd.Function):
+    """:func:`ssd_scan_bwd` (given the forward's scratch) as a Function, so
+    that the backward of :class:`SsdScan` runs batched under
+    ``vmap(grad(...))`` through its own ``vmap`` rule (the same fold; da
+    back to each sample's shape of a). It has no gradient of its own."""
+
+    @staticmethod
+    def forward(x, dt, a, bm, cm, h0, dy, dh, lc, states, cb, chunk):
+        with torch.no_grad():
+            return ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=chunk, h0=h0,
+                                dh=dh, saved=(lc, states, cb)
+                                if x.device.type == "cuda" else None)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the SSD scan has no second derivative "
+                                  "in the port")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, a, bm, cm, h0, dy, dh, lc, states, cb,
+             chunk):
+        folded = _fold(info, in_dims[:2] + in_dims[3:11],
+                       (x, dt, bm, cm, h0, dy, dh, lc, states, cb))
+        x, dt, bm, cm, h0, dy, dh, lc, states, cb = folded
+        sample_a = a.shape if in_dims[2] is None else (
+            a.shape[:in_dims[2]] + a.shape[in_dims[2] + 1:])
+        dx, ddt, da, dbm, dcm, dh0 = SsdScanBwd.apply(
+            x, dt, _fold_a(info, in_dims[2], a), bm, cm, h0, dy, dh, lc,
+            states, cb, chunk)
+        da = da.reshape(info.batch_size, *sample_a)
+        return ((_unfold(info, dx), _unfold(info, ddt), da,
+                 _unfold(info, dbm), _unfold(info, dcm), _unfold(info, dh0)),
+                (0,) * 6)

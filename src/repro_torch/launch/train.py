@@ -13,10 +13,10 @@ FEMNIST stand-in. LM mode (``--arch <id>``) trains ``get_config(arch)
 .reduced(n_layers=--layers, d_model=--d-model)`` with plain SGD
 (``fl/round.py::make_train_step`` over ``torch.func.functional_call`` of
 the :class:`~repro_torch.models.model.LM` module) on the synthetic token
-stream; attention's gradient runs K5's backward kernel on the card. A
-Mamba layer does not train on the card yet (``ssd_scan`` raises there,
-ROADMAP §A item 13). ``--device`` picks the card (default ``cuda``, which
-raises without one) or ``cpu``. Prints one JSON line.
+stream; on the card attention's gradient runs K5's backward kernel and a
+Mamba layer's K4's (``mamba2-130m``, ``jamba-v0.1-52b``). ``--device``
+picks the card (default ``cuda``, which raises without one) or ``cpu``.
+Prints one JSON line.
 """
 
 from __future__ import annotations

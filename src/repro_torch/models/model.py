@@ -31,9 +31,9 @@ K / V, of the media and of the encoder's output, computed once at
 prefill and carried in ``ServeState.cross_kv``). ``forward`` and
 ``loss_fn`` follow the caller's grad mode: they train, attention's
 gradient going through K5's backward kernel on the card
-(``kernels/flash_attention.py::FlashAttention``; a Mamba layer does not
-train on the card yet: ``ops.ssd`` raises there under grad, ROADMAP §A
-item 13). ``LM.forward`` is ``loss_fn``, so
+(``kernels/flash_attention.py::FlashAttention``) and a Mamba layer's
+through K4's (``kernels/ssd_scan.py::SsdScan``). ``LM.forward`` is
+``loss_fn``, so
 ``torch.func.functional_call(lm, params, (batch, cfg))`` is the loss over
 a dict of parameters (``fl/round.py::make_train_step`` takes it).
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.

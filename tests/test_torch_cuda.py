@@ -49,11 +49,15 @@ of each gradient's largest |plain| in float32 (2e-2 in bfloat16), the
 same bits with the masked tiles run and from run to run, and on the
 expanded KV heads (dq bit-equal; dk and dv summed back per group within
 3e-5 of their largest entry: the group's sum in another order); gradients through ``ops.flash_attention``
-(D = 16 padded) equal the CPU's; bare K5 and ``ops.ssd`` raise under grad
-instead of cutting it; a reduced train step of each attention and MoE id
-on the card equals the CPU's (loss rtol 1e-5, gradients 1e-4 of each
-leaf's largest |CPU|), launching K5's forward and backward once per
-attention call.
+(D = 16 padded) equal the CPU's; bare K5 and bare K4 raise under grad
+instead of cutting it; a reduced train step of each id on the card equals
+the CPU's (loss rtol 1e-5, gradients 1e-4 of each leaf's largest |CPU|),
+launching K5's forward and backward once per attention call and K4's
+once per Mamba layer. K4's backward kernel (through ``ops.ssd``) against
+``ssd_scan_bwd_ref`` with an initial state and the final state's
+cotangent, 1e-4 of each gradient's largest |plain| entry, the same bits
+on a rerun, and under ``vmap(grad)`` one launch each way, bit-equal to
+the per-sample gradients.
 """
 
 import dataclasses
@@ -1056,9 +1060,9 @@ def test_lm_participant_gradients_on_the_card_equal_the_cpus(cuda):
 
 
 def test_bare_kernels_refuse_to_cut_a_gradient(cuda):
-    """With grad mode on, a bare K5 call on an input that requires a
-    gradient raises, and so does ops.ssd (K4 has no backward yet, ROADMAP
-    §A item 13); under no_grad both run."""
+    """With grad mode on, a bare K5 or K4 call on an input that requires a
+    gradient raises (``ops.flash_attention`` and ``ops.ssd`` are the
+    differentiable routes); under no_grad both run."""
     q, k, v, _ = bwd_lanes(2, 64, 64, 64, 1, cuda)
     q.requires_grad_()
     with pytest.raises(RuntimeError, match="cut"):
@@ -1067,10 +1071,87 @@ def test_bare_kernels_refuse_to_cut_a_gradient(cuda):
         flash_attention_bhsd(q, k, v)
     x, dt, a, bm, cm = ssd_lanes(1, 128, 2, 32, 16, cuda)
     x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        kernel_ops.ssd(x, dt, a, bm, cm, chunk=32)
+    with pytest.raises(RuntimeError, match="cut"):
+        ssd_scan(x, dt, a, bm, cm, chunk=32)
     with torch.no_grad():
-        kernel_ops.ssd(x, dt, a, bm, cm, chunk=32)
+        ssd_scan(x, dt, a, bm, cm, chunk=32)
+
+
+# (b, S, H, P, N, chunk) of the K4-backward checks: chip_smoke.py's small
+# SSD shapes (a padded S = 100), a mid shape at mamba2-130m's widths and
+# jamba-v0.1-52b's N = 16 at reduced S
+SSD_BWD_SHAPES = [(1, 100, 2, 32, 16, 32), (2, 384, 24, 64, 128, 128),
+                  (2, 256, 8, 64, 16, 128), (2, 192, 4, 32, 64, 64)]
+# of each gradient's largest |plain| entry: 3xTF32 products on the card,
+# summed in another order than the plain version's einsums, around K4's
+# 3xTF32 forward (measured up to 1.3e-5 on an H100: da, a sum over every
+# (b, S))
+SSD_BWD_TOL = 1e-4
+
+
+def ssd_grads(x, dt, a, bm, cm, h0, dy, dh, chunk):
+    """``ops.ssd``'s gradients in (x, dt, a, bm, cm, h0) of
+    sum(y dy) + sum(h_final dh)."""
+    def loss(x, dt, a, bm, cm, h0):
+        y, h_final = kernel_ops.ssd(x, dt, a, bm, cm, chunk=chunk, h0=h0,
+                                    return_state=True)
+        return (y * dy).sum() + (h_final * dh).sum()
+    return torch.func.grad(loss, argnums=tuple(range(6)))(x, dt, a, bm, cm,
+                                                          h0)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_BWD_SHAPES)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
+    """``ops.ssd`` trains on the card: K4's backward kernel, one launch a
+    gradient, against ``ssd_scan_bwd_ref`` on the same padded inputs, with
+    an initial state and the final state's cotangent; the same bits on a
+    rerun."""
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    x, dt, a, bm, cm = ssd_lanes(b, s, h, p, n, cuda, seed=s + n)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    h0, dh = (torch.randn((b, h, n, p), device=cuda, generator=g)
+              for _ in range(2))
+    dy = torch.randn(x.shape, device=cuda, generator=g)
+    ssd_scan.launches = ssd_scan_bwd.launches = 0
+    got = ssd_grads(x, dt, a, bm, cm, h0, dy, dh, chunk)
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (1, 1)
+    again = ssd_grads(x, dt, a, bm, cm, h0, dy, dh, chunk)
+    pads = kernel_ops.pad_to_chunk(chunk, x, dt, bm, cm)
+    dyp = kernel_ops.pad_to_chunk(chunk, dy, dt, bm, cm)[0]
+    want = ssd_scan_bwd_ref(pads[0], pads[1], a, pads[2], pads[3], dyp,
+                            chunk=chunk, h0=h0, dh=dh)
+    want = (want[0][:, :s], want[1][:, :s], want[2], want[3][:, :s],
+            want[4][:, :s], want[5])
+    for name, gg, rr, ww in zip(("dx", "ddt", "da", "dbm", "dcm", "dh0"),
+                                got, again, want):
+        assert torch.equal(gg, rr), name
+        scale = float(ww.abs().max())
+        assert float((gg - ww).abs().max()) <= SSD_BWD_TOL * scale, name
+
+
+def test_ssd_vmap_grad_matches_per_sample(cuda):
+    """``vmap(grad)`` through ``ops.ssd`` over 3 samples, each with its
+    own a, launches K4 and its backward once each and equals the
+    per-sample gradients bit for bit (every block and every sum of the
+    folded call is a per-sample call's, in the same order)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    samples = [ssd_lanes(2, 256, 4, 64, 16, cuda, seed=40 + i)
+               for i in range(3)]
+    xs = torch.stack([t[0] for t in samples])
+    as_ = torch.stack([t[2] for t in samples])
+    _, dt, _, bm, cm = samples[0]
+
+    def loss(a, x):
+        return kernel_ops.ssd(x, dt, a, bm, cm, chunk=128).square().sum()
+
+    ssd_scan.launches = ssd_scan_bwd.launches = 0
+    got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)))(as_, xs)
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (1, 1)
+    for i in range(3):
+        want = torch.func.grad(loss, argnums=(0, 1))(as_[i], xs[i])
+        assert torch.equal(got[0][i], want[0])
+        assert torch.equal(got[1][i], want[1])
 
 
 TRAIN_IDS = ["yi-6b", "chatglm3-6b", "minicpm-2b", "granite-20b",
@@ -1127,12 +1208,44 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
         assert float((gg[name].cpu() - c).abs().max()) <= 1e-4 * scale, name
 
 
-def test_mamba_layers_do_not_train_on_the_card(cuda):
-    """jamba's Mamba layers reach ops.ssd, which raises under grad on the
-    card (ROADMAP §A item 13)."""
-    cfg = get_config("jamba-v0.1-52b").reduced()
-    model = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
-    params = {k: p.detach() for k, p in model.named_parameters()}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        torch.func.grad(lambda p: torch.func.functional_call(
-            model, p, (step_batch(cfg, cuda), cfg)))(params)
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_mamba_layers_do_not_train_on_the_card(cuda, arch):
+    """A reduced train step of the Mamba ids on the card (K4 and its
+    backward kernel, once per Mamba layer; jamba's attention layer K5 and
+    its backward) against the CPU's on the same weights: loss rtol 1e-5,
+    gradients 1e-4 of each leaf's largest |CPU|; the SGD step's
+    parameters finite."""
+    import copy
+
+    from repro_torch.fl.round import make_train_step
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    cfg = get_config(arch).reduced()
+    mamba_layers = sum(spec.mixer == "mamba" for spec in cfg.layer_specs())
+    host = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    out = []
+    for model, device in ((host, "cpu"), (card, cuda)):
+        params = {k: p.detach() for k, p in model.named_parameters()}
+
+        def loss_fn(p, b, model=model):
+            return torch.func.functional_call(model, p, (b, cfg))
+
+        ssd_scan.launches = ssd_scan_bwd.launches = 0
+        flash_attention_bhsd.launches = flash_attention_bwd.launches = 0
+        grads, loss = torch.func.grad_and_value(loss_fn)(
+            params, step_batch(cfg, device))
+        out.append((grads, loss, ssd_scan.launches, ssd_scan_bwd.launches,
+                    flash_attention_bhsd.launches,
+                    flash_attention_bwd.launches))
+        new, _ = make_train_step(loss_fn, 0.01)(params,
+                                                step_batch(cfg, device))
+        assert all(bool(torch.isfinite(w).all()) for w in new.values())
+    (cg, closs, *_), (gg, gloss, k4, k4_bwd, k5, k5_bwd) = out
+    np.testing.assert_allclose(float(gloss), float(closs), rtol=1e-5)
+    assert k4 == k4_bwd == mamba_layers > 0
+    assert k5 == k5_bwd == len(cfg.layer_specs()) - mamba_layers
+    for name, c in cg.items():
+        scale = float(c.abs().max())
+        assert scale > 0, name
+        assert float((gg[name].cpu() - c).abs().max()) <= 1e-4 * scale, name

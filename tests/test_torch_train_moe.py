@@ -4,9 +4,9 @@ against ``jax.grad`` of the reference's ``loss_fn``, as
 ``tests/test_torch_train_dense.py`` does the rest of the zoo (its helper,
 its tolerances).
 
-On the CPU the Mamba layers differentiate through the sequential SSD
-(``ops.ssd_auto``); on the card K4 has no backward yet (ROADMAP §A item
-13). The MoE's capacity drops depend on the batch: at these inputs (2 x
+The Mamba layers differentiate through ``ops.ssd`` (``SsdScan``: the
+plain chunked scan and ``ssd_scan_bwd_ref`` on the CPU, K4 and its
+backward kernel on the card). The MoE's capacity drops depend on the batch: at these inputs (2 x
 16 tokens, 4 experts top-2) the routers agree on every token
 (``tests/test_torch_moe.py`` checks the router margins), so the two sides
 drop the same pairs and their gradients, the router's included, compare.
