@@ -158,7 +158,8 @@ Phases; any failure exits non-zero before the result line is printed:
    (kernel path) against the same weights' forward on the CPU (plain path)
    at rtol 1e-4 / atol 1e-4; forward ms, prefill s, decode ms per token, a
    profile of one forward and 16 decode steps, and K4's device time at the
-   forward shape (each of its four device kernels' share by the profiler)
+   forward shape (each of its four device kernels' share by the profiler
+   in a fresh process started for it, their sum beside the whole call's)
    beside its plain version's and its bound, and, where
    ``build/ssd_scan_cuda_cores.cu`` holds the earlier K4 that ran on the
    CUDA cores (``git show 3f5cf30:src/repro_torch/kernels/csrc/ssd_scan.cu``),
@@ -272,10 +273,11 @@ Phases; any failure exits non-zero before the result line is printed:
    lanes within 1e-6 of q, the final accuracy within 10 of the 6,400 test
    tokens;
 16. Mamba training on the card (``ssd_train_path``): K4's backward kernel
-   (``csrc/ssd_scan_bwd.cu``: five device kernels on the scratch K4's
-   forward saves, 3xTF32 ``mma.sync``, no atomics) through
-   ``ops.ssd`` under ``torch.func.grad`` against its plain version
-   (``ssd_scan_bwd_ref``, on the card) at ``SSD_BWD_SHAPES``: phase 3's
+   (``csrc/ssd_scan_bwd.cu``: seven device kernels on the scratch K4's
+   forward saves, 3xTF32 ``wgmma`` GEMMs and ``mma.sync``, no atomics)
+   through ``ops.ssd`` under ``torch.func.grad`` against its plain
+   version (``ssd_scan_bwd_ref``, on the card) and its kernel-order plain
+   version (``ssd_scan_bwd_gemm_ref``) at ``SSD_BWD_SHAPES``: phase 3's
    SSD shapes (the padded (1, 100, ...) and prefill (4, 2000, 24, 64,
    128), mamba2-130m's (4, 2048, 24, 64, 128)) and jamba-v0.1-52b's (4,
    2048, 128, 64, 16), from a zero state and with an initial state and
@@ -284,10 +286,14 @@ Phases; any failure exits non-zero before the result line is printed:
    one backward launch a call; ``vmap(grad)`` over 3 samples with their
    own a, one launch each way, bit-equal to the per-sample gradients; its
    device ms at mamba's and jamba's shapes beside its plain version's and
-   its bound (``ssd_bwd_bound``: 16.7 GFLOP at mamba's, 3xTF32), each of
-   its five device kernels' share by the profiler (no single PyTorch call
-   computes it), and, where ``build/ssd_scan_bwd_cuda_cores.cu`` holds its
-   CUDA-core design (float32 FMAs), that design in turns with this one;
+   its bound (``ssd_bwd_bound``: 16.4 GFLOP at mamba's, 3xTF32), each of
+   its seven device kernels' ms by CUDA events around each launched alone
+   (their sum beside the whole call's; no single PyTorch call computes
+   it), and, where ``build/ssd_scan_bwd_cuda_cores.cu`` (the CUDA-core
+   design, float32 FMAs) or ``build/ssd_scan_bwd_pr25.cu`` (the earlier
+   3xTF32 ``mma.sync`` design, ``git show
+   c5c94b9:src/repro_torch/kernels/csrc/ssd_scan_bwd.cu``) is at hand,
+   that design in turns with this one;
    then, per id of ``SSD_TRAIN``, a reduced config's step on
    the card against the CPU (loss rtol 1e-5, gradients 1e-4 of each
    leaf's largest |CPU|) and, counts at 0, 3 SGD steps at published
@@ -310,6 +316,7 @@ lines, the card line, one JSON line of the kernels (``{"kernels":
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -3263,11 +3270,12 @@ def ssd_bound(b, s, h, p, n, chunk, with_state):
                            * 1e3))
 
 
+@functools.cache
 def earlier_kernel(stem):
     """The library of ``build/<stem>.cu``, an earlier design of a kernel put
-    there by hand, built with the port's flags and its headers on the
-    include path (a header beside the source, from the same commit, wins);
-    None when that file is absent."""
+    there by hand, built once a run with the port's flags and its headers
+    on the include path (a header beside the source, from the same commit,
+    wins); None when that file is absent."""
     import ctypes
     from repro_torch.kernels import _build
     src = ROOT / "build" / f"{stem}.cu"
@@ -3334,10 +3342,34 @@ def ssd_pass_ms(torch, fn, calls=10):
     return out
 
 
+def ssd_pass_split(torch, shape):
+    """K4's device kernels' ms per call at ``shape`` (with the final
+    state), by :func:`ssd_pass_ms`; run in a fresh process by
+    :func:`fresh_ssd_pass_ms`."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    b, s, h, p, n, chunk = shape
+    x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, 5)
+    return ssd_pass_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                               return_state=True))
+
+
+def fresh_ssd_pass_ms(shape):
+    """:func:`ssd_pass_split` in a child process started for it: late in
+    this run a profiler session reads some of K4's kernels low or 0, a
+    fresh process's first session does not."""
+    code = ("import json, sys, torch; sys.path.insert(0, 'src'); "
+            "import chip_smoke as c; "
+            f"print(json.dumps(c.ssd_pass_split(torch, {tuple(shape)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def time_ssd(torch, shape=SSD_SHAPES[-1]):
     """K4 and its plain version at a forward shape (mamba2-130m's by
     default; with the final state), device ms by CUDA events, each device
-    kernel's share by the profiler; the earlier CUDA-core kernel where its
+    kernel's share by the profiler in a fresh process (their sum printed
+    beside the whole call's); the earlier CUDA-core kernel where its
     source is at hand, timed in turns with this one."""
     from repro_torch.kernels.ref import ssd_chunked_ref
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -3347,12 +3379,13 @@ def time_ssd(torch, shape=SSD_SHAPES[-1]):
     def kernel():
         return ssd_scan(x, dt, a, bm, cm, chunk=chunk, return_state=True)
 
+    torch.cuda.empty_cache()  # room on the card for the split's process
     row = dict(
         shape=[b, s, h, p, n], chunk=chunk,
         ms=time_device(torch, kernel, False),
         plain_ms=time_device(torch, lambda: ssd_chunked_ref(
             x, dt, a, bm, cm, chunk=chunk), False, iters=5),
-        device_kernels_ms=ssd_pass_ms(torch, kernel),
+        device_kernels_ms=fresh_ssd_pass_ms(shape),
         **ssd_bound(b, s, h, p, n, chunk, True))
     old = cuda_core_ssd(torch)
     if old is not None:
@@ -3370,7 +3403,9 @@ def time_ssd(torch, shape=SSD_SHAPES[-1]):
     passes = ", ".join(f"{k.removeprefix('ssd_scan_')} {v:.4f}"
                        for k, v in row["device_kernels_ms"].items())
     print(f"ssd_scan at {row['shape']}: {row['ms']:.3f} ms device ({passes}"
-          f" ms by the profiler), plain {row['plain_ms']:.3f} ms, bound "
+          f" ms by the profiler in a fresh process, sum "
+          f"{sum(row['device_kernels_ms'].values()):.4f}), plain "
+          f"{row['plain_ms']:.3f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
           f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
           f"bytes {row['bytes_ms']:.4f} ms; all float32 on the CUDA cores "
@@ -4314,7 +4349,9 @@ def check_ssd_bwd(torch):
     (2, 256, 24, 64, 128): one launch each way, bit-equal to the
     per-sample gradients. Returns the largest |d| over the checks."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ref import (ssd_scan_bwd_gemm_ref,
+                                         ssd_scan_bwd_ref)
+    from repro_torch.kernels.ssd_scan import bwd_head_group
     err = 0.0
     names = ("dx", "ddt", "da", "dbm", "dcm", "dh0")
     for b, s, h, p, n, chunk in SSD_BWD_SHAPES:
@@ -4332,28 +4369,40 @@ def check_ssd_bwd(torch):
             again = ssd_grads(torch, x, dt, a, bm, cm, h0, dy, dh, chunk)
             xp, dtp, bmp, cmp = ops.pad_to_chunk(chunk, x, dt, bm, cm)
             dyp = ops.pad_to_chunk(chunk, dy, dt, bm, cm)[0]
-            want = ssd_scan_bwd_ref(xp, dtp, a, bmp, cmp, dyp, chunk=chunk,
-                                    h0=h0, dh=dh)
-            want = [want[0][:, :s], want[1][:, :s], want[2],
-                    want[3][:, :s], want[4][:, :s], want[5]][:len(got)]
-            torch.cuda.synchronize()
             tag = f"ssd_scan_bwd {(b, s, h, p, n)} chunk {chunk} state={state}"
-            rels = []
-            for name, gg, ww in zip(names, got, want):
-                diff = float((gg - ww).abs().max())
-                rels.append(diff / float(ww.abs().max()))
-                err = max(err, diff)
-                if not (torch.isfinite(gg).all() and rels[-1] <= SSD_BWD_TOL):
-                    raise AssertionError(f"{tag}: {name} off its plain "
-                                         f"version by {rels[-1]:.3g} of max "
-                                         "|plain|")
+            hg = bwd_head_group(b, xp.shape[1], h, chunk)
+            rels = {}
+            for label, plain in (
+                    ("plain", ssd_scan_bwd_ref), ("kernel-order plain",
+                     lambda *v, **k: ssd_scan_bwd_gemm_ref(
+                         *v, head_group=hg, **k))):
+                want = plain(xp, dtp, a, bmp, cmp, dyp, chunk=chunk, h0=h0,
+                             dh=dh)
+                want = [want[0][:, :s], want[1][:, :s], want[2],
+                        want[3][:, :s], want[4][:, :s], want[5]][:len(got)]
+                torch.cuda.synchronize()
+                rels[label] = []
+                for name, gg, ww in zip(names, got, want):
+                    diff = float((gg - ww).abs().max())
+                    rels[label].append(diff / float(ww.abs().max()))
+                    err = max(err, diff)
+                    if not (torch.isfinite(gg).all()
+                            and rels[label][-1] <= SSD_BWD_TOL):
+                        raise AssertionError(
+                            f"{tag}: {name} off its {label} version by "
+                            f"{rels[label][-1]:.3g} of max |plain|")
+                del want
             if not all(torch.equal(u, v) for u, v in zip(got, again)):
                 raise AssertionError(f"{tag}: a rerun changed the result")
             print(f"{tag} agrees with its plain version ("
-                  + ", ".join(f"{k} {r:.3g}" for k, r in zip(names, rels))
-                  + " of max |plain|); a rerun gives the same bits",
-                  flush=True)
-            del got, again, want
+                  + ", ".join(f"{k} {r:.3g}"
+                              for k, r in zip(names, rels["plain"]))
+                  + " of max |plain|) and its kernel-order plain version "
+                  f"(hg {hg}: "
+                  + ", ".join(f"{k} {r:.3g}" for k, r in zip(
+                      names, rels["kernel-order plain"]))
+                  + "); a rerun gives the same bits", flush=True)
+            del got, again
         del x, dt, a, bm, cm, dy
         torch.cuda.empty_cache()
 
@@ -4382,16 +4431,18 @@ def check_ssd_bwd(torch):
     return err
 
 
-def cuda_core_ssd_bwd(torch):
-    """The CUDA-core design of K4's backward (every product as float32 FMAs
-    on the CUDA cores, the same five passes and C interface) from
-    ``build/ssd_scan_bwd_cuda_cores.cu``, as a function of (x, dt, a, bm,
+def earlier_ssd_bwd(torch, stem):
+    """An earlier design of K4's backward with commit c5c94b9's C interface and
+    scratch (five passes; dS, the heads' dB and dC shares, the chunks' da
+    shares) from ``build/<stem>.cu``: ``ssd_scan_bwd_cuda_cores`` (every
+    product as float32 FMAs on the CUDA cores) or ``ssd_scan_bwd_pr25``
+    (3xTF32 ``mma.sync``, commit c5c94b9), as a function of (x, dt, a, bm,
     cm, dy, chunk, saved) returning the gradients; None when that file is
     absent."""
     import ctypes
 
-    from repro_torch.kernels.ssd_scan import a_group, bwd_work_floats
-    lib = earlier_kernel("ssd_scan_bwd_cuda_cores")
+    from repro_torch.kernels.ssd_scan import a_group, state_cols
+    lib = earlier_kernel(stem)
     if lib is None:
         return None
     fn = lib.ssd_scan_bwd_f32
@@ -4405,33 +4456,39 @@ def cuda_core_ssd_bwd(torch):
         n = bm.shape[-1]
         out = [torch.empty_like(t) for t in (x, dt, a, bm, cm)] + [
             torch.empty((b, h, n, p), device="cuda")]
-        work = torch.empty(bwd_work_floats(b, s, h, p, n, chunk),
-                           device="cuda")
+        nc = s // chunk
+        work = torch.empty(b * nc * h * p * state_cols(n) + 2 * b * s * h * n
+                           + b * nc * h, device="cuda")
         code = fn(*(t.data_ptr() for t in (x, dt, a)), a_group(a, b),
                   *(t.data_ptr() for t in (bm, cm, dy)), None,
                   *(t.data_ptr() for t in (*saved, *out, work)), b, s, h, p,
                   n, chunk, torch.cuda.current_stream().cuda_stream)
         if code:
-            raise RuntimeError(f"CUDA-core ssd_scan_bwd: cudaError {code}")
+            raise RuntimeError(f"{stem}: cudaError {code}")
         return out
     return call
 
 
-# K4's backward device kernels, launched in this order by one call
-SSD_BWD_PASSES = ("ssd_bwd_chunk_dstate", "ssd_bwd_state_pass",
-                  "ssd_bwd_chunk<", "ssd_bwd_reduce_bc", "ssd_bwd_reduce_a")
+# earlier designs of K4's backward timed in turns with this one where
+# their source is under build/: (key in the timing row, stem)
+SSD_BWD_EARLIER = (("cuda_core_kernel", "ssd_scan_bwd_cuda_cores"),
+                   ("pr25_kernel", "ssd_scan_bwd_pr25"))
 
 
 def time_ssd_bwd(torch, shape):
     """K4's backward at a training shape (no initial state, as the models
     train), on its forward's saved scratch: device ms by CUDA events
-    behind the spin kernel, each device kernel's share by the profiler,
-    its plain version's ms, the bound (:func:`ssd_bwd_bound`); no single
-    PyTorch call computes it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    behind the spin kernel; each device kernel's ms by CUDA events around
+    that pass launched alone on the scratch of a whole call (the whole
+    call rerun before each, ``ssd_scan_bwd_passes``), their sum beside the
+    whole call's; its plain version's ms, the bound
+    (:func:`ssd_bwd_bound`; no single PyTorch call computes it); the
+    earlier designs of ``SSD_BWD_EARLIER`` at hand in turns with this
+    one."""
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
-    from repro_torch.kernels.ssd_scan import _launch_fwd, ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan import (BWD_PASSES, _launch_fwd,
+                                              ssd_scan_bwd,
+                                              ssd_scan_bwd_passes)
     b, s, h, p, n, chunk = shape
     x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, 6)
     dy = torch.randn(x.shape, device="cuda", generator=torch.Generator(
@@ -4442,28 +4499,24 @@ def time_ssd_bwd(torch, shape):
         return ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=chunk, saved=saved)
 
     counts = read_counts()
-    kernel()
-    torch.cuda.synchronize()
-    # CPU and CUDA activities: late in the run a CUDA-only session records
-    # no kernel (seen at jamba's shape, phase 14)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            kernel()
-        torch.cuda.synchronize()
-    passes = dict.fromkeys(SSD_BWD_PASSES, 0.0)
-    for e in prof.key_averages():
-        for name in SSD_BWD_PASSES:
-            if name in e.key:
-                passes[name] += e.self_device_time_total / 1e3 / 10
+    launch = ssd_scan_bwd_passes(x, dt, a, bm, cm, dy, chunk=chunk,
+                                 saved=saved)
+    passes = {}
+    for k, name in enumerate(BWD_PASSES):
+        launch(-1)
+        passes[name] = time_device(torch, lambda: launch(k), False)
+    del launch
     row = dict(shape=[b, s, h, p, n], chunk=chunk,
                ms=time_device(torch, kernel, False),
                plain_ms=time_device(torch, lambda: ssd_scan_bwd_ref(
                    x, dt, a, bm, cm, dy, chunk=chunk), False, iters=5),
                library_ms=None, device_kernels_ms=passes,
+               device_kernels_sum_ms=sum(passes.values()),
                **ssd_bwd_bound(b, s, h, p, n, chunk, False))
-    old = cuda_core_ssd_bwd(torch)
-    if old is not None:
+    for key, stem in SSD_BWD_EARLIER:
+        old = earlier_ssd_bwd(torch, stem)
+        if old is None:
+            continue
         new = kernel()
         err = max(float((u - v).abs().max() / v.abs().max())
                   for u, v in zip(new, old(x, dt, a, bm, cm, dy, chunk,
@@ -4474,20 +4527,22 @@ def time_ssd_bwd(torch, shape):
                  time_device(torch, kernel, False),
                  time_device(torch, lambda: old(x, dt, a, bm, cm, dy, chunk,
                                                 saved), False)]
-        row["cuda_core_kernel"] = dict(ms=[turns[0], turns[3]],
-                                       new_ms=turns[1:3], max_rel_diff=err)
+        row[key] = dict(ms=[turns[0], turns[3]], new_ms=turns[1:3],
+                        max_rel_diff=err)
     set_counts(counts)
-    print(f"ssd_scan_bwd at {row['shape']}: {row['ms']:.3f} ms device ("
-          + ", ".join(f"{k.removeprefix('ssd_bwd_').rstrip('<')} {v:.4f}"
+    print(f"ssd_scan_bwd at {row['shape']}: {row['ms']:.4f} ms device ("
+          + ", ".join(f"{k.removeprefix('ssd_bwd_')} {v:.4f}"
                       for k, v in passes.items())
-          + f" ms by the profiler), plain {row['plain_ms']:.3f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_detail']}; "
-          f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.2f} GFLOP; "
-          f"all float32 on the CUDA cores {row['f32_ms']:.4f} ms); no "
-          "single PyTorch call computes it"
-          + (f"; the CUDA-core design {row['cuda_core_kernel']['ms']} ms "
-             f"against {row['cuda_core_kernel']['new_ms']} in turns"
-             if "cuda_core_kernel" in row else ""), flush=True)
+          + f" ms, each pass alone by CUDA events, sum "
+          f"{row['device_kernels_sum_ms']:.4f}), plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ("
+          f"{row['bound_detail']}; {row['bytes'] / 1e6:.1f} MB, "
+          f"{row['flops'] / 1e9:.2f} GFLOP; all float32 on the CUDA cores "
+          f"{row['f32_ms']:.4f} ms); no single PyTorch call computes it"
+          + "".join(f"; {stem} {row[key]['ms']} ms against "
+                    f"{row[key]['new_ms']} in turns"
+                    for key, stem in SSD_BWD_EARLIER if key in row),
+          flush=True)
     return row
 
 
@@ -4635,6 +4690,119 @@ def ssd_train_path(torch):
     return err, dict(row, jamba_shape=jamba_row), launches, dict(
         summary, wall_s=wall)
 
+# ``--ssd-bwd-variants``: variants of csrc/ssd_scan_bwd.cu made by
+# replacing text of its chunk pass (pass 3), each timed alone on the
+# scratch of a whole call, in turns with the shipped build: one part taken
+# out (the ablations PERF.md §6 quotes; their results are wrong), M^T dy
+# over every K step (this design's first build) and G's A operand skipped on
+# dead row tiles (slower: its branch costs more than it saves)
+SSD_BWD_VARIANTS = {
+    "no_G_mma": [("        mma3(gt, ln, 0, P,",
+                  "        if (0) mma3(gt, ln, 0, P,")],
+    "no_G_elementwise": [("              if (s <= t) {\n                // min",
+                          "              if (gv == 1.25f) {\n                // min")],
+    "no_MTdy": [("    mma3(dxm, sl, sl.row(0), L,",
+                 "    if (0) mma3(dxm, sl, sl.row(0), L,")],
+    "no_UY_loads": [
+        ("*reinterpret_cast<const float2*>(uh + s * xrow + pp);",
+         "make_float2(s, pp);"),
+        ("*reinterpret_cast<const float2*>(yh + s * xrow + pp);",
+         "make_float2(pp, s);")],
+    "no_S_dS": [("      for (int e = tid; e < P * NP / 4; e += kThreads) {",
+                 "      for (int e = tid; e < 0; e += kThreads) {")],
+    "no_tail": [("    if (tid < 32) {\n      constexpr int R = L / 32;",
+                 "    if (tid < 0) {\n      constexpr int R = L / 32;")],
+    "MTdy_over_all_K": [("    mma3(dxm, sl, sl.row(0), L,",
+                         "    mma3(dxm, sl, 0, L,")],
+    "G_skip_dead_rows": [(
+        "        for (int e = 0; e < 4; ++e)\n"
+        "          split(a(ln.row(i) + ln.g + 8 * (e & 1), kk + ln.t + 4 * "
+        "(e >> 1)),\n                ah[i][e], al[i][e]);",
+        "        for (int e = 0; e < 4; ++e) {\n"
+        "          if (live(i, 0, kk)) split(a(ln.row(i) + ln.g + 8 * (e & 1),"
+        " kk + ln.t + 4 * (e >> 1)), ah[i][e], al[i][e]);\n"
+        "          else ah[i][e] = al[i][e] = 0u;\n        }")],
+}
+
+
+def ssd_bwd_variants(torch):
+    """Pass 3 of K4's backward at mamba's and jamba's training shapes:
+    the shipped build and each of ``SSD_BWD_VARIANTS`` (built beside it
+    under ``build/``) launched alone by CUDA events on the scratch of a
+    whole call (shipped, variant, variant, shipped), and the whole call of
+    each; with the shipped build's pass at other head groups. Prints a
+    JSON line a shape."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import (_bwd_lib, _launch_fwd, a_group,
+                                              bwd_head_group,
+                                              bwd_work_floats)
+    src = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
+    procs = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    for name, reps in SSD_BWD_VARIANTS.items():
+        text = src
+        for old, new in reps:
+            if old not in text:
+                raise AssertionError(f"variant {name}: {old!r} not found")
+            text = text.replace(old, new)
+        path = ROOT / "build" / f"ssd_scan_bwd_{name}.cu"
+        path.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
+             "-o", str(path.with_suffix(".so")), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {"shipped": _bwd_lib()}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name}: nvcc failed\n{out[-2000:]}")
+        fn = ctypes.CDLL(str(ROOT / "build" / f"ssd_scan_bwd_{name}.so")
+                         ).ssd_scan_bwd_f32
+        fn.argtypes, fn.restype = libs["shipped"].argtypes, ctypes.c_int
+        libs[name] = fn
+    for b, s, h, p, n, chunk in (SSD_SHAPES[-1], JAMBA_SSD):
+        x, dt, a, bm, cm = ssd_lanes(torch, b, s, h, p, n, 1)
+        dy = torch.randn_like(x)
+        saved = _launch_fwd(x, dt, a, bm, cm, None, chunk)[2:]
+        outs = [torch.empty_like(t) for t in (x, dt, a, bm, cm)] + [
+            torch.empty((b, h, n, p), device="cuda")]
+
+        def call(fn, only, hg):
+            code = fn(*(t.data_ptr() for t in (x, dt, a)), a_group(a, b),
+                      *(t.data_ptr() for t in (bm, cm, dy)), None,
+                      *(t.data_ptr() for t in (*saved, *outs, work)), b, s,
+                      h, p, n, chunk, hg, only,
+                      torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"ssd_scan_bwd variant: cudaError {code}")
+        row = dict(shape=[b, s, h, p, n], chunk=chunk)
+        hg0 = bwd_head_group(b, s, h, chunk)
+        for hg in sorted({1, 2, 4, 8, hg0}):
+            if h % hg:
+                continue
+            work = torch.empty(bwd_work_floats(b, s, h, p, n, chunk, hg=hg),
+                               device="cuda")
+            call(libs["shipped"], -1, hg)
+            row[f"pass 3 at hg {hg}"] = time_device(
+                torch, lambda: call(libs["shipped"], 3, hg), False)
+        work = torch.empty(bwd_work_floats(b, s, h, p, n, chunk),
+                           device="cuda")
+        for name in SSD_BWD_VARIANTS:
+            call(libs["shipped"], -1, hg0)
+            turns = [time_device(torch, lambda: call(fn, 3, hg0), False)
+                     for fn in (libs["shipped"], libs[name], libs[name],
+                                libs["shipped"])]
+            whole = [time_device(torch, lambda: call(fn, -1, hg0), False)
+                     for fn in (libs["shipped"], libs[name])]
+            row[name] = dict(pass3_ms=turns, whole_ms=whole)
+        print(json.dumps({"ssd_bwd_variants": row}), flush=True)
+        del x, dt, a, bm, cm, dy, saved, outs, work
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -4649,6 +4817,9 @@ def main() -> int:
     # version, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--ssd-bwd-variants" in sys.argv[1:]:
+        print(card_line(), flush=True)
+        return ssd_bwd_variants(torch)
     from repro_torch.configs.cifar10_cnn import CONFIG
     from repro_torch.fl.decision import decision_coeffs
     from repro_torch.kernels import _build

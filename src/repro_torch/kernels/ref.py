@@ -23,7 +23,10 @@ holds the kernel against it on the card. ``ssd_ref`` is the sequential
 recurrence, the ground truth both are tested against.
 ``ssd_scan_bwd_ref`` is the gradient of ``ssd_chunked_ref`` by the
 formulas ``csrc/ssd_scan_bwd.cu`` computes (a reverse pass over the chunk
-states, then each chunk's gradients), not by autograd.
+states, then each chunk's gradients), not by autograd;
+``ssd_scan_bwd_gemm_ref`` the same gradient with its sums in the kernel's
+order (the heads' state terms inside one product per chunk, dCB summed
+by head groups).
 
 SSD shapes: x (b, S, H, P), dt (b, S, H), a (H,), bm / cm (b, S, N),
 state (b, H, N, P); both return ``(y, h_final)``. The chunked version
@@ -37,6 +40,8 @@ its op order, is ``kernels/scheduler_solve.py::scheduler_solve_plain``.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -276,11 +281,79 @@ def ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, *, chunk: int = 128, h0=None,
 
     Only exponentials of differences that are <= 0 are formed (and
     exp(lc), lc <= 0 for a < 0), as the forward forms them."""
+    def terms(t):
+        b_ds = torch.einsum("bmn,bhnp->bmhp", t.bc, t.ds)        # (b,L,h,p)
+        dx = torch.einsum("blmh,blhp->bmhp", t.m, t.dyc) + \
+            t.bw[..., None] * b_ds
+        dcb = (t.g * t.w * t.dtc[:, None, :, :]).sum(-1)         # (b,L,L)
+        dc_state = t.elc[..., None] * torch.einsum("bhnp,blhp->blhn",
+                                                   t.s_prev, t.dyc)
+        db_state = t.bw[..., None] * torch.einsum("bhnp,bmhp->bmhn", t.ds,
+                                                  t.xc)
+        dcm = torch.einsum("blm,bmn->bln", dcb, t.bc) + dc_state.sum(2)
+        dbm = torch.einsum("blm,bln->bmn", dcb, t.cc) + db_state.sum(2)
+        r = (t.xc * b_ds).sum(-1)                                # (b,L,h)
+        yint = (dc_state * t.cc[:, :, None, :]).sum(-1)
+        return dx, dbm, dcm, r, yint
+    return _ssd_scan_bwd("ssd_scan_bwd_ref", x, dt, a, bm, cm, dy, chunk,
+                         h0, dh, terms)
+
+
+def ssd_scan_bwd_gemm_ref(x, dt, a, bm, cm, dy, *, chunk: int = 128,
+                          h0=None, dh=None, head_group: int = 1):
+    """:func:`ssd_scan_bwd_ref`'s gradients with their sums in the order
+    ``csrc/ssd_scan_bwd.cu`` takes them. float32.
+
+    Per (batch, chunk), for every head at once: U = B dS^T and Y = C S^T;
+    dx = M^T dy + bw U, r = x . U and dy . y_inter = exp(lc) (dy . Y) per
+    head; dCB = sum_h G w dt_s over each group of ``head_group`` heads in
+    head order, then over the groups in order; dC = [dCB | exp(lc) dy] [B ;
+    S] and dB = [dCB^T | bw x] [C ; dS], each one product of depth L + H P,
+    so the heads' state terms are summed inside the product, not head by
+    head. The carry, dlc, dg, ddt and da as :func:`ssd_scan_bwd_ref`."""
+    h = x.shape[2]
+    if h % head_group:
+        raise ValueError(f"ssd_scan_bwd_gemm_ref: H={h} is not a multiple "
+                         f"of the head group {head_group}")
+
+    def rows(st):  # (b, h, n, p) -> (b, h p, n), K = (h, p) as dy's rows
+        return st.permute(0, 1, 3, 2).reshape(st.shape[0], -1, st.shape[2])
+
+    def terms(t):
+        b, chunk = t.xc.shape[:2]
+        u = torch.einsum("bmn,bhnp->bmhp", t.bc, t.ds)           # B dS^T
+        y_st = torch.einsum("bln,bhnp->blhp", t.cc, t.s_prev)    # C S^T
+        dx = torch.einsum("blmh,blhp->bmhp", t.m, t.dyc) + \
+            t.bw[..., None] * u
+        dcb_h = t.g * t.w * t.dtc[:, None, :, :]
+        dcb = torch.zeros_like(dcb_h[..., 0])
+        for g0 in range(0, h, head_group):
+            group = torch.zeros_like(dcb)
+            for hh in range(g0, g0 + head_group):
+                group = group + dcb_h[..., hh]
+            dcb = dcb + group
+        dcm = torch.cat([dcb, (t.elc[..., None] * t.dyc).reshape(
+            b, chunk, -1)], -1) @ torch.cat([t.bc, rows(t.s_prev)], 1)
+        dbm = torch.cat([dcb.transpose(1, 2), (t.bw[..., None] * t.xc).reshape(
+            b, chunk, -1)], -1) @ torch.cat([t.cc, rows(t.ds)], 1)
+        r = (t.xc * u).sum(-1)
+        yint = t.elc * (t.dyc * y_st).sum(-1)
+        return dx, dbm, dcm, r, yint
+    return _ssd_scan_bwd("ssd_scan_bwd_gemm_ref", x, dt, a, bm, cm, dy,
+                         chunk, h0, dh, terms)
+
+
+def _ssd_scan_bwd(name, x, dt, a, bm, cm, dy, chunk, h0, dh, terms):
+    """The two plain gradients' common part: the forward's per-chunk
+    quantities and entering states, then the chunks from the last, where
+    ``terms(t)`` gives (dx, dB, dC, r, dy . y_inter) of chunk t (a
+    namespace of its tensors) and the rest (dlc, dg, ddt, da, the carry)
+    is shared."""
     b, s, h, p = x.shape
     n = bm.shape[-1]
     if s % chunk:
-        raise ValueError(f"ssd_scan_bwd_ref: S={s} is not a multiple of the "
-                         f"chunk {chunk} (ops.ssd pads)")
+        raise ValueError(f"{name}: S={s} is not a multiple of the chunk "
+                         f"{chunk} (ops.ssd pads)")
     nc = s // chunk
     xf = x.float().reshape(b, nc, chunk, h, p)
     dyf = dy.float().reshape(b, nc, chunk, h, p)
@@ -322,19 +395,12 @@ def ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, *, chunk: int = 128, h0=None,
         cb = torch.einsum("bln,bmn->blm", cc, bc)                # (b,L,L)
         m = cb[..., None] * w * dtc[:, None, :, :]               # (b,L,L,h)
         g = torch.einsum("blhp,bmhp->blmh", dyc, xc)             # (b,L,L,h)
-        b_ds = torch.einsum("bmn,bhnp->bmhp", bc, ds)            # (b,L,h,p)
-        dx[:, c] = torch.einsum("blmh,blhp->bmhp", m, dyc) + \
-            bw[..., None] * b_ds
-        dcb = (g * w * dtc[:, None, :, :]).sum(-1)               # (b,L,L)
-        dc_state = elc[..., None] * torch.einsum("bhnp,blhp->blhn",
-                                                 s_prev, dyc)
-        db_state = bw[..., None] * torch.einsum("bhnp,bmhp->bmhn", ds, xc)
-        dcm[:, c] = torch.einsum("blm,bmn->bln", dcb, bc) + dc_state.sum(2)
-        dbm[:, c] = torch.einsum("blm,bln->bmn", dcb, cc) + db_state.sum(2)
+        dx[:, c], dbm[:, c], dcm[:, c], r, yint = terms(SimpleNamespace(
+            xc=xc, dyc=dyc, dtc=dtc, bc=bc, cc=cc, elc=elc, bw=bw, w=w, m=m,
+            g=g, s_prev=s_prev, ds=ds))
         q = torch.where(live, g * m, 0.0)
-        r = (xc * b_ds).sum(-1)                                  # (b,L,h)
         term = bw * r
-        dlc = q.sum(2) - q.sum(1) + (dc_state * cc[:, :, None, :]).sum(-1)
+        dlc = q.sum(2) - q.sum(1) + yint
         dlc = dlc - term
         dlc[:, -1] += elc[:, -1] * (s_prev * ds).sum((-1, -2)) + term.sum(1)
         dg = torch.flip(torch.cumsum(torch.flip(dlc, (1,)), dim=1), (1,))

@@ -40,9 +40,17 @@ HEAD_DIMS = (32, 64)
 MAX_STATE = 128
 # A block's dynamic shared memory may not pass 227 KB.
 MAX_SMEM_BYTES = 232_448
-# The backward's layout (csrc/ssd_scan_bwd.cu): 8 warps as 2 x 4 tiles,
-# 32 state columns a slab.
-BWD_WARPS, BWD_SLAB = (2, 4), 32
+# The backward's layout (csrc/ssd_scan_bwd.cu): the chunk pass's 8 warps
+# as 2 x 4 tiles, K in slabs of 32; the GEMM passes' 64-row tiles of at
+# most 128 columns. A chunk-pass block takes a group of heads: the most,
+# up to BWD_MAX_GROUP, dividing H that leave BWD_MIN_BLOCKS blocks (three
+# waves of the card's 132 SMs, one block an SM).
+BWD_WARPS, BWD_SLAB, BWD_ROWS, BWD_COLS = (2, 4), 32, 64, 128
+BWD_MAX_GROUP, BWD_MIN_BLOCKS = 8, 3 * 132
+# The backward's device kernels, in launch order (``only`` of the C entry)
+BWD_PASSES = ("ssd_bwd_gemm<V>", "ssd_bwd_state_pass",
+              "ssd_bwd_gemm<UY>", "ssd_bwd_chunk", "ssd_bwd_reduce_cb",
+              "ssd_bwd_gemm<BC>", "ssd_bwd_reduce_a")
 
 
 def state_cols(n: int) -> int:
@@ -71,31 +79,52 @@ def saved_shapes(b: int, s: int, h: int, p: int, n: int,
     return ((b, h, s), (b, nc, h, p, state_cols(n)), (b, nc, chunk, chunk))
 
 
+def bwd_head_group(b: int, s: int, h: int, chunk: int) -> int:
+    """Heads a chunk-pass block of the backward takes (``hg`` of
+    csrc/ssd_scan_bwd.cu): the largest divisor of H up to BWD_MAX_GROUP
+    that leaves b (S / chunk) (H / hg) >= BWD_MIN_BLOCKS blocks, else 1."""
+    for hg in range(min(h, BWD_MAX_GROUP), 0, -1):
+        if h % hg == 0 and b * (s // chunk) * (h // hg) >= BWD_MIN_BLOCKS:
+            return hg
+    return 1
+
+
+def bwd_gemm_smem_bytes(cols: int = BWD_COLS) -> int:
+    """Dynamic shared memory of a backward GEMM block of ``cols`` columns
+    (passes 0, 2 and 5): its operand buffer (a 32-deep slab of the 64-row A
+    tile and the cols-row B tile, rows of 128 bytes, in hi and lo), two raw
+    stages (8 KB of A, 32 x cols floats of B) and 1 KB for alignment; 512
+    bytes of static shared memory besides."""
+    rows = BWD_ROWS
+    return (2 * rows * 128 + 2 * cols * 128
+            + 2 * (rows * BWD_SLAB * 4 + cols * 128) + 1024)
+
+
 def bwd_smem_bytes(chunk: int, n: int, p: int) -> int:
     """Dynamic shared memory of the backward's largest block
-    (csrc/ssd_scan_bwd.cu), its tiles' rows padded by 4 or 8 floats for
-    the mma fragment loads: pass 1 holds dy (L rows of P + 8), exp(lc) C
-    (L rows of Np + 8) and exp(lc); pass 3 dy and x (L rows of P + 4), M
-    (L rows of L + 8) or the slabs of B, C (L rows of 36, 40), S and dS (P
-    rows of 40, 36), dCB (L rows of L + 4), 4 + 4 + 2 + 2 rows of L of
-    partial sums, ten arrays of L and 32 floats."""
+    (csrc/ssd_scan_bwd.cu): pass 3's C B^T (L rows of L + 8), two head
+    buffers of dy and x (L rows of P + 4 each, the mma.sync fragment
+    loads' padding), lc and dt, eight arrays of L, 4 + 4 + 2 + 2 rows of L
+    of partial sums and 32 floats; the GEMM passes
+    :func:`bwd_gemm_smem_bytes` at most."""
     lo = chunk
     wr, wc = BWD_WARPS
-    pass1 = lo * (p + 8) + lo * (state_cols(n) + 8) + lo
-    slabs = lo * 36 + lo * 40 + p * 40 + p * 36
-    pass3 = (2 * lo * (p + 4) + max(lo * (lo + 8), slabs) + lo * (lo + 4)
-             + 2 * wc * lo + 2 * wr * lo + 10 * lo + 32)
-    return 4 * max(pass1, pass3)
+    head = 2 * lo * (p + 4) + 2 * lo
+    pass3 = lo * (lo + 8) + 2 * head + 8 * lo + 2 * wc * lo + 2 * wr * lo + 32
+    return max(4 * pass3, bwd_gemm_smem_bytes())
 
 
-def bwd_work_floats(b: int, s: int, h: int, p: int, n: int,
-                    chunk: int) -> int:
+def bwd_work_floats(b: int, s: int, h: int, p: int, n: int, chunk: int,
+                    hg: int | None = None) -> int:
     """float32 scratch of one backward call: dS (b, S / chunk, H, P,
-    state_cols(N)), the heads' shares of dB and dC (b, S, H, N) each and
-    the chunks' shares of da (b, S / chunk, H)."""
+    state_cols(N)); U = B dS^T and Y = C S^T (b, S, H, P) each; the head
+    groups' dCB (b, S / chunk, H / hg, chunk, chunk) and their sum (b, S /
+    chunk, chunk, chunk); the chunks' shares of da (b, S / chunk, H). hg:
+    the head group, :func:`bwd_head_group`'s by default."""
     nc = s // chunk
-    return (b * nc * h * p * state_cols(n) + 2 * b * s * h * n
-            + b * nc * h)
+    groups = h // (hg or bwd_head_group(b, s, h, chunk))
+    return (b * nc * h * p * state_cols(n) + 2 * b * s * h * p
+            + b * nc * (groups + 1) * chunk * chunk + b * nc * h)
 
 
 def check_kernel_shape(chunk: int, n: int, p: int):
@@ -160,7 +189,7 @@ def _lib():
 def _bwd_lib():
     fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_f32
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -237,7 +266,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     gradient of a zero initial state where ``h0`` is None. ``saved`` is
     the forward's (lc, states, cb) (:class:`SsdScan` keeps them).
 
-    CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` (five device kernels) on
+    CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` (seven device kernels) on
     the current stream and count one launch in ``ssd_scan_bwd.launches``;
     without ``saved`` it first runs K4 for them (not counted as a K4
     launch). CPU tensors run :func:`ssd_scan_bwd_ref` (``saved`` unused).
@@ -250,11 +279,25 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         unsupported_device("ssd_scan_bwd", x.device)
     no_grad_input("ssd_scan_bwd", "ops.ssd (SsdScan)", x, dt, a, bm, cm, h0,
                   dy, dh)
-    b, s, h, p = x.shape
-    n = bm.shape[-1]
-    check_kernel_shape(chunk, n, p)
+    check_kernel_shape(chunk, bm.shape[-1], x.shape[-1])
     if saved is None:
         saved = _launch_fwd(x, dt, a, bm, cm, h0, chunk)[2:]
+    out, launch = _bwd_call(x, dt, a, bm, cm, dy, dh, saved, chunk)
+    launch(-1)
+    ssd_scan_bwd.launches += 1
+    return out
+
+
+ssd_scan_bwd.launches = 0
+
+
+def _bwd_call(x, dt, a, bm, cm, dy, dh, saved, chunk):
+    """The backward's outputs (dx, ddt, da, dbm, dcm, dh0), empty, and
+    ``launch(only)``: the seven passes into them on checked CUDA tensors
+    (``only`` -1), or pass ``only`` alone (:data:`BWD_PASSES`) on the
+    scratch an earlier launch left."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
     for t, sh in zip(saved, saved_shapes(b, s, h, p, n, chunk)):
         if tuple(t.shape) != sh or t.dtype != torch.float32:
             raise ValueError(f"ssd_scan_bwd: saved scratch {tuple(t.shape)} "
@@ -267,18 +310,33 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dh0 = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     work = torch.empty(bwd_work_floats(b, s, h, p, n, chunk),
                        dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _bwd_lib()(ptr(x), ptr(dt), ptr(a), a_group(a, b), ptr(bm),
-                          ptr(cm), ptr(dy), ptr(dh), ptr(lc), ptr(states),
-                          ptr(cb), ptr(dx), ptr(ddt), ptr(da), ptr(dbm),
-                          ptr(dcm), ptr(dh0), ptr(work), b, s, h, p, n, chunk,
-                          stream_of(x.device))
-    raise_on_error("ssd_scan_bwd", code)
-    ssd_scan_bwd.launches += 1
-    return dx, ddt, da, dbm, dcm, dh0
+    hg = bwd_head_group(b, s, h, chunk)
+
+    def launch(only):
+        with torch.cuda.device(x.device):
+            code = _bwd_lib()(ptr(x), ptr(dt), ptr(a), a_group(a, b), ptr(bm),
+                              ptr(cm), ptr(dy), ptr(dh), ptr(lc), ptr(states),
+                              ptr(cb), ptr(dx), ptr(ddt), ptr(da), ptr(dbm),
+                              ptr(dcm), ptr(dh0), ptr(work), b, s, h, p, n,
+                              chunk, hg, only, stream_of(x.device))
+        raise_on_error("ssd_scan_bwd", code)
+    return (dx, ddt, da, dbm, dcm, dh0), launch
 
 
-ssd_scan_bwd.launches = 0
+def ssd_scan_bwd_passes(x, dt, a, bm, cm, dy, *, chunk: int = 128,
+                        saved):
+    """For timing each pass of the backward on its own (not a training
+    entry): runs one whole call on CUDA tensors (not counted in
+    ``ssd_scan_bwd.launches``) and returns ``launch(k)``, which launches
+    pass k of :data:`BWD_PASSES` alone on that call's scratch and outputs
+    (their values then meaningless), no initial state."""
+    _check_args("ssd_scan_bwd", x, dt, a, bm, cm, None, chunk, dy=dy)
+    if x.device.type != "cuda":
+        unsupported_device("ssd_scan_bwd_passes", x.device)
+    check_kernel_shape(chunk, bm.shape[-1], x.shape[-1])
+    _, launch = _bwd_call(x, dt, a, bm, cm, dy, None, saved, chunk)
+    launch(-1)
+    return launch
 
 
 def _fold(info, in_dims, tensors):

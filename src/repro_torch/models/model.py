@@ -86,6 +86,13 @@ def _check_spec(spec: LayerSpec):
 
 def check_config(cfg: ModelConfig):
     """Raise for a configuration the port cannot run yet."""
+    if cfg.remat_layers:
+        raise NotImplementedError(
+            "remat_layers is not ported (ROADMAP item 11): the port takes "
+            "gradients with torch.func.grad, and torch.utils.checkpoint "
+            "does not compose with it in either mode, so the flag would "
+            "leave the values unchanged and silently lose its memory "
+            "saving")
     for spec in cfg.layer_specs():
         _check_spec(spec)
 

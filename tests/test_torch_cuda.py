@@ -1104,10 +1104,11 @@ def ssd_grads(x, dt, a, bm, cm, h0, dy, dh, chunk):
 def test_ssd_scan_bwd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
     """``ops.ssd`` trains on the card: K4's backward kernel, one launch a
     gradient, against ``ssd_scan_bwd_ref`` on the same padded inputs, with
-    an initial state and the final state's cotangent; the same bits on a
-    rerun."""
-    from repro_torch.kernels.ref import ssd_scan_bwd_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    an initial state and the final state's cotangent, and against
+    ``ssd_scan_bwd_gemm_ref`` (its sums in the kernel's order, the
+    kernel's head groups); the same bits on a rerun."""
+    from repro_torch.kernels.ref import ssd_scan_bwd_gemm_ref, ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import bwd_head_group, ssd_scan_bwd
     x, dt, a, bm, cm = ssd_lanes(b, s, h, p, n, cuda, seed=s + n)
     g = torch.Generator(device=cuda).manual_seed(s)
     h0, dh = (torch.randn((b, h, n, p), device=cuda, generator=g)
@@ -1119,15 +1120,18 @@ def test_ssd_scan_bwd_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
     again = ssd_grads(x, dt, a, bm, cm, h0, dy, dh, chunk)
     pads = kernel_ops.pad_to_chunk(chunk, x, dt, bm, cm)
     dyp = kernel_ops.pad_to_chunk(chunk, dy, dt, bm, cm)[0]
-    want = ssd_scan_bwd_ref(pads[0], pads[1], a, pads[2], pads[3], dyp,
-                            chunk=chunk, h0=h0, dh=dh)
-    want = (want[0][:, :s], want[1][:, :s], want[2], want[3][:, :s],
-            want[4][:, :s], want[5])
-    for name, gg, rr, ww in zip(("dx", "ddt", "da", "dbm", "dcm", "dh0"),
-                                got, again, want):
-        assert torch.equal(gg, rr), name
-        scale = float(ww.abs().max())
-        assert float((gg - ww).abs().max()) <= SSD_BWD_TOL * scale, name
+    hg = bwd_head_group(b, pads[0].shape[1], h, chunk)
+    for plain in (ssd_scan_bwd_ref, lambda *v, **k: ssd_scan_bwd_gemm_ref(
+            *v, head_group=hg, **k)):
+        want = plain(pads[0], pads[1], a, pads[2], pads[3], dyp, chunk=chunk,
+                     h0=h0, dh=dh)
+        want = (want[0][:, :s], want[1][:, :s], want[2], want[3][:, :s],
+                want[4][:, :s], want[5])
+        for name, gg, rr, ww in zip(("dx", "ddt", "da", "dbm", "dcm", "dh0"),
+                                    got, again, want):
+            assert torch.equal(gg, rr), name
+            scale = float(ww.abs().max())
+            assert float((gg - ww).abs().max()) <= SSD_BWD_TOL * scale, name
 
 
 def test_ssd_vmap_grad_matches_per_sample(cuda):

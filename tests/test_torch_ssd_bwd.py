@@ -32,11 +32,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ssd_chunked_ref, ssd_scan_bwd_ref
+from repro_torch.kernels.ref import (ssd_chunked_ref, ssd_scan_bwd_gemm_ref,
+                                     ssd_scan_bwd_ref)
 from repro_torch.kernels.ssd_scan import (MAX_SMEM_BYTES, SsdScan,
-                                          bwd_smem_bytes, bwd_work_floats,
-                                          check_kernel_shape, saved_shapes,
-                                          ssd_scan_bwd)
+                                          bwd_gemm_smem_bytes,
+                                          bwd_head_group, bwd_smem_bytes,
+                                          bwd_work_floats, check_kernel_shape,
+                                          saved_shapes, ssd_scan_bwd)
 
 AUTOGRAD_TOL = 1e-5
 JAX_TOL = 1e-4
@@ -168,6 +170,46 @@ def test_bwd_matches_jax_vjp(ref, b, s, h, p, n, chunk, state):
     assert_close_to(got, want, JAX_TOL)
 
 
+# (b, S, H, P, N, chunk, head group) of the kernel-order plain gradient:
+# JAX_SHAPES with 2 or 3 heads a group where H allows, padded as ops.ssd
+# pads
+GEMM_SHAPES = [(2, 64, 3, 32, 16, 32, 3), (1, 100, 2, 32, 16, 32, 2),
+               (2, 128, 2, 64, 16, 64, 1), (1, 200, 2, 64, 128, 64, 2),
+               (1, 256, 2, 32, 128, 128, 2), (1, 300, 2, 64, 128, 128, 1)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,hg", GEMM_SHAPES)
+@pytest.mark.parametrize("state", [False, True])
+def test_bwd_gemm_ref_matches_ref_and_jax_vjp(ref, b, s, h, p, n, chunk, hg,
+                                              state):
+    """``ssd_scan_bwd_gemm_ref`` (the kernel's order of sums: U and Y for
+    every head, dCB by head groups, dB and dC one product of depth L + H
+    P) against ``ssd_scan_bwd_ref`` (``AUTOGRAD_TOL``: the same terms in
+    another order) and ``jax.vjp`` of the reference's ``ssd_chunked_ref``
+    (``JAX_TOL``) on the same padded inputs."""
+    jax, jnp = ref.jax, ref.jnp
+    arrs = ssd_inputs(b, s, h, p, n, seed=s + n + p)
+    x, dt, a, bm, cm, h0, dy, dh = torch_of(arrs)
+    if not state:
+        h0 = dh = None
+    xp, dtp, bmp, cmp = ops.pad_to_chunk(chunk, x, dt, bm, cm)
+    dyp = ops.pad_to_chunk(chunk, dy, dt, bm, cm)[0]
+    kw = dict(chunk=chunk, h0=h0, dh=dh)
+    got = ssd_scan_bwd_gemm_ref(xp, dtp, a, bmp, cmp, dyp, head_group=hg,
+                                **kw)
+    plain = ssd_scan_bwd_ref(xp, dtp, a, bmp, cmp, dyp, **kw)
+    assert_close_to(got, [t.numpy() for t in plain], AUTOGRAD_TOL)
+
+    primals = [jnp.asarray(v.numpy()) for v in (xp, dtp, a, bmp, cmp)] + (
+        [jnp.asarray(h0.numpy())] if state else [])
+    _, vjp = jax.vjp(lambda *v: ref.ref.ssd_chunked_ref(
+        *v[:5], chunk=chunk, h0=v[5] if state else None), *primals)
+    want = vjp((jnp.asarray(dyp.numpy()), jnp.asarray(dh.numpy()) if state
+                else jnp.zeros((b, h, n, p), jnp.float32)))
+    names = NAMES if state else NAMES[:5]
+    assert_close_to(got, want, JAX_TOL, names=names)
+
+
 # ------------------------------------------- grad and vmap(grad), ops.ssd
 
 def test_grad_through_ops_ssd_is_the_plain_gradient():
@@ -229,18 +271,26 @@ def test_vmap_grad_equals_per_sample_grads(shared_a):
 # --------------------------------------------------------------- the plan
 
 @pytest.mark.parametrize("chunk,n,p,want", [
-    (128, 128, 64, 218_240),   # mamba2-130m: pass 3's block
-    (128, 16, 64, 218_240),    # jamba-v0.1-52b: the same pass-3 block
-    (32, 32, 32, 36_224),      # the reduced configs
-    (64, 16, 32, 70_784),
+    (128, 128, 64, 221_312),   # mamba2-130m: pass 3's block
+    (128, 16, 64, 221_312),    # jamba-v0.1-52b: the same pass-3 block
+    (32, 32, 32, 99_328),      # the reduced configs: the GEMM passes' block
+    (64, 16, 32, 99_328),
 ])
 def test_bwd_smem_fits_a_block(chunk, n, p, want):
-    """Pass 3 holds dy and x (L rows of P + 4), M (L rows of L + 8) or the
-    slabs of B, C, S and dS (rows of 36, 40, 40, 36), dCB (L rows of L +
-    4), 12 rows of L of partial sums, ten arrays of L and 32 floats; pass
-    1 (dy, exp(lc) C, exp(lc)) is smaller at every shape."""
+    """Pass 3 holds C B^T (L rows of L + 8), two head buffers of dy and x
+    (L rows of P + 4 each), lc and dt, eight arrays of L, 12 rows of L of
+    partial sums and 32 floats; the GEMM passes a 32-deep slab of their
+    64-row A and 128-row B tiles in hi and lo, two raw stages and 1 KB."""
     assert bwd_smem_bytes(chunk, n, p) == want <= MAX_SMEM_BYTES
     check_kernel_shape(chunk, n, p)
+
+
+@pytest.mark.parametrize("cols", [32, 64, 128])
+def test_bwd_gemm_blocks_fit_two_an_sm(cols):
+    """A GEMM pass's block (99,328 B at 128 columns, 512 B of static
+    shared memory besides) leaves room for a second on the SM's 228 KB (1
+    KB reserved a block)."""
+    assert 2 * (bwd_gemm_smem_bytes(cols) + 512 + 1024) <= 228 * 1024
 
 
 def test_every_kernel_shape_fits():
@@ -251,19 +301,32 @@ def test_every_kernel_shape_fits():
                 assert bwd_smem_bytes(chunk, n, p) <= MAX_SMEM_BYTES
 
 
-@pytest.mark.parametrize("shape,np_,saved,bwd", [
-    # mamba2-130m at 4 x 2048: lc, the states (N = 128), C B^T; dS, the
-    # heads' dB and dC shares, the chunks' da shares
-    ((4, 2048, 24, 64, 128, 128), 128, 13_828_096, 62_916_096),
-    # jamba-v0.1-52b at 4 x 2048 (N = 16 padded to 32 state columns)
-    ((4, 2048, 128, 64, 16, 128), 32, 18_874_368, 50_339_840),
+@pytest.mark.parametrize("shape,np_,saved,bwd,hg", [
+    # mamba2-130m at 4 x 2048: lc, the states (N = 128), C B^T; dS, U and
+    # Y, the 8 head groups' dCB and their sum, the chunks' da shares
+    ((4, 2048, 24, 64, 128, 128), 128, 13_828_096, 47_187_456, 3),
+    # jamba-v0.1-52b at 4 x 2048 (N = 16 padded to 32 state columns; 16
+    # head groups)
+    ((4, 2048, 128, 64, 16, 128), 32, 18_874_368, 168_828_928, 8),
 ])
-def test_scratch_at_the_training_shapes(shape, np_, saved, bwd):
+def test_scratch_at_the_training_shapes(shape, np_, saved, bwd, hg):
     b, s, h, p, n, chunk = shape
     assert saved_shapes(*shape) == ((b, h, s), (b, s // chunk, h, p, np_),
                                     (b, s // chunk, chunk, chunk))
     assert sum(np.prod(sh) for sh in saved_shapes(*shape)) == saved
     assert bwd_work_floats(*shape) == bwd
+    assert bwd_head_group(b, s, h, chunk) == hg
+
+
+@pytest.mark.parametrize("b,s,h,chunk,hg", [
+    (4, 2048, 24, 128, 3),     # 512 blocks: 4 heads a block would give 384
+    (2, 2048, 128, 128, 8),    # jamba's cut training batch: 512 blocks
+    (2, 256, 24, 128, 1),      # too few chunks for any group
+    (4, 2048, 7, 128, 1),      # 7 heads: 7 a block would give 64 blocks
+])
+def test_bwd_head_group(b, s, h, chunk, hg):
+    assert bwd_head_group(b, s, h, chunk) == hg
+    assert h % hg == 0
 
 
 @pytest.mark.parametrize("bad", ["dy", "dh", "a_rows", "dtype", "chunk"])
