@@ -304,9 +304,32 @@ Phases; any failure exits non-zero before the result line is printed:
    2) and peak memory, and one more step under ``torch.profiler`` (its
    launches not counted): device time by kernel.
 
+17. (run right after phase 11) the sharded paths (ROADMAP §A item 8) on
+   one rank: a world-size-1 NCCL group through
+   ``launch.distributed.initialize`` (a ``file://`` store under
+   ``build/``); phase 10's FEMNIST network (N = 3,597, the CNN, 5 rounds,
+   m_cap 32) through ``client_shards=1`` under ``cuda_fused`` and under
+   ``cuda``, ``participant_shards=1``, the ``(1, 1)`` composed mesh,
+   phase 11's population on the client-sharded path and the delta
+   aggregate on a bfloat16 wire through ``participant_shards=1``, each
+   against its sequential run under cuDNN's deterministic algorithms:
+   every history key, the selections and q (and the activity masks) bit
+   for bit, K2 (K1 under ``cuda``) exactly 5 launches in each run; each
+   run's ms a round between CUDA events; 2 rounds of the (1, 1) mesh and
+   of the population round, sharded and sequential, under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the sharded rounds must
+   not synchronise where the sequential ones do not); then
+   ``examples/massive_n.py``'s runner (N = 100,000, lam = 0.3, 60 rounds,
+   M matched over 150 rounds) for proposed and M-matched uniform under
+   ``cuda_fused``, sequential against ``client_shards=1`` bit for bit
+   (K2 60 launches a proposed run), rounds/s of each and the
+   proposed/uniform comm-time ratio; a ``{"sharded": ...}`` JSON line
+   with the card's name and power limit.
+
 TF32 is off for every product and convolution in every phase.
 
-Prints the service's, telemetry's, FEMNIST's, the scenarios', Mamba's,
+Prints the service's, telemetry's, FEMNIST's, the scenarios', the sharded
+paths', Mamba's,
 yi's, the zoo's, the MoE zoo's, training's and Mamba training's JSON
 lines, the card line, one JSON line of the kernels (``{"kernels":
 [...]}``, K5's and K4's backwards rows of their own), then, last,
@@ -4803,6 +4826,222 @@ def ssd_bwd_variants(torch):
     return 0
 
 
+# --------------------------------------------------------------------------
+# Phase 17 (run right after phase 11): the sharded paths on one rank.
+# --------------------------------------------------------------------------
+
+MASSIVE_N = 100_000
+MASSIVE_ROUNDS = 60
+MASSIVE_MATCH_ROUNDS = 150
+# label -> (the sequential run's SimConfig fields, the sharded run's extra
+# fields, the kernel launched once a round)
+SHARDED_RUNS = {
+    "client/cuda_fused": ({}, dict(client_shards=1), "decision_fused"),
+    "client/cuda": (dict(solver="cuda"), dict(client_shards=1),
+                    "scheduler_solve"),
+    "part": ({}, dict(participant_shards=1), "decision_fused"),
+    "mesh(1,1)": ({}, dict(client_shards=1, participant_shards=1),
+                  "decision_fused"),
+    "client/population": (dict(population=POPULATION),
+                          dict(client_shards=1), "decision_fused"),
+    "part/delta bf16": (dict(aggregation="delta", wire_dtype="bfloat16"),
+                        dict(participant_shards=1), "decision_fused"),
+}
+SYNC_CHECK_ROUNDS = 2
+
+
+def femnist_event_run(torch, ctx, sim):
+    """``run_simulation`` on phase 10's FEMNIST network under cuDNN's
+    deterministic algorithms: ``(history, launches, ms a round)``, the ms
+    between CUDA events recorded around the run."""
+    from repro_torch.fl.simulation import run_simulation
+
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    hist = deterministic(torch, lambda: run_simulation(
+        None, ctx["params"], ctx["ds"], sim, ctx["scfg"], ctx["ch"],
+        ctx["sig"], keep_selection=True))
+    end.record()
+    torch.cuda.synchronize()
+    return hist, read_counts(), start.elapsed_time(end) / sim.rounds
+
+
+def rounds_sync_free(torch, ctx, sim):
+    """Run ``SYNC_CHECK_ROUNDS`` rounds of ``sim`` (no evaluation) under
+    ``torch.cuda.set_sync_debug_mode("error")``: None, or the error an
+    implicit host synchronisation raised."""
+    from repro_torch.fl.engine import (default_draws, init_carry,
+                                       make_sim_round)
+
+    draws = default_draws(sim, ctx["ds"])
+    sim_round = make_sim_round(ctx["ds"], sim, ctx["scfg"], ctx["ch"],
+                               ctx["sig"])
+    params, pol_state, carry, *_ = init_carry(
+        draws, ctx["params"], ctx["scfg"], sim, ctx["sig"], ctx["ch"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for r in range(SYNC_CHECK_ROUNDS):
+            params, pol_state, carry, *_ = sim_round(params, pol_state,
+                                                     carry, draws, r)
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return None
+
+
+def massive_runs(torch):
+    """The scheduling-only runner at ``examples/massive_n.py``'s size (N =
+    100,000, lam = 0.3, 60 rounds), proposed and M-matched uniform under
+    ``cuda_fused``, sequential and ``client_shards=1``: n_sel, t_comm and
+    power bit for bit; K2 once a proposed round; rounds/s of each."""
+    import numpy as np
+
+    from repro_torch.examples.massive_n import configs
+    from repro_torch.fl.client_shard import make_schedule_runner
+    from repro_torch.fl.engine import GeneratorDraws
+    from repro_torch.fl.simulation import match_uniform_m
+
+    scfg, ch, sig = configs(MASSIVE_N, "cuda")
+    t0 = time.perf_counter()
+    m = match_uniform_m(torch.Generator(device="cuda").manual_seed(1), sig,
+                        scfg, ch, rounds=MASSIVE_MATCH_ROUNDS)
+    match_s = time.perf_counter() - t0
+    draws = GeneratorDraws(0, MASSIVE_N, (1, 1, 1), 1, device="cuda")
+    out, k2 = {}, 0
+    for policy in ("proposed", "uniform"):
+        for shards in (0, 1):
+            runner = make_schedule_runner(
+                sig, scfg, ch, rounds=MASSIVE_ROUNDS, policy=policy,
+                m_avg=m, solver="cuda_fused", client_shards=shards)
+            [x.cpu() for x in runner(draws)]          # warm
+            reset_counts()
+            t0 = time.perf_counter()
+            got = [x.cpu().numpy() for x in runner(draws)]
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            want = launch_counts(decision_fused=(
+                MASSIVE_ROUNDS if policy == "proposed" else 0))
+            if counts != want:
+                raise AssertionError(f"massive {policy} shards={shards} "
+                                     f"launched {counts}, want {want}")
+            k2 += counts["decision_fused"]
+            if not (np.isfinite(got[0]).all() and (got[2] >= 1).all()):
+                raise AssertionError(f"massive {policy}: bad trajectory")
+            out[(policy, shards)] = dict(
+                t_comm=got[0], power=got[1], n_sel=got[2],
+                rounds_per_s=MASSIVE_ROUNDS / wall)
+        seq, shd = out[(policy, 0)], out[(policy, 1)]
+        for k in ("n_sel", "t_comm", "power"):
+            if not np.array_equal(seq[k], shd[k]):
+                raise AssertionError(f"massive {policy}: client_shards=1 "
+                                     f"differs from sequential in {k}")
+        print(f"massive N = {MASSIVE_N} {policy}: sequential "
+              f"{seq['rounds_per_s']:.1f} rounds/s, client_shards=1 "
+              f"{shd['rounds_per_s']:.1f} rounds/s, mean participants "
+              f"{seq['n_sel'].mean():.1f}; bit for bit", flush=True)
+    ratio = float(out[("proposed", 0)]["t_comm"].sum()
+                  / out[("uniform", 0)]["t_comm"].sum())
+    print(f"massive N: proposed/uniform comm-time ratio {ratio:.3f} over "
+          f"{MASSIVE_ROUNDS} rounds (M = {m:.1f}, matched in "
+          f"{match_s:.1f} s)", flush=True)
+    summary = dict(
+        n=MASSIVE_N, rounds=MASSIVE_ROUNDS, uniform_m=m, ratio=ratio,
+        rounds_per_s={f"{p}/{'sharded' if d else 'sequential'}":
+                      o["rounds_per_s"] for (p, d), o in out.items()},
+        mean_selected={p: float(out[(p, 0)]["n_sel"].mean())
+                       for p in ("proposed", "uniform")})
+    return k2, summary
+
+
+def sharded_path(torch, ctx):
+    """Phase 17: a world-size-1 NCCL group through
+    ``launch.distributed.initialize`` (a ``file://`` store under
+    ``build/``); phase 10's FEMNIST network (N = 3,597, the CNN, 5 rounds)
+    through each sharded path against its sequential run bit for bit,
+    one K2 (or K1) launch a round; the rounds under the sync-debug mode;
+    the massive-N runner."""
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed import initialize
+
+    t0 = time.perf_counter()
+    store = ROOT / "build" / f"dist_store_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    initialize(f"file://{store}", 1, 0, 0, device="cuda")
+    backend = dist.get_backend()
+    try:
+        print(f"phase 17: {backend} group of "
+              f"{dist.get_world_size()} rank on "
+              f"{torch.cuda.get_device_name(0)}", flush=True)
+        runs, launches = {}, {"scheduler_solve": 0, "decision_fused": 0}
+        keys = ("round", "comm_time", "test_acc", "avg_power", "n_selected",
+                "selected", "q")
+        for label, (fields, shards, kernel) in SHARDED_RUNS.items():
+            seq_sim = dataclasses.replace(ctx["sim"], **fields)
+            one = {}
+            for side, sim in (("sequential", seq_sim),
+                              ("sharded", dataclasses.replace(seq_sim,
+                                                              **shards))):
+                hist, counts, ms = femnist_event_run(torch, ctx, sim)
+                check_history(f"phase 17 {label} {side}", hist)
+                if counts != launch_counts(**{kernel: ROUNDS}):
+                    raise AssertionError(f"phase 17 {label} {side} launched "
+                                         f"{counts}, want {kernel} {ROUNDS}")
+                launches[kernel] += counts[kernel]
+                one[side] = (hist, ms)
+            (seq, seq_ms), (shd, shd_ms) = one["sequential"], one["sharded"]
+            extra = ("active",) if "population" in fields else ()
+            for k in keys + extra:
+                if not np.array_equal(seq[k], shd[k]):
+                    raise AssertionError(f"phase 17 {label}: the sharded "
+                                         f"run differs from the sequential "
+                                         f"one in {k}")
+            runs[label] = dict(sharded_ms_per_round=shd_ms,
+                               sequential_ms_per_round=seq_ms,
+                               comm_time=shd["comm_time"].tolist(),
+                               test_acc=shd["test_acc"].tolist(),
+                               n_selected=shd["n_selected"].tolist())
+            print(f"phase 17 FEMNIST {label}: bit for bit the sequential "
+                  f"run, {kernel} {ROUNDS} launches each; {shd_ms:.2f} ms a "
+                  f"round sharded, {seq_ms:.2f} sequential (CUDA events)",
+                  flush=True)
+        sync = {}
+        for label in ("mesh(1,1)", "client/population"):
+            fields, shards, _ = SHARDED_RUNS[label]
+            seq_sim = dataclasses.replace(ctx["sim"], **fields)
+            sync[label] = {
+                side: rounds_sync_free(torch, ctx, sim) for side, sim in (
+                    ("sequential", seq_sim),
+                    ("sharded", dataclasses.replace(seq_sim, **shards)))}
+            if sync[label]["sharded"] and not sync[label]["sequential"]:
+                raise AssertionError(f"phase 17 {label}: the sharded rounds "
+                                     f"synchronise with the host: "
+                                     f"{sync[label]['sharded']}")
+        print(f"phase 17 host synchronisations in {SYNC_CHECK_ROUNDS} "
+              f"rounds (None: none): {sync}", flush=True)
+        k2_massive, massive = massive_runs(torch)
+        launches["decision_fused"] += k2_massive
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    wall = time.perf_counter() - t0
+    print(f"phase 17 took {wall:.1f} s", flush=True)
+    summary = dict(card=card_line(), world_size=1, backend=backend,
+                   n_clients=ctx["ds"].n_clients, rounds=ROUNDS,
+                   femnist=runs, sync_debug=sync, massive=massive,
+                   launches=launches, wall_s=wall)
+    return {"sharded": launches}, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -4858,6 +5097,8 @@ def main() -> int:
     more, femnist, femnist_ctx = femnist_path(torch)
     by_path.update(more)
     more, scenarios = scenarios_path(torch, cifar_ctx, femnist_ctx)
+    by_path.update(more)
+    more, sharded = sharded_path(torch, femnist_ctx)
     by_path.update(more)
     del femnist_ctx
     torch.cuda.empty_cache()
@@ -4991,6 +5232,7 @@ def main() -> int:
     print(json.dumps({"telemetry": telemetry}), flush=True)
     print(json.dumps({"femnist": femnist}), flush=True)
     print(json.dumps({"scenarios": scenarios}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"mamba": mamba}), flush=True)
     print(json.dumps({"yi": yi}), flush=True)
     print(json.dumps({"zoo": zoo}), flush=True)

@@ -80,14 +80,24 @@ def account_totals(contrib: torch.Tensor, pq: torch.Tensor,
     return t_comm, power
 
 
-def _account(gains, sel, q, p, acct, valid=None, acct_len=None):
-    """TDMA comm time sum_{selected} ell / rate (Eq. 8) and expected power
-    sum P q (over ``valid`` lanes)."""
+def account_summands(gains, sel, q, p, acct, valid=None):
+    """The per-lane summands of the round's accounting, stacked (2, ...):
+    the TDMA comm time ell / rate on selected lanes (Eq. 8) and the
+    expected power P q (on ``valid`` lanes)."""
     acct = as_operands(acct, gains)
     rate = coeff_rate(gains, p, acct)
     contrib = torch.where(sel, acct.ell / torch.clamp_min(rate, 1e-9), 0.0)
     pq = p * q if valid is None else torch.where(valid, p * q, 0.0)
-    return account_totals(contrib, pq, acct_len)
+    return torch.stack([contrib, pq])
+
+
+def _account(gains, sel, q, p, acct, valid=None, acct_len=None):
+    """TDMA comm time sum_{selected} ell / rate (Eq. 8) and expected power
+    sum P q (over ``valid`` lanes)."""
+    both = _fit_account_axis(account_summands(gains, sel, q, p, acct, valid),
+                             acct_len)
+    t_comm, power = blocked_total(both).unbind(0)
+    return t_comm, power
 
 
 def decision_step(policy_step, acct: AccountCoeffs, raw, gains, pol_state,

@@ -75,10 +75,13 @@ from repro_torch.fl.decision import (AccountCoeffs, DecisionCoeffs,
 from repro_torch.fl.population import (init_active_mask,
                                        make_population_core,
                                        population_config)
-from repro_torch.fl.round import (masked_aggregate, pack_participants,
+from repro_torch.fl.round import (make_sharded_round_update,
+                                  masked_aggregate, pack_participants,
                                   resolve_wire_dtype, sample_batches,
                                   train_participants)
+from repro_torch.fl.sharding import Mesh2D, make_mesh2d, require_group
 from repro_torch.kernels.scheduler_solve import scheduler_solve
+from repro_torch.launch.distributed import check_backend
 from repro_torch.models.registry import make_model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.instrument import EngineInstruments, perf
@@ -127,10 +130,9 @@ def check_sim_config(sim: SimConfig):
         raise NotImplementedError(
             f"engine={sim.engine!r}: the reference's legacy loop engine is "
             "not ported (ROADMAP §A item 5); use engine='scan'")
-    if sim.client_shards or sim.participant_shards:
-        raise NotImplementedError(
-            "client_shards / participant_shards are not ported yet "
-            "(ROADMAP §A item 8)")
+    if sim.client_shards:
+        from repro_torch.fl.client_shard import check_client_shards
+        check_client_shards(sim.client_shards, sim.policy, sim.channel)
     check_channel(sim.channel, sim.channel_params)
     if sim.population is not None:
         population_config(sim.population)
@@ -272,7 +274,8 @@ def make_solve_fn(scfg: SchedulerConfig, ch: ChannelConfig,
 
 class RoundParts(NamedTuple):
     """A run's round pieces, bound to (ds, sim, configs): what the fixed
-    fleet's round and the population's masked round share."""
+    fleet's round, the population's masked round and the client-sharded
+    round share."""
 
     channel: object          # core/channel.py ChannelModel
     policy: str              # the policy's name (its Draws stream)
@@ -280,14 +283,33 @@ class RoundParts(NamedTuple):
     decision: Callable       # decision_step or the fused drop-in
     acct: AccountCoeffs      # accounting operands on the device
     train: Callable          # (params, delivered, q, batch_idx) -> params
+    train_packed: Callable   # (params, sel_idx, sel_valid, q_sel,
+                             #  batch_idx) -> params
+    mesh: Optional[Mesh2D]   # the mesh of a sharded run
+
+
+def shard_mesh(sim: SimConfig, device) -> Optional[Mesh2D]:
+    """The ``(client_shards, participant_shards)`` mesh of a sharded run
+    (None for the sequential one): the initialised process group must
+    hold exactly ``Dc * Dp`` ranks, on the device's backend (nccl for
+    CUDA, gloo for the CPU). Nothing falls back to the sequential path."""
+    if not (sim.client_shards or sim.participant_shards):
+        return None
+    require_group(f"client_shards={sim.client_shards}, participant_shards="
+                  f"{sim.participant_shards}")
+    check_backend(device)
+    return make_mesh2d(sim.client_shards, sim.participant_shards)
 
 
 def make_round_parts(ds: FederatedDataset, sim: SimConfig,
                      scfg: SchedulerConfig, ch: ChannelConfig,
                      sigmas: torch.Tensor) -> RoundParts:
     """Bind the channel, the policy, the decision layer and the training
-    tail of ``sim``."""
+    tail of ``sim``. Under ``sim.participant_shards`` the participants
+    train split over the mesh's ``'part'`` group
+    (``fl/round.py::make_sharded_round_update``)."""
     check_sim_config(sim)
+    mesh = shard_mesh(sim, ds.device)
     co_host = decision_coeffs(scfg, ch)
     co = DecisionCoeffs(*(as_operands(c, sigmas) for c in co_host))
     solve = make_solve_fn(scfg, ch) if sim.solver == "cuda" else None
@@ -299,21 +321,36 @@ def make_round_parts(ds: FederatedDataset, sim: SimConfig,
         decision = make_fused_decision(scfg, co_host)
     spec = make_model(sim.model, ds, **dict(sim.model_params))
     wire = resolve_wire_dtype(sim.wire_dtype)
+    if sim.participant_shards:
+        update = make_sharded_round_update(
+            spec.loss_fn, sim.gamma, sim.local_steps, ds.n_clients,
+            sim.participant_shards, aggregation=sim.aggregation,
+            wire_dtype=wire, mesh=mesh)
+    else:
+        def update(params, inputs, labels, sel_valid, q_sel):
+            updated = train_participants(spec.loss_fn, params, inputs,
+                                         labels, sim.gamma, sim.local_steps)
+            return masked_aggregate(params, updated, sel_valid, q_sel,
+                                    ds.n_clients, sim.aggregation, wire)
 
-    def train(params, delivered, q, batch_idx):
-        """Local SGD of the first ``m_cap`` delivered participants and
-        Algorithm 1's 1/q-weighted aggregate."""
-        sel_idx, sel_valid = pack_participants(delivered, sim.m_cap)
+    def train_packed(params, sel_idx, sel_valid, q_sel, batch_idx):
+        """Local SGD of the packed participants and Algorithm 1's
+        1/q-weighted aggregate."""
         inputs, labels = sample_batches(batch_idx, ds.client_images,
                                         ds.client_labels, sel_idx)
-        updated = train_participants(spec.loss_fn, params, inputs, labels,
-                                     sim.gamma, sim.local_steps)
-        return masked_aggregate(params, updated, sel_valid, q[sel_idx],
-                                ds.n_clients, sim.aggregation, wire)
+        return update(params, inputs, labels, sel_valid, q_sel)
+
+    def train(params, delivered, q, batch_idx):
+        """:func:`train_packed` of the first ``m_cap`` delivered
+        participants."""
+        sel_idx, sel_valid = pack_participants(delivered, sim.m_cap)
+        return train_packed(params, sel_idx, sel_valid, q[sel_idx],
+                            batch_idx)
 
     return RoundParts(
         make_channel(sim.channel, sigmas, ch, **dict(sim.channel_params)),
-        sim.policy, policy_step, decision, co.acct, train)
+        sim.policy, policy_step, decision, co.acct, train, train_packed,
+        mesh)
 
 
 def make_sim_round(ds: FederatedDataset, sim: SimConfig,
@@ -323,12 +360,17 @@ def make_sim_round(ds: FederatedDataset, sim: SimConfig,
     ``sim_round(params, pol_state, ch_state, draws, r) -> (params,
     pol_state, ch_state, t_comm, power, n_sel, sel, q)``. With
     ``sim.population`` set, ``ch_state`` is the ``(ch_state, active)``
-    carry of the masked round (``fl/population.py``)."""
-    if sim.population is not None:
-        return make_population_core(
-            make_round_parts(ds, sim, scfg, ch, sigmas),
-            population_config(sim.population))
+    carry of the masked round (``fl/population.py``). With
+    ``sim.client_shards`` the round is the client-sharded one
+    (``fl/client_shard.py``): its states, sel and q hold this rank's
+    lanes (:func:`local_carry`)."""
     parts = make_round_parts(ds, sim, scfg, ch, sigmas)
+    if sim.client_shards:
+        from repro_torch.fl.client_shard import make_client_sharded_round
+        return make_client_sharded_round(ds, sim, scfg, ch, sigmas, parts)
+    if sim.population is not None:
+        return make_population_core(parts,
+                                    population_config(sim.population))
 
     def sim_round(params, pol_state, ch_state, draws: Draws, r: int):
         gains, ch_state = parts.channel.apply(draws.channel_raw(r), ch_state)
@@ -350,6 +392,24 @@ def init_channel_carry(draws: Draws, sim: SimConfig, channel):
         return ch0
     return ch0, init_active_mask(draws.init_mask_u(),
                                  population_config(sim.population))
+
+
+def local_carry(sim: SimConfig, n: int, pol_state: PolicyState, carry):
+    """A round-0 ``(pol_state, channel carry)`` as the run's rounds carry
+    it: the whole (N,) lanes, or this rank's under ``sim.client_shards``."""
+    from repro_torch.fl.client_shard import client_layout
+    layout = client_layout(n, sim.client_shards, sim.participant_shards)
+    if layout is None:
+        return pol_state, carry
+    return layout.local_state(pol_state, carry)
+
+
+def _lane_gather(sim: SimConfig, n: int):
+    """(N,) lanes of a round's per-lane output: the identity, or under
+    ``sim.client_shards`` an all-gather of every rank's lanes."""
+    from repro_torch.fl.client_shard import client_layout
+    layout = client_layout(n, sim.client_shards, sim.participant_shards)
+    return (lambda x: x) if layout is None else layout.gather
 
 
 def eval_rounds(rounds: int, eval_every: int) -> list:
@@ -393,9 +453,12 @@ def run_config(draws: Draws, params: dict, ds: FederatedDataset,
     eval_fn = make_eval_fn(ds, sim)
     device = ds.device
     params = {k: v.detach().clone() for k, v in params.items()}
-    pol_state = init_policy_state(sim.policy, ds.n_clients, device)
-    carry = init_channel_carry(draws, sim, make_channel(
-        sim.channel, sigmas, ch, **dict(sim.channel_params)))
+    pol_state, carry = local_carry(
+        sim, ds.n_clients,
+        init_policy_state(sim.policy, ds.n_clients, device),
+        init_channel_carry(draws, sim, make_channel(
+            sim.channel, sigmas, ch, **dict(sim.channel_params))))
+    lanes = _lane_gather(sim, ds.n_clients)
     t_cum = torch.zeros((), dtype=torch.float32, device=device)
     p_cum = torch.zeros((), dtype=torch.float32, device=device)
     at_eval = set(eval_rounds(sim.rounds, sim.eval_every))
@@ -406,10 +469,10 @@ def run_config(draws: Draws, params: dict, ds: FederatedDataset,
         t_cum = t_cum + t_comm
         p_cum = p_cum + power
         if keep_selection:
-            kept["selected"].append(sel)
-            kept["q"].append(q)
+            kept["selected"].append(lanes(sel))
+            kept["q"].append(lanes(q))
             if sim.population is not None:
-                kept["active"].append(carry[1])
+                kept["active"].append(lanes(carry[1]))
         if r in at_eval:
             points.append(torch.stack([t_cum, eval_fn(params), p_cum,
                                        n_sel.to(torch.float32)]))
@@ -504,9 +567,12 @@ def init_carry(draws: Draws, params: dict, scfg: SchedulerConfig,
     channel = make_channel(sim.channel, sigmas, ch,
                            **dict(sim.channel_params))
     zero = torch.zeros((), dtype=torch.float32, device=device)
+    pol_state, carry = local_carry(
+        sim, scfg.n_clients,
+        init_policy_state(sim.policy, scfg.n_clients, device),
+        init_channel_carry(draws, sim, channel))
     return ({k: v.detach().clone() for k, v in params.items()},
-            init_policy_state(sim.policy, scfg.n_clients, device),
-            init_channel_carry(draws, sim, channel), 0, zero, zero.clone())
+            pol_state, carry, 0, zero, zero.clone())
 
 
 # --------------------------------------------------------------------------

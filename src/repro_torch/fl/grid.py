@@ -9,13 +9,17 @@ of ``repro/fl/grid.py``).
   accounting) and returns the reference's layout.
 
 The reference compiles the grid into one ``jit(shard_map(...))`` over a
-config axis sharded across devices. On one card the runner loops: over
-the (channel[, population], policy) cells, and within a cell over its
-(sigma x seed) configs, one after another. Each config runs through
+config axis sharded across devices. Here the config axis is split over
+the ranks of the initialised ``torch.distributed`` group (one rank when
+there is none): each cell's (sigma x seed) configs are padded to a
+multiple of the world size by repeating the last one (``grid_cell_inputs``),
+each rank runs its contiguous block one config after another, and every
+rank all-gathers the cell's results. Each config runs through
 ``fl/engine.py::run_config``, the function behind
 ``run_simulation_scan``, so a grid cell equals the per-config run of
-:func:`sim_for_config` bit for bit by construction. ``n_devices`` is 1:
-a grid across cards is ROADMAP §A item 8.
+:func:`sim_for_config` bit for bit by construction, on any number of
+ranks. ``n_devices`` is the world size. The grid owns the config axis: a
+``sim`` with ``client_shards`` or ``participant_shards`` is refused.
 
 Like the reference's, the grid takes only a solve closure: under
 ``solver="cuda"`` ``proposed`` solves through the solve kernel, under
@@ -38,6 +42,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.channel import (ChannelConfig, check_channel,
                                       resolve_sigmas)
@@ -47,6 +52,8 @@ from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fl.engine import (SimConfig, default_draws, eval_rounds,
                                    run_config)
 from repro_torch.fl.population import population_config
+from repro_torch.fl.sharding import all_gather
+from repro_torch.launch.distributed import check_backend
 
 
 def _normalize(entries) -> Tuple[Tuple[str, tuple], ...]:
@@ -147,6 +154,12 @@ def make_grid_runner(ds: FederatedDataset, sim: SimConfig,
     the device. ``draws(sim_one, seed)`` builds a config's ``Draws``
     (None: ``default_draws`` seeded by ``seed``).
     """
+    if sim.participant_shards or sim.client_shards:
+        raise ValueError(
+            "the grid shards the CONFIG axis across the ranks; nesting the "
+            "participant- or client-sharded round inside it is not "
+            "supported — use sim.participant_shards / sim.client_shards "
+            "with run_simulation, or the grid with both at 0")
     spec.validate()
     if sim.population is not None:
         raise ValueError(
@@ -157,25 +170,44 @@ def make_grid_runner(ds: FederatedDataset, sim: SimConfig,
                    for d in spec.sigma_dists]
     pops = bool(spec.populations)
     n_sig, n_seed = len(spec.sigma_dists), len(spec.seeds)
+    world, rank = n_devices(), (dist.get_rank() if dist.is_initialized()
+                                else 0)
+    if world > 1:
+        check_backend(ds.device)
 
     def runner(params, draws: Optional[Callable] = None):
         if draws is None:
             def draws(one, seed):
                 return default_draws(dataclasses.replace(one, seed=seed),
                                      ds)
-        rows = []
-        for cell, si, seed in itertools.product(
-                spec.cells(), range(n_sig), spec.seeds):
+        cells = []
+        for cell, sids, seeds in zip(spec.cells(),
+                                     *grid_cell_inputs(spec, world)):
             ci, gi, pi = cell if pops else (cell[0], None, cell[1])
-            one, _ = sim_for_config(sim, spec, ci, si, pi, gi=gi)
-            one = dataclasses.replace(one, seed=int(seed))
-            points, _ = run_config(draws(one, int(seed)), params, ds, one,
-                                   scfg, ch, sigma_table[si])
-            rows.append(points)
-        out = torch.stack(rows)
-        return out.reshape(-1, n_sig, n_seed, *out.shape[1:])
+            per = len(sids) // world
+            rows = []
+            for si, seed in zip(sids[rank * per:(rank + 1) * per],
+                                seeds[rank * per:(rank + 1) * per]):
+                one, _ = sim_for_config(sim, spec, ci, int(si), pi, gi=gi)
+                one = dataclasses.replace(one, seed=int(seed))
+                points, _ = run_config(draws(one, int(seed)), params, ds,
+                                       one, scfg, ch, sigma_table[si])
+                rows.append(points)
+            rows = torch.stack(rows)
+            if world > 1:
+                rows = all_gather(rows, dist.group.WORLD).flatten(0, 1)
+            cells.append(rows[:n_sig * n_seed])
+        out = torch.stack(cells)
+        return out.reshape(-1, n_sig, n_seed, *out.shape[2:])
 
     return runner
+
+
+def n_devices() -> int:
+    """The grid's device count: the world size of the initialised process
+    group, 1 without one."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int) -> np.ndarray:
@@ -189,10 +221,9 @@ def pad_to_multiple(arr: np.ndarray, multiple: int) -> np.ndarray:
 
 def grid_cell_inputs(spec: GridSpec, n_devices: int = 1):
     """Per-cell (sigma_ids, seeds) config arrays, padded to the device
-    count, as the reference shards them; within a cell configs run in
-    C-order over (sigma_dist, seed). The one-card runner loops over the
-    spec itself; these are the inputs of a grid across cards (ROADMAP §A
-    item 8)."""
+    count by repeating the last config, as the reference shards them;
+    within a cell configs run in C-order over (sigma_dist, seed), and
+    rank r runs the r-th contiguous block."""
     n_sig = len(spec.sigma_dists)
     sids = np.repeat(np.arange(n_sig, dtype=np.int32), len(spec.seeds))
     seeds = np.tile(np.asarray(spec.seeds, dtype=np.int64), n_sig)
@@ -254,7 +285,7 @@ def run_grid(draws: Optional[Callable], params, ds: FederatedDataset,
                         for d in spec.sigma_dists],
         "policies": [name for name, _ in spec.policy_entries()],
         "seeds": np.asarray(spec.seeds),
-        "n_devices": 1,
+        "n_devices": n_devices(),
     }
     if has_pop:
         result["populations"] = [dict(p) for p in

@@ -14,14 +14,19 @@ The engine aggregates the packed participants (:func:`masked_aggregate`);
 :func:`weighted_aggregate`, :func:`delta_aggregate` and :func:`fl_round`
 are the unmasked forms over an explicit (N, ...) client axis, and
 :func:`make_fl_train_step` / :func:`make_train_step` the train steps built
-on them.
+on them. :func:`make_sharded_round_update` splits the packed participants
+over the ranks of a ``'part'`` process group, the aggregate an all-reduce
+(``SimConfig(participant_shards=Dp)``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.fl.sharding import Mesh2D, make_mesh2d, psum, require_group
 
 WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -146,22 +151,95 @@ def sample_batches(idx: torch.Tensor, client_images, client_labels,
 
 def masked_aggregate(params: dict, updated: dict, sel_valid, q_sel,
                      n_clients: int, aggregation: str = "paper",
-                     wire_dtype=torch.float32) -> dict:
+                     wire_dtype=torch.float32, group=None) -> dict:
     """Algorithm 1 line 7 over the materialized participants (leading axis
     m_cap), masked by ``sel_valid`` and weighted by 1/(N q). ``delta``:
     x + sum (w (y - x)) with each weighted delta cast to ``wire_dtype``
-    before the sum (the quantity a deployment puts on the wire)."""
+    before the sum (the quantity a deployment puts on the wire).
+
+    ``group`` turns the local sum into a partial completed by an
+    ``all_reduce`` over that process group (the participant-sharded
+    round's collective, the reference's ``psum`` over ``axis_name``); the
+    cast before the reduce is what puts ``wire_dtype`` bytes on the
+    wire."""
     w = (sel_valid.to(torch.float32) / torch.clamp_min(q_sel, 1e-9)
          / q_sel.new_full((), n_clients))
 
     def weight(y):
         return w.reshape((-1,) + (1,) * (y.ndim - 1))
 
+    def reduce(x):
+        return x if group is None else psum(x, group)
+
     if aggregation == "delta":
-        return {k: x + (((updated[k] - x[None]) * weight(updated[k]))
-                        .to(wire_dtype).sum(0).to(torch.float32))
+        return {k: x + reduce(((updated[k] - x[None]) * weight(updated[k]))
+                              .to(wire_dtype).sum(0)).to(torch.float32)
                 for k, x in params.items()}
     if aggregation != "paper":
         raise ValueError(f"unknown aggregation {aggregation!r} "
                          f"(want 'paper'|'delta')")
-    return {k: (y * weight(y)).sum(0) for k, y in updated.items()}
+    return {k: reduce((y * weight(y)).sum(0)) for k, y in updated.items()}
+
+
+def _pad_rows(x: torch.Tensor, pad: int, fill) -> torch.Tensor:
+    return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+
+
+def make_sharded_round_update(loss_fn: Callable, gamma: float, steps: int,
+                              n_clients: int, n_shards: int, *,
+                              aggregation: str = "paper",
+                              wire_dtype=torch.float32,
+                              mesh: Optional[Mesh2D] = None) -> Callable:
+    """Participant-sharded round update: the <= m_cap packed participants'
+    local SGD split over the ranks of a ``'part'`` group, the q-weighted
+    Algorithm-1 aggregate completed by an ``all_reduce`` over it (the
+    *scheduled* collective the paper's Algorithm 2 prices).
+
+    Returns ``update(params, inputs, labels, sel_valid, q_sel) ->
+    new_params`` where ``inputs``/``labels`` carry the participant axis
+    leading ((m_cap, steps, batch, ...)), the same on every rank. Each of
+    the ``n_shards`` ranks trains its m_cap / n_shards rows under
+    ``vmap(grad)`` (:func:`train_participants`), forms its partial weighted
+    sum, and the all-reduce completes line 7. When ``n_shards`` does not
+    divide m_cap the participant axis is padded with zero-weight rows
+    (``sel_valid=False``, q = 1) that train on zero data and add exactly
+    0.
+
+    ``aggregation="delta"`` casts each rank's partial delta sum to
+    ``wire_dtype`` before the all-reduce, so a bfloat16 wire moves
+    bfloat16. At one rank the update is bit for bit the sequential
+    :func:`masked_aggregate` of :func:`train_participants` (an all-reduce
+    of one rank is the identity); across ranks the participant sum is
+    re-associated per shard.
+
+    ``mesh`` is the composed round's :class:`~repro_torch.fl.sharding.
+    Mesh2D` (its ``part_group`` of extent ``n_shards``); None builds the 1D
+    mesh ``(1, n_shards)``, which needs a world of ``n_shards`` ranks.
+    """
+    if mesh is None:
+        require_group(f"n_shards={n_shards}")
+        world = dist.get_world_size()
+        if n_shards != world:
+            raise ValueError(f"n_shards={n_shards} needs a process group of "
+                             f"{n_shards} ranks, this one has {world}")
+        mesh = make_mesh2d(1, n_shards)
+    elif mesh.dp != n_shards:
+        raise ValueError(f"n_shards={n_shards} != the mesh's 'part' extent "
+                         f"{mesh.dp}")
+
+    def update(params, inputs, labels, sel_valid, q_sel):
+        pad = (-sel_valid.shape[0]) % n_shards
+        if pad:
+            inputs, labels = _pad_rows(inputs, pad, 0), _pad_rows(labels,
+                                                                  pad, 0)
+            sel_valid = _pad_rows(sel_valid, pad, False)
+            q_sel = _pad_rows(q_sel, pad, 1.0)
+        per = sel_valid.shape[0] // n_shards
+        rows = slice(mesh.p * per, (mesh.p + 1) * per)
+        updated = train_participants(loss_fn, params, inputs[rows],
+                                     labels[rows], gamma, steps)
+        return masked_aggregate(params, updated, sel_valid[rows],
+                                q_sel[rows], n_clients, aggregation,
+                                wire_dtype, group=mesh.part_group)
+
+    return update

@@ -48,8 +48,6 @@ host arrays the flush pulled after its one synchronisation, so
 telemetry-on serving and replay are bitwise-identical to telemetry-off
 and add no synchronisation (tests/test_torch_obs.py).
 ``metrics_snapshot()`` exports dict / JSON / Prometheus text.
-
-Not in this port yet: the rank-0 gating of ``save`` (ROADMAP §A 8).
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ import numpy as np
 
 from repro_torch.checkpoint.io import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.policies import PolicyState
+from repro_torch.launch.distributed import is_main
 
 
 class LoggedRequest(NamedTuple):
@@ -99,6 +100,10 @@ class RequestLog:
 
     # ------------------------------------------------------- persistence
     def save(self, path: str) -> None:
+        """Write the log to an npz. Rank-0 gated: every rank appends the
+        same entries, so rank 0's copy is the job's one log."""
+        if not is_main():
+            return
         flat = {"n_entries": np.int64(len(self.entries)),
                 "n_compacted": np.int64(self.n_compacted)}
         if self.snapshot is not None:

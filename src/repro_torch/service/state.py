@@ -42,6 +42,7 @@ from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.policies import POLICIES, PolicyState, policy_aux_init
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.fl.sharding import padded_len
+from repro_torch.launch.distributed import is_main
 from repro_torch.obs.instrument import noop_instruments
 from repro_torch.service.step import SERVICE_POLICIES, coeff_row
 
@@ -294,7 +295,12 @@ class TenantStore:
                 for got, want in zip(st, b.state)))
 
     def save(self, path: str) -> None:
-        """Persist the snapshot through ``checkpoint/io.py``."""
+        """Persist the snapshot through ``checkpoint/io.py``.
+
+        Rank-0 gated: one snapshot per job (every rank holds the same
+        replicated store; ``launch/distributed.py``)."""
+        if not is_main():
+            return
         save_pytree(path, self.snapshot())
 
     def load(self, path: str) -> None:

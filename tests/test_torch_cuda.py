@@ -1253,3 +1253,48 @@ def test_mamba_layers_do_not_train_on_the_card(cuda, arch):
         scale = float(c.abs().max())
         assert scale > 0, name
         assert float((gg[name].cpu() - c).abs().max()) <= 1e-4 * scale, name
+
+
+def test_sharded_paths_on_one_rank_equal_the_sequential(cuda, tmp_path):
+    """A world-size-1 NCCL group: client_shards=1 (cuda_fused and cuda),
+    participant_shards=1 and the (1, 1) mesh equal the sequential run bit
+    for bit (cuDNN's deterministic algorithms), K2 / K1 once a round."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed import initialize
+    n, rounds = 20, 3
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ds = make_cifar10_like(gen, n_clients=n, per_client=16, n_test=32, h=8,
+                           w=8, device=cuda)
+    mp = dict(conv1=4, conv2=8, hidden=16)
+    params = make_model("cnn", ds, **mp).init_fn(gen)
+    scfg = SchedulerConfig(n_clients=n, model_bits=32 * 50_000.0)
+    ch = ChannelConfig(n_clients=n)
+    sig = heterogeneous_sigmas(n, device=cuda)
+    sim = SimConfig(rounds=rounds, eval_every=2, m_cap=4, batch=4,
+                    local_steps=2, eval_size=32,
+                    model_params=tuple(mp.items()))
+    assert initialize(f"file://{tmp_path / 'store'}", 1, 0, 0, device="cuda")
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        assert dist.get_backend() == "nccl"
+        for solver, kernel in (("cuda_fused", decision_fused),
+                               ("cuda", scheduler_solve)):
+            base = dataclasses.replace(sim, solver=solver)
+            runs = {}
+            for shards in ({}, dict(client_shards=1),
+                           dict(participant_shards=1),
+                           dict(client_shards=1, participant_shards=1)):
+                decision_fused.launches = scheduler_solve.launches = 0
+                runs[tuple(shards)] = run_simulation(
+                    None, params, ds, dataclasses.replace(base, **shards),
+                    scfg, ch, sig, keep_selection=True)
+                assert kernel.launches == rounds, (solver, shards)
+            seq = runs[()]
+            for key, hist in runs.items():
+                for k in seq:
+                    assert np.array_equal(seq[k], hist[k]), (solver, key, k)
+    finally:
+        torch.backends.cudnn.deterministic = flag
+        dist.destroy_process_group()

@@ -25,12 +25,10 @@ import torch
 REFERENCE = Path(__file__).resolve().parents[1] / "src" / "repro"
 
 # names of a reference __all__ the port does not have yet, by ROADMAP §A
-# item: 5 the legacy loop engine (left out on purpose), 8 multi-device,
-# 11 launch planning (sharding/); item 10's optim/ is ported
+# item: 5 the legacy loop engine (left out on purpose), 11 launch planning
+# (sharding/); item 10's optim/ and item 8's multi-device are ported
 OPEN = {
-    "repro_torch.fl": {"run_simulation_loop": 5,
-                       "make_sharded_round_update": 8,
-                       "make_schedule_runner": 8},
+    "repro_torch.fl": {"run_simulation_loop": 5},
     "repro_torch.fl.simulation": {"run_simulation_loop": 5},
     "repro_torch.sharding": dict.fromkeys(
         ["batch_pspec", "param_pspecs", "ShardingMode",
@@ -199,3 +197,32 @@ def test_serve_mamba_example_on_cpu(capsys):
     assert [r["arch"] for r in lines] == ["mamba2-130m-reduced",
                                          "mixtral-8x22b-reduced"]
     assert all(len(r["sample_output"]) == 16 for r in lines)
+
+
+def test_massive_n_example_on_cpu(capsys):
+    """Item 8's massive-N twin at a reduced N on one rank."""
+    from repro_torch.examples import massive_n
+    out = massive_n.main(["--device", "cpu", "--n", "2000", "--rounds", "5",
+                          "--match-rounds", "30"])
+    assert out["ranks"] == 1 and out["uniform_m"] > 0
+    for policy in ("proposed", "uniform"):
+        assert out[policy]["t_comm"].shape == (5,)
+        assert (out[policy]["n_sel"] >= 1).all()
+    assert 0 < out["ratio"] < 1
+    text = capsys.readouterr().out
+    assert "ranks: 1; clients: 2000" in text
+    assert "proposed/uniform ratio" in text
+    assert not __import__("torch").distributed.is_initialized()
+
+
+def test_mesh2d_example_on_cpu(capsys):
+    """Item 8's 2D-mesh twin on one rank: mesh (1, 1)."""
+    from repro_torch.examples import mesh2d
+    assert [mesh2d.pick_mesh(w) for w in (1, 2, 3, 4, 8, 5)] == [
+        (1, 1), (2, 1), (3, 1), (2, 2), (4, 2), (1, 5)]
+    hist = mesh2d.main(["--device", "cpu"])
+    a, b = hist.values()
+    for k in ("comm_time", "test_acc", "n_selected"):
+        np.testing.assert_array_equal(a[k], b[k])
+    assert "parity: n_selected exact, comm_time to ~1 ulp on a (1, 1) " \
+        "mesh over 1 rank(s)" in capsys.readouterr().out

@@ -289,9 +289,14 @@ def test_train_fl_on_cpu(capsys):
 def test_model_zoo_fl_example_on_cpu(capsys):
     from repro_torch.examples import model_zoo_fl
     hist = model_zoo_fl.main(["--device", "cpu", "--rounds", "2"])
-    assert list(hist) == ["cnn", "mlp", "transformer_lm"]
+    assert list(hist) == ["cnn", "mlp", "transformer_lm", "mlp_sharded"]
     for h in hist.values():
         assert h["round"].tolist() == [0, 1]
         assert (h["n_selected"] >= 1).all()
     text = capsys.readouterr().out
     assert text.count("devices/round") == 3
+    assert "mlp sharded x1 (delta/bf16 wire)" in text
+    # the sharded leg's schedule is the MLP leg's: same draws, one rank
+    for k in ("comm_time", "n_selected"):
+        np.testing.assert_array_equal(hist["mlp_sharded"][k],
+                                      hist["mlp"][k])
