@@ -4826,6 +4826,117 @@ def ssd_bwd_variants(torch):
     return 0
 
 
+# ``--flash-bwd-one-build``: csrc/flash_attention_bwd.cu made into one
+# build for every call (its kernels test the modes at run time, template
+# M dropped), timed in turns with the shipped build, which runs a call
+# without a mode in a build without their code
+FLASH_BWD_ONE_BUILD = [
+    ("template <int D, typename T, bool M>\n__device__ __forceinline__ void "
+     "dkdv_consume(", "template <int D, typename T>\n__device__ "
+     "__forceinline__ void dkdv_consume(", 1),
+    ("M ? sh.flags & modes::kProbsBf16 : 0", "sh.flags & modes::kProbsBf16",
+     2),
+    ("if (M && sh.bits != nullptr) {", "if (sh.bits != nullptr) {", 1),
+    ("M && w == 0 && sh.dead != nullptr", "w == 0 && sh.dead != nullptr", 1),
+    ("template <int D, typename T, bool M>\n__global__ void __launch_bounds__"
+     "(kThreads, 1)\n    flash_bwd_dkdv(", "template <int D, typename T>\n"
+     "__global__ void __launch_bounds__(kThreads, 1)\n    flash_bwd_dkdv(",
+     1),
+    ("dkdv_consume<D, T, M>(", "dkdv_consume<D, T>(", 1),
+    ("template <int D, typename T, bool M, bool Delta>\n__device__ "
+     "__forceinline__ void dq_consume(", "template <int D, typename T, bool "
+     "Delta>\n__device__ __forceinline__ void dq_consume(", 1),
+    ("words = M && sh.bits", "words = sh.bits", 1),
+    ("word = M && words ?", "word = words ?", 1),
+    ("template <int D, typename T, bool M, bool Delta>\n__global__ void "
+     "__launch_bounds__(kThreads, 1)\n    flash_bwd_dq(", "template <int D, "
+     "typename T, bool Delta>\n__global__ void __launch_bounds__(kThreads, "
+     "1)\n    flash_bwd_dq(", 1),
+    ("dq_consume<D, T, M, Delta>(", "dq_consume<D, T, Delta>(", 1),
+    ("  const bool m = kv != nullptr || pb;\n", "", 1),
+    ("m ? flash_bwd_dkdv<D, T, true> : flash_bwd_dkdv<D, T, false>",
+     "flash_bwd_dkdv<D, T>", 1),
+    ("m ? flash_bwd_dq<D, T, true, false>\n                : flash_bwd_dq<D, "
+     "T, false, false>", "flash_bwd_dq<D, T, false>", 1),
+    ("flash_bwd_dq<D, T, true, true>", "flash_bwd_dq<D, T, true>", 1),
+]
+
+
+def flash_bwd_one_build(torch):
+    """K5's backward from one build for every call
+    (``FLASH_BWD_ONE_BUILD``, built beside the shipped one under
+    ``build/``) against the shipped build, whole calls by CUDA events in
+    turns (shipped, one, one, shipped, shipped, one) at yi-6b's and
+    minicpm-2b's training shapes, unmasked, with this script's kv_valid
+    mask and with probs_bf16; the two give the same bits. Prints a JSON
+    line a case."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (PROBS_BF16, _bwd_lib,
+                                                     bwd_work_floats,
+                                                     flash_attention_bhsd)
+    text = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    for old, new, count in FLASH_BWD_ONE_BUILD:
+        if text.count(old) != count:
+            raise AssertionError(f"one build: {old!r} not found {count}x")
+        text = text.replace(old, new)
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = ROOT / "build" / "flash_attention_bwd_one_build.cu"
+    path.write_text(text)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                    f"-I{_build.CSRC}", "-o", str(path.with_suffix(".so")),
+                    str(path)], check=True, capture_output=True)
+    shipped = _bwd_lib()
+    one = ctypes.CDLL(str(path.with_suffix(".so"))).flash_attention_bwd
+    one.argtypes, one.restype = shipped.argtypes, ctypes.c_int
+    for call, bh, s, d, group, batch in (("yi-6b", 128, 2048, 128, 8, 4),
+                                         ("minicpm-2b", 144, 2048, 64, 1,
+                                          4)):
+        q, k, v, do = bwd_lanes(torch, bh, s, s, d, group, 6)
+        for mode in ("unmasked", "kv_valid", "probs_bf16"):
+            kv = kv_mask(torch, batch, s, s) if mode == "kv_valid" else None
+            pb = mode == "probs_bf16"
+            o, lse = flash_attention_bhsd(q, k, v, return_lse=True,
+                                          kv_group=group, kv_valid=kv,
+                                          probs_bf16=pb)
+            kv8 = None if kv is None else kv.to(torch.uint8).contiguous()
+            work = torch.empty(bwd_work_floats(
+                bh, s, s, d, group, 0 if kv is None else batch),
+                device="cuda")
+            grads = {}
+
+            def run(fn, key):
+                out = [torch.empty_like(t) for t in (q, k, v)]
+                code = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse,
+                                                   *out, work)),
+                          None if kv8 is None else kv8.data_ptr(), bh,
+                          group, s, s, d, 0, bh // batch, 1, 0, d ** -0.5,
+                          1, PROBS_BF16 if pb else 0,
+                          torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"{key}: launch returned {code}")
+                grads[key] = out
+
+            fns = {"shipped": lambda: run(shipped, "shipped"),
+                   "one": lambda: run(one, "one")}
+            t = [time_device(torch, fns[key], False)
+                 for key in ("shipped", "one", "one", "shipped", "shipped",
+                             "one")]
+            same = all(torch.equal(a, b) for a, b in zip(grads["shipped"],
+                                                         grads["one"]))
+            row = dict(call=call, shape=[bh, s, d], mode=mode,
+                       shipped_ms=[t[0], t[3], t[4]],
+                       one_build_ms=[t[1], t[2], t[5]], same_bits=bool(same))
+            print(json.dumps({"flash_bwd_one_build": row}), flush=True)
+            if not same:
+                raise AssertionError(f"{call} {mode}: one build differs")
+            del o, lse, work
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return 0
+
+
 # --------------------------------------------------------------------------
 # Phase 17 (run right after phase 11): the sharded paths on one rank.
 # --------------------------------------------------------------------------
@@ -5042,6 +5153,722 @@ def sharded_path(torch, ctx):
     return {"sharded": launches}, summary
 
 
+# --------------------------------------------------------------------------
+# Phase 18: launch planning (ROADMAP item 11): K5's kv_valid and
+# probs_bf16 modes, the port's remat, attn_probs_bf16 in a model, the dry
+# run.
+# --------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12
+# (call, BH, Sq, Sk, D, causal, kv_group, batch) of K5's mode checks: a
+# small causal GQA call, a non-causal ragged one (Sq > Sk is refused only
+# with a window), and yi-6b's forward shape (batch 4 x 32 heads on 4 KV
+# heads), the one timed
+FLASH_MODE_SHAPES = (
+    ("small causal", 8, 200, 200, 64, True, 2, 2),
+    ("small non-causal ragged", 6, 77, 150, 32, False, 3, 2),
+    ("yi-6b self", 128, 2048, 2048, 128, True, 8, 4))
+# kv_valid against its plain version: the float32 tolerances of the
+# unmasked calls (FLASH_TOL, FLASH_BWD_TOL). probs_bf16: the kernel rounds
+# where the plain version (the reference) rounds (the normalised p after
+# an lse pass, dP, dv; delta the sum of P bf16(dP)), from float32 values
+# that differ by float32 noise, so a rounding lands apart only at a tie,
+# one bfloat16 ulp of that term. Those ties bound the largest |d|: o
+# within FLASH_PB_TOL x max |v| plus the float32 tolerance, each gradient
+# within FLASH_PB_BWD_TOL of its largest |plain| entry. Ties are rare, so
+# the control: the kernel's distance to the plain version (the Frobenius
+# norm of the difference) at most FLASH_PB_CONTROL of the distance from
+# the plain version without the mode (float32 p and v) to it, forward and
+# each gradient; a kernel that skipped the roundings, or rounded p before
+# normalising it, would sit about as far from the plain version as float32
+# does (ratio near 1) and fail.
+FLASH_PB_TOL = 2.0 ** -8
+FLASH_PB_BWD_TOL = 2.0 ** -6
+FLASH_PB_CONTROL = 0.25
+FLASH_MODES = (("kv_valid",), ("probs_bf16",), ("kv_valid", "probs_bf16"))
+
+
+def kv_mask(torch, batch, sk, seed):
+    """A (batch, Sk) key mask: each row but the last with its last 0-511
+    keys dead (right padding, at least one key live), row 0 also every
+    third key, and the last row with no live key."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    kv = torch.ones((batch, sk), dtype=torch.bool)
+    for b in range(batch - 1):
+        dead = int(torch.randint(0, min(512, sk - 1), (1,), generator=g))
+        kv[b, sk - dead:] = False
+    kv[0, 2::3] = False
+    kv[-1] = False
+    return kv.cuda()
+
+
+def mode_kw(modes, kv):
+    return dict(kv_valid=kv if "kv_valid" in modes else None,
+                probs_bf16="probs_bf16" in modes)
+
+
+def pb_control(got, want, float32):
+    """||got - want|| / ||float32 - want||: how far the kernel sits from
+    the plain version in probs_bf16 mode, against how far the plain
+    version without the mode sits from it."""
+    return float((got - want).float().norm()) / float(
+        (float32 - want).float().norm())
+
+
+def check_flash_modes(torch):
+    """K5 and its backward in the kv_valid and probs_bf16 modes and both,
+    against their plain versions at ``FLASH_MODE_SHAPES``: o, lse (+inf on
+    exactly the rows with no live key), the same bits with the masked
+    tiles run, and dq, dk, dv on the kernel's o and lse; with probs_bf16
+    the control (FLASH_PB_CONTROL) on o and each gradient. Returns the
+    largest |d| by kernel and mode (the modes of one check joined by +)
+    and the largest control ratios by kernel."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref, flash_lse_ref)
+    err, ratios = {}, {}
+    for call, bh, sq, sk, d, causal, group, batch in FLASH_MODE_SHAPES:
+        q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, sq + sk + d)
+        kv = kv_mask(torch, batch, sk, sk)
+        for modes in FLASH_MODES:
+            kw = dict(causal=causal, kv_group=group, **mode_kw(modes, kv))
+            tag = (f"{call} {(bh, sq, sk, d)} kv_group={group} "
+                   f"{'+'.join(modes)}")
+            o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+            every = flash_attention_bhsd(q, k, v, skip_tiles=False, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
+            kw_lse = dict(kw)
+            kw_lse.pop("probs_bf16")
+            want_lse = flash_lse_ref(q, k, **kw_lse)
+            torch.cuda.synchronize()
+            pb = "probs_bf16" in modes
+            tol = FLASH_TOL[False] + (FLASH_PB_TOL * float(v.abs().max())
+                                      if pb else 0.0)
+            e = compare(torch, f"flash_attention_bhsd {tag}", o, want, 0.0,
+                        tol)
+            ctl = []
+            if pb:
+                ctl.append(pb_control(o, want, flash_attention_ref(
+                    q, k, v, **dict(kw, probs_bf16=False))))
+            if not torch.equal(o, every):
+                raise AssertionError(f"{tag}: running the masked tiles "
+                                     "changed the result")
+            dead = torch.isinf(want_lse)
+            if not (torch.equal(torch.isinf(lse), dead)
+                    and torch.isfinite(o).all()):
+                raise AssertionError(f"{tag}: lse is +inf off the rows with "
+                                     "no live key, or o is not finite")
+            lse_d = float((lse[~dead] - want_lse[~dead]).abs().max())
+            if lse_d > 1e-4:
+                raise AssertionError(f"{tag}: lse off by {lse_d:.3g}")
+            got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+            again = flash_attention_bwd(q, k, v, o, do, skip_tiles=False,
+                                        **kw)
+            gwant = flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+            torch.cuda.synchronize()
+            rels = []
+            for name, g_, w_ in zip(("dq", "dk", "dv"), got, gwant):
+                rels.append(float((g_ - w_).abs().max())
+                            / float(w_.abs().max()))
+                limit = FLASH_PB_BWD_TOL if pb else FLASH_BWD_TOL
+                if not (torch.isfinite(g_).all() and rels[-1] <= limit):
+                    raise AssertionError(f"{tag}: {name} off its plain "
+                                         f"version by {rels[-1]:.3g} of "
+                                         f"max |plain| (limit {limit:.3g})")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag}: the backward with the masked "
+                                     "tiles run changed the result")
+            if pb:
+                f32 = flash_attention_bwd_ref(q, k, v, o, do, lse=lse,
+                                              **dict(kw, probs_bf16=False))
+                ctl += [pb_control(g_, w_, f_)
+                        for g_, w_, f_ in zip(got, gwant, f32)]
+                del f32
+                if max(ctl) > FLASH_PB_CONTROL:
+                    raise AssertionError(
+                        f"{tag}: the kernel is as far from its plain version "
+                        f"as float32 is (o, dq, dk, dv: "
+                        f"{', '.join(f'{c:.3g}' for c in ctl)}; limit "
+                        f"{FLASH_PB_CONTROL})")
+                for name, c in zip(("flash_attention_bhsd",
+                                    "flash_attention_bwd"),
+                                   (ctl[0], max(ctl[1:]))):
+                    ratios[name] = max(ratios.get(name, 0.0), c)
+            key = "+".join(modes)
+            err[("flash_attention_bhsd", key)] = max(
+                err.get(("flash_attention_bhsd", key), 0.0), e)
+            err[("flash_attention_bwd", key)] = max(
+                err.get(("flash_attention_bwd", key), 0.0),
+                max(float((g_ - w_).abs().max())
+                    for g_, w_ in zip(got, gwant)))
+            print(f"{tag}: K5 agrees with its plain version (max |d| {e:.3g}"
+                  f", tolerance {tol:.3g}; {int(dead.sum())} rows with no "
+                  f"live key, lse +inf there); its backward too (dq, dk, dv "
+                  f"max |d| / max |plain| {', '.join(f'{r:.3g}' for r in rels)}"
+                  "); the masked tiles run give the same bits"
+                  + (f"; |kernel - plain| / |float32 - plain| (o, dq, dk, dv)"
+                     f" {', '.join(f'{c:.3g}' for c in ctl)}" if pb else ""),
+                  flush=True)
+            del o, lse, every, want, want_lse, got, again, gwant
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return err, ratios
+
+
+def mode_live_pairs(torch, sq, sk, causal, kv, heads):
+    """The (q, k) pairs this mask leaves live, summed over BH = batch x
+    ``heads`` row-blocks: the causal pairs of each batch row's live keys."""
+    from repro_torch.kernels.ref import flash_mask
+    band = flash_mask(sq, sk, causal, None, "cuda")
+    return heads * int(sum(int((band & row[None]).sum()) for row in kv))
+
+
+def flash_mode_bound(bh, sq, sk, d, live, itemsize, kv_group, batch, modes,
+                     backward):
+    """The least time of K5 (or its backward) in ``modes`` on this run's
+    inputs: ``live`` pairs (the mask's), bytes as flash_bound (plus the
+    mask's), and the products: q . k (and in the backward dS K, dS^T q,
+    dO V^T) in 3xTF32, p v (P^T dO) in 3xTF32 or, with probs_bf16, one
+    bfloat16 product at the bfloat16 rate."""
+    pb = "probs_bf16" in modes
+    n_bytes = itemsize * d * ((4 if backward else 2) * bh * sq
+                              + (4 if backward else 2) * (bh // kv_group)
+                              * sk)
+    if "kv_valid" in modes:
+        n_bytes += batch * sk
+    f32_products = live * 2 * d * (4 if backward else 1)
+    pv = live * 2 * d
+    elementwise = live * (4 if backward else 3) + (0 if backward
+                                                   else 2 * bh * sq * d)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_tc = (3 * f32_products / TF32_OPS_PER_S
+            + (pv / BF16_OPS_PER_S if pb else 3 * pv / TF32_OPS_PER_S)) * 1e3
+    t_cuda = elementwise / F32_OPS_PER_S * 1e3
+    t = max(t_bytes, t_tc, t_cuda)
+    return dict(bound_ms=t, bound_by="bytes" if t == t_bytes
+                else "operations", bytes=n_bytes,
+                flops=f32_products + pv + elementwise, live_pairs=live)
+
+
+def flash_pass_ms(torch, fn, calls=10):
+    """Device ms per call of each device kernel that ``fn``'s K5 (or
+    backward) call launches, keyed by its name and template arguments
+    (``flash_attention_kernel<128, float, 1>``: D, type, build), from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        hit = re.search(r"(flash_\w+|pack_kv_bits)(<[^>]*>)?", e.key)
+        if hit and e.self_device_time_total > 0:
+            out[hit.group(0)] = (out.get(hit.group(0), 0.0)
+                                 + e.self_device_time_total / 1e3 / calls)
+    return out
+
+
+def flash_mode_kernels(torch):
+    """:func:`flash_pass_ms` of K5 and its backward at yi-6b's forward
+    shape on :func:`time_flash_modes`'s inputs: unmasked, with this run's
+    kv_valid mask, with probs_bf16, and with a mask that leaves every key
+    live; {variant: {"fwd": .., "bwd": ..}}."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
+    _, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
+    q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, 6)
+    live = torch.ones((batch, sk), dtype=torch.bool, device="cuda")
+    out = {}
+    for name, kw in (("unmasked", {}),
+                     ("kv_valid", dict(kv_valid=kv_mask(torch, batch, sk,
+                                                        sk))),
+                     ("probs_bf16", dict(probs_bf16=True)),
+                     ("all_live", dict(kv_valid=live))):
+        kw = dict(kw, causal=causal, kv_group=group)
+        o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+        out[name] = dict(
+            fwd=flash_pass_ms(torch, lambda: flash_attention_bhsd(
+                q, k, v, **kw)),
+            bwd=flash_pass_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, o, do, lse=lse, **kw)))
+    return out
+
+
+def fresh_flash_mode_kernels():
+    """:func:`flash_mode_kernels` in a child process started for it: late
+    in this run a profiler session reads K5's kernels low or not at all
+    (as :func:`fresh_ssd_pass_ms` found for K4's), a fresh process's first
+    session does not."""
+    code = ("import json, sys, torch; sys.path.insert(0, 'src'); "
+            "import chip_smoke as c; "
+            "print(json.dumps(c.flash_mode_kernels(torch)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def mask_build_probe(torch, q, k, v, do, group, batch, split):
+    """What kv_valid's code costs a call that has no mask: the unmasked
+    call against the same call with a mask that leaves every key live (the
+    same function; K5 and its backward run their kv_valid builds there,
+    template M, where the unmasked call runs build 0), timed in turns
+    (unmasked, all-live, all-live, unmasked), each one's device kernels
+    from ``split`` (:func:`fresh_flash_mode_kernels`), and whether the two
+    give the same bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
+    live = torch.ones((batch, k.shape[1]), dtype=torch.bool, device="cuda")
+    kw = dict(causal=True, kv_group=group)
+    with torch.no_grad():
+        o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+    calls = {
+        "fwd": (lambda: flash_attention_bhsd(q, k, v, **kw),
+                lambda: flash_attention_bhsd(q, k, v, kv_valid=live, **kw)),
+        "bwd": (lambda: flash_attention_bwd(q, k, v, o, do, lse=lse, **kw),
+                lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                            kv_valid=live, **kw))}
+    out = {}
+    for name, (plain_fn, live_fn) in calls.items():
+        u1 = time_device(torch, plain_fn, False)
+        a1 = time_device(torch, live_fn, False)
+        a2 = time_device(torch, live_fn, False)
+        u2 = time_device(torch, plain_fn, False)
+        a, b = plain_fn(), live_fn()
+        same = (torch.equal(a, b) if name == "fwd"
+                else all(torch.equal(x, y) for x, y in zip(a, b)))
+        out[name] = dict(unmasked_ms=[u1, u2], all_live_ms=[a1, a2],
+                         same_bits=bool(same),
+                         kernels_unmasked=split["unmasked"][name],
+                         kernels_all_live=split["all_live"][name])
+        print(f"K5{' backward' if name == 'bwd' else ''} unmasked against "
+              f"an all-live kv_valid mask, in turns: "
+              f"{u1:.4f} / {a1:.4f} / {a2:.4f} / {u2:.4f} ms, same bits "
+              f"{same}; kernels {out[name]['kernels_unmasked']} against "
+              f"{out[name]['kernels_all_live']}", flush=True)
+    del o, lse
+    return out
+
+
+def time_flash_modes(torch):
+    """K5 and its backward in each mode at yi-6b's forward shape, beside
+    their plain versions, their bounds on this run's mask and, for
+    kv_valid, the library's call on the same inputs:
+    ``scaled_dot_product_attention`` with the band and the mask as its
+    boolean mask (KV expanded outside the timing, memory-efficient
+    backend; for the backward ``torch.autograd.grad`` through it), on the
+    mask with its no-live-key row made live (SDPA gives NaN on such a
+    row). probs_bf16 has no single library call (SDPA has no bfloat16
+    rounding of p alone). Each row also splits the call into its device
+    kernels (:func:`fresh_flash_mode_kernels`). Returns {(kernel, mode):
+    row} and :func:`mask_build_probe`'s record."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref, flash_mask)
+    call, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
+    q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, 6)
+    kv = kv_mask(torch, batch, sk, sk)
+    heads = bh // batch
+    torch.cuda.empty_cache()  # room on the card for the split's process
+    split = fresh_flash_mode_kernels()
+    rows = {}
+    for modes in FLASH_MODES[:2]:
+        mode = modes[0]
+        kw = dict(causal=causal, kv_group=group, **mode_kw(modes, kv))
+        with torch.no_grad():
+            o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+        live = (mode_live_pairs(torch, sq, sk, causal, kv, heads)
+                if mode == "kv_valid" else
+                bh * int(flash_mask(sq, sk, causal, None, "cpu").sum()))
+        fwd = dict(ms=time_device(torch, lambda: flash_attention_bhsd(
+                       q, k, v, **kw), False),
+                   kernels=split[mode]["fwd"],
+                   plain_ms=time_device(torch, lambda: flash_attention_ref(
+                       q, k, v, **kw), False, iters=3),
+                   library_ms=None,
+                   **flash_mode_bound(bh, sq, sk, d, live, 4, group, batch,
+                                      modes, False))
+        bwd = dict(ms=time_device(torch, lambda: flash_attention_bwd(
+                       q, k, v, o, do, lse=lse, **kw), False),
+                   kernels=split[mode]["bwd"],
+                   plain_ms=time_device(torch, lambda: flash_attention_bwd_ref(
+                       q, k, v, o, do, lse=lse, **kw), False, iters=3),
+                   library_ms=None,
+                   **flash_mode_bound(bh, sq, sk, d, live, 4, group, batch,
+                                      modes, True))
+        if mode == "kv_valid":
+            live_kv = kv.clone()
+            live_kv[-1] = kv[0]
+            mask = (flash_mask(sq, sk, causal, None, "cuda")[None, None]
+                    & live_kv[:, None, None, :])
+            ql, kl, vl = (t.view(batch, -1, t.shape[1], d).detach()
+                          .requires_grad_() for t in (
+                              q, k.repeat_interleave(group, 0),
+                              v.repeat_interleave(group, 0)))
+
+            def library():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        ql, kl, vl, attn_mask=mask)
+
+            with torch.no_grad():
+                fwd["library_ms"] = time_device(torch, library, False)
+            with torch.enable_grad():
+                out = library()
+            dol = do.view(out.shape)
+            bwd["library_ms"] = time_device(torch, lambda: torch.autograd.grad(
+                out, (ql, kl, vl), dol, retain_graph=True), False)
+            del ql, kl, vl, out, mask
+        rows[("flash_attention_bhsd", mode)] = fwd
+        rows[("flash_attention_bwd", mode)] = bwd
+        for name in ("flash_attention_bhsd", "flash_attention_bwd"):
+            r = rows[(name, mode)]
+            print(f"{name} ({mode}) at {[bh, sq, sk, d]} ({call}, "
+                  f"{r['live_pairs']} live pairs): {r['ms']:.3f} ms device, "
+                  f"plain {r['plain_ms']:.3f} ms, library "
+                  f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}"
+                  f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+                  f"kernels {r['kernels']}", flush=True)
+        del o, lse
+        torch.cuda.empty_cache()
+    build = mask_build_probe(torch, q, k, v, do, group, batch, split)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows, build
+
+
+# yi-6b's first 4 of 32 layers and mamba2-130m whole, at batch 4 x 2048,
+# float32, TRAIN_SGD_STEPS SGD steps with remat_layers off and on from the
+# same weights; then yi-6b's first 8 layers with it on (off, that depth
+# needs about twice the 4-layer step's memory)
+REMAT_RUNS = (("yi-6b", 4), ("mamba2-130m", None))
+REMAT_DEEP = ("yi-6b", 8)
+# remat on against off: the same kernels and cuBLAS products on the same
+# inputs in the same order, so the same bits where the algorithms are
+# deterministic (cuDNN's deterministic mode on; no atomics in K4 or K5);
+# else within these of the losses' and the stepped weights' largest
+# |off| entry (float32 noise of one step at gamma 1e-3)
+REMAT_LOSS_TOL, REMAT_PARAM_TOL = 1e-6, 1e-6
+# attn_probs_bf16 against float32 probabilities on yi-6b's 4 layers: p and
+# v rounded to bfloat16 (2^-9 each) move each attention output by at most
+# 2^-8 of max |v|; the loss within 2^-8 of itself, each gradient leaf
+# within 2^-5 of its largest |float32| entry (a few such roundings
+# through 4 layers and their backward)
+PB_LOSS_TOL, PB_GRAD_TOL = 2.0 ** -8, 2.0 ** -5
+# the kv_valid mode through apply_attention on one of those layers'
+# mixers, against the same call through the plain _grouped_attention on
+# the batch's first sequence (the plain path's scores of 4 sequences are
+# 2 GB a head group): float32 sums in other orders
+KV_MODEL_TOL = 1e-4
+DRYRUN_ARGS = ("--arch", "mamba2-130m", "--shape", "decode_32k", "--mesh",
+               "both", "--debug-mesh")
+
+
+def mode_counts():
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
+    return {(fn.__name__, m): n for fn in (flash_attention_bhsd,
+                                           flash_attention_bwd)
+            for m, n in fn.mode_launches.items()}
+
+
+def reset_mode_counts():
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_bwd)
+    for fn in (flash_attention_bhsd, flash_attention_bwd):
+        fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
+
+
+def sgd_run(torch, cfg, model, batch, params, remat):
+    """``TRAIN_SGD_STEPS`` SGD steps with ``remat_layers`` set to
+    ``remat``: the stepped weights, losses, step seconds, peak bytes and
+    each step's launches (all equal, else it raises)."""
+    from repro_torch.fl.round import make_train_step
+    c = dataclasses.replace(cfg, remat_layers=remat)
+
+    def loss_fn(p, b):
+        return torch.func.functional_call(model, p, (b, c))
+
+    step = make_train_step(loss_fn, TRAIN_GAMMA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, per = [], [], []
+    for _ in range(TRAIN_SGD_STEPS):
+        before = read_counts()
+        t = time.perf_counter()
+        params, loss = deterministic(torch, lambda: step(params, batch))
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t)
+        after = read_counts()
+        per.append({k: after[k] - before[k] for k in after
+                    if after[k] != before[k]})
+    if any(p != per[0] for p in per):
+        raise AssertionError(f"{cfg.name} remat={remat}: steps launched {per}")
+    return params, losses, secs, torch.cuda.max_memory_allocated(), per[0]
+
+
+def remat_model(torch, arch, layers):
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens, labels = make_token_stream(
+        torch.Generator(device="cuda").manual_seed(1), LM_BATCH, LM_SEQ,
+        cfg.vocab_size)
+    return cfg, model, M.Batch(tokens=tokens, labels=labels)
+
+
+def remat_pair(torch, arch, layers):
+    """(b): the same SGD steps with remat off and on from one set of
+    weights: launches a step (the forward's kernels twice a layer with
+    remat, the backwards once), losses and stepped weights equal (bit for
+    bit, else within REMAT_*_TOL), step seconds and peak bytes each."""
+    cfg, model, batch = remat_model(torch, arch, layers)
+    mamba = sum(s.mixer == "mamba" for s in cfg.layer_specs())
+    attn = cfg.n_layers - mamba
+    fwd = dict(ssd_scan=mamba, flash_attention_bhsd=attn)
+    bwd = dict(ssd_scan_bwd=mamba, flash_attention_bwd=attn)
+    runs = {}
+    for remat in (False, True):
+        params = {k: w.detach().clone() for k, w in model.named_parameters()}
+        out = sgd_run(torch, cfg, model, batch, params, remat)
+        want = {k: v for k, v in {**{k: (2 if remat else 1) * n
+                                     for k, n in fwd.items()},
+                                  **bwd}.items() if v}
+        if out[4] != want:
+            raise AssertionError(f"{arch} remat={remat}: a step launched "
+                                 f"{out[4]}, want {want}")
+        runs[remat] = out
+        del params
+        torch.cuda.empty_cache()
+    (p0, l0, s0, m0, _), (p1, l1, s1, m1, _) = runs[False], runs[True]
+    bitwise = l0 == l1 and all(torch.equal(p0[k], p1[k]) for k in p0)
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    param_rel = max(float((p0[k] - p1[k]).abs().max())
+                    / float(p0[k].abs().max()) for k in p0)
+    if not (bitwise or (loss_rel <= REMAT_LOSS_TOL
+                        and param_rel <= REMAT_PARAM_TOL)):
+        raise AssertionError(f"{arch}: remat on against off, losses {l1} / "
+                             f"{l0}, weights off by {param_rel:.3g}")
+    out = dict(layers=cfg.n_layers, batch=[LM_BATCH, LM_SEQ],
+               launches_per_step={"off": runs[False][4],
+                                  "on": runs[True][4]},
+               losses={"off": l0, "on": l1}, bitwise=bitwise,
+               loss_rel=loss_rel, param_rel=param_rel,
+               step_s={"off": statistics.median(s0[1:]),
+                       "on": statistics.median(s1[1:])},
+               sgd_step_s={"off": s0, "on": s1},
+               peak_gb={"off": m0 / 1e9, "on": m1 / 1e9})
+    print(f"{arch} ({cfg.n_layers} layers, {LM_BATCH} x {LM_SEQ}) remat off "
+          f"/ on: step {out['step_s']['off']:.3f} / {out['step_s']['on']:.3f}"
+          f" s, peak {out['peak_gb']['off']:.2f} / {out['peak_gb']['on']:.2f}"
+          f" GB, launches a step {out['launches_per_step']}; losses "
+          f"{'bit for bit' if bitwise else f'within {loss_rel:.3g}'}, "
+          f"weights after {TRAIN_SGD_STEPS} steps "
+          f"{'bit for bit' if bitwise else f'within {param_rel:.3g}'}",
+          flush=True)
+    del runs, p0, p1
+    torch.cuda.empty_cache()
+    return cfg, model, batch, out
+
+
+def probs_bf16_step(torch, cfg, model, batch):
+    """(c): yi-6b's forward and one SGD step with ``attn_probs_bf16``
+    against the same without it, from the same weights: K5 and its
+    backward in their probs_bf16 mode once a layer; loss and gradients
+    within PB_LOSS_TOL / PB_GRAD_TOL."""
+    from repro_torch.models import model as M
+    pb_cfg = dataclasses.replace(cfg, attn_probs_bf16=True)
+    # a model's modules keep the config they were built with: the same
+    # weights drawn again under the flag
+    pb_model = M.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             pb_cfg)
+    params = {k: w.detach() for k, w in model.named_parameters()}
+    if not all(torch.equal(w, params[k])
+               for k, w in pb_model.named_parameters()):
+        raise AssertionError("attn_probs_bf16: the redrawn weights differ")
+    res = {}
+    for name, c, mod in (("float32", cfg, model),
+                         ("probs_bf16", pb_cfg, pb_model)):
+        def loss_fn(p, b, c=c, mod=mod):
+            return torch.func.functional_call(mod, p, (b, c))
+        before = mode_counts()
+        t = time.perf_counter()
+        grads, loss = torch.func.grad_and_value(loss_fn)(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = mode_counts()
+        res[name] = (grads, float(loss), secs,
+                     {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+    (g0, l0, t0, _), (g1, l1, t1, modes) = res["float32"], res["probs_bf16"]
+    want = {("flash_attention_bhsd", "probs_bf16"): cfg.n_layers,
+            ("flash_attention_bwd", "probs_bf16"): cfg.n_layers}
+    if modes != want:
+        raise AssertionError(f"attn_probs_bf16: mode launches {modes}, "
+                             f"want {want}")
+    loss_rel = abs(l1 - l0) / abs(l0)
+    grad_rel = max(float((g1[k] - g0[k]).abs().max())
+                   / float(g0[k].abs().max()) for k in g0)
+    if not (math.isfinite(l1) and loss_rel <= PB_LOSS_TOL
+            and grad_rel <= PB_GRAD_TOL):
+        raise AssertionError(f"attn_probs_bf16: loss {l1} / {l0}, "
+                             f"gradients off by {grad_rel:.3g}")
+    del pb_model
+    print(f"yi-6b ({cfg.n_layers} layers) attn_probs_bf16: loss {l1:.7f} "
+          f"against {l0:.7f} (rel {loss_rel:.3g}), gradients max |d| / max "
+          f"|float32| {grad_rel:.3g}; step {t1:.3f} s against {t0:.3f}",
+          flush=True)
+    return dict(loss={"float32": l0, "probs_bf16": l1}, loss_rel=loss_rel,
+                grad_rel=grad_rel, grad_step_s={"float32": t0,
+                                                "probs_bf16": t1})
+
+
+def kv_valid_call(torch, cfg, model):
+    """The kv_valid mode as a model calls it: ``apply_attention`` of layer
+    0's mixer on its normed input with a right-padding mask (a row with no
+    live key), its gradient in x by ``torch.func.grad``, against the same
+    call through the plain ``_grouped_attention`` on the first sequence."""
+    from repro_torch.models import attention as attn
+    mixer = model.layers[0].mixer
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model), generator=g,
+                    device="cuda")
+    kv = kv_mask(torch, LM_BATCH, LM_SEQ, 5)
+
+    def out_sq(x, kv):
+        return attn.apply_attention(mixer, x, cfg, kv_valid=kv).square().sum()
+
+    with torch.no_grad():
+        y = attn.apply_attention(mixer, x, cfg, kv_valid=kv)
+    gx = torch.func.grad(out_sq)(x, kv)
+    flash = attn._flash_attention
+    attn._flash_attention = attn._grouped_attention
+    try:
+        with torch.no_grad():
+            y0 = attn.apply_attention(mixer, x[:1], cfg, kv_valid=kv[:1])
+        g0 = torch.func.grad(out_sq)(x[:1], kv[:1])
+    finally:
+        attn._flash_attention = flash
+    rel = max(float((y[:1] - y0).abs().max()) / float(y0.abs().max()),
+              float((gx[:1] - g0).abs().max()) / float(g0.abs().max()))
+    if not (torch.isfinite(y).all() and torch.isfinite(gx).all()
+            and rel <= KV_MODEL_TOL):
+        raise AssertionError(f"apply_attention with kv_valid: off the plain "
+                             f"call by {rel:.3g}")
+    print(f"apply_attention with kv_valid at {LM_BATCH} x {LM_SEQ} (yi-6b "
+          f"layer 0): output and gradient within {rel:.3g} of the plain "
+          f"grouped attention", flush=True)
+    return rel
+
+
+def tally_agrees():
+    """The package's copy of the kernels' operation counts (the dry run's
+    tally) against this script's bounds at the checked shapes."""
+    from repro_torch.kernels import tally
+    for _, bh, sq, sk, d, causal, group, window in FLASH_BWD_SHAPES:
+        if tally.flash_flops(bh, sq, sk, d, causal, window) != flash_bound(
+                bh, sq, sk, d, causal, window, 4, group)["flops"]:
+            raise AssertionError("tally.flash_flops differs from flash_bound")
+        if tally.flash_bwd_flops(bh, sq, sk, d, causal, window) != (
+                flash_bwd_bound(bh, sq, sk, d, causal, window, 4,
+                                group)["flops"]):
+            raise AssertionError("tally.flash_bwd_flops differs")
+    for b, s, h, p, n, chunk in SSD_BWD_SHAPES:
+        s = -(-s // chunk) * chunk
+        if tally.ssd_flops(b, s, h, p, n, chunk) != ssd_bound(
+                b, s, h, p, n, chunk, False)["flops"]:
+            raise AssertionError("tally.ssd_flops differs from ssd_bound")
+        if tally.ssd_bwd_flops(b, s, h, p, n, chunk) != ssd_bwd_bound(
+                b, s, h, p, n, chunk, False)["flops"]:
+            raise AssertionError("tally.ssd_bwd_flops differs")
+
+
+def dry_run():
+    """(d): the dry run as its own process on a fake group of 8 ranks:
+    exit 0 and an OK record for each debug mesh."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_DRYRUN_DEVICES="8")
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          *DRYRUN_ARGS], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
+    secs = time.perf_counter() - t
+    recs = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    if out.returncode != 0 or len(recs) != 2 or any(
+            r["status"] != "OK" for r in recs):
+        raise AssertionError(f"dry run: exit {out.returncode}\n{out.stdout}"
+                             f"\n{out.stderr[-4000:]}")
+    print(f"dry run {' '.join(DRYRUN_ARGS)}: exit 0 in {secs:.1f} s, "
+          + "; ".join(f"{r['mesh']} OK, {r['flops']:.4g} FLOP, "
+                      f"{r['argument_size_in_bytes']} argument bytes a "
+                      "device" for r in recs), flush=True)
+    return dict(args=list(DRYRUN_ARGS), seconds=secs,
+                records=[{k: r[k] for k in (
+                    "mesh", "status", "flops", "argument_size_in_bytes",
+                    "output_size_in_bytes", "n_devices")} for r in recs])
+
+
+def launch_path(torch):
+    """Phase 18. K5's modes checked and timed (kernel launches not
+    counted); then, counts at 0, the path: remat off and on (yi-6b 4
+    layers, mamba2-130m whole), attn_probs_bf16 and a kv_valid call on
+    yi-6b's model, yi-6b at 8 layers with remat; the dry run. Returns the
+    mode checks' errors, their timing rows, the path's launches and mode
+    launches, and the summary."""
+    t0 = time.perf_counter()
+    tally_agrees()
+    err, ratios = check_flash_modes(torch)
+    rows, build = time_flash_modes(torch)
+    torch.cuda.empty_cache()
+    reset_counts()
+    reset_mode_counts()
+    summary = {"probs_bf16_control": ratios, "mask_build_probe": build}
+    for arch, layers in REMAT_RUNS:
+        cfg, model, batch, out = remat_pair(torch, arch, layers)
+        summary[arch] = out
+        if arch == "yi-6b":
+            summary["attn_probs_bf16"] = probs_bf16_step(torch, cfg, model,
+                                                         batch)
+            summary["kv_valid_call"] = dict(rel=kv_valid_call(torch, cfg,
+                                                              model))
+        del model, batch
+        torch.cuda.empty_cache()
+    arch, layers = REMAT_DEEP
+    cfg, model, batch = remat_model(torch, arch, layers)
+    params = {k: w.detach() for k, w in model.named_parameters()}
+    _, losses, secs, peak, per = sgd_run(torch, cfg, model, batch, params,
+                                         True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch} {layers} layers with remat: {losses}")
+    summary[f"{arch} {layers} layers remat"] = dict(
+        losses=losses, sgd_step_s=secs, step_s=statistics.median(secs[1:]),
+        peak_gb=peak / 1e9, launches_per_step=per)
+    print(f"{arch} ({layers} layers, {LM_BATCH} x {LM_SEQ}) with remat: step "
+          f"{statistics.median(secs[1:]):.3f} s, peak {peak / 1e9:.2f} GB, "
+          f"losses {losses}", flush=True)
+    del model, batch, params
+    torch.cuda.empty_cache()
+    launches, modes = read_counts(), mode_counts()
+    summary["dry_run"] = dry_run()
+    wall = time.perf_counter() - t0
+    summary["wall_s"] = wall
+    print(f"phase 18 took {wall:.1f} s", flush=True)
+    return err, rows, launches, modes, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -5059,6 +5886,9 @@ def main() -> int:
     if "--ssd-bwd-variants" in sys.argv[1:]:
         print(card_line(), flush=True)
         return ssd_bwd_variants(torch)
+    if "--flash-bwd-one-build" in sys.argv[1:]:
+        print(card_line(), flush=True)
+        return flash_bwd_one_build(torch)
     from repro_torch.configs.cifar10_cnn import CONFIG
     from repro_torch.fl.decision import decision_coeffs
     from repro_torch.kernels import _build
@@ -5137,6 +5967,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     err["ssd_scan_bwd"], ssd_bwd_time, ssd_train_launches, ssd_train = (
         ssd_train_path(torch))
+    torch.cuda.empty_cache()
+    mode_err, mode_rows, launch18, modes18, launch_summary = launch_path(
+        torch)
     by_path["transformer_lm FL"] = {
         k: train_launches["transformer_lm FL"][k]
         for k in ("scheduler_solve", "decision_fused")}
@@ -5156,6 +5989,13 @@ def main() -> int:
                         for path, c in ssd_train_launches.items()})
     ssd_bwd_by_path = {path: c["ssd_scan_bwd"]
                        for path, c in ssd_train_launches.items()}
+    # phase 18's path: remat off and on, attn_probs_bf16, a kv_valid call,
+    # yi-6b at 8 layers with remat
+    flash_by_path["launch planning"] = dict(
+        launches=launch18["flash_attention_bhsd"])
+    bwd_by_path["launch planning"] = launch18["flash_attention_bwd"]
+    ssd_by_path["launch planning"] = dict(launches=launch18["ssd_scan"])
+    ssd_bwd_by_path["launch planning"] = launch18["ssd_scan_bwd"]
 
     rows = []
     for name in ("scheduler_solve", "decision_fused"):
@@ -5227,6 +6067,25 @@ def main() -> int:
         "launches_per_train_step": {
             arch: ssd_train[arch]["mamba_layers"] for arch, *_ in SSD_TRAIN},
         "max_abs_err": err["ssd_scan_bwd"], **ssd_bwd_time})
+    for (name, mode), row in mode_rows.items():
+        if not modes18[(name, mode)]:
+            raise AssertionError(f"{name} ({mode}) was not launched on "
+                                 "phase 18's path")
+        rows.append({
+            "name": f"{name} ({mode})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "flash_attention.cu" if name == "flash_attention_bhsd"
+                else "flash_attention_bwd.cu"),
+            "replaces": "src/repro/kernels/flash_attention.py:73",
+            "mode": mode, "launches": modes18[(name, mode)],
+            "max_abs_err": mode_err[(name, mode)],
+            "max_abs_err_kv_valid+probs_bf16": mode_err[
+                (name, "kv_valid+probs_bf16")],
+            **({"control_ratio": launch_summary["probs_bf16_control"][name]}
+               if mode == "probs_bf16" else {}),
+            "shape": list(FLASH_MODE_SHAPES[-1][1:5]),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "live_pairs")}})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
     print(json.dumps({"telemetry": telemetry}), flush=True)
@@ -5239,6 +6098,11 @@ def main() -> int:
     print(json.dumps({"moe": moe_zoo}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"mamba_train": ssd_train}), flush=True)
+    print(json.dumps({"launch": dict(
+        launch_summary, card=card,
+        kernel_modes={f"{n} ({m})": r for (n, m), r in mode_rows.items()},
+        mode_launches={f"{n} ({m})": c for (n, m), c in modes18.items()})}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -98,12 +98,32 @@
 // 32-key stages of K hi + lo and V^T hi + lo at 64 KB each: 224 KB, one
 // block per SM. Not yet: a persistent grid, TMA multicast of K/V across a
 // cluster, and a native bfloat16 path.
+//
+// The two modes of attention_modes.cuh (the reference's kv_valid masks and
+// attn_probs_bf16). kv_valid: the producer copies each K tile's packed
+// mask word beside it into its stage, and the softmax masks a dead key as
+// a causally masked one; the tile skip is unchanged, and a row that ends
+// the loop with m = -1e30 (no live key anywhere, so the tiles it ran
+// averaged v over those tiles only) is written kv_mean's mean of v over
+// all Sk keys, with lse = +inf. probs_bf16 rounds where the reference
+// rounds, the normalised softmax: a first pass over the block's tiles
+// (their K halves only, loaded once more for the second) runs the online
+// max and sum alone, giving each row's lse; the second pass writes p =
+// exp(s - lse), already normalised, as P_hi = bf16(p), and multiplies it
+// by V^T_hi = bf16(v) (the prepare pass's) in one product, P_hi V_hi,
+// summed in float32 (a bfloat16 value is exact in TF32, so that product is
+// exact), with no rescaling and no division at the end. The main kernel is
+// built three times (template M): without the modes (the unmasked
+// kernel's code, no word read; the kv_valid build runs an unmasked call
+// 4-6% slower on the H100), with kv_valid alone, and with probs_bf16
+// (kv_valid's words read there too, all ones without a mask).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "attention_modes.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -120,6 +140,9 @@ constexpr int kConsumers = 128 * kGroups;
 constexpr int kThreads = kConsumers + 128;
 constexpr int kAtom = 128;        // bytes in a swizzled row (32 floats)
 constexpr float kNegInf = -1e30f;
+// the main kernel's builds (template M): no mode, kv_valid alone,
+// probs_bf16 (with or without kv_valid)
+constexpr int kModeNone = 0, kModeMask = 1, kModePb = 2;
 
 // Dynamic shared memory of one block, from a 1024-byte aligned base (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes): each consumer
@@ -139,7 +162,9 @@ struct Layout {
   static constexpr int kP0 = kGroups * kQBytes;
   static constexpr int kStage0 = kP0 + kGroups * 2 * kPBytes;
   static constexpr int kBar = kStage0 + kStages * kStageBytes;
-  static constexpr int kBytes = kBar + 4 * kStages * 8 + 1024;  // + align
+  // per stage its K tile's packed kv_valid word (all ones without a mask)
+  static constexpr int kWord = kBar + 4 * kStages * 8;
+  static constexpr int kBytes = kWord + 4 * kStages + 1024;  // + align
 };
 
 // ------------------------------------------------------------ loads, stores
@@ -174,8 +199,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // ---------------------------------------------------------- prepare pass
 
 // Block (key tile, KV head): K's 32 rows split into K_hi, K_lo rows; V's
-// tile through shared memory into V^T_hi, V^T_lo columns. Keys at or past
-// Sk are zeros.
+// tile through shared memory into V^T_hi, V^T_lo columns (with pb,
+// probs_bf16, V^T_hi = bf16(v) and V^T_lo = 0). Keys at or past Sk are
+// zeros.
 template <typename T>
 __global__ void __launch_bounds__(256)
     flash_attention_prepare_kv(const T* __restrict__ k,
@@ -184,7 +210,7 @@ __global__ void __launch_bounds__(256)
                                float* __restrict__ klo,
                                float* __restrict__ vthi,
                                float* __restrict__ vtlo, int Sk, int Skp,
-                               int D) {
+                               int D, int pb) {
   __shared__ float vs[kBk][128 + 1];
   const int h = blockIdx.y, k0 = blockIdx.x * kBk;
   for (int e = threadIdx.x; e < kBk * D; e += blockDim.x) {
@@ -205,10 +231,36 @@ __global__ void __launch_bounds__(256)
   for (int e = threadIdx.x; e < kBk * D; e += blockDim.x) {
     const int c = e / kBk, j = e % kBk;
     const float x = vs[j][c];
-    const float hi = to_tf32(x);
+    const float hi = pb ? modes::bf16_round(x) : to_tf32(x);
     const int64_t w = ((int64_t)h * D + c) * Skp + k0 + j;
     vthi[w] = hi;
-    vtlo[w] = to_tf32(x - hi);
+    vtlo[w] = pb ? 0.0f : to_tf32(x - hi);
+  }
+}
+
+// Block (32 columns, KV head), kv_valid only: the output of a row with no
+// live key, the mean of v over all Sk keys (each v rounded to bfloat16
+// with pb, the weight 1 / Sk rounded as P is), in a fixed order: thread
+// (c, y) sums keys y, y + 8, ..., then the 8 partial sums in turn.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_attention_kv_mean(const T* __restrict__ v,
+                            float* __restrict__ vmean, int Sk, int D,
+                            int pb) {
+  __shared__ float part[8][33];
+  const int h = blockIdx.y, x = threadIdx.x % 32, y = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + x;
+  float sum = 0.0f;
+  for (int j = y; j < Sk; j += 8) {
+    const float e = to_float(v[((int64_t)h * Sk + j) * D + c]);
+    sum += pb ? modes::bf16_round(e) : e;
+  }
+  part[y][x] = sum;
+  __syncthreads();
+  if (y == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < 8; ++i) total += part[i][x];
+    vmean[(int64_t)h * D + c] = total * modes::dead_weight(Sk, pb);
   }
 }
 
@@ -261,7 +313,19 @@ struct Stages {
   __device__ uint32_t v_full(int it) const { return k_full(it) + 16; }
   __device__ uint32_t v_empty(int it) const { return k_full(it) + 24; }
   __device__ int parity(int it) const { return (it / L::kStages) & 1; }
+  __device__ uint32_t word(int it) const {
+    return base + L::kWord + 4 * (it % L::kStages);
+  }
 };
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t x;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(x) : "r"(addr) : "memory");
+  return x;
+}
 
 // What a consumer thread needs for the mask: its first row (the second is
 // row0 + 8), its key pair t, and the call's bounds.
@@ -321,8 +385,9 @@ __device__ __forceinline__ void issue_scores(float* sc, const uint32_t* qh,
   wgmma_commit();
 }
 
-// The k steps J.. of P.V: P_lo V_hi, P_hi V_lo, P_hi V_hi (the 32 keys are
-// one atom: k step j is 32 bytes, 2 descriptor units, into it).
+// The k steps J.. of P.V: P_lo V_hi (J < 4), P_hi V_lo, P_hi V_hi (J >= 8)
+// (the 32 keys are one atom: k step j is 32 bytes, 2 descriptor units,
+// into it).
 template <int D, int J>
 __device__ __forceinline__ void pv_from(float* tmp, uint64_t ph,
                                         uint64_t pl, uint64_t vh,
@@ -335,13 +400,14 @@ __device__ __forceinline__ void pv_from(float* tmp, uint64_t ph,
 }
 
 // One tile's P.V in a fresh accumulator: tmp = P_lo V_hi + P_hi V_lo +
-// P_hi V_hi (P from shared memory at p, P_lo at p + kPBytes; B = V^T),
-// committed as one group. The tensor cores add with truncation, so a sum
+// P_hi V_hi (P from shared memory at p, P_lo at p + kPBytes; B = V^T), or
+// with Pb (probs_bf16: P and V rounded to bfloat16, no lo parts) P_hi V_hi
+// alone; committed as one group. The tensor cores add with truncation, so a sum
 // held on them across every tile would lose up to an ulp of O per product
 // step (768 steps a row at S = 2048: errors up to 8e-6); a fresh sum per
 // tile, added to O on the CUDA cores, keeps that to the 12 steps of one
 // tile.
-template <int D>
+template <int D, bool Pb>
 __device__ __forceinline__ void issue_pv(float* tmp, uint32_t p,
                                          uint32_t v) {
   p = opaque(p);
@@ -352,8 +418,8 @@ __device__ __forceinline__ void issue_pv(float* tmp, uint32_t p,
   for (int i = 0; i < D / 2; ++i) tmp[i] = 0.0f;
   fence_regs<D / 2>(tmp);
   wgmma_fence();
-  pv_from<D, 0>(tmp, sw128_desc(p), sw128_desc(plo), sw128_desc(v),
-                sw128_desc(vlo));
+  pv_from<D, Pb ? 8 : 0>(tmp, sw128_desc(p), sw128_desc(plo), sw128_desc(v),
+                         sw128_desc(vlo));
   wgmma_commit();
 }
 
@@ -368,13 +434,14 @@ __device__ __forceinline__ float fast_exp(float x) {
 
 // The online softmax of one tile of scores at keys key0.., in place in sc
 // (sc[4 j + 2 i + e] is row row0 + 8 i, key key0 + 8 j + 2 t + e; a row's
-// 4 threads are one quad): masked scores to -1e30, m and l updated, O
-// (acc[4 c + 2 i + e], row row0 + 8 i) rescaled by alpha, sc left holding
-// p.
-template <int D>
+// 4 threads are one quad): masked scores (and keys whose bit in the tile's
+// kv_valid word is clear) to -1e30, m and l updated, O (acc[4 c + 2 i +
+// e], row row0 + 8 i) rescaled by alpha (unless !Rescale: probs_bf16's
+// first pass, which keeps no O), sc left holding p.
+template <int D, bool M, bool Rescale = true>
 __device__ __forceinline__ void softmax_step(float* sc, float* m, float* l,
                                              float* acc, int key0,
-                                             const Tile& tl) {
+                                             uint32_t word, const Tile& tl) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qpos = tl.row0 + 8 * i;
@@ -384,8 +451,10 @@ __device__ __forceinline__ void softmax_step(float* sc, float* m, float* l,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int kpos = key0 + 8 * j + 2 * tl.t + e;
-        const bool live = kpos < tl.Sk && (!tl.causal || kpos <= qpos) &&
-                          (tl.window <= 0 || kpos > qpos - tl.window);
+        bool live = kpos < tl.Sk && (!tl.causal || kpos <= qpos) &&
+                    (tl.window <= 0 || kpos > qpos - tl.window);
+        if constexpr (M)
+          live = live && ((word >> (8 * j + 2 * tl.t + e)) & 1u);
         float& x = sc[4 * j + 2 * i + e];
         if (!live) x = kNegInf;
         mx = fmaxf(mx, x);
@@ -407,11 +476,37 @@ __device__ __forceinline__ void softmax_step(float* sc, float* m, float* l,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     l[i] = alpha * l[i] + sum;
     m[i] = m_new;
+    if constexpr (Rescale) {
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      acc[4 * c + 2 * i] *= alpha;
-      acc[4 * c + 2 * i + 1] *= alpha;
+      for (int c = 0; c < D / 8; ++c) {
+        acc[4 * c + 2 * i] *= alpha;
+        acc[4 * c + 2 * i + 1] *= alpha;
+      }
     }
+  }
+}
+
+// probs_bf16's second pass over one tile of scores, in place in sc (laid
+// out as in softmax_step): p = exp(s - lse) on the live keys, the
+// normalised softmax the reference rounds, and 0 on the others.
+__device__ __forceinline__ void probs_step(float* sc, const float* lse,
+                                           int key0, uint32_t word,
+                                           const Tile& tl) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = tl.row0 + 8 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = key0 + 8 * j + 2 * tl.t + e;
+        const bool live =
+            kpos < tl.Sk && (!tl.causal || kpos <= qpos) &&
+            (tl.window <= 0 || kpos > qpos - tl.window) &&
+            ((word >> (8 * j + 2 * tl.t + e)) & 1u);
+        float& x = sc[4 * j + 2 * i + e];
+        x = live ? fast_exp(x - lse[i]) : 0.0f;
+      }
   }
 }
 
@@ -424,8 +519,10 @@ __device__ __forceinline__ void st_shared2(uint32_t addr, float a, float b) {
 // P (in sc) split into hi and lo and stored for wgmma: (64 rows x 32
 // keys) in one 128-byte swizzled atom each (row r's 16-byte chunk c at
 // c ^ (r % 8)); this thread's rows are lr and lr + 8 of the warpgroup's 64,
-// keys 8 j + 2 t and + 1 side by side. The caller fences and syncs the
+// keys 8 j + 2 t and + 1 side by side; with Pb (probs_bf16) hi = bf16(p)
+// alone, as P_hi V_hi reads no lo part. The caller fences and syncs the
 // warpgroup before the product reads them.
+template <bool Pb>
 __device__ __forceinline__ void store_p(const float* sc, uint32_t p, int lr,
                                         int t) {
 #pragma unroll
@@ -434,12 +531,14 @@ __device__ __forceinline__ void store_p(const float* sc, uint32_t p, int lr,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float x0 = sc[4 * j + 2 * i], x1 = sc[4 * j + 2 * i + 1];
-      const float h0 = to_tf32(x0), h1 = to_tf32(x1);
+      const float h0 = Pb ? modes::bf16_round(x0) : to_tf32(x0);
+      const float h1 = Pb ? modes::bf16_round(x1) : to_tf32(x1);
       const int off = r * kAtom + (((2 * j + t / 2) ^ (r % 8)) << 4) +
                       8 * (t % 2);
       st_shared2(p + off, h0, h1);
-      st_shared2(p + kBq * kBk * 4 + off, to_tf32(x0 - h0),
-                 to_tf32(x1 - h1));
+      if constexpr (!Pb)
+        st_shared2(p + kBq * kBk * 4 + off, to_tf32(x0 - h0),
+                   to_tf32(x1 - h1));
     }
   }
 }
@@ -456,22 +555,28 @@ __device__ __forceinline__ void smem_ready(int w) {
 // nothing in flight on entry or exit: issue tile it's P.V into a fresh
 // sum and (Next) tile it + 1's scores behind it; once P.V is done, release
 // tile it's V half and add the sum to O; once the scores are done,
-// release tile it + 1's K half, run its softmax, rescale O by its alpha
-// and store its P. While one warpgroup runs its softmax, the other's
+// read tile it + 1's kv_valid word and release its K half (which frees
+// the word's slot too), run its softmax, rescale O by its alpha and store
+// its P. While one warpgroup runs its softmax, the other's
 // products keep the tensor cores busy. Next is a template argument, so
-// every wait is static and ptxas keeps the products asynchronous.
-template <int D, bool Next>
-__device__ __forceinline__ void tile_step(int it, int kt_begin,
+// every wait is static and ptxas keeps the products asynchronous. Tile
+// it's K half is the ring's K load it + ko (probs_bf16's first pass took
+// the first ko), its V half V load it. With probs_bf16 (M = kModePb) the
+// softmax is probs_step's, m holds each row's lse and l is not used.
+template <int D, bool Next, int M>
+__device__ __forceinline__ void tile_step(int it, int ko, int kt_begin,
                                           const Stages<D>& st,
                                           const uint32_t* qh, uint32_t qlo,
                                           uint32_t p, int w, const Tile& tl,
                                           float* acc, float* m, float* l) {
+  constexpr bool kPb = M == kModePb;
   float tmp[D / 2], sc[16];
+  const int kn = it + 1 + ko;  // tile it + 1's K load
   mbar_wait(st.v_full(it), st.parity(it));
-  issue_pv<D>(tmp, p, st.v(it));
+  issue_pv<D, kPb>(tmp, p, st.v(it));
   if (Next) {
-    mbar_wait(st.k_full(it + 1), st.parity(it + 1));
-    issue_scores<D>(sc, qh, qlo, st.k(it + 1));
+    mbar_wait(st.k_full(kn), st.parity(kn));
+    issue_scores<D>(sc, qh, qlo, st.k(kn));
     wgmma_wait<1>();
   } else {
     wgmma_wait<0>();
@@ -483,62 +588,88 @@ __device__ __forceinline__ void tile_step(int it, int kt_begin,
   if (Next) {
     wgmma_wait<0>();
     fence_regs<16>(sc);
-    mbar_arrive(st.k_empty(it + 1));
-    softmax_step<D>(sc, m, l, acc, (kt_begin + it + 1) * kBk, tl);
-    store_p(sc, p, tl.row0 - tl.r0, tl.t);
+    const uint32_t word = M != kModeNone ? ld_shared_u32(st.word(kn)) : ~0u;
+    mbar_arrive(st.k_empty(kn));
+    const int key0 = (kt_begin + it + 1) * kBk;
+    if constexpr (kPb)
+      probs_step(sc, m, key0, word, tl);
+    else
+      softmax_step<D, M != kModeNone>(sc, m, l, acc, key0, word, tl);
+    store_p<kPb>(sc, p, tl.row0 - tl.r0, tl.t);
     smem_ready(w);
   }
 }
 
 // The producer (one thread): every box, K one tile ahead of V (K_0, K_1,
 // V_0, K_2, V_1, ...), since a tile's K half is free once its scores are
-// done and its V half only after P.V.
-template <int D>
+// done and its V half only after P.V; with each K half, the tile's packed
+// kv_valid word from ``words`` (the block's batch row of them, null
+// without a mask: all ones), stored before the arrive that releases it.
+// With probs_bf16 the K halves of every tile go first, alone, for the
+// lse pass, and a V half is V^T_hi alone. K loads and V loads count on
+// in their own sequences (a stage's K half and V half have their own
+// barriers).
+template <int D, int M>
 __device__ __forceinline__ void produce(const CUtensorMap* tm_khi,
                                         const CUtensorMap* tm_klo,
                                         const CUtensorMap* tm_vthi,
                                         const CUtensorMap* tm_vtlo,
-                                        const Work& wk, int Skp) {
+                                        const Work& wk, int Skp,
+                                        const uint32_t* words) {
   using L = Layout<D>;
   constexpr int kS = L::kStages;
+  constexpr bool kPb = M == kModePb;
   const uint32_t base = smem_base(), bars = base + L::kBar;
+  // K load n: the K half of tile kt
+  auto load_k = [&](int n, int kt) {
+    const int s = n % kS;
+    const uint32_t full = bars + 8 * (4 * s);
+    if (n >= kS) mbar_wait(full + 8, ((n / kS) - 1) & 1);
+    if constexpr (M != kModeNone)
+      st_shared_u32(base + L::kWord + 4 * s,
+                    words ? words[wk.kt_begin + kt] : ~0u);
+    mbar_expect_tx(full, 2 * L::kKBytes);
+    const int row = wk.kvh * Skp + (wk.kt_begin + kt) * kBk;
+    const uint32_t st = base + L::kStage0 + s * L::kStageBytes;
+#pragma unroll
+    for (int a = 0; a < D / 32; ++a) {
+      tma_load(st + a * kBk * kAtom, tm_khi, full, 32 * a, row);
+      tma_load(st + L::kKBytes + a * kBk * kAtom, tm_klo, full, 32 * a,
+               row);
+    }
+  };
+  int ko = 0;
+  if constexpr (kPb) {
+    for (int kt = 0; kt < wk.n_tiles; ++kt) load_k(kt, kt);
+    ko = wk.n_tiles;
+  }
   for (int it = -1; it < wk.n_tiles; ++it) {
     const int kt = it + 1;  // the K half to load, then V of tile it
-    if (kt < wk.n_tiles) {
-      const int s = kt % kS;
-      const uint32_t full = bars + 8 * (4 * s);
-      if (kt >= kS) mbar_wait(full + 8, ((kt / kS) - 1) & 1);
-      mbar_expect_tx(full, 2 * L::kKBytes);
-      const int row = wk.kvh * Skp + (wk.kt_begin + kt) * kBk;
-      const uint32_t st = base + L::kStage0 + s * L::kStageBytes;
-#pragma unroll
-      for (int a = 0; a < D / 32; ++a) {
-        tma_load(st + a * kBk * kAtom, tm_khi, full, 32 * a, row);
-        tma_load(st + L::kKBytes + a * kBk * kAtom, tm_klo, full, 32 * a,
-                 row);
-      }
-    }
+    if (kt < wk.n_tiles) load_k(ko + kt, kt);
     if (it >= 0) {
       const int s = it % kS;
       const uint32_t full = bars + 8 * (4 * s + 2);
       if (it >= kS) mbar_wait(full + 8, ((it / kS) - 1) & 1);
-      mbar_expect_tx(full, 2 * L::kVBytes);
+      mbar_expect_tx(full, (kPb ? 1 : 2) * L::kVBytes);
       const int key0 = (wk.kt_begin + it) * kBk;
       const uint32_t st =
           base + L::kStage0 + s * L::kStageBytes + 2 * L::kKBytes;
       tma_load(st, tm_vthi, full, key0, wk.kvh * D);
-      tma_load(st + L::kVBytes, tm_vtlo, full, key0, wk.kvh * D);
+      if constexpr (!kPb)
+        tma_load(st + L::kVBytes, tm_vtlo, full, key0, wk.kvh * D);
     }
   }
 }
 
 // A consumer warpgroup: rows q0 + 64 w .. of head bh.
-template <int D, typename T>
+template <int D, typename T, int M>
 __device__ __forceinline__ void consume(const T* __restrict__ q,
                                         T* __restrict__ o,
-                                        float* __restrict__ lse, int Sq,
-                                        int Sk, int kv_group, int causal,
-                                        int window, float scale, int skip) {
+                                        float* __restrict__ lse,
+                                        const float* __restrict__ vmean,
+                                        int Sq, int Sk, int kv_group,
+                                        int causal, int window, float scale,
+                                        int skip) {
   using L = Layout<D>;
   const Work wk = block_work(Sq, Sk, kv_group, causal, window, skip);
   const int bh = wk.bh, q0 = wk.q0, kt_begin = wk.kt_begin,
@@ -587,57 +718,101 @@ __device__ __forceinline__ void consume(const T* __restrict__ q,
     }
   smem_ready(w);
 
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  constexpr bool kPb = M == kModePb;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
   const Stages<D> st{base, bars};
   const uint32_t p = base + L::kP0 + w * 2 * L::kPBytes;
+  // probs_bf16's first pass: each row's max and sum over all its tiles
+  // (K loads 0 .. n_tiles - 1), so that the second pass (K loads ko ..)
+  // normalises p before rounding it
+  int ko = 0;
+  float row_lse[2];
+  if constexpr (kPb) {
+    for (int it = 0; it < n_tiles; ++it) {
+      float sc[16];
+      mbar_wait(st.k_full(it), st.parity(it));
+      issue_scores<D>(sc, qh, qlo, st.k(it));
+      wgmma_wait<0>();
+      fence_regs<16>(sc);
+      const uint32_t word = ld_shared_u32(st.word(it));
+      mbar_arrive(st.k_empty(it));
+      softmax_step<D, true, false>(sc, m, l, nullptr, (kt_begin + it) * kBk,
+                                   word, tile);
+    }
+    ko = n_tiles;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) row_lse[i] = m[i] + logf(l[i]);
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
 
   {
     float sc[16];
-    mbar_wait(st.k_full(0), 0);
-    issue_scores<D>(sc, qh, qlo, st.k(0));
+    mbar_wait(st.k_full(ko), st.parity(ko));
+    issue_scores<D>(sc, qh, qlo, st.k(ko));
     wgmma_wait<0>();
     fence_regs<16>(sc);
-    mbar_arrive(st.k_empty(0));
-    softmax_step<D>(sc, m, l, acc, kt_begin * kBk, tile);
-    store_p(sc, p, tile.row0 - r0, t);
+    const uint32_t word = M != kModeNone ? ld_shared_u32(st.word(ko)) : ~0u;
+    mbar_arrive(st.k_empty(ko));
+    if constexpr (kPb)
+      probs_step(sc, row_lse, kt_begin * kBk, word, tile);
+    else
+      softmax_step<D, M != kModeNone>(sc, m, l, acc, kt_begin * kBk, word,
+                                      tile);
+    store_p<kPb>(sc, p, tile.row0 - r0, t);
     smem_ready(w);
   }
+  float* mr = kPb ? row_lse : m;  // the second pass's row statistic
   for (int it = 0; it + 1 < n_tiles; ++it)
-    tile_step<D, true>(it, kt_begin, st, qh, qlo, p, w, tile, acc, m, l);
-  tile_step<D, false>(n_tiles - 1, kt_begin, st, qh, qlo, p, w, tile, acc, m,
-                      l);
+    tile_step<D, true, M>(it, ko, kt_begin, st, qh, qlo, p, w, tile, acc, mr,
+                          l);
+  tile_step<D, false, M>(n_tiles - 1, ko, kt_begin, st, qh, qlo, p, w, tile,
+                         acc, mr, l);
 
-  // acc[4 c + 2 i + e] is row row0 + 8 i, column 8 c + 2 t + e; lse
-  // (when asked for) is the row's m + log(l), for the backward kernel
+  // acc[4 c + 2 i + e] is row row0 + 8 i, column 8 c + 2 t + e (with
+  // probs_bf16 already normalised); lse (when asked for) is the row's m +
+  // log(l), for the backward kernel. With kv_valid (vmean given) a row
+  // whose m is still -1e30 saw no live key: it gets the mean of v over all
+  // keys and lse = +inf.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = tile.row0 + 8 * i;
     if (r < Sq) {
+      const bool dead = M != kModeNone && vmean != nullptr &&
+                        m[i] == kNegInf;
       if (lse != nullptr && t == 0)
-        lse[(int64_t)bh * Sq + r] = m[i] + logf(l[i]);
-      const float den = fmaxf(l[i], 1e-30f);
+        lse[(int64_t)bh * Sq + r] =
+            dead ? __int_as_float(0x7f800000) : m[i] + logf(l[i]);
+      const float den = kPb ? 1.0f : fmaxf(l[i], 1e-30f);
       T* out = o + ((int64_t)bh * Sq + r) * D + 2 * t;
+      if (dead) {
+        const float* mean = vmean + (int64_t)(bh / kv_group) * D + 2 * t;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
-        store2(out + 8 * c, acc[4 * c + 2 * i] / den,
-               acc[4 * c + 2 * i + 1] / den);
+        for (int c = 0; c < D / 8; ++c)
+          store2(out + 8 * c, mean[8 * c], mean[8 * c + 1]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          store2(out + 8 * c, acc[4 * c + 2 * i] / den,
+                 acc[4 * c + 2 * i + 1] / den);
+      }
     }
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, int M>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const __grid_constant__ CUtensorMap tm_khi,
                            const __grid_constant__ CUtensorMap tm_klo,
                            const __grid_constant__ CUtensorMap tm_vthi,
                            const __grid_constant__ CUtensorMap tm_vtlo,
                            const T* __restrict__ q, T* __restrict__ o,
-                           float* __restrict__ lse, int Sq, int Sk, int Skp,
-                           int kv_group, int causal, int window, float scale,
-                           int skip) {
+                           float* __restrict__ lse,
+                           const uint32_t* __restrict__ bits,
+                           const float* __restrict__ vmean, int Sq, int Sk,
+                           int Skp, int kv_group, int hq, int causal,
+                           int window, float scale, int skip) {
   using L = Layout<D>;
   constexpr int kS = L::kStages;
   if (threadIdx.x == 0) {
@@ -656,31 +831,52 @@ __global__ void __launch_bounds__(kThreads, 1)
   // across it cost the consumers registers.
   if (threadIdx.x >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
-    if (threadIdx.x == kConsumers)
-      produce<D>(&tm_khi, &tm_klo, &tm_vthi, &tm_vtlo,
-                 block_work(Sq, Sk, kv_group, causal, window, skip), Skp);
+    if (threadIdx.x == kConsumers) {
+      const Work wk =
+          block_work(Sq, Sk, kv_group, causal, window, skip);
+      produce<D, M>(&tm_khi, &tm_klo, &tm_vthi, &tm_vtlo, wk, Skp,
+                 bits ? bits + (int64_t)(wk.bh / hq) * modes::mask_words(Sk)
+                      : nullptr);
+    }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    consume<D, T>(q, o, lse, Sq, Sk, kv_group, causal, window, scale,
-                  skip);
+    consume<D, T, M>(q, o, lse, vmean, Sq, Sk, kv_group, causal, window,
+                     scale, skip);
   }
 }
 
 // ------------------------------------------------------------------ host
 
+// The scratch after the split K and V: with kv_valid, kv_mean's (BHkv, D)
+// float32 means, then the (B, ceil(Sk / 32)) packed mask words.
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           float* work, int bh, int kv_group, int sq, int sk, int causal,
-           int window, float scale, int skip, cudaStream_t stream) {
+           float* work, const uint8_t* kv, int bh, int kv_group, int sq,
+           int sk, int hq, int causal, int window, float scale, int skip,
+           int mds, cudaStream_t stream) {
   const int bhkv = bh / kv_group;
   const int skp = (sk + kBk - 1) / kBk * kBk;
   const int64_t part = (int64_t)bhkv * skp * D;
   float *khi = work, *klo = work + part, *vthi = work + 2 * part,
         *vtlo = work + 3 * part;
+  const int pb = (mds & modes::kProbsBf16) ? 1 : 0;
+  float* vmean = nullptr;
+  uint32_t* bits = nullptr;
+  cudaError_t err;
+  if (kv != nullptr) {
+    vmean = work + 4 * part;
+    bits = reinterpret_cast<uint32_t*>(vmean + (int64_t)bhkv * D);
+    err = modes::launch_pack(kv, bits, bh / hq, sk, stream);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_kv_mean<T><<<dim3(D / 32, bhkv), 256, 0, stream>>>(
+        static_cast<const T*>(v), vmean, sk, D, pb);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   flash_attention_prepare_kv<T><<<dim3(skp / kBk, bhkv), 256, 0, stream>>>(
       static_cast<const T*>(k), static_cast<const T*>(v), khi, klo, vthi,
-      vtlo, sk, skp, D);
-  cudaError_t err = cudaGetLastError();
+      vtlo, sk, skp, D, pb);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const EncodeTiled encode = encode_tiled();
@@ -693,7 +889,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (!r) r = tensor_map(encode, &maps[3], vtlo, skp, vrows, D);
   if (r) return kMapError + r;
 
-  auto* kernel = flash_attention_kernel<D, T>;
+  auto* kernel = pb ? flash_attention_kernel<D, T, kModePb>
+                 : kv != nullptr ? flash_attention_kernel<D, T, kModeMask>
+                                 : flash_attention_kernel<D, T, kModeNone>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Layout<D>::kBytes);
@@ -701,26 +899,27 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const int grid = bh * ((sq + kBlockRows - 1) / kBlockRows);
   kernel<<<grid, kThreads, Layout<D>::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const T*>(q),
-      static_cast<T*>(o), lse, sq, sk, skp, kv_group, causal, window, scale,
-      skip);
+      static_cast<T*>(o), lse, bits, vmean, sq, sk, skp, kv_group, hq, causal,
+      window, scale, skip);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o,
-             float* lse, float* work, int bh, int kv_group, int sq, int sk,
-             int d, int causal, int window, float scale, int skip,
+             float* lse, float* work, const uint8_t* kv, int bh,
+             int kv_group, int sq, int sk, int d, int hq, int causal,
+             int window, float scale, int skip, int mds,
              cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<32, T>(q, k, v, o, lse, work, bh, kv_group, sq, sk,
-                           causal, window, scale, skip, stream);
+      return launch<32, T>(q, k, v, o, lse, work, kv, bh, kv_group, sq, sk,
+                           hq, causal, window, scale, skip, mds, stream);
     case 64:
-      return launch<64, T>(q, k, v, o, lse, work, bh, kv_group, sq, sk,
-                           causal, window, scale, skip, stream);
+      return launch<64, T>(q, k, v, o, lse, work, kv, bh, kv_group, sq, sk,
+                           hq, causal, window, scale, skip, mds, stream);
     case 128:
-      return launch<128, T>(q, k, v, o, lse, work, bh, kv_group, sq, sk,
-                            causal, window, scale, skip, stream);
+      return launch<128, T>(q, k, v, o, lse, work, kv, bh, kv_group, sq, sk,
+                            hq, causal, window, scale, skip, mds, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -732,24 +931,31 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
 // 16-byte aligned, all float32 (bf16 = 0) or all bfloat16 (bf16 = 1) on
 // the device; lse: null, or (bh, sq) float32 for each row's log-sum-exp
 // (the backward's statistics; o is the same either way); work: 4 (bh /
-// kv_group) ceil(sk / 32) 32 d float32 scratch;
-// d in {32, 64, 128}; bh divisible by kv_group; ceil(sq / 64) <= 65535;
-// window <= 0 for none; skip = 1 skips the tiles no row of a query tile
-// can see (kernels/flash_attention.py checks shapes, types and shared
-// memory before the launch, and refuses shapes with a row that sees no
-// key). Launches the prepare pass and the kernel on ``stream`` and returns
-// cudaGetLastError() (or the error of raising the shared memory limit, or
-// 10000 + the CUresult of a tensor map the driver refused).
+// kv_group) ceil(sk / 32) 32 d float32 scratch, and with kv_valid (bh /
+// kv_group) d + (bh / hq) ceil(sk / 32) more; kv_valid: null, or (bh /
+// hq, sk) uint8 live keys, row-block bh reading row bh / hq; modes: 0 or
+// kProbsBf16 (attention_modes.cuh); d in {32, 64, 128}; bh divisible by
+// kv_group and hq; window <= 0 for none; skip = 1 skips the tiles no row
+// of a query tile can see (kernels/flash_attention.py checks shapes, types
+// and shared memory before the launch, and refuses shapes with a row that
+// sees no key for want of a window). Launches the mask's packing and
+// kv_mean (with kv_valid), the prepare pass and the kernel on ``stream``
+// and returns cudaGetLastError() (or the error of raising the shared
+// memory limit, or 10000 + the CUresult of a tensor map the driver
+// refused).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
-                                   void* work, int bh, int kv_group, int sq,
-                                   int sk, int d, int bf16, int causal,
-                                   int window, float scale, int skip,
+                                   void* work, const void* kv_valid, int bh,
+                                   int kv_group, int sq, int sk, int d,
+                                   int bf16, int hq, int causal, int window,
+                                   float scale, int skip, int mds,
                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *w = static_cast<float*>(work), *l = static_cast<float*>(lse);
-  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, l, w, bh, kv_group, sq,
-                                        sk, d, causal, window, scale, skip, s)
-              : launch_d<float>(q, k, v, o, l, w, bh, kv_group, sq, sk, d,
-                                causal, window, scale, skip, s);
+  const uint8_t* kv = static_cast<const uint8_t*>(kv_valid);
+  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, l, w, kv, bh, kv_group,
+                                        sq, sk, d, hq, causal, window, scale,
+                                        skip, mds, s)
+              : launch_d<float>(q, k, v, o, l, w, kv, bh, kv_group, sq, sk,
+                                d, hq, causal, window, scale, skip, mds, s);
 }

@@ -119,6 +119,29 @@
 // it; per-thread offsets are kept opaque (recomputed each step, not held
 // as tables) for that. ptxas -v reports each kernel (0 spills), and
 // chip_smoke.py fails on a spill.
+//
+// The two modes of attention_modes.cuh (the reference's kv_valid masks and
+// attn_probs_bf16), each taking the gradient that jax.vjp takes of the
+// reference's function. kv_valid: a dead key is masked as a causally
+// masked one (in (b) the block's resident keys' bits are read once, in (c)
+// each step's 32 keys are one packed word); a row with no live key has
+// lse = +inf from the forward, so P = 0 on it here, and dead_rows sums
+// the dO of such rows a KV head, which (b) adds, times 1 / Sk, to dv at
+// every key. probs_bf16: the prepare pass splits V as bf16(v) and 0, so
+// dP = dO bf16(v)^T, rounded to bfloat16 on the CUDA cores (the cast of p
+// transposes to a cast of its cotangent); (b) stores P_hi = bf16(P) and
+// P_lo = tf32(P - P_hi), warpgroup 1 reads P_hi + P_lo for dS = P (dP -
+// delta) in float32, then warpgroup 0 zeroes P_lo (named barrier 5 says
+// warpgroup 1 has read it) so that dV^T += dO^T bf16(P); dv is rounded to
+// bfloat16 once summed (the cast of v transposes to a cast of dv). delta
+// is the reference's sum_j P_j bf16(dP_j), which rowsum(dO o) is not once
+// P and dP are rounded: a first run of (c) in its delta form (Delta),
+// before (b) and (c), computes P and bf16(dP) step by step as (c) does and
+// sums their products a row (in a fixed order) into the scratch's delta,
+// in place of the prepare pass's. Kernels (b) and (c) are built with and
+// without the modes (template M): without them they are the unmasked
+// kernels' code (the build with them runs an unmasked call 2-6% slower on
+// the H100); (c)'s delta form is built with them only.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,6 +149,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "attention_modes.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -158,6 +182,12 @@ struct Layout {
 struct Shape {
   int sq, sk, sqp, skp, kv_group, causal, window, skip;
   float scale;
+  // modes (attention_modes.cuh): the packed kv_valid words (null without
+  // a mask; nw a batch row, row-block bh reading row bh / hq), the dead
+  // rows' dO sums, and the flags
+  const uint32_t* bits;
+  const float* dead;
+  int nw, hq, flags;
 };
 
 __device__ __forceinline__ bool live(int row, int key, const Shape& s) {
@@ -312,9 +342,10 @@ __device__ __forceinline__ float ld_sharedf(uint32_t addr) {
 }
 
 // sc split into hi and lo, into the exchange tile at p (lo at p +
-// kExBytes), in the layout wgmma reads as a K-major operand.
+// kExBytes), in the layout wgmma reads as a K-major operand; with pb the
+// hi part is bf16(x) (and lo tf32(x - hi)).
 __device__ __forceinline__ void store_tile(const float* sc, uint32_t p,
-                                           int lr, int t) {
+                                           int lr, int t, int pb = 0) {
   const ExBase ex(p, lr, t);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -323,10 +354,22 @@ __device__ __forceinline__ void store_tile(const float* sc, uint32_t p,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const uint32_t at = ex(i, j, e);
-        const float x = sc[4 * j + 2 * i + e], h = to_tf32(x);
+        const float x = sc[4 * j + 2 * i + e];
+        const float h = pb ? modes::bf16_round(x) : to_tf32(x);
         st_shared(at, h);
         st_shared(at + kExBytes, to_tf32(x - h));
       }
+}
+
+// The lo half of this thread's positions of the exchange tile at p, zeroed.
+__device__ __forceinline__ void zero_lo(uint32_t p, int lr, int t) {
+  const ExBase ex(p, lr, t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) st_shared(ex(i, j, e) + kExBytes, 0.0f);
 }
 
 // The same positions read back as hi + lo.
@@ -453,11 +496,13 @@ __device__ __forceinline__ void grads(float* acc, uint32_t x, uint32_t b,
 }
 
 // acc (as in grads) times ``mul`` into out (n_max rows of D): row n0 +
-// 8 j + 2 t + e, column 64 c + lr + 8 i.
+// 8 j + 2 t + e, column 64 c + lr + 8 i; plus add[column] where add is
+// given, rounded to bfloat16 with rnd.
 template <int D, typename T>
 __device__ __forceinline__ void store_out(const float* acc, T* out, int n0,
                                           int n_max, float mul, int lr,
-                                          int t) {
+                                          int t, const float* add = nullptr,
+                                          int rnd = 0) {
 #pragma unroll
   for (int c = 0; c < (D + 63) / 64; ++c)
 #pragma unroll
@@ -469,9 +514,12 @@ __device__ __forceinline__ void store_out(const float* acc, T* out, int n0,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int n = n0 + 8 * j + 2 * t + e;
-          if (n < n_max)
+          if (n < n_max) {
+            float x = mul * acc[32 * c + 4 * j + 2 * i + e];
+            if (add != nullptr) x += add[col];
             store1(out + (int64_t)n * D + col,
-                   mul * acc[32 * c + 4 * j + 2 * i + e]);
+                   rnd ? modes::bf16_round(x) : x);
+          }
         }
     }
 }
@@ -580,7 +628,7 @@ __device__ __forceinline__ void init_barriers() {
 // Warpgroup w of (b): resident K (w = 0, with lse, writing dv) or V (w =
 // 1, with delta, writing dk); see the header for a step. Each step's T
 // is issued behind the previous step's gradient (grads).
-template <int D, typename T>
+template <int D, typename T, bool M>
 __device__ __forceinline__ void dkdv_consume(
     const float* __restrict__ res_hi, const float* __restrict__ res_lo,
     T* __restrict__ out, const Shape& sh) {
@@ -591,6 +639,20 @@ __device__ __forceinline__ void dkdv_consume(
   const int t = wt % 4, lr = 16 * (wt / 32) + (wt % 32) / 4;
   const uint32_t base = smem_base(), rlo = base + w * L::kResBytes;
   const uint32_t p = base + L::kP, ds = base + L::kDs;
+  const int pb = M ? sh.flags & modes::kProbsBf16 : 0;
+  // bit i: resident key k0 + lr + 8 i is live in kv_valid (the group's
+  // heads are all of one batch element)
+  uint32_t kvok = 3u;
+  if (M && sh.bits != nullptr) {
+    const uint32_t* row = sh.bits + (int64_t)(wk.kvh * g / sh.hq) * sh.nw;
+    kvok = 0u;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = wk.k0 + lr + 8 * i;
+      if (key < sh.sk && ((row[key / 32] >> (key % 32)) & 1u))
+        kvok |= 1u << i;
+    }
+  }
   uint32_t rh[D / 2];
   load_resident<D>(rh, rlo, res_hi, res_lo,
                    (int64_t)wk.kvh * sh.skp + wk.k0, wt, lr, t);
@@ -633,20 +695,27 @@ __device__ __forceinline__ void dkdv_consume(
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float& v = sc[4 * j + 2 * i + e];
-            v = live(q0 + 8 * j + 2 * t + e, wk.k0 + lr + 8 * i, sh)
+            v = live(q0 + 8 * j + 2 * t + e, wk.k0 + lr + 8 * i, sh) &&
+                        ((kvok >> i) & 1u)
                     ? fast_exp(v - stat(n, j, e))
                     : 0.0f;
           }
       if (n > 0) bar_sync(4, kConsumers);  // warpgroup 1 has read P
-      store_tile(sc, p, lr, t);
+      store_tile(sc, p, lr, t, pb);
       smem_ready(0);
       bar_arrive(3, kConsumers);
+      if (pb) {  // dV takes bf16(P) alone: P_lo out once warpgroup 1 has it
+        bar_sync(5, kConsumers);
+        zero_lo(p, lr, t);
+        smem_ready(0);
+      }
       x = st + 2 * L::kTileBytes;  // dV^T += dO^T P
       b = p;
     } else {
       float pv[16];
       bar_sync(3, kConsumers);
       load_tile(pv, p, lr, t);
+      if (pb) bar_arrive(5, kConsumers);
       if (kMore) bar_arrive(4, kConsumers);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -655,7 +724,8 @@ __device__ __forceinline__ void dkdv_consume(
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int v = 4 * j + 2 * i + e;
-            sc[v] = pv[v] * (sc[v] - stat(n, j, e));
+            const float dp = pb ? modes::bf16_round(sc[v]) : sc[v];
+            sc[v] = pv[v] * (dp - stat(n, j, e));
           }
       store_tile(sc, ds, lr, t);
       smem_ready(1);
@@ -671,11 +741,17 @@ __device__ __forceinline__ void dkdv_consume(
   };
   for (int n = 0; n + 1 < n_steps; ++n) step(n, std::true_type{});
   if (n_steps > 0) step(n_steps - 1, std::false_type{});
+  // dv (warpgroup 0): plus the dead rows' term at every key, rounded to
+  // bfloat16 with pb
   store_out<D, T>(acc, out + (int64_t)wk.kvh * sh.sk * D, wk.k0, sh.sk, 1.0f,
-                  lr, t);
+                  lr, t,
+                  M && w == 0 && sh.dead != nullptr
+                      ? sh.dead + (int64_t)wk.kvh * D
+                      : nullptr,
+                  w == 0 ? pb : 0);
 }
 
-template <int D, typename T>
+template <int D, typename T, bool M>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv(const __grid_constant__ CUtensorMap tm_qhi,
                    const __grid_constant__ CUtensorMap tm_qlo,
@@ -713,7 +789,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
     const bool w = threadIdx.x >= 128;
-    dkdv_consume<D, T>(w ? vhi : khi, w ? vlo : klo, w ? dk : dv, sh);
+    dkdv_consume<D, T, M>(w ? vhi : khi, w ? vlo : klo, w ? dk : dv, sh);
   }
 }
 
@@ -722,12 +798,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Warpgroup w of (c): resident q scale (w = 0, with lse) or dO (w = 1,
 // with delta, writing dq); see the header for a step. At D <= 64
 // warpgroup 1 issues each step's dP behind the previous step's gradient
-// (grads); at D = 128 it has no registers for that.
-template <int D, typename T>
+// (grads); at D = 128 it has no registers for that. In the delta form
+// (Delta, probs_bf16) warpgroup 1 runs no gradient: it sums P bf16(dP)
+// over the steps and writes each row's sum to delta_out.
+template <int D, typename T, bool M, bool Delta>
 __device__ __forceinline__ void dq_consume(const float* __restrict__ res_hi,
                                            const float* __restrict__ res_lo,
                                            const float* __restrict__ stats,
                                            T* __restrict__ dq,
+                                           float* __restrict__ delta_out,
                                            const Shape& sh) {
   using L = Layout<D>;
   const QWork wk = q_work(sh);
@@ -753,8 +832,13 @@ __device__ __forceinline__ void dq_consume(const float* __restrict__ res_hi,
   float sc[16];
 
   if (w == 0) {
+    const uint32_t* words = M && sh.bits
+                                ? sh.bits + (int64_t)(wk.bh / sh.hq) * sh.nw
+                                : nullptr;
     for (int n = 0; n < n_steps; ++n) {
       const int k0 = (wk.t0 + n) * kStep;
+      // the step's 32 keys are one packed kv_valid word
+      const uint32_t word = M && words ? words[wk.t0 + n] : ~0u;
       mbar_wait(full(n), parity(n));
       issue_scores<D>(sc, rh, rlo, stage(n));  // S against the K tile
       wgmma_wait<0>();
@@ -767,7 +851,8 @@ __device__ __forceinline__ void dq_consume(const float* __restrict__ res_hi,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float& x = sc[4 * j + 2 * i + e];
-            x = live(wk.q0 + lr + 8 * i, k0 + 8 * j + 2 * t + e, sh)
+            x = live(wk.q0 + lr + 8 * i, k0 + 8 * j + 2 * t + e, sh) &&
+                        ((word >> (8 * j + 2 * t + e)) & 1u)
                     ? fast_exp(x - stat[i])
                     : 0.0f;
           }
@@ -786,6 +871,31 @@ __device__ __forceinline__ void dq_consume(const float* __restrict__ res_hi,
     wgmma_wait<0>();
     fence_regs<16>(sc);
   };
+  if constexpr (Delta) {
+    // sum_j P_j bf16(dP_j) of rows q0 + lr + 8 i: this thread's keys step
+    // by step, then the row's 4 threads (a quad)
+    float part[2] = {0.0f, 0.0f};
+    for (int n = 0; n < n_steps; ++n) {
+      issue_dp(n);
+      mbar_arrive(full(n) + 8);  // done with the stage
+      float pv[16];
+      bar_sync(3, kConsumers);
+      load_tile(pv, p, lr, t);
+      if (n + 1 < n_steps) bar_arrive(4, kConsumers);
+#pragma unroll
+      for (int v = 0; v < 16; ++v)
+        part[(v / 2) % 2] += pv[v] * modes::bf16_round(sc[v]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      part[i] += __shfl_xor_sync(0xffffffffu, part[i], 1);
+      part[i] += __shfl_xor_sync(0xffffffffu, part[i], 2);
+      const int row = wk.q0 + lr + 8 * i;
+      if (t == 0 && row < sh.sq)
+        delta_out[(int64_t)wk.bh * sh.sqp + row] = part[i];
+    }
+    return;
+  }
   float acc[32 * ((D + 63) / 64)];
 #pragma unroll
   for (int i = 0; i < 32 * ((D + 63) / 64); ++i) acc[i] = 0.0f;
@@ -796,8 +906,11 @@ __device__ __forceinline__ void dq_consume(const float* __restrict__ res_hi,
     bar_sync(3, kConsumers);
     load_tile(pv, p, lr, t);
     if (kMore) bar_arrive(4, kConsumers);
+    const int pb = M ? sh.flags & modes::kProbsBf16 : 0;
 #pragma unroll
-    for (int v = 0; v < 16; ++v) sc[v] = pv[v] * (sc[v] - stat[(v / 2) % 2]);
+    for (int v = 0; v < 16; ++v)
+      sc[v] = pv[v] * ((pb ? modes::bf16_round(sc[v]) : sc[v]) -
+                       stat[(v / 2) % 2]);
     store_tile(sc, ds, lr, t);
     smem_ready(1);
     // dQ^T += K^T dS^T
@@ -815,7 +928,7 @@ __device__ __forceinline__ void dq_consume(const float* __restrict__ res_hi,
                   sh.scale, lr, t);
 }
 
-template <int D, typename T>
+template <int D, typename T, bool M, bool Delta>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq(const __grid_constant__ CUtensorMap tm_khi,
                  const __grid_constant__ CUtensorMap tm_klo,
@@ -826,7 +939,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  const float* __restrict__ dolo,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dq,
-                 Shape sh) {
+                 float* __restrict__ delta_out, Shape sh) {
   init_barriers<D>();
   if (threadIdx.x >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
@@ -839,8 +952,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
     const bool w = threadIdx.x >= 128;
-    dq_consume<D, T>(w ? dohi : qhi, w ? dolo : qlo, w ? delta : lse, dq,
-                     sh);
+    dq_consume<D, T, M, Delta>(w ? dohi : qhi, w ? dolo : qlo,
+                               w ? delta : lse, dq, delta_out, sh);
   }
 }
 
@@ -852,8 +965,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 // r); rows past Sq (Sk) are zeros.
 struct Scratch {
   float *qhi, *qlo, *dohi, *dolo, *khi, *klo, *vhi, *vlo, *delta, *lse;
+  // with kv_valid: dead_rows's sums (bhkv D), the packed mask words
+  float* dead;
+  uint32_t* bits;
   __host__ __device__ Scratch(float* w, int64_t qrows, int64_t krows,
-                              int d) {
+                              int64_t bhkv, int d) {
     qhi = w;
     qlo = qhi + qrows * d;
     dohi = qlo + qrows * d;
@@ -864,6 +980,8 @@ struct Scratch {
     vlo = vhi + krows * d;
     delta = vlo + krows * d;
     lse = delta + qrows;
+    dead = lse + qrows;
+    bits = reinterpret_cast<uint32_t*>(dead + bhkv * d);
   }
 };
 
@@ -883,7 +1001,7 @@ __global__ void __launch_bounds__(256)
                       const float* __restrict__ lse,
                       float* __restrict__ work, int bh, int bhkv, Shape sh) {
   const int64_t qrows = (int64_t)bh * sh.sqp, krows = (int64_t)bhkv * sh.skp;
-  const Scratch s(work, qrows, krows, D);
+  const Scratch s(work, qrows, krows, bhkv, D);
   const int64_t row = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row < qrows) {
@@ -914,14 +1032,48 @@ __global__ void __launch_bounds__(256)
     const int r = (int)(kr % sh.skp);
     const bool valid = r < sh.sk;
     const int64_t src = (h * sh.sk + r) * D, dst = kr * D;
+    const int pb = sh.flags & modes::kProbsBf16;
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) {
       const int c = lane + 32 * i;
       split(valid ? to_float(k[src + c]) : 0.0f, s.khi + dst + c,
             s.klo + dst + c);
-      split(valid ? to_float(v[src + c]) : 0.0f, s.vhi + dst + c,
-            s.vlo + dst + c);
+      const float x = valid ? to_float(v[src + c]) : 0.0f;
+      if (pb) {  // V as bf16(v) and 0
+        s.vhi[dst + c] = modes::bf16_round(x);
+        s.vlo[dst + c] = 0.0f;
+      } else {
+        split(x, s.vhi + dst + c, s.vlo + dst + c);
+      }
     }
+  }
+}
+
+// Block (32 columns, KV head), kv_valid only: the sum of dO over the rows
+// of the head's kv_group query heads with lse = +inf (no live key), times
+// the weight 1 / Sk such a row puts on every key: what those rows add to
+// dv at each key. A fixed order: thread (c, y) sums rows y, y + 32, ...
+// (32 warps a block, so that many rows' lse loads are in flight), then
+// the 32 partial sums in turn.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    flash_bwd_dead_rows(const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ dead, int g, int sq, int sk,
+                        int D, int pb) {
+  __shared__ float part[32][33];
+  const int h = blockIdx.y, x = threadIdx.x % 32, y = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + x;
+  const int64_t r0 = (int64_t)h * g * sq, n = (int64_t)g * sq;
+  float sum = 0.0f;
+  for (int64_t r = y; r < n; r += 32)
+    if (isinf(lse[r0 + r])) sum += to_float(dout[(r0 + r) * D + c]);
+  part[y][x] = sum;
+  __syncthreads();
+  if (y == 0) {
+    float total = 0.0f;
+    for (int i = 0; i < 32; ++i) total += part[i][x];
+    dead[(int64_t)h * D + c] = total * modes::dead_weight(sk, pb);
   }
 }
 
@@ -934,21 +1086,45 @@ int padded(int n) { return (n + kRes - 1) / kRes * kRes; }
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, void* dq, void* dk, void* dv,
-           float* work, int bh, int kv_group, int sq, int sk, int causal,
-           int window, float scale, int skip, cudaStream_t stream) {
+           float* work, const uint8_t* kv, int bh, int kv_group, int sq,
+           int sk, int hq, int causal, int window, float scale, int skip,
+           int mds, cudaStream_t stream) {
   using L = Layout<D>;
   const int bhkv = bh / kv_group;
-  const Shape sh{sq,      sk,     padded(sq), padded(sk), kv_group,
-                 causal, window, skip,       scale};
-  const int64_t qrows = (int64_t)bh * sh.sqp, krows = (int64_t)bhkv * sh.skp;
-  const Scratch s(work, qrows, krows, D);
+  const int64_t qrows = (int64_t)bh * padded(sq),
+                krows = (int64_t)bhkv * padded(sk);
+  const Scratch s(work, qrows, krows, bhkv, D);
+  const int pb = (mds & modes::kProbsBf16) ? 1 : 0;
+  const Shape sh{sq,
+                 sk,
+                 padded(sq),
+                 padded(sk),
+                 kv_group,
+                 causal,
+                 window,
+                 skip,
+                 scale,
+                 kv ? s.bits : nullptr,
+                 kv ? s.dead : nullptr,
+                 modes::mask_words(sk),
+                 hq,
+                 pb ? modes::kProbsBf16 : 0};
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v), *ot = static_cast<const T*>(o),
           *dot = static_cast<const T*>(dout);
+  cudaError_t err;
+  if (kv != nullptr) {
+    err = modes::launch_pack(kv, s.bits, bh / hq, sk, stream);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dead_rows<T><<<dim3(D / 32, bhkv), 1024, 0, stream>>>(
+        dot, lse, s.dead, kv_group, sq, sk, D, pb);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   flash_bwd_prepare<D, T><<<(unsigned)((qrows + krows + 7) / 8), 256, 0,
                             stream>>>(qt, kt, vt, ot, dot, lse, work, bh,
                                       bhkv, sh);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const EncodeTiled encode = encode_tiled();
@@ -963,44 +1139,59 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     r = tensor_map(encode, &km[i], ks[i], D, krows, kStep);
   if (r) return kMapError + r;
 
-  auto* dkdv = flash_bwd_dkdv<D, T>;
-  auto* dqk = flash_bwd_dq<D, T>;
+  const bool m = kv != nullptr || pb;
+  auto* dkdv = m ? flash_bwd_dkdv<D, T, true> : flash_bwd_dkdv<D, T, false>;
+  auto* dqk = m ? flash_bwd_dq<D, T, true, false>
+                : flash_bwd_dq<D, T, false, false>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::kBytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return (int)err;
+  const unsigned q_blocks = bh * ((sq + kRes - 1) / kRes);
+  if (pb) {  // the reference's delta, sum_j P_j bf16(dP_j), over the prepare
+             // pass's rowsum(dO o)
+    auto* dd = flash_bwd_dq<D, T, true, true>;
+    err = cudaFuncSetAttribute(dd, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    dd<<<q_blocks, kThreads, L::kBytes, stream>>>(
+        km[0], km[1], km[2], km[3], s.qhi, s.qlo, s.dohi, s.dolo, s.lse,
+        s.delta, static_cast<T*>(dq), s.delta, sh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   dkdv<<<bhkv * ((sk + kRes - 1) / kRes), kThreads, L::kBytes, stream>>>(
       qm[0], qm[1], qm[2], qm[3], s.khi, s.klo, s.vhi, s.vlo, s.lse, s.delta,
       static_cast<T*>(dk), static_cast<T*>(dv), sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dqk<<<bh * ((sq + kRes - 1) / kRes), kThreads, L::kBytes, stream>>>(
+  dqk<<<q_blocks, kThreads, L::kBytes, stream>>>(
       km[0], km[1], km[2], km[3], s.qhi, s.qlo, s.dohi, s.dolo, s.lse,
-      s.delta, static_cast<T*>(dq), sh);
+      s.delta, static_cast<T*>(dq), nullptr, sh);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, void* dq, void* dk,
-             void* dv, float* work, int bh, int kv_group, int sq, int sk,
-             int d, int causal, int window, float scale, int skip,
-             cudaStream_t stream) {
+             void* dv, float* work, const uint8_t* kv, int bh, int kv_group,
+             int sq, int sk, int d, int hq, int causal, int window,
+             float scale, int skip, int mds, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<32, T>(q, k, v, o, dout, lse, dq, dk, dv, work, bh,
-                           kv_group, sq, sk, causal, window, scale, skip,
-                           stream);
+      return launch<32, T>(q, k, v, o, dout, lse, dq, dk, dv, work, kv, bh,
+                           kv_group, sq, sk, hq, causal, window, scale, skip,
+                           mds, stream);
     case 64:
-      return launch<64, T>(q, k, v, o, dout, lse, dq, dk, dv, work, bh,
-                           kv_group, sq, sk, causal, window, scale, skip,
-                           stream);
+      return launch<64, T>(q, k, v, o, dout, lse, dq, dk, dv, work, kv, bh,
+                           kv_group, sq, sk, hq, causal, window, scale, skip,
+                           mds, stream);
     case 128:
-      return launch<128, T>(q, k, v, o, dout, lse, dq, dk, dv, work, bh,
-                            kv_group, sq, sk, causal, window, scale, skip,
-                            stream);
+      return launch<128, T>(q, k, v, o, dout, lse, dq, dk, dv, work, kv, bh,
+                            kv_group, sq, sk, hq, causal, window, scale,
+                            skip, mds, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1012,27 +1203,35 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
 // contiguous, 16-byte aligned, all float32 (bf16 = 0) or all bfloat16
 // (bf16 = 1) on the device; lse (bh, sq) float32, the forward's (K5 with
 // an lse array); work: float32 scratch of 4 bh sqp d + 4 (bh / kv_group)
-// skp d + 2 bh sqp, sqp and skp being sq and sk rounded up to 64; d in {32,
-// 64, 128}; window <= 0 for none; skip = 1 skips the steps whose pairs are
-// all masked (kernels/flash_attention.py checks shapes, types and shared
-// memory, and refuses shapes with a row that sees no key). Launches the
-// three kernels on ``stream`` and returns cudaGetLastError() (or the
+// skp d + 2 bh sqp, sqp and skp being sq and sk rounded up to 64, and
+// with kv_valid (bh / kv_group) d + (bh / hq) ceil(sk / 32) more; kv_valid:
+// null, or (bh / hq, sk) uint8 live keys, row-block bh reading row bh /
+// hq; modes: 0 or kProbsBf16 (attention_modes.cuh); d in {32, 64, 128};
+// window <= 0 for none; skip = 1 skips the steps whose pairs are all
+// masked (kernels/flash_attention.py checks shapes, types and shared
+// memory, and refuses shapes with a row that sees no key for want of a
+// window). Launches the mask's packing and dead_rows (with kv_valid), the
+// three kernels (and, with probs_bf16, (c)'s delta form before (b)) on
+// ``stream`` and returns cudaGetLastError() (or the
 // error of raising a shared memory limit, or 10000 + the CUresult of a
 // tensor map the driver refused).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* dq, void* dk, void* dv, void* work,
-                                   int bh, int kv_group, int sq, int sk,
-                                   int d, int bf16, int causal, int window,
-                                   float scale, int skip, void* stream) {
+                                   const void* kv_valid, int bh,
+                                   int kv_group, int sq, int sk, int d,
+                                   int bf16, int hq, int causal, int window,
+                                   float scale, int skip, int mds,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* w = static_cast<float*>(work);
+  const uint8_t* kv = static_cast<const uint8_t*>(kv_valid);
   return bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, dout, l, dq, dk, dv, w,
-                                        bh, kv_group, sq, sk, d, causal,
-                                        window, scale, skip, s)
-              : launch_d<float>(q, k, v, o, dout, l, dq, dk, dv, w, bh,
-                                kv_group, sq, sk, d, causal, window, scale,
-                                skip, s);
+                                        kv, bh, kv_group, sq, sk, d, hq,
+                                        causal, window, scale, skip, mds, s)
+              : launch_d<float>(q, k, v, o, dout, l, dq, dk, dv, w, kv, bh,
+                                kv_group, sq, sk, d, hq, causal, window,
+                                scale, skip, mds, s);
 }

@@ -26,6 +26,16 @@ into BH, so ``torch.func.grad`` and ``torch.func.vmap(torch.func.grad(
 ...))`` run both kernels; the bare wrappers return tensors without a
 gradient and, on the card, raise when grad mode is on and an input
 requires one.
+
+Both take the reference's two optional modes (``csrc/attention_modes.cuh``):
+``kv_valid``, a (B, Sk) bool or uint8 mask of live keys with B dividing
+BH, row-block ``bh`` reading row ``bh // (BH / B)`` (a row left with no
+live key averages v over all Sk keys and has lse = +inf), and
+``probs_bf16``, the reference's ``attn_probs_bf16`` (P and V rounded to
+bfloat16, their product summed in float32). On ``meta`` tensors they
+return empty outputs of the kernel's shapes and add the kernel's
+operation count to :mod:`repro_torch.kernels.tally` (the dry run's
+route); neither the kernel nor its plain version runs there.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tally
 from repro_torch.kernels._launch import (aligned16, no_grad_input, ptr,
                                          raise_on_error, stream_of,
                                          unsupported_device)
@@ -62,11 +72,12 @@ def smem_bytes(d: int) -> int:
     ``Layout``): Q_lo (128, D) (Q_hi lives in registers), P hi and lo
     (128, 32), per stage (2 at D = 128, else 4) K hi and lo (32, D) and
     V^T hi and lo (D, 32), all float32; four mbarriers per stage (full
-    and empty, of its K half and of its V half) and 1 KB to align the
-    base for the 128-byte swizzle."""
+    and empty, of its K half and of its V half), its K tile's kv_valid
+    word and 1 KB to align the base for the 128-byte swizzle."""
     stages = 2 if d == 128 else 4
     return (4 * BLOCK_ROWS * d + 2 * 4 * BLOCK_ROWS * K_TILE
-            + stages * 4 * 4 * K_TILE * d + 4 * 8 * stages + 1024)
+            + stages * 4 * 4 * K_TILE * d + 4 * 8 * stages + 4 * stages
+            + 1024)
 
 
 def bwd_smem_bytes(d: int) -> int:
@@ -88,12 +99,35 @@ def bwd_padded(n: int) -> int:
     return -(-n // BWD_TILE) * BWD_TILE
 
 
-def bwd_work_floats(bh: int, sq: int, sk: int, d: int, kv_group: int) -> int:
+def mode_work_floats(bh: int, sk: int, d: int, kv_group: int,
+                     batches: int) -> int:
+    """Scratch of the kv_valid mode, either direction: a float32 row of
+    D per KV head (the forward's means of v, the backward's dead rows'
+    dO sums) and the packed mask, a 32-bit word per 32 keys a batch
+    row."""
+    return bh // kv_group * d + batches * -(-sk // 32)
+
+
+def fwd_work_floats(bh: int, sk: int, d: int, kv_group: int,
+                    batches: int = 0) -> int:
+    """K5's float32 scratch: K and V^T split into hi and lo (BH /
+    kv_group heads of Sk padded to the 32-key tile); with a kv_valid mask
+    of ``batches`` rows, :func:`mode_work_floats` more."""
+    return (4 * (bh // kv_group) * padded_keys(sk) * d
+            + (mode_work_floats(bh, sk, d, kv_group, batches)
+               if batches else 0))
+
+
+def bwd_work_floats(bh: int, sq: int, sk: int, d: int, kv_group: int,
+                    batches: int = 0) -> int:
     """The backward's float32 scratch: q scale and dO split into hi and lo
     (BH padded query heads), K and V split (BH / kv_group padded key
-    heads), delta and lse (the padded rows')."""
+    heads), delta and lse (the padded rows'); with a kv_valid mask of
+    ``batches`` rows, :func:`mode_work_floats` more."""
     qrows, krows = bh * bwd_padded(sq), bh // kv_group * bwd_padded(sk)
-    return 4 * (qrows + krows) * d + 2 * qrows
+    return (4 * (qrows + krows) * d + 2 * qrows
+            + (mode_work_floats(bh, sk, d, kv_group, batches)
+               if batches else 0))
 
 
 def check_bwd_shape(bh: int, d: int, sq: int = 1, sk: int = 1,
@@ -142,6 +176,33 @@ def check_kernel_shape(bh: int, d: int, sq: int = 1, sk: int = 1,
                          f"shared memory per block, over {MAX_SMEM_BYTES}")
 
 
+def _check_kv_valid(kv_valid, q, sk):
+    """``kv_valid`` as the kernels read it: (B, Sk) uint8 on q's device,
+    contiguous, B dividing BH; and BH / B, the heads of a batch row."""
+    bh = q.shape[0]
+    if (kv_valid.ndim != 2 or kv_valid.shape[1] != sk
+            or bh % kv_valid.shape[0] or kv_valid.device != q.device):
+        raise ValueError(f"flash_attention_bhsd: kv_valid is "
+                         f"{tuple(kv_valid.shape)} on {kv_valid.device}, "
+                         f"want (B, {sk}) on {q.device} with B dividing BH "
+                         f"{bh}")
+    if kv_valid.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"flash_attention_bhsd: kv_valid must be bool or "
+                        f"uint8, got {kv_valid.dtype}")
+    return kv_valid.to(torch.uint8).contiguous(), bh // kv_valid.shape[0]
+
+
+def _meta_outputs(q, sk, return_lse, causal, window):
+    """K5 on ``meta``: empty o (and lse), its operations tallied."""
+    bh, sq, d = q.shape
+    tally.add("flash_attention_bhsd",
+              tally.flash_flops(bh, sq, sk, d, causal, window))
+    o = torch.empty_like(q)
+    if not return_lse:
+        return o
+    return o, torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+
+
 def _check_args(q, k, v, window, kv_group):
     if q.ndim != 3 or k.ndim != 3:
         raise ValueError(f"flash_attention_bhsd: q and k must be (BH, S, D), "
@@ -176,30 +237,40 @@ def _check_args(q, k, v, window, kv_group):
                          f"window {window} a query row sees no key")
 
 
+# the C entries' ``modes`` flag (csrc/attention_modes.cuh kProbsBf16)
+PROBS_BF16 = 2
+
+
 @functools.cache
 def _lib():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles,
-                lse=None) -> torch.Tensor:
+                lse=None, kv=None, hq=1, probs_bf16=False) -> torch.Tensor:
     """K5 on checked, aligned CUDA tensors; each row's log-sum-exp into
-    ``lse`` (BH, Sq) float32 where given. Returns o."""
+    ``lse`` (BH, Sq) float32 where given; ``kv`` the checked uint8 mask
+    (``hq`` heads a row). Returns o."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     o = torch.empty_like(q)
-    # K_hi, K_lo, V^T_hi, V^T_lo of the unexpanded heads, zero-padded keys
-    work = torch.empty(4 * k.shape[0] * padded_keys(sk) * d,
+    # K_hi, K_lo, V^T_hi, V^T_lo of the unexpanded heads, zero-padded keys;
+    # with a mask, the means of v and the packed mask
+    work = torch.empty(fwd_work_floats(bh, sk, d, kv_group,
+                                       0 if kv is None else kv.shape[0]),
                        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         code = _lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(work),
-                      bh, kv_group, sq, sk, d, int(q.dtype == torch.bfloat16),
-                      int(causal), 0 if window is None else int(window),
-                      scale, int(skip_tiles), stream_of(q.device))
+                      ptr(kv), bh, kv_group, sq, sk, d,
+                      int(q.dtype == torch.bfloat16), hq, int(causal),
+                      0 if window is None else int(window), scale,
+                      int(skip_tiles), PROBS_BF16 if probs_bf16 else 0,
+                      stream_of(q.device))
     raise_on_error("flash_attention_bhsd", code)
     return o
 
@@ -207,7 +278,9 @@ def _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles,
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          scale: float | None = None, kv_group: int = 1,
-                         skip_tiles: bool = True, return_lse: bool = False):
+                         skip_tiles: bool = True, return_lse: bool = False,
+                         kv_valid: torch.Tensor | None = None,
+                         probs_bf16: bool = False):
     """Attention over q (BH, Sq, D), k / v (BH / kv_group, Sk, D), float32
     or bfloat16 (all one type), positions from 0 on both sides; query
     row-block ``bh`` attends to KV head ``bh // kv_group``; ``window``
@@ -221,15 +294,20 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch in ``flash_attention_bhsd.launches``; CPU tensors run the plain
     version (and :func:`repro_torch.kernels.ref.flash_lse_ref`).
     ``skip_tiles=False`` makes the kernel run the key tiles that no row of
-    a query tile can see (same result; for tests).
+    a query tile can see (same result; for tests). ``kv_valid`` and
+    ``probs_bf16`` are the modes of the module docstring.
     """
     _check_args(q, k, v, window, kv_group)
     if scale is None:
         scale = float(q.shape[2]) ** -0.5
+    if q.device.type == "meta":
+        return _meta_outputs(q, k.shape[1], return_lse, causal, window)
+    if kv_valid is not None:
+        kv_valid, hq = _check_kv_valid(kv_valid, q, k.shape[1])
     if q.device.type == "cpu":
         kw = dict(causal=causal, window=window, scale=scale,
-                  kv_group=kv_group)
-        o = flash_attention_ref(q, k, v, **kw)
+                  kv_group=kv_group, kv_valid=kv_valid)
+        o = flash_attention_ref(q, k, v, probs_bf16=probs_bf16, **kw)
         return (o, flash_lse_ref(q, k, **kw)) if return_lse else o
     if q.device.type != "cuda":
         unsupported_device("flash_attention_bhsd", q.device)
@@ -241,19 +319,32 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     o = _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles,
-                    lse)
+                    lse, *((kv_valid, hq) if kv_valid is not None else ()),
+                    probs_bf16=probs_bf16)
     flash_attention_bhsd.launches += 1
+    _count_modes(flash_attention_bhsd, kv_valid, probs_bf16)
     return (o, lse) if return_lse else o
 
 
+def _count_modes(wrapper, kv_valid, probs_bf16):
+    """A launch in a mode also counts in ``wrapper.mode_launches``."""
+    if kv_valid is not None:
+        wrapper.mode_launches["kv_valid"] += 1
+    if probs_bf16:
+        wrapper.mode_launches["probs_bf16"] += 1
+
+
+MODES = ("kv_valid", "probs_bf16")
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.mode_launches = dict.fromkeys(MODES, 0)
 
 
 @functools.cache
 def _bwd_lib():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -263,7 +354,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int | None = None,
                         scale: float | None = None, kv_group: int = 1,
                         skip_tiles: bool = True,
-                        lse: torch.Tensor | None = None):
+                        lse: torch.Tensor | None = None,
+                        kv_valid: torch.Tensor | None = None,
+                        probs_bf16: bool = False):
     """The gradients (dq, dk, dv) of :func:`flash_attention_bhsd` at (q, k,
     v), given its output ``o`` and the output's gradient ``do`` (both
     (BH, Sq, D) in q's type); the arguments as the forward's; ``lse``
@@ -271,11 +364,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk and dv hold BH / kv_group heads, each the sum over its query heads.
 
     CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (a prepare pass,
-    then dK and dV, then dQ: three device kernels) on the current stream
+    then dK and dV, then dQ: three device kernels; with ``probs_bf16`` a
+    delta pass before dK and dV) on the current stream
     and count one launch in ``flash_attention_bwd.launches``; without
     ``lse`` it first runs K5 for it (not counted as a K5 launch). CPU
     tensors run :func:`flash_attention_bwd_ref`. ``skip_tiles=False`` runs
     the steps whose pairs are all masked (same result; for tests).
+    ``kv_valid`` and ``probs_bf16`` as the forward's (the module
+    docstring), with ``lse`` from the forward in the same mode.
     """
     _check_args(q, k, v, window, kv_group)
     for name, t in (("o", o), ("do", do)):
@@ -292,37 +388,52 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape[:2])} float32 on {q.device}")
     if scale is None:
         scale = float(q.shape[2]) ** -0.5
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if q.device.type == "meta":
+        tally.add("flash_attention_bwd",
+                  tally.flash_bwd_flops(bh, sq, sk, d, causal, window))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    hq = 1
+    if kv_valid is not None:
+        kv_valid, hq = _check_kv_valid(kv_valid, q, sk)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                        window=window, scale=scale,
-                                       kv_group=kv_group, lse=lse)
+                                       kv_group=kv_group, lse=lse,
+                                       kv_valid=kv_valid,
+                                       probs_bf16=probs_bf16)
     if q.device.type != "cuda":
         unsupported_device("flash_attention_bwd", q.device)
     no_grad_input("flash_attention_bwd",
                   "ops.flash_attention (FlashAttention)", q, k, v, o, do)
-    bh, sq, d = q.shape
-    sk = k.shape[1]
     check_bwd_shape(bh, d, sq, sk, kv_group)
     q, k, v, o, do = (aligned16(t) for t in (q, k, v, o, do))
     if lse is None:
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-        _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles, lse)
+        _launch_fwd(q, k, v, causal, window, scale, kv_group, skip_tiles, lse,
+                    kv_valid, hq, probs_bf16)
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    work = torch.empty(bwd_work_floats(bh, sq, sk, d, kv_group),
+    batches = 0 if kv_valid is None else kv_valid.shape[0]
+    work = torch.empty(bwd_work_floats(bh, sq, sk, d, kv_group, batches),
                        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         code = _bwd_lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
-                          ptr(dq), ptr(dk), ptr(dv), ptr(work), bh, kv_group,
-                          sq, sk, d, int(q.dtype == torch.bfloat16),
-                          int(causal), 0 if window is None else int(window),
-                          scale, int(skip_tiles), stream_of(q.device))
+                          ptr(dq), ptr(dk), ptr(dv), ptr(work),
+                          ptr(kv_valid), bh, kv_group, sq, sk, d,
+                          int(q.dtype == torch.bfloat16), hq, int(causal),
+                          0 if window is None else int(window), scale,
+                          int(skip_tiles), PROBS_BF16 if probs_bf16 else 0,
+                          stream_of(q.device))
     raise_on_error("flash_attention_bwd", code)
     flash_attention_bwd.launches += 1
+    _count_modes(flash_attention_bwd, kv_valid, probs_bf16)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def _fold(info, in_dims, tensors):
@@ -341,54 +452,76 @@ def _unfold(info, t):
     return t.unflatten(0, (info.batch_size, -1))
 
 
+def _fold_kv(info, dim, kv_valid):
+    """A (B, Sk) mask, vmapped at ``dim`` or shared, as (m B, Sk): row m B
+    + b serves row-blocks m BH + b (BH / B) .. of the folded q."""
+    if kv_valid is None:
+        return None
+    return _fold(info, (dim,), (kv_valid,))[0]
+
+
 class FlashAttentionWithLse(torch.autograd.Function):
     """K5 with its gradient: ``apply(q, k, v, causal, window, scale,
-    kv_group)`` is :func:`flash_attention_bhsd` with ``return_lse=True``,
-    (o, lse), lse not differentiable; its backward is
+    kv_group, kv_valid, probs_bf16)`` is :func:`flash_attention_bhsd` with
+    ``return_lse=True``, (o, lse), lse not differentiable; its backward is
     :class:`FlashAttentionBwd` on the saved lse (the backward kernel on
     the card, :func:`flash_attention_bwd_ref` on the CPU).
 
     The ``vmap`` rule folds the vmapped axis into BH: q (m, BH, S, D) ->
-    (m BH, S, D), k and v (m, BH / g, S, D) -> (m BH / g, S, D), so
-    row-block m BH + bh still reads KV head m BH / g + bh // g, and one
-    launch serves the whole batch."""
+    (m BH, S, D), k and v (m, BH / g, S, D) -> (m BH / g, S, D), a mask
+    (m, B, Sk) -> (m B, Sk), so row-block m BH + bh still reads KV head
+    m BH / g + bh // g and mask row m B + bh // (BH / B), and one launch
+    serves the whole batch."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, scale, kv_group):
+    def forward(q, k, v, causal, window, scale, kv_group, kv_valid=None,
+                probs_bf16=False):
         with torch.no_grad():
             return flash_attention_bhsd(q, k, v, causal=causal,
                                         window=window, scale=scale,
-                                        kv_group=kv_group, return_lse=True)
+                                        kv_group=kv_group, return_lse=True,
+                                        kv_valid=kv_valid,
+                                        probs_bf16=probs_bf16)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, *ctx.opts = inputs
+        q, k, v, causal, window, scale, kv_group, *modes = inputs
+        ctx.opts = (causal, window, scale, kv_group)
+        kv_valid, ctx.probs_bf16 = (*modes, None, False)[:2]
         o, lse = output
         ctx.mark_non_differentiable(lse)
-        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.save_for_backward(q, k, v, o, lse, kv_valid)
 
     @staticmethod
     def backward(ctx, do, _):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = FlashAttentionBwd.apply(q, k, v, o, do, lse, *ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, o, lse, kv_valid = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBwd.apply(q, k, v, o, do, lse, *ctx.opts,
+                                             kv_valid, ctx.probs_bf16)
+        return dq, dk, dv, None, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, *opts):
+    def vmap(info, in_dims, q, k, v, causal, window, scale, kv_group,
+             kv_valid=None, probs_bf16=False):
         q, k, v = _fold(info, in_dims[:3], (q, k, v))
-        o, lse = FlashAttentionWithLse.apply(q, k, v, *opts)
+        kv_valid = _fold_kv(info, in_dims[7] if len(in_dims) > 7 else None,
+                            kv_valid)
+        o, lse = FlashAttentionWithLse.apply(q, k, v, causal, window, scale,
+                                             kv_group, kv_valid, probs_bf16)
         return (_unfold(info, o), _unfold(info, lse)), (0, 0)
 
 
 class FlashAttention:
-    """``FlashAttention.apply(q, k, v, causal, window, scale, kv_group)``:
-    the output o of :class:`FlashAttentionWithLse`, differentiable through
-    K5's backward kernel."""
+    """``FlashAttention.apply(q, k, v, causal, window, scale, kv_group,
+    kv_valid=None, probs_bf16=False)``: the output o of
+    :class:`FlashAttentionWithLse`, differentiable through K5's backward
+    kernel."""
 
     @staticmethod
-    def apply(q, k, v, causal, window, scale, kv_group):
+    def apply(q, k, v, causal, window, scale, kv_group, kv_valid=None,
+              probs_bf16=False):
         return FlashAttentionWithLse.apply(q, k, v, causal, window, scale,
-                                           kv_group)[0]
+                                           kv_group, kv_valid,
+                                           probs_bf16)[0]
 
 
 class FlashAttentionBwd(torch.autograd.Function):
@@ -398,11 +531,14 @@ class FlashAttentionBwd(torch.autograd.Function):
     same fold). It has no gradient of its own."""
 
     @staticmethod
-    def forward(q, k, v, o, do, lse, causal, window, scale, kv_group):
+    def forward(q, k, v, o, do, lse, causal, window, scale, kv_group,
+                kv_valid=None, probs_bf16=False):
         with torch.no_grad():
             return flash_attention_bwd(q, k, v, o, do, causal=causal,
                                        window=window, scale=scale,
-                                       kv_group=kv_group, lse=lse)
+                                       kv_group=kv_group, lse=lse,
+                                       kv_valid=kv_valid,
+                                       probs_bf16=probs_bf16)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -414,7 +550,12 @@ class FlashAttentionBwd(torch.autograd.Function):
                                   "in the port")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, o, do, lse, *opts):
+    def vmap(info, in_dims, q, k, v, o, do, lse, causal, window, scale,
+             kv_group, kv_valid=None, probs_bf16=False):
         q, k, v, o, do, lse = _fold(info, in_dims[:6], (q, k, v, o, do, lse))
-        grads = FlashAttentionBwd.apply(q, k, v, o, do, lse, *opts)
+        kv_valid = _fold_kv(info, in_dims[10] if len(in_dims) > 10 else None,
+                            kv_valid)
+        grads = FlashAttentionBwd.apply(q, k, v, o, do, lse, causal, window,
+                                        scale, kv_group, kv_valid,
+                                        probs_bf16)
         return tuple(_unfold(info, g) for g in grads), (0, 0, 0)

@@ -46,10 +46,12 @@ def padded_head_dim(d: int) -> int:
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
-                    kv_group=1):
+                    kv_group=1, kv_valid=None, probs_bf16=False):
     """(BH, Sq, D) flash attention over k / v (BH / kv_group, Sk, D):
     query row-block ``bh`` reads KV head ``bh // kv_group``. Differentiable
     (:class:`FlashAttention`: K5 and its backward kernel on the card).
+    ``kv_valid`` (B, Sk) live keys and ``probs_bf16`` are K5's modes
+    (``kernels/flash_attention.py``).
 
     A head dim between K5's (16 for the registry's ``transformer_lm``) is
     padded with zero columns up to the next one, with the scale of the
@@ -63,7 +65,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
     if pad:
         q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
     out = FlashAttention.apply(q, k, v, causal, window, float(scale),
-                               kv_group)
+                               kv_group, kv_valid, probs_bf16)
     return out[..., :d] if pad else out
 
 
@@ -100,11 +102,15 @@ def ssd(x, dt, a, bm, cm, *, chunk: int = 128, h0=None,
     :class:`~repro_torch.kernels.ssd_scan.SsdScan`: K4 and its backward
     kernel for CUDA tensors, the plain chunked version and
     ``ssd_scan_bwd_ref`` for CPU tensors; under ``vmap`` one launch each
-    way serves every sample."""
-    s = x.shape[1]
+    way serves every sample. Inputs of another type (bfloat16 parameters)
+    are read as float32 and y returned in x's type, as the reference's
+    kernel reads and writes them; the state stays float32."""
+    s, dtype = x.shape[1], x.dtype
+    x, dt, a, bm, cm = (t.float() for t in (x, dt, a, bm, cm))
     x, dt, bm, cm = pad_to_chunk(chunk, x, dt, bm, cm)
     y, h_final, *_ = SsdScan.apply(x, dt, a, bm, cm, h0, chunk)
-    return (y[:, :s], h_final) if return_state else y[:, :s]
+    y = y[:, :s].to(dtype)
+    return (y, h_final) if return_state else y
 
 
 def ssd_auto(x, dt, a, bm, cm, *, chunk: int = 128):

@@ -96,14 +96,46 @@ def flash_mask(sq: int, sk: int, causal: bool, window, device):
     return mask
 
 
+def kv_rows(kv_valid, bh: int):
+    """A (B, Sk) key mask (bool or uint8) as each row-block's (BH, 1, Sk)
+    bool mask: row-block ``bh`` reads batch ``bh // (BH / B)``, the
+    query heads of one batch element being consecutive."""
+    b = kv_valid.shape[0]
+    if kv_valid.ndim != 2 or bh % b:
+        raise ValueError(f"kv_valid must be (B, Sk) with B dividing BH "
+                         f"{bh}, got {tuple(kv_valid.shape)}")
+    return kv_valid.bool().repeat_interleave(bh // b, dim=0)[:, None, :]
+
+
+def full_mask(bh: int, sq: int, sk: int, causal: bool, window, kv_valid,
+              device):
+    """(BH or 1, Sq, Sk): :func:`flash_mask`, and with ``kv_valid`` each
+    row-block's live keys."""
+    mask = flash_mask(sq, sk, causal, window, device)[None]
+    return mask if kv_valid is None else mask & kv_rows(kv_valid, bh)
+
+
+def bf16_round(x):
+    """x rounded to the nearest bfloat16 (ties to even), kept float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
-                        scale=None, kv_group: int = 1):
+                        scale=None, kv_group: int = 1, kv_valid=None,
+                        probs_bf16: bool = False):
     """The flash kernel's function over q (BH, Sq, D), k / v (BH /
     kv_group, Sk, D), dense: KV head j serves query rows j kv_group ..
     j kv_group + kv_group - 1 (expanded here with ``repeat_interleave``),
     q scaled in float32 before the product, masked scores set to -1e30
     (never -inf), ``exp(s - max)``, ``(p @ v) / max(l, 1e-30)``, output in
-    q's type."""
+    q's type.
+
+    ``kv_valid`` (B, Sk), B dividing BH, masks each batch element's dead
+    keys as the reference's ``_grouped_attention`` does: their scores are
+    -1e30 too, so a row with no live key at all averages v over all Sk
+    keys. ``probs_bf16`` is the reference's ``attn_probs_bf16``: the
+    normalised p rounded to bfloat16 times v rounded to bfloat16, summed
+    in float32."""
     d = q.shape[2]
     if scale is None:
         scale = float(d) ** -0.5
@@ -111,74 +143,111 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
         k = k.repeat_interleave(kv_group, dim=0)
         v = v.repeat_interleave(kv_group, dim=0)
     s = torch.bmm(q.float() * scale, k.float().transpose(1, 2))
-    mask = flash_mask(q.shape[1], k.shape[1], causal, window, q.device)
-    s = torch.where(mask[None], s, NEG_INF)
+    mask = full_mask(q.shape[0], q.shape[1], k.shape[1], causal, window,
+                     kv_valid, q.device)
+    s = torch.where(mask, s, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
+    if probs_bf16:
+        return torch.bmm(bf16_round(p / l),
+                         bf16_round(v.float())).to(q.dtype)
     return (torch.bmm(p, v.float()) / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
-def _flash_scores(q, k, causal, window, scale, kv_group):
+def _flash_scores(q, k, causal, window, scale, kv_group, kv_valid=None):
     """q scale, the expanded k, and s = (q scale) k^T with masked scores
-    -1e30, all float32."""
+    -1e30, all float32, and the mask."""
     kf = k.float()
     if kv_group > 1:
         kf = kf.repeat_interleave(kv_group, dim=0)
     qs = q.float() * scale
     s = torch.bmm(qs, kf.transpose(1, 2))
-    mask = flash_mask(q.shape[1], k.shape[1], causal, window, q.device)[None]
+    mask = full_mask(q.shape[0], q.shape[1], k.shape[1], causal, window,
+                     kv_valid, q.device)
     return qs, kf, torch.where(mask, s, NEG_INF), mask
 
 
-def _row_lse(s):
+def _row_lse(s, mask):
+    """max + log(sum exp(s - max)) of each row; +inf for a row with no
+    live key, so that exp(s - lse) is 0 on all of its keys."""
     m = s.amax(dim=-1, keepdim=True)
-    return m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    return torch.where(mask.any(dim=-1, keepdim=True), lse, float("inf"))
 
 
 def flash_lse_ref(q, k, *, causal: bool = True, window=None, scale=None,
-                  kv_group: int = 1):
+                  kv_group: int = 1, kv_valid=None):
     """Each query row's log-sum-exp over its visible keys, (BH, Sq)
     float32: max + log(sum exp(s - max)) of s = (q scale) k^T, what K5
     writes beside o for the backward (``flash_attention_bhsd(...,
     return_lse=True)``), computed as :func:`flash_attention_bwd_ref`
-    computes it."""
+    computes it; +inf for a row that ``kv_valid`` leaves no live key."""
     if scale is None:
         scale = float(q.shape[2]) ** -0.5
-    _, _, s, _ = _flash_scores(q, k, causal, window, scale, kv_group)
-    return _row_lse(s)[..., 0]
+    _, _, s, mask = _flash_scores(q, k, causal, window, scale, kv_group,
+                                  kv_valid)
+    return _row_lse(s, mask)[..., 0]
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
                             window=None, scale=None, kv_group: int = 1,
-                            lse=None):
+                            lse=None, kv_valid=None,
+                            probs_bf16: bool = False):
     """The gradients (dq, dk, dv) of :func:`flash_attention_ref` at
     (q, k, v), given its output ``o`` and the output's gradient ``do``,
     float32 throughout: each row's lse (the forward's, ``lse`` (BH, Sq),
     where given, else max + log(sum exp(s - max)) recomputed from s =
     (q scale) k^T on the visible keys, as :func:`flash_lse_ref`), delta =
-    rowsum(do o), P = exp(s - lse) (0 where masked), dV = P^T dO, dP =
-    dO V^T, dS = P (dP - delta), dQ = scale (dS K), dK = dS^T (q scale);
+    rowsum(do o) (with ``probs_bf16`` sum(P dP), below), P = exp(s - lse)
+    (0 where masked), dV = P^T dO, dP = dO V^T, dS = P (dP - delta), dQ =
+    scale (dS K), dK = dS^T (q scale);
     dk and dv of KV head j are the sums over its query heads j kv_group ..
-    j kv_group + kv_group - 1. Returned in the inputs' types."""
+    j kv_group + kv_group - 1. Returned in the inputs' types.
+
+    A row that ``kv_valid`` leaves no live key has P = 1 / Sk on every
+    key in the forward and no path to q or k: it adds do / Sk to dV at
+    every key and nothing else. ``probs_bf16`` takes the gradient with the
+    reference's rounding points, as ``jax.vjp`` does: dV from P rounded
+    to bfloat16 and itself rounded to bfloat16 once summed, dP from V
+    rounded to bfloat16 and itself rounded to bfloat16 (the casts of p
+    and v transpose to casts of their cotangents), dS from the float32 P,
+    and delta the reference's sum(P dP) of the rounded dP (rowsum(do o)
+    is that sum only while P and dP are not rounded)."""
     bh, sq, d = q.shape
+    sk = k.shape[1]
     if scale is None:
         scale = float(d) ** -0.5
-    qs, kf, s, mask = _flash_scores(q, k, causal, window, scale, kv_group)
+    qs, kf, s, mask = _flash_scores(q, k, causal, window, scale, kv_group,
+                                    kv_valid)
     vf = v.float()
     if kv_group > 1:
         vf = vf.repeat_interleave(kv_group, dim=0)
-    lse = _row_lse(s) if lse is None else lse.float()[..., None]
+    lse = _row_lse(s, mask) if lse is None else lse.float()[..., None]
     dof = do.float()
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - lse), 0.0)
-    dv = torch.bmm(p.transpose(1, 2), dof)
+    if probs_bf16:
+        vf = bf16_round(vf)
+    dv = torch.bmm((bf16_round(p) if probs_bf16 else p).transpose(1, 2),
+                   dof)
+    dead = ~mask.any(dim=-1, keepdim=True)
+    if kv_valid is not None and bool(dead.any()):
+        w = torch.tensor(1.0 / sk, dtype=torch.float32)
+        w = bf16_round(w) if probs_bf16 else w
+        dv = dv + w * (dof * dead).sum(dim=1, keepdim=True)
     dp = torch.bmm(dof, vf.transpose(1, 2))
+    if probs_bf16:
+        dp = bf16_round(dp)
+        delta = (p * dp).sum(dim=-1, keepdim=True)
+    else:
+        delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     dq = scale * torch.bmm(ds, kf)
     dk = torch.bmm(ds.transpose(1, 2), qs)
     if kv_group > 1:
         dk = dk.unflatten(0, (-1, kv_group)).sum(1)
         dv = dv.unflatten(0, (-1, kv_group)).sum(1)
+    if probs_bf16:
+        dv = bf16_round(dv)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -17,6 +17,11 @@ card refuses inputs that require a gradient.
 ``a`` is (H,) or (R, H) with R dividing the batch b: batch element i
 reads row i // (b / R) (the ``vmap`` rules fold the samples, each with its
 own a, into the batch).
+
+On ``meta`` tensors (the dry run) both return empty outputs of the
+kernel's shapes (the forward's saved scratch included) and add the
+kernel's operation count to :mod:`repro_torch.kernels.tally`; neither the
+kernel nor its plain version runs.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tally
 from repro_torch.kernels._launch import (aligned16, no_grad_input, ptr,
                                          raise_on_error, stream_of,
                                          unsupported_device)
@@ -224,6 +229,13 @@ def _forward(x, dt, a, bm, cm, h0, chunk):
         y, h_final = ssd_chunked_ref(x, dt, a, bm, cm, chunk=chunk, h0=h0)
         empty = x.new_empty((x.shape[0], 0))
         return y, h_final, empty, empty.clone(), empty.clone()
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    if x.device.type == "meta":
+        tally.add("ssd_scan", tally.ssd_flops(b, s, h, p, n, chunk))
+        return (torch.empty_like(x), x.new_empty((b, h, n, p)),
+                *(x.new_empty(sh) for sh in saved_shapes(b, s, h, p, n,
+                                                         chunk)))
     if x.device.type != "cuda":
         unsupported_device("ssd_scan", x.device)
     out = _launch_fwd(x, dt, a, bm, cm, h0, chunk)
@@ -275,6 +287,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, chunk=chunk, h0=h0,
                                 dh=dh)
+    if x.device.type == "meta":
+        b, s, h, p = x.shape
+        tally.add("ssd_scan_bwd",
+                  tally.ssd_bwd_flops(b, s, h, p, bm.shape[-1], chunk))
+        return (*(torch.empty_like(t) for t in (x, dt, a, bm, cm)),
+                x.new_empty((b, h, bm.shape[-1], p)))
     if x.device.type != "cuda":
         unsupported_device("ssd_scan_bwd", x.device)
     no_grad_input("ssd_scan_bwd", "ops.ssd (SsdScan)", x, dt, a, bm, cm, h0,

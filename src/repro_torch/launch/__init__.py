@@ -1,1 +1,3 @@
-"""Entry points (twin of ``repro/launch``): ``serve`` and ``train``."""
+"""Entry points (twin of ``repro/launch``): ``serve``, ``train``,
+``distributed``, and launch planning: ``specs``, ``mesh`` and the
+``meta``-device ``dryrun``."""

@@ -35,9 +35,15 @@ Decode masks the slots of positions after its own, so decoding twice from
 one state is exact as long as the first run did not roll the cache; once
 it has, the keys it overwrote are gone.
 
-``kv_valid`` masks and ``attn_probs_bf16`` (the reference passes them
-only from its dry run) raise ``NotImplementedError`` (ROADMAP §A items
-10 and 11).
+``kv_valid`` masks live keys as the reference's do: a (B, Sk) or (Sk,)
+bool mask taken by ``apply_attention`` (self- and cross-attention), a
+dead key scoring -1e30 like a causally masked one, so that a query row
+with no live key averages v over all Sk keys. ``cfg.attn_probs_bf16``
+rounds the float32 softmax's probabilities and v to bfloat16 and sums
+their product in float32, in ``apply_attention`` and
+``prefill_attention`` (not in decode or the cached cross-attention, as in
+the reference). Both go to K5 as its two modes and to the plain
+``_grouped_attention``.
 """
 
 from __future__ import annotations
@@ -131,14 +137,6 @@ def init_attention(generator, cfg: ModelConfig, dtype, device="cuda",
                                                          dtype, device)
 
 
-def _not_ported(cfg: ModelConfig, kv_valid=None):
-    if kv_valid is not None or cfg.attn_probs_bf16:
-        raise NotImplementedError(
-            "kv_valid masks and attn_probs_bf16 are not ported yet (ROADMAP "
-            "§A item 10; the reference passes them from its dry run, item "
-            "11)")
-
-
 def _heads(t, n: int, cfg: ModelConfig):
     """(B, S, n hd) -> (B, S, n, hd)."""
     return t.reshape(t.shape[0], t.shape[1], n, cfg.resolved_head_dim)
@@ -157,27 +155,47 @@ def _rope(p: Attention, t, positions):
     return apply_rope(t, positions, p.inv_freq, p.rot_dim)
 
 
-def _flash_attention(q, k, v, *, causal, window):
+def _kv_rows(kv_valid, b: int):
+    """A (B, Sk) or (Sk,) key mask as (B, Sk) bool."""
+    kv_valid = kv_valid.bool()
+    return kv_valid if kv_valid.ndim == 2 else kv_valid[None].expand(b, -1)
+
+
+def _flash_attention(q, k, v, *, causal, window, kv_valid=None,
+                     probs_bf16=False):
     """q (B, Sq, Hq, hd), k / v (B, Sk, KV, hd) -> (B, Sq, Hq, hd) through
     ``ops.flash_attention`` on q (B Hq, S, hd) and the unexpanded k / v
     (B KV, S, hd) with ``kv_group = Hq / KV``: row-block b Hq + h reads
-    KV head b KV + h // kv_group, the reference's grouping."""
+    KV head b KV + h // kv_group, the reference's grouping, and row b of
+    ``kv_valid``."""
     b, sq, hq, hd = q.shape
+    dtype = q.dtype
+    if not q.dtype == k.dtype == v.dtype:
+        # cross-attention on float32 media under bfloat16 weights: the
+        # reference computes in float32 and returns q's type
+        common = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                     v.dtype)
+        q, k, v = q.to(common), k.to(common), v.to(common)
 
     def heads_first(t):
         return t.transpose(1, 2).reshape(-1, t.shape[1], hd)
 
     out = kops.flash_attention(
         heads_first(q), heads_first(k), heads_first(v), causal=causal,
-        window=window, kv_group=hq // k.shape[2])
-    return out.reshape(b, hq, sq, hd).transpose(1, 2)
+        window=window, kv_group=hq // k.shape[2],
+        kv_valid=None if kv_valid is None else _kv_rows(kv_valid, b),
+        probs_bf16=probs_bf16)
+    return out.reshape(b, hq, sq, hd).transpose(1, 2).to(dtype)
 
 
-def _grouped_attention(q, k, v, *, causal, window, q_offset=0):
+def _grouped_attention(q, k, v, *, causal, window, q_offset=0,
+                       kv_valid=None, probs_bf16=False):
     """The reference's dense grouped attention: q (B, Sq, Hq, hd), k / v
     (B, Sk, KV, hd) -> (B, Sq, Hq, hd); ``q_offset`` is the absolute
     position of q[0] minus that of k[0]. Scores scaled after the product,
-    float32 softmax, a window only with ``causal``."""
+    float32 softmax, a window only with ``causal``; ``kv_valid`` (B, Sk)
+    or (Sk,) masks keys to -1e30 too; ``probs_bf16`` sums bfloat16 p
+    times bfloat16 v in float32."""
     b, sq, hq, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, kv, hq // kv, hd)
@@ -191,8 +209,17 @@ def _grouped_attention(q, k, v, *, causal, window, q_offset=0):
         if window is not None:
             mask &= k_pos > q_pos - window
     s = torch.where(mask, s, NEG_INF)
+    if kv_valid is not None:
+        kvm = kv_valid.bool()
+        kvm = kvm if kvm.ndim == 2 else kvm[None]
+        s = torch.where(kvm[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    if probs_bf16:
+        out = torch.einsum("bkgst,btkd->bskgd",
+                           p.to(torch.bfloat16).float(),
+                           v.to(torch.bfloat16).float())
+    else:
+        out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(b, sq, hq, hd).to(q.dtype)
 
 
@@ -200,8 +227,8 @@ def apply_attention(p: Attention, x, cfg: ModelConfig, *, positions=None,
                     causal=True, window=None, kv_x=None, kv_valid=None):
     """Full (non-cached) attention over x (B, S, d): training, scoring.
     ``positions`` (1 or B, S) default to 0 .. S - 1. ``kv_x`` (B, Sk, d)
-    switches to cross-attention: no RoPE on either side, no mask."""
-    _not_ported(cfg, kv_valid)
+    switches to cross-attention: no RoPE on either side, no causal mask.
+    ``kv_valid`` (B, Sk) or (Sk,) masks dead keys in either."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, kv_x)
     if kv_x is None:
@@ -212,7 +239,8 @@ def apply_attention(p: Attention, x, cfg: ModelConfig, *, positions=None,
         causal = False
     # the reference applies a window only with causal masking
     out = _flash_attention(q, k, v, causal=causal,
-                           window=window if causal else None)
+                           window=window if causal else None,
+                           kv_valid=kv_valid, probs_bf16=cfg.attn_probs_bf16)
     return p.wo(out.reshape(b, s, -1))
 
 
@@ -242,13 +270,13 @@ def prefill_attention(p: Attention, x, cfg: ModelConfig, cache: KVCache, *,
     last ``cache_len`` keys survive, each at slot ``position % cache_len``
     (window caches are sized to the window). Returns (out, cache).
     """
-    _not_ported(cfg)
     b, s, _ = x.shape
     cache_len = cache.k.shape[1]
     q, k, v = _qkv(p, x, cfg)
     positions = torch.arange(s, device=x.device)[None]
     q, k = _rope(p, q, positions), _rope(p, k, positions)
-    out = _flash_attention(q, k, v, causal=True, window=window)
+    out = _flash_attention(q, k, v, causal=True, window=window,
+                           probs_bf16=cfg.attn_probs_bf16)
 
     first = max(0, s - cache_len)       # only the most recent fit
     pos = positions[0, first:]
@@ -302,8 +330,8 @@ def cross_attention_cached(p: Attention, x, kv, cfg: ModelConfig, *,
                            decode=False):
     """Cross-attention of x (B, S, d) against precomputed ``kv``: the
     prompt through the flash kernel, a decode step (``decode``, S = 1)
-    plain, as decode self-attention is."""
-    _not_ported(cfg)
+    plain, as decode self-attention is; in float32 probabilities either
+    way (the reference's cached path takes no ``attn_probs_bf16``)."""
     b, s, _ = x.shape
     q = _heads(p.wq(x), cfg.n_heads, cfg)
     k, v = kv

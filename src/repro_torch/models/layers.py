@@ -37,7 +37,9 @@ def _param(value: torch.Tensor) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """``x @ w`` with ``w`` (d_in, d_out), the reference's layout."""
+    """``x @ w`` with ``w`` (d_in, d_out), the reference's layout; x and w
+    of two types are both promoted first, as jnp's product promotes them
+    (a float32 activation times bfloat16 weights is a float32 product)."""
 
     def __init__(self, w: torch.Tensor):
         super().__init__()
@@ -50,7 +52,11 @@ class Dense(nn.Module):
                                     device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w
+        w = self.w
+        if x.dtype != w.dtype:
+            common = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(common), w.to(common)
+        return x @ w
 
 
 class Embedding(nn.Module):

@@ -43,6 +43,17 @@ and ``loss_fn`` adds them, as the reference's ``_apply_layer`` does;
 ``PORTED_LAYERS`` (a cross-attention mixer with an MoE mlp, an attention
 mixer without an mlp: no id of the zoo has one) raises
 ``NotImplementedError``.
+
+``cfg.remat_layers`` recomputes each decoder layer in the backward, as
+the reference's ``jax.checkpoint`` of ``_apply_layer`` does (the encoder's
+layers, which the reference does not wrap, keep their activations):
+:class:`RematLayer`, an ``autograd.Function`` whose inputs are the
+layer's input, the media or encoder output it reads and its parameters
+as explicit tensors, and which saves only those. Its backward runs the
+layer again under ``torch.func.vjp``, so K5 and K4 launch twice a layer
+in a training step (forward, recompute) and their backwards once; it
+composes with ``torch.func.grad`` and ``vmap(grad)``, where
+``torch.utils.checkpoint`` raises in both of its modes.
 """
 
 from __future__ import annotations
@@ -85,14 +96,8 @@ def _check_spec(spec: LayerSpec):
 
 
 def check_config(cfg: ModelConfig):
-    """Raise for a configuration the port cannot run yet."""
-    if cfg.remat_layers:
-        raise NotImplementedError(
-            "remat_layers is not ported (ROADMAP item 11): the port takes "
-            "gradients with torch.func.grad, and torch.utils.checkpoint "
-            "does not compose with it in either mode, so the flag would "
-            "leave the values unchanged and silently lose its memory "
-            "saving")
+    """Raise for a configuration the port cannot run: a layer outside
+    ``PORTED_LAYERS``."""
     for spec in cfg.layer_specs():
         _check_spec(spec)
 
@@ -188,6 +193,71 @@ class LM(nn.Module):
 MambaLM, MambaLayer = LM, Layer
 
 
+def _run_layer(layer: Layer, names, has_media, has_enc, tensors):
+    """``layer`` on its explicit tensors (the input, the media and the
+    encoder output where present, then its parameters under ``names``):
+    (x, aux), aux a zero where the layer has no MoE."""
+    x, rest = tensors[0], list(tensors[1:])
+    media = rest.pop(0) if has_media else None
+    enc_out = rest.pop(0) if has_enc else None
+    x, aux = torch.func.functional_call(layer, dict(zip(names, rest)),
+                                        (x, media, enc_out))
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+class RematLayer(torch.autograd.Function):
+    """One decoder layer without its activations: ``apply(layer, names,
+    has_media, has_enc, x, [media], [enc_out], *params)`` returns (x,
+    aux) as ``layer`` does (aux zero without an MoE) and saves only its
+    tensor inputs; the backward runs the layer again under
+    ``torch.func.vjp`` and returns every tensor input's gradient.
+    ``generate_vmap_rule``: under ``vmap`` the forward and backward run
+    batched, the kernels inside through their own ``vmap`` rules."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(layer, names, has_media, has_enc, *tensors):
+        return _run_layer(layer, names, has_media, has_enc, tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        layer, names, has_media, has_enc, *tensors = inputs
+        ctx.call = (layer, names, has_media, has_enc)
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, dx, daux):
+        layer, names, has_media, has_enc = ctx.call
+
+        def run(*tensors):
+            return _run_layer(layer, names, has_media, has_enc, tensors)
+
+        # detached: torch.func.grad takes its gradient with create_graph,
+        # which would otherwise record the recompute into the outer graph
+        # and keep every layer's activations to the end (the kernels'
+        # backwards have no second derivative, so nothing is lost)
+        with torch.enable_grad():
+            _, pullback = torch.func.vjp(
+                run, *(t.detach() for t in ctx.saved_tensors))
+        return (None, None, None, None) + tuple(
+            pullback((dx.detach(), daux.detach())))
+
+
+def remat_layer(layer: Layer, x, media=None, enc_out=None):
+    """``layer(x, media, enc_out)`` through :class:`RematLayer`; returns
+    (x, aux), aux a zero where the layer has no MoE."""
+    named = list(layer.named_parameters())
+    media = media if layer.cross_mixer else None
+    enc_out = enc_out if layer.cross is not None else None
+    extra = [t for t in (media, enc_out) if t is not None]
+    return RematLayer.apply(layer, tuple(n for n, _ in named),
+                            media is not None, enc_out is not None, x,
+                            *extra, *(t for _, t in named))
+
+
 def _init_layer(generator, spec: LayerSpec, cfg: ModelConfig, dtype,
                 device, with_cross: bool = False,
                 causal: bool = True) -> Layer:
@@ -277,7 +347,10 @@ def forward(params: LM, batch: Batch, cfg: ModelConfig):
     media = _media(batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        x, a = layer(x, media, enc_out)
+        if cfg.remat_layers:
+            x, a = remat_layer(layer, x, media, enc_out)
+        else:
+            x, a = layer(x, media, enc_out)
         if a is not None:
             aux = aux + a
     return logits_from_hidden(params, x, cfg), aux

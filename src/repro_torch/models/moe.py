@@ -88,6 +88,17 @@ def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
     return Routing(probs, top_w, top_ids)
 
 
+def expert_counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """How many of ``ids`` (int64) name each of ``e`` experts: the counts
+    of ``torch.bincount(ids, minlength=e)``, as a scatter-add into e zeros,
+    which runs on ``meta`` (bincount has no meta kernel) and sizes its
+    output from ``e`` (bincount takes the largest id to the host first: a
+    synchronisation every MoE layer on the card). Out of place, so that it
+    runs under ``vmap``."""
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add(
+        0, ids, torch.ones_like(ids))
+
+
 def dispatch(r: Routing, cap: int, cfg: ModelConfig) -> Dispatch:
     """The sort-based dispatch: a stable sort of the flat (token, k) pairs
     on their expert id, each pair's rank within its expert, the first
@@ -97,7 +108,7 @@ def dispatch(r: Routing, cap: int, cfg: ModelConfig) -> Dispatch:
     expert_flat = r.ids.reshape(-1)
     order = torch.argsort(expert_flat, stable=True)
     se = expert_flat[order]
-    counts = torch.bincount(expert_flat, minlength=e)
+    counts = expert_counts(expert_flat, e)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * k, device=se.device) - starts[se]
     keep = pos_in_e < cap
@@ -130,7 +141,7 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, aux: bool = True
         # Switch-style load balance: E sum(mean prob x share of first
         # choices)
         me = torch.mean(r.probs, dim=0)
-        ce = torch.bincount(r.ids[:, 0], minlength=e).float() / t
+        ce = expert_counts(r.ids[:, 0], e).float() / t
         aux = e * torch.sum(me * ce) * cfg.router_aux_coef
     else:
         aux = None

@@ -41,8 +41,10 @@ from test_torch_reference import reference  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import tally  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    check_kernel_shape, flash_attention_bhsd, smem_bytes)
+    check_kernel_shape, flash_attention_bhsd, flash_attention_bwd,
+    smem_bytes)
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models.layers import (SwiGLU, apply_rope,  # noqa: E402
                                        rope_frequencies)
@@ -184,9 +186,23 @@ def test_flash_wrapper_checks():
         flash_attention_bhsd(q, q, q, window=0)
     with pytest.raises(ValueError, match="sees no key"):
         flash_attention_bhsd(torch.zeros((2, 20, 32)), q, q, window=12)
+    # meta tensors: the kernel's shapes, no kernel and no plain version run,
+    # its operations tallied for the dry run
     meta = q.to("meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_bhsd(meta, meta, meta)
+    tally.reset()
+    o, lse = flash_attention_bhsd(meta, meta, meta, return_lse=True)
+    assert o.device.type == lse.device.type == "meta"
+    assert (o.shape, lse.shape, lse.dtype) == (q.shape, (2, 8),
+                                               torch.float32)
+    assert tally.read()["flash_attention_bhsd"] == tally.flash_flops(
+        2, 8, 8, 32, True, None) == 2 * 36 * 4 * 32 + 2 * (36 * 3 + 2 * 8 * 32)
+    # any other device is refused by name, forward and backward
+    from test_torch_ssd import Elsewhere
+    other = q.as_subclass(Elsewhere)
+    with pytest.raises(ValueError, match="tensors on xpu.*CUDA"):
+        flash_attention_bhsd(other, other, other)
+    with pytest.raises(ValueError, match="tensors on xpu.*CUDA"):
+        flash_attention_bwd(other, other, other, other, other)
     for d in (32, 64, 128):
         check_kernel_shape(128, d)
         check_kernel_shape(128, d, 2048, 2048, 8)
@@ -198,7 +214,9 @@ def test_flash_wrapper_checks():
     # Q_lo (128, D), P hi + lo (128, 32) and two stages of K hi + lo
     # (32, D) and V^T hi + lo (D, 32), float32, at D = 128: 224 KB and one
     # block per SM
-    assert smem_bytes(128) == 2 * 32_768 + 32_768 + 2 * 65_536 + 64 + 1024
+    # (and the stages' mbarriers and kv_valid words)
+    assert smem_bytes(128) == (2 * 32_768 + 32_768 + 2 * 65_536 + 64 + 8
+                               + 1024)
     assert smem_bytes(128) < 227 << 10 < 2 * smem_bytes(128)
 
 
@@ -463,22 +481,192 @@ def test_kernel_path_matches_grouped_attention(ref, causal, window):
           OUT_TOL)
 
 
-def test_unported_attention_args_raise(ref):
+# ------------------------------------------- kv_valid and attn_probs_bf16
+
+def kv_masks(b, sk, seed):
+    """A (B, Sk) key mask: row 0 with its last keys and every third key
+    dead, row 1 with no live key at all."""
+    kv = np.ones((b, sk), bool)
+    kv[0, sk - 1 - np.random.default_rng(seed).integers(0, sk // 2):] = False
+    kv[0, 2::3] = False
+    kv[1] = False
+    return kv
+
+
+def bf16_bounds(q, k, v, do, kv, causal, group, scale):
+    """The derived bounds on the gradient's difference in probs_bf16 mode
+    (kernels/ref.py flash_attention_bwd_ref, which takes the reference's
+    delta, sum(P dP) of the rounded dP): the two sides' float32 dP differ
+    by float32 noise, so their bfloat16 roundings land apart only at a
+    tie, one bfloat16 ulp (2^-8 of |dP_j|); were every one to land apart,
+    delta would move by at most 2^-8 sum_j P_j |dP_j| a row, which moves
+    dS_rj by P_rj |delta_r - delta'_r|, so dq_r by at most scale |delta_r
+    - delta'_r| sum_j P_rj |k_j| and dk_j by sum_r P_rj |delta_r -
+    delta'_r| |q_r scale|; all float32 arrays of (BH, ...)."""
+    g = group
+    kf = k.repeat_interleave(g, 0).float()
+    vf = tref.bf16_round(v.repeat_interleave(g, 0).float())
+    s = torch.bmm(q.float() * scale, kf.transpose(1, 2))
+    mask = tref.full_mask(q.shape[0], q.shape[1], k.shape[1], causal, None,
+                          kv, q.device)
+    s = torch.where(mask, s, tref.NEG_INF)
+    p = torch.softmax(s, -1) * mask.any(-1, keepdim=True)
+    dp = torch.bmm(do.float(), vf.transpose(1, 2)).abs()
+    ddelta = 2.0 ** -8 * (p * dp).sum(-1, keepdim=True)
+    dq = scale * ddelta * torch.bmm(p, kf.abs())
+    dk = torch.bmm((p * ddelta).transpose(1, 2), (q.float() * scale).abs())
+    return dq, dk.unflatten(0, (-1, g)).sum(1)
+
+
+@pytest.mark.parametrize("probs_bf16", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_modes_match_grouped_attention_and_vjp(ref, masked, causal,
+                                                     probs_bf16):
+    """K5's plain version (forward and backward, the function the kernel
+    computes) in the kv_valid / probs_bf16 modes against the reference's
+    ``_grouped_attention`` and its ``jax.vjp``, GQA groups of 2, a batch
+    row with no live key (its output v's mean over all keys, lse +inf).
+
+    Tolerances: float32 as above (2e-5 on o; each gradient within 1e-4
+    of its largest |reference| entry). With probs_bf16 the rounding
+    points are the reference's (p and v rounded to bfloat16 in the
+    forward; dP and dv in the backward), so o and dv stay at float32 but
+    for one bfloat16 ulp where the two float32 p straddle a rounding tie
+    (2^-7 of |dv|); dq and dk within :func:`bf16_bounds` (ties of dP)
+    plus the float32 tolerance."""
+    jnp = ref.jnp
+    b, sq, hq, kvh, hd = 2, 37, 4, 2, 16
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((b, sq, hq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((b, sq, kvh, hd)).astype(np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((b, sq, hq, hd)).astype(np.float32)
+    kv = kv_masks(b, sq, 3) if masked else None
+
+    def fn(q, k, v):
+        return ref.attention._grouped_attention(
+            q, k, v, causal=causal, window=None,
+            kv_valid=None if kv is None else jnp.asarray(kv),
+            probs_bf16=probs_bf16)
+
+    want, vjp = ref.jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    wq, wk, wv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
+
+    def heads(a):
+        t = torch.from_numpy(a)
+        return t.transpose(1, 2).reshape(-1, sq, hd)
+
+    def back(t, n):
+        return t.reshape(b, n, sq, hd).transpose(1, 2).numpy()
+
+    tkv = None if kv is None else torch.from_numpy(kv)
+    kw = dict(causal=causal, kv_group=hq // kvh, kv_valid=tkv,
+              probs_bf16=probs_bf16)
+    tq, tk, tv, tdo = (heads(a) for a in (q, k, v, do))
+    o, lse = flash_attention_bhsd(tq, tk, tv, return_lse=True, **kw)
+    close(back(o, hq), want, dict(rtol=0, atol=TOL[torch.float32]))
+    dead = torch.isinf(lse)
+    assert bool(dead.any()) == masked
+    if masked:
+        # batch row 1 has no live key: every one of its rows is dead and
+        # averages v over all keys
+        assert bool(dead.reshape(b, hq, sq)[1].all())
+    dq, dk, dv = flash_attention_bwd(tq, tk, tv, o, tdo, lse=lse, **kw)
+    scale = hd ** -0.5
+    bq = bk = 0.0
+    if probs_bf16:
+        bq, bk = (back(t, n) for t, n in zip(
+            bf16_bounds(tq, tk, tv, tdo, tkv, causal, hq // kvh, scale),
+            (hq, kvh)))
+    for name, g, w, bound in (("dq", back(dq, hq), wq, bq),
+                              ("dk", back(dk, kvh), wk, bk)):
+        slack = 1e-4 * np.abs(w).max()
+        assert np.all(np.abs(g - w) <= bound + slack), name
+    dvg = back(dv, kvh)
+    ulp = 2.0 ** -7 * np.abs(wv) if probs_bf16 else 0.0
+    assert np.all(np.abs(dvg - wv) <= ulp + 1e-4 * np.abs(wv).max())
+
+
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("rank", [1, 2])
+def test_apply_attention_kv_valid_matches_reference(ref, cross, rank):
+    """``apply_attention`` with a kv_valid mask, (Sk,) or (B, Sk), self-
+    (causal) or cross-attention (over 24 media embeddings), against the
+    reference's, the output and ``jax.vjp``'s gradients of x (and of the
+    media) at OUT_TOL; a (B, Sk) mask has a row with no live key."""
+    cfg, rcfg, rp, mixer = attention_pair(ref, "reduced", seed=11)
+    jnp = ref.jnp
+    b, s, m = 2, 21, 24
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    media = rng.standard_normal((b, m, cfg.d_model)).astype(np.float32)
+    dout = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    sk = m if cross else s
+    kv = kv_masks(b, sk, 12) if rank == 2 else kv_masks(b, sk, 12)[0]
+
+    def fn(x, media):
+        return ref.attention.apply_attention(
+            rp, x, rcfg, kv_x=media if cross else None,
+            kv_valid=jnp.asarray(kv))
+
+    want, vjp = ref.jax.vjp(fn, jnp.asarray(x), jnp.asarray(media))
+    gx, gm = vjp(jnp.asarray(dout))
+    tx, tm = (torch.from_numpy(a).requires_grad_() for a in (x, media))
+    got = attn.apply_attention(mixer, tx, cfg, kv_x=tm if cross else None,
+                               kv_valid=torch.from_numpy(kv))
+    close(got.detach(), want, OUT_TOL)
+    got.backward(torch.from_numpy(dout))
+    close(tx.grad, gx, dict(rtol=1e-4, atol=1e-4 * float(np.abs(gx).max())))
+    if cross:
+        close(tm.grad, gm, dict(rtol=1e-4,
+                                atol=1e-4 * float(np.abs(gm).max())))
+    twin = attn._grouped_attention(*(t for t in attn._qkv(
+        mixer, torch.from_numpy(x), cfg,
+        torch.from_numpy(media) if cross else None)), causal=not cross,
+        window=None, kv_valid=torch.from_numpy(kv))
+    assert twin.shape == (b, s, cfg.n_heads, cfg.resolved_head_dim)
+
+
+def test_attn_probs_bf16_matches_reference(ref):
+    """``attn_probs_bf16``: ``apply_attention`` (and ``jax.vjp``'s gradient
+    of x) and ``prefill_attention`` (output and cache) against the
+    reference's with the flag; decode and the cached cross path take no
+    bfloat16 probabilities in either. Tolerances: the outputs OUT_TOL
+    plus one bfloat16 ulp of a probability where the two sides' float32
+    p straddle a rounding tie (2^-8 of max |v| through wo: 1e-3 of the
+    largest |out|); the gradient of x within 2^-7 of its largest entry,
+    dq and dk carrying the delta difference bounded in
+    :func:`bf16_bounds` through the projections."""
     import dataclasses
-    cfg, _, _, mixer = attention_pair(ref, "reduced")
-    x = torch.zeros((1, 4, cfg.d_model))
-    # cross-attention (kv_x) runs since the zoo's second slice
-    assert attn.apply_attention(mixer, x, cfg, kv_x=x).shape == x.shape
-    with pytest.raises(NotImplementedError, match="§A item 10"):
-        attn.apply_attention(mixer, x, cfg,
-                             kv_valid=torch.ones(4, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="§A item 10"):
-        attn.apply_attention(mixer, x, cfg, kv_x=x,
-                             kv_valid=torch.ones(4, dtype=torch.bool))
-    bf16 = dataclasses.replace(cfg, attn_probs_bf16=True)
-    with pytest.raises(NotImplementedError, match="§A item 10"):
-        attn.apply_attention(mixer, x, bf16)
-    with pytest.raises(NotImplementedError, match="§A item 10"):
-        attn.prefill_attention(mixer, x, bf16,
-                               attn.init_cache(cfg, 1, 8, torch.float32,
-                                               "cpu"))
+    cfg, rcfg, rp, mixer = attention_pair(ref, "reduced", seed=13,
+                                          attn_probs_bf16=True)
+    jnp = ref.jnp
+    b, s = 2, 33
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    dout = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    want, vjp = ref.jax.vjp(
+        lambda x: ref.attention.apply_attention(rp, x, rcfg),
+        jnp.asarray(x))
+    (gx,) = vjp(jnp.asarray(dout))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = attn.apply_attention(mixer, tx, cfg)
+    out_tol = dict(rtol=1e-4, atol=1e-3 * float(np.abs(want).max()))
+    close(got.detach(), want, out_tol)
+    got.backward(torch.from_numpy(dout))
+    close(tx.grad, gx, dict(rtol=0, atol=2.0 ** -7 * float(
+        np.abs(gx).max())))
+    # the flag changes the result (the bfloat16 rounding is there)
+    plain = ref.attention.apply_attention(
+        rp, jnp.asarray(x), dataclasses.replace(rcfg,
+                                                attn_probs_bf16=False))
+    assert float(np.abs(np.asarray(plain) - np.asarray(want)).max()) > 0
+    clen = s + 4
+    rcache = ref.attention.init_cache(rcfg, b, clen, jnp.float32)
+    want, rcache = ref.attention.prefill_attention(rp, jnp.asarray(x), rcfg,
+                                                   rcache)
+    with torch.inference_mode():
+        got, cache = mixer.prefill(torch.from_numpy(x), clen)
+    close(got, want, out_tol)
+    check_cache(cache, rcache)

@@ -1298,3 +1298,122 @@ def test_sharded_paths_on_one_rank_equal_the_sequential(cuda, tmp_path):
     finally:
         torch.backends.cudnn.deterministic = flag
         dist.destroy_process_group()
+
+
+# ---------------------------------- launch planning (ROADMAP item 11)
+
+def mode_mask(batch, sk, device):
+    """Row 0 with its last 100 keys and every third key dead, the last row
+    with no live key."""
+    kv = torch.ones((batch, sk), dtype=torch.bool)
+    kv[0, sk - 100:] = False
+    kv[0, 2::3] = False
+    kv[-1] = False
+    return kv.to(device)
+
+
+@pytest.mark.parametrize("modes", [("kv_valid",), ("probs_bf16",),
+                                   ("kv_valid", "probs_bf16")])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,group,batch", [
+    (8, 200, 200, 64, True, 2, 2), (6, 77, 150, 32, False, 3, 2),
+    (16, 384, 384, 128, True, 4, 2)])
+def test_flash_attention_modes_match_plain(cuda, bh, sq, sk, d, causal,
+                                           group, batch, modes):
+    """K5 and its backward in the kv_valid and probs_bf16 modes against
+    their plain versions: lse +inf on exactly the rows with no live key,
+    the same bits with the masked tiles run. Tolerances as chip_smoke.py's
+    (FLASH_PB_TOL): float32 (2e-5 on o, 1e-4 of each gradient's largest
+    entry) with kv_valid; with probs_bf16 the kernel rounds where the plain
+    version rounds, so only a rounding tie landing apart moves a term, by
+    one bfloat16 ulp: 2^-8 of max |v| on o, and a gradient within 2^-6 of
+    its largest entry. Such ties are rare, so with probs_bf16 the kernel
+    also sits within a quarter of the plain version's distance from the
+    same call without the mode (FLASH_PB_CONTROL), on o and each
+    gradient: a kernel that skipped the roundings would not."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_lse_ref)
+    q, k, v, do = bwd_lanes(bh, sq, sk, d, group, cuda, seed=sq + d)
+    pb = "probs_bf16" in modes
+    kv = mode_mask(batch, sk, cuda) if "kv_valid" in modes else None
+    kw = dict(causal=causal, kv_group=group, kv_valid=kv, probs_bf16=pb)
+    o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = 2e-5 + (2.0 ** -8 * float(v.abs().max()) if pb else 0.0)
+    assert float((o - want).abs().max()) <= tol
+
+    def control(got, want, f32):
+        return float((got - want).norm()) / float((f32 - want).norm())
+
+    if pb:
+        assert control(o, want, flash_attention_ref(
+            q, k, v, **dict(kw, probs_bf16=False))) <= 0.25
+    assert torch.equal(o, flash_attention_bhsd(q, k, v, skip_tiles=False,
+                                               **kw))
+    want_lse = flash_lse_ref(q, k, causal=causal, kv_group=group,
+                             kv_valid=kv)
+    dead = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), dead) and bool(dead.any()) == (
+        kv is not None)
+    assert float((lse[~dead] - want_lse[~dead]).abs().max()) <= 1e-4
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    ref_g = flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+    limit = 2.0 ** -6 if pb else 1e-4
+    for g, w in zip(got, ref_g):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= limit * float(w.abs().max())
+    if pb:
+        f32 = flash_attention_bwd_ref(q, k, v, o, do, lse=lse,
+                                      **dict(kw, probs_bf16=False))
+        for g, w, f in zip(got, ref_g, f32):
+            assert control(g, w, f) <= 0.25
+    for g, w in zip(flash_attention_bwd(q, k, v, o, do, skip_tiles=False,
+                                        **kw), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-130m"])
+def test_remat_step_on_the_card_matches_plain(cuda, arch):
+    """A reduced train step with ``remat_layers`` on the card: the loss
+    and gradients equal the same step without it (the recompute runs the
+    same kernels on the same inputs: bit for bit), K5 / K4 launch twice a
+    layer (forward and recompute) and their backwards once, and the step
+    agrees with the CPU's plain step (loss rtol 1e-5, each gradient within
+    1e-4 of its largest |CPU| entry)."""
+    import copy
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat_layers=True)
+    fwd_k, bwd_k = ((flash_attention_bhsd, flash_attention_bwd)
+                    if arch == "yi-6b" else (ssd_scan, ssd_scan_bwd))
+    host = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    out = {}
+    for name, model, device, c in (
+            ("cpu", host, "cpu", cfg), ("off", card, cuda,
+                                        dataclasses.replace(
+                                            cfg, remat_layers=False)),
+            ("on", card, cuda, cfg)):
+        params = {k: p.detach() for k, p in model.named_parameters()}
+
+        def loss_fn(p, b, model=model, c=c):
+            return torch.func.functional_call(model, p, (b, c))
+
+        fwd_k.launches = bwd_k.launches = 0
+        grads, loss = torch.func.grad_and_value(loss_fn)(
+            params, step_batch(cfg, device))
+        torch.cuda.synchronize()
+        out[name] = (grads, loss, fwd_k.launches, bwd_k.launches)
+    layers = cfg.n_layers
+    assert out["off"][2:] == (layers, layers)
+    assert out["on"][2:] == (2 * layers, layers)
+    assert torch.equal(out["on"][1], out["off"][1])
+    assert all(torch.equal(out["on"][0][k], out["off"][0][k])
+               for k in out["on"][0])
+    np.testing.assert_allclose(float(out["on"][1]), float(out["cpu"][1]),
+                               rtol=1e-5)
+    for name, c in out["cpu"][0].items():
+        scale = float(c.abs().max())
+        assert float((out["on"][0][name].cpu() - c).abs().max()) <= (
+            1e-4 * scale), name

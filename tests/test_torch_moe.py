@@ -172,6 +172,26 @@ def test_capacity_matches_reference(ref):
                 e, k, cf, t)
 
 
+@pytest.mark.parametrize("e,n", [(8, 1), (8, 40), (384, 64), (16, 0)])
+def test_expert_counts_equal_bincount(e, n):
+    """``expert_counts`` (a scatter-add into e zeros, which runs on meta
+    and under vmap and needs no host synchronisation) gives bincount's
+    integers on random ids, empty experts included; on meta it returns
+    (e,) int64 where bincount has no kernel; under vmap each row's."""
+    rng = np.random.default_rng(e + n)
+    ids = torch.from_numpy(rng.integers(0, e // 2, n)).long()
+    want = torch.bincount(ids, minlength=e)
+    got = moe.expert_counts(ids, e)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert int((got == 0).sum()) >= e // 2          # empty experts
+    meta = moe.expert_counts(ids.to("meta"), e)
+    assert meta.device.type == "meta" and meta.shape == (e,)
+    rows = torch.from_numpy(rng.integers(0, e, (3, n))).long()
+    batched = torch.func.vmap(lambda r: moe.expert_counts(r, e))(rows)
+    assert torch.equal(batched, torch.stack(
+        [torch.bincount(r, minlength=e) for r in rows]))
+
+
 def test_high_capacity_equals_dense_mixture():
     """The reference's own check (tests/test_moe.py): with capacity >>
     tokens, the MoE is the explicit weighted mixture of each token's

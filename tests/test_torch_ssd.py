@@ -26,7 +26,7 @@ import torch
 pytest.importorskip("jax")
 from test_torch_reference import reference  # noqa: E402
 
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, tally  # noqa: E402
 from repro_torch.kernels.ref import ssd_chunked_ref, ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (check_kernel_shape,  # noqa: E402
                                           smem_bytes, ssd_scan)
@@ -151,6 +151,16 @@ def test_ssd_decode_step_matches_scan(ref):
                                atol=1e-5)
 
 
+class Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device, as a tensor of a backend
+    with neither a kernel nor its plain version would: the wrappers refuse
+    it by name."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_ssd_scan_checks_its_arguments():
     x, dt, a, bm, cm = torch_of(ssd_inputs(1, 64, 2, 32, 16))
     with pytest.raises(TypeError):
@@ -161,9 +171,17 @@ def test_ssd_scan_checks_its_arguments():
         ssd_scan(x, dt, a, bm, cm, chunk=48)        # S not a multiple
     with pytest.raises(ValueError):
         ssd_scan(x, dt, a, bm, cm, chunk=32, h0=torch.zeros(1, 2, 16, 8))
+    # meta tensors (the dry run): the kernel's shapes, nothing run, its
+    # operations tallied
     meta = [t.to("meta") for t in (x, dt, a, bm, cm)]
-    with pytest.raises(ValueError, match="CUDA"):
-        ssd_scan(*meta, chunk=32)
+    tally.reset()
+    y, state = ssd_scan(*meta, chunk=32, return_state=True)
+    assert (y.device.type, y.shape, state.shape) == ("meta", x.shape,
+                                                     (1, 2, 16, 32))
+    assert tally.read()["ssd_scan"] == tally.ssd_flops(1, 64, 2, 32, 16, 32)
+    with pytest.raises(ValueError, match="tensors on xpu.*CUDA"):
+        ssd_scan(*(t.as_subclass(Elsewhere) for t in (x, dt, a, bm, cm)),
+                 chunk=32)
 
 
 def test_kernel_shape_limits():

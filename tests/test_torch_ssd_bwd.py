@@ -348,9 +348,24 @@ def test_bwd_wrapper_refuses(bad):
 
 
 def test_bwd_wrapper_refuses_other_devices():
+    """``meta`` is the dry run's device: the gradients' shapes, nothing
+    run, the backward's operations tallied; any other device but the CPU
+    and CUDA is refused by name."""
+    from repro_torch.kernels import tally
     arrs = [t.to("meta") for t in torch_of(ssd_inputs(1, 32, 2, 16, 8))]
     x, dt, a, bm, cm, _, dy, _ = arrs
-    with pytest.raises(ValueError, match="CUDA"):
+    tally.reset()
+    grads = ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=32)
+    assert [g.shape for g in grads] == [t.shape for t in (x, dt, a, bm, cm)
+                                        ] + [(1, 2, 8, 16)]
+    assert all(g.device.type == "meta" for g in grads)
+    assert tally.read()["ssd_scan_bwd"] == tally.ssd_bwd_flops(1, 32, 2, 16,
+                                                               8, 32)
+    from test_torch_ssd import Elsewhere
+    other = [t.as_subclass(Elsewhere) for t in torch_of(ssd_inputs(
+        1, 32, 2, 16, 8))]
+    x, dt, a, bm, cm, _, dy, _ = other
+    with pytest.raises(ValueError, match="tensors on xpu.*CUDA"):
         ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=32)
 
 

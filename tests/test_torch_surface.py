@@ -24,15 +24,13 @@ import torch
 
 REFERENCE = Path(__file__).resolve().parents[1] / "src" / "repro"
 
-# names of a reference __all__ the port does not have yet, by ROADMAP §A
-# item: 5 the legacy loop engine (left out on purpose), 11 launch planning
-# (sharding/); item 10's optim/ and item 8's multi-device are ported
+# names of a reference __all__ the port does not have, by ROADMAP §A
+# item: 5 the legacy loop engine (left out on purpose); item 10's optim/,
+# item 8's multi-device and item 11's launch planning (sharding/) are
+# ported
 OPEN = {
     "repro_torch.fl": {"run_simulation_loop": 5},
     "repro_torch.fl.simulation": {"run_simulation_loop": 5},
-    "repro_torch.sharding": dict.fromkeys(
-        ["batch_pspec", "param_pspecs", "ShardingMode",
-         "serve_batch_pspec"], 11),
 }
 
 
