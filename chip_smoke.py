@@ -4826,113 +4826,98 @@ def ssd_bwd_variants(torch):
     return 0
 
 
-# ``--flash-bwd-one-build``: csrc/flash_attention_bwd.cu made into one
-# build for every call (its kernels test the modes at run time, template
-# M dropped), timed in turns with the shipped build, which runs a call
-# without a mode in a build without their code
-FLASH_BWD_ONE_BUILD = [
-    ("template <int D, typename T, bool M>\n__device__ __forceinline__ void "
-     "dkdv_consume(", "template <int D, typename T>\n__device__ "
-     "__forceinline__ void dkdv_consume(", 1),
-    ("M ? sh.flags & modes::kProbsBf16 : 0", "sh.flags & modes::kProbsBf16",
-     2),
-    ("if (M && sh.bits != nullptr) {", "if (sh.bits != nullptr) {", 1),
-    ("M && w == 0 && sh.dead != nullptr", "w == 0 && sh.dead != nullptr", 1),
-    ("template <int D, typename T, bool M>\n__global__ void __launch_bounds__"
-     "(kThreads, 1)\n    flash_bwd_dkdv(", "template <int D, typename T>\n"
-     "__global__ void __launch_bounds__(kThreads, 1)\n    flash_bwd_dkdv(",
-     1),
-    ("dkdv_consume<D, T, M>(", "dkdv_consume<D, T>(", 1),
-    ("template <int D, typename T, bool M, bool Delta>\n__device__ "
-     "__forceinline__ void dq_consume(", "template <int D, typename T, bool "
-     "Delta>\n__device__ __forceinline__ void dq_consume(", 1),
-    ("words = M && sh.bits", "words = sh.bits", 1),
-    ("word = M && words ?", "word = words ?", 1),
-    ("template <int D, typename T, bool M, bool Delta>\n__global__ void "
-     "__launch_bounds__(kThreads, 1)\n    flash_bwd_dq(", "template <int D, "
-     "typename T, bool Delta>\n__global__ void __launch_bounds__(kThreads, "
-     "1)\n    flash_bwd_dq(", 1),
-    ("dq_consume<D, T, M, Delta>(", "dq_consume<D, T, Delta>(", 1),
-    ("  const bool m = kv != nullptr || pb;\n", "", 1),
-    ("m ? flash_bwd_dkdv<D, T, true> : flash_bwd_dkdv<D, T, false>",
-     "flash_bwd_dkdv<D, T>", 1),
-    ("m ? flash_bwd_dq<D, T, true, false>\n                : flash_bwd_dq<D, "
-     "T, false, false>", "flash_bwd_dq<D, T, false>", 1),
-    ("flash_bwd_dq<D, T, true, true>", "flash_bwd_dq<D, T, true>", 1),
-]
+# ``--flash-bwd-variants``: csrc/flash_attention_bwd.cu with the products
+# whose operands are both bfloat16 values left out (with bfloat16 inputs:
+# dP = dO_hi V_hi in (b) and (c), and with probs_bf16 dV's dO_hi
+# bf16(P)): a wrong gradient, timed only, whose saving bounds what a
+# native bfloat16 wgmma for them could save (it would still take about
+# half their TF32 time)
+FLASH_BWD_VARIANTS = {
+    "no_bf16_products": [
+        ("(J >= 4 && J < 8 && (Z & kNoBLo))))",
+         "(J >= 4 && J < 8 && (Z & kNoBLo)) || (J >= 8 && (Z & 8))))"),
+        ("    if constexpr (Z & kHiSmem)\n      WgmmaSS<32, k_step(kk, kRes), "
+         "k_step(kk, kStep)>::run(sc, rlo, xhi);\n    else\n      wgmma_rs32",
+         "    if constexpr (Z & 8)\n      ;\n    else if constexpr (Z & "
+         "kHiSmem)\n      WgmmaSS<32, k_step(kk, kRes), k_step(kk, kStep)>::"
+         "run(sc, rlo, xhi);\n    else\n      wgmma_rs32"),
+        ("  static constexpr int kDv = (kDo ? kNoALo : 0) | (kPb ? kNoBLo : 0);",
+         "  static constexpr int kDv = (kDo ? kNoALo : 0) | (kPb ? kNoBLo : 0)"
+         " | (kDo && kPb ? 8 : 0);"),
+        ("  static constexpr int kS1b = (kV ? kNoALo | kHiSmem : 0) | (kDo ? "
+         "kNoBLo : 0);", "  static constexpr int kS1b = (kV ? kNoALo | "
+         "kHiSmem : 0) | (kDo ? kNoBLo : 0) | (kBf ? 8 : 0);"),
+        ("  static constexpr int kS1c = (kDo ? kNoALo : 0) | (kV ? kNoBLo : 0);",
+         "  static constexpr int kS1c = (kDo ? kNoALo : 0) | (kV ? kNoBLo : 0)"
+         " | (kBf ? 8 : 0);")],
+}
 
 
-def flash_bwd_one_build(torch):
-    """K5's backward from one build for every call
-    (``FLASH_BWD_ONE_BUILD``, built beside the shipped one under
-    ``build/``) against the shipped build, whole calls by CUDA events in
-    turns (shipped, one, one, shipped, shipped, one) at yi-6b's and
-    minicpm-2b's training shapes, unmasked, with this script's kv_valid
-    mask and with probs_bf16; the two give the same bits. Prints a JSON
-    line a case."""
+def flash_bwd_variants(torch):
+    """K5's backward at yi-6b's shape with probs_bf16, bfloat16 and float32
+    inputs: the shipped build and each of ``FLASH_BWD_VARIANTS`` (built
+    beside it under ``build/``), whole calls by CUDA events in turns
+    (shipped, variant, variant, shipped), and each pass of the call alone
+    for both. Prints a JSON line a case."""
     import ctypes
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import (PROBS_BF16, _bwd_lib,
+    from repro_torch.kernels.flash_attention import (BWD_PASSES, PROBS_BF16,
+                                                     _bwd_lib,
                                                      bwd_work_floats,
                                                      flash_attention_bhsd)
-    text = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    for old, new, count in FLASH_BWD_ONE_BUILD:
-        if text.count(old) != count:
-            raise AssertionError(f"one build: {old!r} not found {count}x")
-        text = text.replace(old, new)
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    libs = {"shipped": _bwd_lib()}
     (ROOT / "build").mkdir(exist_ok=True)
-    path = ROOT / "build" / "flash_attention_bwd_one_build.cu"
-    path.write_text(text)
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                    f"-I{_build.CSRC}", "-o", str(path.with_suffix(".so")),
-                    str(path)], check=True, capture_output=True)
-    shipped = _bwd_lib()
-    one = ctypes.CDLL(str(path.with_suffix(".so"))).flash_attention_bwd
-    one.argtypes, one.restype = shipped.argtypes, ctypes.c_int
-    for call, bh, s, d, group, batch in (("yi-6b", 128, 2048, 128, 8, 4),
-                                         ("minicpm-2b", 144, 2048, 64, 1,
-                                          4)):
-        q, k, v, do = bwd_lanes(torch, bh, s, s, d, group, 6)
-        for mode in ("unmasked", "kv_valid", "probs_bf16"):
-            kv = kv_mask(torch, batch, s, s) if mode == "kv_valid" else None
-            pb = mode == "probs_bf16"
-            o, lse = flash_attention_bhsd(q, k, v, return_lse=True,
-                                          kv_group=group, kv_valid=kv,
-                                          probs_bf16=pb)
-            kv8 = None if kv is None else kv.to(torch.uint8).contiguous()
-            work = torch.empty(bwd_work_floats(
-                bh, s, s, d, group, 0 if kv is None else batch),
-                device="cuda")
-            grads = {}
+    for name, reps in FLASH_BWD_VARIANTS.items():
+        text = src
+        for old, new in reps:
+            if text.count(old) != 1:
+                raise AssertionError(f"variant {name}: {old!r} not found once")
+            text = text.replace(old, new)
+        path = ROOT / "build" / f"flash_attention_bwd_{name}.cu"
+        path.write_text(text)
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                        f"-I{_build.CSRC}", "-o", str(path.with_suffix(".so")),
+                        str(path)], check=True, capture_output=True)
+        fn = ctypes.CDLL(str(path.with_suffix(".so"))).flash_attention_bwd
+        fn.argtypes, fn.restype = libs["shipped"].argtypes, ctypes.c_int
+        libs[name] = fn
+    _, bh, sq, sk, d, causal, group, _ = FLASH_MODE_SHAPES[-1]
+    lanes = bwd_lanes(torch, bh, sq, sk, d, group, 6)
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do = (t.to(getattr(torch, dtype)) for t in lanes)
+        o, lse = flash_attention_bhsd(q, k, v, return_lse=True,
+                                      kv_group=group, probs_bf16=True)
+        work = torch.empty(bwd_work_floats(bh, sq, sk, d, group),
+                           device="cuda")
+        out = [torch.empty_like(t) for t in (q, k, v)]
 
-            def run(fn, key):
-                out = [torch.empty_like(t) for t in (q, k, v)]
-                code = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse,
-                                                   *out, work)),
-                          None if kv8 is None else kv8.data_ptr(), bh,
-                          group, s, s, d, 0, bh // batch, 1, 0, d ** -0.5,
-                          1, PROBS_BF16 if pb else 0,
-                          torch.cuda.current_stream().cuda_stream)
-                if code:
-                    raise RuntimeError(f"{key}: launch returned {code}")
-                grads[key] = out
-
-            fns = {"shipped": lambda: run(shipped, "shipped"),
-                   "one": lambda: run(one, "one")}
-            t = [time_device(torch, fns[key], False)
-                 for key in ("shipped", "one", "one", "shipped", "shipped",
-                             "one")]
-            same = all(torch.equal(a, b) for a, b in zip(grads["shipped"],
-                                                         grads["one"]))
-            row = dict(call=call, shape=[bh, s, d], mode=mode,
-                       shipped_ms=[t[0], t[3], t[4]],
-                       one_build_ms=[t[1], t[2], t[5]], same_bits=bool(same))
-            print(json.dumps({"flash_bwd_one_build": row}), flush=True)
-            if not same:
-                raise AssertionError(f"{call} {mode}: one build differs")
-            del o, lse, work
-        del q, k, v, do
+        def call(fn, only):
+            code = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, *out,
+                                               work)),
+                      None, bh, group, sq, sk, d,
+                      int(dtype == "bfloat16"), bh, int(causal), 0,
+                      d ** -0.5, 1, PROBS_BF16, only,
+                      torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"flash_attention_bwd variant: {code}")
+        for name in FLASH_BWD_VARIANTS:
+            turns = [time_device(torch, lambda: call(fn, -1), False)
+                     for fn in (libs["shipped"], libs[name], libs[name],
+                                libs["shipped"])]
+            passes = {}
+            for key in ("shipped", name):
+                call(libs[key], -1)
+                passes[key] = {
+                    p_: time_device(torch, lambda: call(libs[key], i), False)
+                    for i, p_ in enumerate(BWD_PASSES)
+                    if p_ not in ("mask", "dead_rows")}
+            print(json.dumps({"flash_bwd_variants": dict(
+                variant=name, dtype=dtype, shape=[bh, sq, sk, d],
+                shipped_ms=[turns[0], turns[3]], variant_ms=turns[1:3],
+                passes_ms=passes)}), flush=True)
+        del q, k, v, do, o, lse, work, out
         torch.cuda.empty_cache()
     return 0
 
@@ -5186,6 +5171,15 @@ FLASH_PB_TOL = 2.0 ** -8
 FLASH_PB_BWD_TOL = 2.0 ** -6
 FLASH_PB_CONTROL = 0.25
 FLASH_MODES = (("kv_valid",), ("probs_bf16",), ("kv_valid", "probs_bf16"))
+# the checks of each shape: (modes, mask, input type), the mask phase 18's
+# right padding (kv_mask) or a left padding (left_pad_mask), bfloat16
+# inputs with probs_bf16 as the reference runs it (--attn-bf16, with
+# param_dtype bfloat16)
+FLASH_MODE_CASES = (
+    (("kv_valid",), "right", "float32"), (("kv_valid",), "left", "float32"),
+    (("probs_bf16",), None, "float32"), (("probs_bf16",), None, "bfloat16"),
+    (("kv_valid", "probs_bf16"), "right", "float32"),
+    (("kv_valid", "probs_bf16"), "left", "bfloat16"))
 
 
 def kv_mask(torch, batch, sk, seed):
@@ -5200,6 +5194,31 @@ def kv_mask(torch, batch, sk, seed):
     kv[0, 2::3] = False
     kv[-1] = False
     return kv.cuda()
+
+
+def left_pad_mask(torch, batch, sk, seed):
+    """A (batch, Sk) key mask as batched prompts padded on the left leave
+    it: each row's first 0-511 keys dead (at least one key live)."""
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    kv = torch.ones((batch, sk), dtype=torch.bool)
+    for b in range(batch):
+        kv[b, :int(torch.randint(0, min(512, sk - 1), (1,), generator=g))] = (
+            False)
+    return kv.cuda()
+
+
+def case_mask(torch, kind, batch, sk, seed):
+    """The mask of a check or timing case: None, ``right`` (:func:`kv_mask`)
+    or ``left`` (:func:`left_pad_mask`)."""
+    if kind is None:
+        return None
+    return (kv_mask if kind == "right" else left_pad_mask)(torch, batch, sk,
+                                                           seed)
+
+
+def case_tag(modes, kind, dtype):
+    return "+".join(modes) + (f", {kind} padding" if kind else "") + (
+        f", {dtype}" if dtype != "float32" else "")
 
 
 def mode_kw(modes, kv):
@@ -5217,24 +5236,28 @@ def pb_control(got, want, float32):
 
 def check_flash_modes(torch):
     """K5 and its backward in the kv_valid and probs_bf16 modes and both,
-    against their plain versions at ``FLASH_MODE_SHAPES``: o, lse (+inf on
-    exactly the rows with no live key), the same bits with the masked
-    tiles run, and dq, dk, dv on the kernel's o and lse; with probs_bf16
-    the control (FLASH_PB_CONTROL) on o and each gradient. Returns the
-    largest |d| by kernel and mode (the modes of one check joined by +)
-    and the largest control ratios by kernel."""
+    against their plain versions at ``FLASH_MODE_SHAPES`` in each of
+    ``FLASH_MODE_CASES``: o, lse (+inf on exactly the rows with no live
+    key), the same bits with the masked tiles run (the backward's skips of
+    dead rows, keys and words included), and dq, dk, dv on the kernel's o
+    and lse; with probs_bf16 the control (FLASH_PB_CONTROL) on o and each
+    gradient. Returns the largest |d| by kernel and mode (the modes of one
+    check joined by +; and by kernel, mode, mask and input type) and the
+    largest control ratios by kernel."""
     from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                      flash_attention_bwd)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_ref, flash_lse_ref)
     err, ratios = {}, {}
     for call, bh, sq, sk, d, causal, group, batch in FLASH_MODE_SHAPES:
-        q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, sq + sk + d)
-        kv = kv_mask(torch, batch, sk, sk)
-        for modes in FLASH_MODES:
+        lanes = bwd_lanes(torch, bh, sq, sk, d, group, sq + sk + d)
+        for modes, kind, dtype in FLASH_MODE_CASES:
+            q, k, v, do = (t.to(getattr(torch, dtype)) for t in lanes)
+            kv = case_mask(torch, kind, batch, sk, sk)
+            bf16 = dtype == "bfloat16"
             kw = dict(causal=causal, kv_group=group, **mode_kw(modes, kv))
             tag = (f"{call} {(bh, sq, sk, d)} kv_group={group} "
-                   f"{'+'.join(modes)}")
+                   f"{case_tag(modes, kind, dtype)}")
             o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
             every = flash_attention_bhsd(q, k, v, skip_tiles=False, **kw)
             want = flash_attention_ref(q, k, v, **kw)
@@ -5243,8 +5266,8 @@ def check_flash_modes(torch):
             want_lse = flash_lse_ref(q, k, **kw_lse)
             torch.cuda.synchronize()
             pb = "probs_bf16" in modes
-            tol = FLASH_TOL[False] + (FLASH_PB_TOL * float(v.abs().max())
-                                      if pb else 0.0)
+            tol = FLASH_TOL[bf16] + (FLASH_PB_TOL * float(v.abs().max())
+                                     if pb else 0.0)
             e = compare(torch, f"flash_attention_bhsd {tag}", o, want, 0.0,
                         tol)
             ctl = []
@@ -5269,8 +5292,8 @@ def check_flash_modes(torch):
             torch.cuda.synchronize()
             rels = []
             for name, g_, w_ in zip(("dq", "dk", "dv"), got, gwant):
-                rels.append(float((g_ - w_).abs().max())
-                            / float(w_.abs().max()))
+                rels.append(float((g_ - w_).float().abs().max())
+                            / float(w_.float().abs().max()))
                 limit = FLASH_PB_BWD_TOL if pb else FLASH_BWD_TOL
                 if not (torch.isfinite(g_).all() and rels[-1] <= limit):
                     raise AssertionError(f"{tag}: {name} off its plain "
@@ -5278,7 +5301,7 @@ def check_flash_modes(torch):
                                          f"max |plain| (limit {limit:.3g})")
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{tag}: the backward with the masked "
-                                     "tiles run changed the result")
+                                     "steps run changed the result")
             if pb:
                 f32 = flash_attention_bwd_ref(q, k, v, o, do, lse=lse,
                                               **dict(kw, probs_bf16=False))
@@ -5296,22 +5319,23 @@ def check_flash_modes(torch):
                                    (ctl[0], max(ctl[1:]))):
                     ratios[name] = max(ratios.get(name, 0.0), c)
             key = "+".join(modes)
-            err[("flash_attention_bhsd", key)] = max(
-                err.get(("flash_attention_bhsd", key), 0.0), e)
-            err[("flash_attention_bwd", key)] = max(
-                err.get(("flash_attention_bwd", key), 0.0),
-                max(float((g_ - w_).abs().max())
-                    for g_, w_ in zip(got, gwant)))
+            errs = {"flash_attention_bhsd": e,
+                    "flash_attention_bwd": max(
+                        float((g_ - w_).float().abs().max())
+                        for g_, w_ in zip(got, gwant))}
+            for name, x in errs.items():
+                for k_ in ((name, key), (name, key, kind, dtype)):
+                    err[k_] = max(err.get(k_, 0.0), x)
             print(f"{tag}: K5 agrees with its plain version (max |d| {e:.3g}"
                   f", tolerance {tol:.3g}; {int(dead.sum())} rows with no "
                   f"live key, lse +inf there); its backward too (dq, dk, dv "
                   f"max |d| / max |plain| {', '.join(f'{r:.3g}' for r in rels)}"
-                  "); the masked tiles run give the same bits"
+                  "); the masked tiles and steps run give the same bits"
                   + (f"; |kernel - plain| / |float32 - plain| (o, dq, dk, dv)"
                      f" {', '.join(f'{c:.3g}' for c in ctl)}" if pb else ""),
                   flush=True)
-            del o, lse, every, want, want_lse, got, again, gwant
-        del q, k, v, do
+            del o, lse, every, want, want_lse, got, again, gwant, q, k, v, do
+        del lanes
         torch.cuda.empty_cache()
     return err, ratios
 
@@ -5328,27 +5352,39 @@ def flash_mode_bound(bh, sq, sk, d, live, itemsize, kv_group, batch, modes,
                      backward):
     """The least time of K5 (or its backward) in ``modes`` on this run's
     inputs: ``live`` pairs (the mask's), bytes as flash_bound (plus the
-    mask's), and the products: q . k (and in the backward dS K, dS^T q,
-    dO V^T) in 3xTF32, p v (P^T dO) in 3xTF32 or, with probs_bf16, one
-    bfloat16 product at the bfloat16 rate."""
+    mask's), and the products, 2 D operations a live pair each: q . k and
+    p v (in the backward q . k, dO V^T, P^T dO, dS K and dS^T q). Each
+    product runs as few TF32 products as its operands' lo parts need (1 +
+    one per operand with a lo part, of hi = tf32(x), lo = tf32(x - hi)),
+    or as one bfloat16 product at the bfloat16 rate where both operands
+    are bfloat16 values: q scale, dS and a float32 input or P have a lo
+    part; a bfloat16 input, bf16(v) and bf16(p) (probs_bf16) none."""
     pb = "probs_bf16" in modes
+    bf16_in = itemsize == 2
+    lo = dict(q=True, k=not bf16_in, v=not (bf16_in or pb),
+              do=not bf16_in, p=not pb, ds=True)
+    pairs = ([("q", "k"), ("do", "v"), ("p", "do"), ("ds", "k"),
+              ("ds", "q")] if backward else [("q", "k"), ("p", "v")])
+    tf32_products = sum(1 + lo[a] + lo[b] for a, b in pairs
+                        if lo[a] or lo[b])
+    bf16_products = sum(1 for a, b in pairs if not (lo[a] or lo[b]))
     n_bytes = itemsize * d * ((4 if backward else 2) * bh * sq
                               + (4 if backward else 2) * (bh // kv_group)
                               * sk)
     if "kv_valid" in modes:
         n_bytes += batch * sk
-    f32_products = live * 2 * d * (4 if backward else 1)
-    pv = live * 2 * d
     elementwise = live * (4 if backward else 3) + (0 if backward
                                                    else 2 * bh * sq * d)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_tc = (3 * f32_products / TF32_OPS_PER_S
-            + (pv / BF16_OPS_PER_S if pb else 3 * pv / TF32_OPS_PER_S)) * 1e3
+    t_tc = live * 2 * d * (tf32_products / TF32_OPS_PER_S
+                           + bf16_products / BF16_OPS_PER_S) * 1e3
     t_cuda = elementwise / F32_OPS_PER_S * 1e3
     t = max(t_bytes, t_tc, t_cuda)
     return dict(bound_ms=t, bound_by="bytes" if t == t_bytes
                 else "operations", bytes=n_bytes,
-                flops=f32_products + pv + elementwise, live_pairs=live)
+                flops=live * 2 * d * len(pairs) + elementwise,
+                live_pairs=live, tf32_products=tf32_products,
+                bf16_products=bf16_products)
 
 
 def flash_pass_ms(torch, fn, calls=10):
@@ -5374,14 +5410,14 @@ def flash_pass_ms(torch, fn, calls=10):
 
 
 def flash_mode_kernels(torch):
-    """:func:`flash_pass_ms` of K5 and its backward at yi-6b's forward
-    shape on :func:`time_flash_modes`'s inputs: unmasked, with this run's
-    kv_valid mask, with probs_bf16, and with a mask that leaves every key
-    live; {variant: {"fwd": .., "bwd": ..}}."""
-    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
-                                                     flash_attention_bwd)
+    """:func:`flash_pass_ms` of K5 at yi-6b's forward shape on
+    :func:`time_flash_modes`'s inputs: unmasked, with this run's kv_valid
+    mask, with probs_bf16, and with a mask that leaves every key live;
+    {variant: ms by kernel} (the backward's passes are timed alone by
+    CUDA events, :func:`bwd_pass_ms`)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
     _, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
-    q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, 6)
+    q, k, v, _ = bwd_lanes(torch, bh, sq, sk, d, group, 6)
     live = torch.ones((batch, sk), dtype=torch.bool, device="cuda")
     out = {}
     for name, kw in (("unmasked", {}),
@@ -5390,13 +5426,25 @@ def flash_mode_kernels(torch):
                      ("probs_bf16", dict(probs_bf16=True)),
                      ("all_live", dict(kv_valid=live))):
         kw = dict(kw, causal=causal, kv_group=group)
-        o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
-        out[name] = dict(
-            fwd=flash_pass_ms(torch, lambda: flash_attention_bhsd(
-                q, k, v, **kw)),
-            bwd=flash_pass_ms(torch, lambda: flash_attention_bwd(
-                q, k, v, o, do, lse=lse, **kw)))
+        out[name] = flash_pass_ms(torch, lambda: flash_attention_bhsd(
+            q, k, v, **kw))
     return out
+
+
+def bwd_pass_ms(torch, q, k, v, o, do, lse, **kw):
+    """Device ms of each pass of K5's backward (``BWD_PASSES``; the mask's
+    two only with kv_valid), each launched alone by CUDA events on the
+    scratch of a whole call (``flash_attention_bwd_passes``)."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_PASSES, flash_attention_bwd_passes)
+    launch = flash_attention_bwd_passes(q, k, v, o, do, lse=lse, **kw)
+    passes = {}
+    for i, name in enumerate(BWD_PASSES):
+        if kw.get("kv_valid") is None and name in ("mask", "dead_rows"):
+            continue
+        launch(-1)
+        passes[name] = time_device(torch, lambda: launch(i), False)
+    return passes
 
 
 def fresh_flash_mode_kernels():
@@ -5418,8 +5466,9 @@ def mask_build_probe(torch, q, k, v, do, group, batch, split):
     same function; K5 and its backward run their kv_valid builds there,
     template M, where the unmasked call runs build 0), timed in turns
     (unmasked, all-live, all-live, unmasked), each one's device kernels
-    from ``split`` (:func:`fresh_flash_mode_kernels`), and whether the two
-    give the same bits."""
+    (K5's from ``split``, :func:`fresh_flash_mode_kernels`; the backward's
+    passes alone, :func:`bwd_pass_ms`), and whether the two give the same
+    bits."""
     from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                      flash_attention_bwd)
     live = torch.ones((batch, k.shape[1]), dtype=torch.bool, device="cuda")
@@ -5441,10 +5490,15 @@ def mask_build_probe(torch, q, k, v, do, group, batch, split):
         a, b = plain_fn(), live_fn()
         same = (torch.equal(a, b) if name == "fwd"
                 else all(torch.equal(x, y) for x, y in zip(a, b)))
+        if name == "fwd":
+            kernels = split["unmasked"], split["all_live"]
+        else:
+            kernels = (bwd_pass_ms(torch, q, k, v, o, do, lse, **kw),
+                       bwd_pass_ms(torch, q, k, v, o, do, lse, kv_valid=live,
+                                   **kw))
         out[name] = dict(unmasked_ms=[u1, u2], all_live_ms=[a1, a2],
-                         same_bits=bool(same),
-                         kernels_unmasked=split["unmasked"][name],
-                         kernels_all_live=split["all_live"][name])
+                         same_bits=bool(same), kernels_unmasked=kernels[0],
+                         kernels_all_live=kernels[1])
         print(f"K5{' backward' if name == 'bwd' else ''} unmasked against "
               f"an all-live kv_valid mask, in turns: "
               f"{u1:.4f} / {a1:.4f} / {a2:.4f} / {u2:.4f} ms, same bits "
@@ -5454,94 +5508,271 @@ def mask_build_probe(torch, q, k, v, do, group, batch, split):
     return out
 
 
-def time_flash_modes(torch):
-    """K5 and its backward in each mode at yi-6b's forward shape, beside
-    their plain versions, their bounds on this run's mask and, for
-    kv_valid, the library's call on the same inputs:
-    ``scaled_dot_product_attention`` with the band and the mask as its
-    boolean mask (KV expanded outside the timing, memory-efficient
-    backend; for the backward ``torch.autograd.grad`` through it), on the
-    mask with its no-live-key row made live (SDPA gives NaN on such a
-    row). probs_bf16 has no single library call (SDPA has no bfloat16
-    rounding of p alone). Each row also splits the call into its device
-    kernels (:func:`fresh_flash_mode_kernels`). Returns {(kernel, mode):
-    row} and :func:`mask_build_probe`'s record."""
+# The K5 backward of commit f6a42b7 (a delta pass, products on zero lo
+# parts, no mask skip) with a gate on each launch, so that a pass runs
+# alone (``set_only``; -1 for the whole call): its source, with that
+# commit's attention_modes.cuh and hopper.cuh beside it, in
+# build/bwd_f6a42b7/, put there by hand (git show f6a42b7:<csrc file>)
+EARLIER_BWD_SPLIT = (
+    ("using namespace hopper;\n", "using namespace hopper;\n\nint g_only = -1;"
+     "  // the pass launched alone, -1 for all\n"),
+    ("    err = modes::launch_pack(kv, s.bits, bh / hq, sk, stream);",
+     "    err = g_only < 0 || g_only == 0\n"
+     "              ? modes::launch_pack(kv, s.bits, bh / hq, sk, stream)\n"
+     "              : cudaSuccess;"),
+    ("    flash_bwd_dead_rows<T><<<",
+     "    if (g_only < 0 || g_only == 1) flash_bwd_dead_rows<T><<<"),
+    ("  flash_bwd_prepare<D, T><<<",
+     "  if (g_only < 0 || g_only == 2) flash_bwd_prepare<D, T><<<"),
+    ("  dkdv<<<", "  if (g_only < 0 || g_only == 3) dkdv<<<"),
+    ("  dqk<<<", "  if (g_only < 0 || g_only == 4) dqk<<<"),
+    ("    dd<<<", "    if (g_only < 0 || g_only == 5) dd<<<"))
+EARLIER_BWD_PASSES = ("mask", "dead_rows", "prepare", "dkdv", "dq", "delta")
+
+
+def earlier_flash_bwd(torch):
+    """The earlier K5 backward (``EARLIER_BWD_SPLIT``) as ``make(q, k, v,
+    o, do, lse, kv, probs_bf16, causal, group)`` returning
+    ``launch(only)``, which runs the whole call (-1) or pass ``only`` of
+    ``EARLIER_BWD_PASSES`` alone into outputs of its own and returns them;
+    None when build/bwd_f6a42b7/ holds no source."""
+    import ctypes
+
+    from repro_torch.kernels.flash_attention import (PROBS_BF16,
+                                                     bwd_work_floats)
+    src = ROOT / "build" / "bwd_f6a42b7" / "flash_attention_bwd.cu"
+    if not src.is_file():
+        return None
+    text = src.read_text()
+    for old, new in EARLIER_BWD_SPLIT:
+        if text.count(old) != 1:
+            raise AssertionError(f"f6a42b7 split: {old!r} not found once")
+        text = text.replace(old, new)
+    text += 'extern "C" void set_only(int only) { g_only = only; }\n'
+    src.with_name("flash_attention_bwd_split.cu").write_text(text)
+    lib = earlier_kernel("bwd_f6a42b7/flash_attention_bwd_split")
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.set_only.argtypes = [ctypes.c_int]
+
+    def make(q, k, v, o, do, lse, kv, pb, causal, group):
+        bh, sq, d = q.shape
+        sk = k.shape[1]
+        out = [torch.empty_like(t) for t in (q, k, v)]
+        kv8 = None if kv is None else kv.to(torch.uint8).contiguous()
+        work = torch.empty(bwd_work_floats(
+            bh, sq, sk, d, group, 0 if kv is None else kv.shape[0]),
+            device="cuda")
+
+        def launch(only):
+            lib.set_only(only)
+            code = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, *out,
+                                               work)),
+                      None if kv8 is None else kv8.data_ptr(), bh, group, sq,
+                      sk, d, int(q.dtype == torch.bfloat16),
+                      bh // (1 if kv8 is None else kv8.shape[0]),
+                      int(causal), 0, d ** -0.5, 1,
+                      PROBS_BF16 if pb else 0,
+                      torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"f6a42b7 flash_attention_bwd: {code}")
+            return out
+        return launch
+    return make
+
+
+# K5's backward timed at yi-6b's shape in phase 18: (label, modes, mask,
+# input type); the unmasked call (the build without the modes) stands
+# beside the earlier design's to show that build unchanged
+FLASH_BWD_MODE_TIMES = (
+    ("unmasked", (), None, "float32"),
+    ("kv_valid", ("kv_valid",), "right", "float32"),
+    ("kv_valid, left padding", ("kv_valid",), "left", "float32"),
+    ("probs_bf16", ("probs_bf16",), None, "float32"),
+    ("probs_bf16, bfloat16", ("probs_bf16",), None, "bfloat16"))
+
+
+def sdpa_mask_calls(torch, q, k, v, do, kv, group, batch):
+    """``scaled_dot_product_attention`` with the causal band and ``kv`` as
+    its boolean mask (KV expanded outside the timing, memory-efficient
+    backend), as (forward, backward) device ms; a batch row with no live
+    key is made live (SDPA gives NaN on it), rows that see no live key
+    (left padding) stay (their NaN costs no time)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    from repro_torch.kernels.ref import flash_mask
+    bh, sq, d = q.shape
+    live_kv = kv.clone()
+    for b in range(batch):
+        if not bool(live_kv[b].any()):
+            live_kv[b] = kv[0]
+    mask = (flash_mask(sq, k.shape[1], True, None, "cuda")[None, None]
+            & live_kv[:, None, None, :])
+    ql, kl, vl = (t.view(batch, -1, t.shape[1], d).detach().requires_grad_()
+                  for t in (q, k.repeat_interleave(group, 0),
+                            v.repeat_interleave(group, 0)))
+
+    def library():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask)
+
+    with torch.no_grad():
+        fwd = time_device(torch, library, False)
+    with torch.enable_grad():
+        out = library()
+    dol = do.view(out.shape)
+    bwd = time_device(torch, lambda: torch.autograd.grad(
+        out, (ql, kl, vl), dol, retain_graph=True), False)
+    return fwd, bwd
+
+
+def time_flash_bwd_modes(torch, lanes):
+    """K5's backward at yi-6b's shape in each of ``FLASH_BWD_MODE_TIMES``
+    on ``lanes`` (q, k, v, dO float32, cast for a bfloat16 case): device
+    ms by CUDA events; each pass launched alone by CUDA events on the
+    scratch of a whole call (``flash_attention_bwd_passes``), their sum
+    beside the call's; its plain version's ms; the bound on this run's
+    mask (:func:`flash_mode_bound`); with kv_valid autograd through SDPA
+    (:func:`sdpa_mask_calls`); and where build/bwd_f6a42b7/ holds the
+    earlier design (:func:`earlier_flash_bwd`), that design in turns
+    (earlier, this, this, earlier), its passes alone, and each gradient's largest difference from
+    this one over its largest |entry| (and whether the bits are equal).
+    Returns {label: row}."""
     from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                      flash_attention_bwd)
-    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
-                                         flash_attention_ref, flash_mask)
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_mask
+    _, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
+    old = earlier_flash_bwd(torch)
+    rows = {}
+    for label, modes, kind, dtype in FLASH_BWD_MODE_TIMES:
+        q, k, v, do = (t.to(getattr(torch, dtype)) for t in lanes)
+        kv = case_mask(torch, kind, batch, sk, sk)
+        kw = dict(causal=causal, kv_group=group, **mode_kw(modes, kv))
+        counts = read_counts()
+        with torch.no_grad():
+            o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+
+        def kernel():
+            return flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+
+        passes = bwd_pass_ms(torch, q, k, v, o, do, lse, **kw)
+        live = (mode_live_pairs(torch, sq, sk, causal, kv, bh // batch)
+                if kv is not None else
+                bh * int(flash_mask(sq, sk, causal, None, "cpu").sum()))
+        row = dict(label=label, modes=list(modes), mask=kind, dtype=dtype,
+                   shape=[bh, sq, sk, d], kv_group=group,
+                   ms=time_device(torch, kernel, False), passes_ms=passes,
+                   passes_sum_ms=sum(passes.values()),
+                   plain_ms=time_device(torch, lambda: flash_attention_bwd_ref(
+                       q, k, v, o, do, lse=lse, **kw), False, iters=3),
+                   library_ms=None,
+                   **flash_mode_bound(bh, sq, sk, d, live, q.element_size(),
+                                      group, batch, modes, True))
+        if kv is not None:
+            row["library_fwd_ms"], row["library_ms"] = sdpa_mask_calls(
+                torch, q, k, v, do, kv, group, batch)
+        if old is not None:
+            run = old(q, k, v, o, do, lse, kv, "probs_bf16" in modes, causal,
+                      group)
+            new = kernel()
+            was = [t.clone() for t in run(-1)]
+            turns = [time_device(torch, lambda: run(-1), False),
+                     time_device(torch, kernel, False),
+                     time_device(torch, kernel, False),
+                     time_device(torch, lambda: run(-1), False)]
+            old_passes = {}
+            for i, name in enumerate(EARLIER_BWD_PASSES):
+                if ((kv is None and name in ("mask", "dead_rows"))
+                        or (name == "delta" and "probs_bf16" not in modes)):
+                    continue
+                run(-1)
+                old_passes[name] = time_device(torch, lambda: run(i), False)
+            row["earlier"] = dict(
+                ms=[turns[0], turns[3]], new_ms=turns[1:3],
+                passes_ms=old_passes,
+                max_rel_diff=[float((a - b).float().abs().max())
+                              / float(b.float().abs().max())
+                              for a, b in zip(new, was)],
+                same_bits=[bool(torch.equal(a, b)) for a, b in zip(new, was)])
+            del run, new, was
+        set_counts(counts)
+        print(f"flash_attention_bwd ({label}) at {row['shape']} ("
+              f"{row['live_pairs']} live pairs): {row['ms']:.4f} ms device ("
+              + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in passes.items())
+              + f" ms, each pass alone by CUDA events, sum "
+              f"{row['passes_sum_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
+              f"library {row['library_ms']} ms, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}; {row['tf32_products']} TF32 + "
+              f"{row['bf16_products']} bfloat16 products a live pair)"
+              + (f"; the earlier design {row['earlier']['ms']} ms against "
+                 f"{row['earlier']['new_ms']} in turns, its passes "
+                 f"{row['earlier']['passes_ms']}, gradients' max |d| / max "
+                 f"| | {row['earlier']['max_rel_diff']}, same bits "
+                 f"{row['earlier']['same_bits']}" if "earlier" in row
+                 else ""),
+              flush=True)
+        rows[label] = row
+        del o, lse, q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_flash_modes(torch):
+    """K5 in each mode at yi-6b's forward shape, beside its plain version,
+    its bound on this run's mask and, for kv_valid, the library's call on
+    the same inputs (:func:`sdpa_mask_calls`); probs_bf16 has no single
+    library call (SDPA has no bfloat16 rounding of p alone). Each forward
+    row also splits the call into its device kernels
+    (:func:`fresh_flash_mode_kernels`); the backward's rows are
+    :func:`time_flash_bwd_modes`'. Returns {(kernel, label): row}, each
+    row with its ``mode``, the backward's unmasked row and
+    :func:`mask_build_probe`'s record."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.ref import flash_attention_ref, flash_mask
     call, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
     q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, 6)
     kv = kv_mask(torch, batch, sk, sk)
-    heads = bh // batch
     torch.cuda.empty_cache()  # room on the card for the split's process
     split = fresh_flash_mode_kernels()
     rows = {}
     for modes in FLASH_MODES[:2]:
         mode = modes[0]
         kw = dict(causal=causal, kv_group=group, **mode_kw(modes, kv))
-        with torch.no_grad():
-            o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
-        live = (mode_live_pairs(torch, sq, sk, causal, kv, heads)
+        live = (mode_live_pairs(torch, sq, sk, causal, kv, bh // batch)
                 if mode == "kv_valid" else
                 bh * int(flash_mask(sq, sk, causal, None, "cpu").sum()))
-        fwd = dict(ms=time_device(torch, lambda: flash_attention_bhsd(
+        fwd = dict(mode=mode, ms=time_device(torch, lambda: flash_attention_bhsd(
                        q, k, v, **kw), False),
-                   kernels=split[mode]["fwd"],
+                   kernels=split[mode],
                    plain_ms=time_device(torch, lambda: flash_attention_ref(
                        q, k, v, **kw), False, iters=3),
                    library_ms=None,
                    **flash_mode_bound(bh, sq, sk, d, live, 4, group, batch,
                                       modes, False))
-        bwd = dict(ms=time_device(torch, lambda: flash_attention_bwd(
-                       q, k, v, o, do, lse=lse, **kw), False),
-                   kernels=split[mode]["bwd"],
-                   plain_ms=time_device(torch, lambda: flash_attention_bwd_ref(
-                       q, k, v, o, do, lse=lse, **kw), False, iters=3),
-                   library_ms=None,
-                   **flash_mode_bound(bh, sq, sk, d, live, 4, group, batch,
-                                      modes, True))
         if mode == "kv_valid":
-            live_kv = kv.clone()
-            live_kv[-1] = kv[0]
-            mask = (flash_mask(sq, sk, causal, None, "cuda")[None, None]
-                    & live_kv[:, None, None, :])
-            ql, kl, vl = (t.view(batch, -1, t.shape[1], d).detach()
-                          .requires_grad_() for t in (
-                              q, k.repeat_interleave(group, 0),
-                              v.repeat_interleave(group, 0)))
-
-            def library():
-                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                    return torch.nn.functional.scaled_dot_product_attention(
-                        ql, kl, vl, attn_mask=mask)
-
-            with torch.no_grad():
-                fwd["library_ms"] = time_device(torch, library, False)
-            with torch.enable_grad():
-                out = library()
-            dol = do.view(out.shape)
-            bwd["library_ms"] = time_device(torch, lambda: torch.autograd.grad(
-                out, (ql, kl, vl), dol, retain_graph=True), False)
-            del ql, kl, vl, out, mask
+            fwd["library_ms"] = sdpa_mask_calls(torch, q, k, v, do, kv,
+                                                group, batch)[0]
         rows[("flash_attention_bhsd", mode)] = fwd
-        rows[("flash_attention_bwd", mode)] = bwd
-        for name in ("flash_attention_bhsd", "flash_attention_bwd"):
-            r = rows[(name, mode)]
-            print(f"{name} ({mode}) at {[bh, sq, sk, d]} ({call}, "
-                  f"{r['live_pairs']} live pairs): {r['ms']:.3f} ms device, "
-                  f"plain {r['plain_ms']:.3f} ms, library "
-                  f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}"
-                  f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-                  f"kernels {r['kernels']}", flush=True)
-        del o, lse
+        print(f"flash_attention_bhsd ({mode}) at {[bh, sq, sk, d]} ({call}, "
+              f"{fwd['live_pairs']} live pairs): {fwd['ms']:.3f} ms device, "
+              f"plain {fwd['plain_ms']:.3f} ms, library "
+              f"{fwd['library_ms'] if fwd['library_ms'] is None else round(fwd['library_ms'], 3)}"
+              f" ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); "
+              f"kernels {fwd['kernels']}", flush=True)
         torch.cuda.empty_cache()
+    bwd = time_flash_bwd_modes(torch, (q, k, v, do))
+    for label, row in bwd.items():
+        if row["modes"]:
+            rows[("flash_attention_bwd", label)] = dict(row,
+                                                        mode=row["modes"][0])
     build = mask_build_probe(torch, q, k, v, do, group, batch, split)
     del q, k, v, do
     torch.cuda.empty_cache()
-    return rows, build
+    return rows, bwd["unmasked"], build
 
 
 # yi-6b's first 4 of 32 layers and mamba2-130m whole, at batch 4 x 2048,
@@ -5831,11 +6062,12 @@ def launch_path(torch):
     t0 = time.perf_counter()
     tally_agrees()
     err, ratios = check_flash_modes(torch)
-    rows, build = time_flash_modes(torch)
+    rows, unmasked, build = time_flash_modes(torch)
     torch.cuda.empty_cache()
     reset_counts()
     reset_mode_counts()
-    summary = {"probs_bf16_control": ratios, "mask_build_probe": build}
+    summary = {"probs_bf16_control": ratios, "mask_build_probe": build,
+               "flash_attention_bwd (unmasked)": unmasked}
     for arch, layers in REMAT_RUNS:
         cfg, model, batch, out = remat_pair(torch, arch, layers)
         summary[arch] = out
@@ -5886,9 +6118,9 @@ def main() -> int:
     if "--ssd-bwd-variants" in sys.argv[1:]:
         print(card_line(), flush=True)
         return ssd_bwd_variants(torch)
-    if "--flash-bwd-one-build" in sys.argv[1:]:
+    if "--flash-bwd-variants" in sys.argv[1:]:
         print(card_line(), flush=True)
-        return flash_bwd_one_build(torch)
+        return flash_bwd_variants(torch)
     from repro_torch.configs.cifar10_cnn import CONFIG
     from repro_torch.fl.decision import decision_coeffs
     from repro_torch.kernels import _build
@@ -6067,25 +6299,31 @@ def main() -> int:
         "launches_per_train_step": {
             arch: ssd_train[arch]["mamba_layers"] for arch, *_ in SSD_TRAIN},
         "max_abs_err": err["ssd_scan_bwd"], **ssd_bwd_time})
-    for (name, mode), row in mode_rows.items():
+    for (name, label), row in mode_rows.items():
+        mode = row["mode"]
         if not modes18[(name, mode)]:
             raise AssertionError(f"{name} ({mode}) was not launched on "
                                  "phase 18's path")
+        # a row of another mask or input type than the mode's first: that
+        # case's error
+        case = (name, mode, row.get("mask"), row.get("dtype"))
         rows.append({
-            "name": f"{name} ({mode})", "route": "cuda",
+            "name": f"{name} ({label})", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + (
                 "flash_attention.cu" if name == "flash_attention_bhsd"
                 else "flash_attention_bwd.cu"),
             "replaces": "src/repro/kernels/flash_attention.py:73",
             "mode": mode, "launches": modes18[(name, mode)],
-            "max_abs_err": mode_err[(name, mode)],
+            "max_abs_err": mode_err[case if label != mode else (name, mode)],
             "max_abs_err_kv_valid+probs_bf16": mode_err[
                 (name, "kv_valid+probs_bf16")],
             **({"control_ratio": launch_summary["probs_bf16_control"][name]}
                if mode == "probs_bf16" else {}),
             "shape": list(FLASH_MODE_SHAPES[-1][1:5]),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "live_pairs")}})
+                                   "library_ms", "live_pairs")},
+            **{k: row[k] for k in ("passes_ms", "earlier", "dtype", "mask")
+               if k in row}})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
     print(json.dumps({"telemetry": telemetry}), flush=True)

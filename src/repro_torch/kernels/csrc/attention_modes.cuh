@@ -11,12 +11,15 @@
 //   mean of v over all Sk keys (kv_mean) and lse = +inf, and the backward,
 //   where exp(s - lse) is then 0 on the whole row, adds the row's do / Sk
 //   to dv at every key (dead_rows) and nothing else, as jax.vjp gives.
+//   The backward also reads each batch row's first and last live key
+//   (kv_bounds, from the packed words), so that its blocks skip the rows
+//   and keys that the mask leaves dead, not only those the band does.
 // probs_bf16 (attn_probs_bf16): the normalised probabilities P and V
 //   rounded to bfloat16, their product summed in float32. A bfloat16 value
 //   is exact in TF32, so the kernels keep their TF32 wgmma path with the
 //   rounded value as the hi part: the forward's P.V is the one product
-//   P_hi V_hi; the backward keeps its three-product shape with zero lo
-//   parts, whose products add exact zeros.
+//   P_hi V_hi; the backward drops every product of a zero lo part (V's,
+//   bf16(P)'s in dV, and K's and dO's where the inputs are bfloat16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,11 +60,50 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) bits[(int64_t)b * nw + w] = word;
 }
 
+// Block b: bounds[2 b] and bounds[2 b + 1], the first and the last live
+// key of batch b in the packed words (Sk and -1 where none is live); each
+// thread's words, then the warps', then the block's, no atomics.
+__global__ void __launch_bounds__(256)
+    kv_bounds(const uint32_t* __restrict__ bits, int* __restrict__ bounds,
+              int sk, int nw) {
+  __shared__ int part[2][8];
+  const int b = blockIdx.x, lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int first = sk, last = -1;
+  for (int w = threadIdx.x; w < nw; w += 256) {
+    const uint32_t word = bits[(int64_t)b * nw + w];
+    if (word != 0u) {
+      first = min(first, kWordKeys * w + __ffs(word) - 1);
+      last = max(last, kWordKeys * w + 31 - __clz(word));
+    }
+  }
+  for (int off = 16; off; off >>= 1) {
+    first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
+    last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  }
+  if (lane == 0) {
+    part[0][warp] = first;
+    part[1][warp] = last;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < 8; ++i) {
+      first = min(first, part[0][i]);
+      last = max(last, part[1][i]);
+    }
+    bounds[2 * b] = first;
+    bounds[2 * b + 1] = last;
+  }
+}
+
+// The packing, and with ``bounds`` (the backward) kv_bounds after it.
 inline cudaError_t launch_pack(const uint8_t* kv, uint32_t* bits, int batch,
-                               int sk, cudaStream_t stream) {
+                               int sk, cudaStream_t stream,
+                               int* bounds = nullptr) {
   const int nw = mask_words(sk);
   pack_kv_bits<<<dim3((nw + 7) / 8, batch), 256, 0, stream>>>(kv, bits, sk,
                                                              nw);
+  if (bounds != nullptr)
+    kv_bounds<<<batch, 256, 0, stream>>>(bits, bounds, sk, nw);
   return cudaGetLastError();
 }
 

@@ -15,8 +15,8 @@ log-sum-exp (BH, Sq), the statistics of the backward.
 
 ``flash_attention_bwd`` is its gradient: ``csrc/flash_attention_bwd.cu``
 (3xTF32 ``wgmma`` fed by TMA, three device kernels: a prepare pass, dK /
-dV, dQ; a port of its own, the TPU kernel has no backward) for CUDA
-tensors, :func:`repro_torch.kernels.ref.flash_attention_bwd_ref` for CPU
+dV, dQ; a port of its own, the TPU kernel has no backward; which steps
+its blocks run is :func:`bwd_work_plan`) for CUDA tensors, :func:`repro_torch.kernels.ref.flash_attention_bwd_ref` for CPU
 tensors. It takes the forward's lse; without one it runs K5 once more
 for it. :class:`FlashAttention` ties the two together
 (:class:`FlashAttentionWithLse`, a ``torch.autograd.Function`` whose
@@ -123,11 +123,84 @@ def bwd_work_floats(bh: int, sq: int, sk: int, d: int, kv_group: int,
     """The backward's float32 scratch: q scale and dO split into hi and lo
     (BH padded query heads), K and V split (BH / kv_group padded key
     heads), delta and lse (the padded rows'); with a kv_valid mask of
-    ``batches`` rows, :func:`mode_work_floats` more."""
+    ``batches`` rows, :func:`mode_work_floats` and each row's first and
+    last live key more."""
     qrows, krows = bh * bwd_padded(sq), bh // kv_group * bwd_padded(sk)
     return (4 * (qrows + krows) * d + 2 * qrows
-            + (mode_work_floats(bh, sk, d, kv_group, batches)
+            + (mode_work_floats(bh, sk, d, kv_group, batches) + 2 * batches
                if batches else 0))
+
+
+def kv_bounds(kv_valid: torch.Tensor):
+    """Each batch row's first and last live key, (B,) int64 each (Sk and
+    -1 for a row with none): what the backward's ``kv_bounds`` pass
+    (``csrc/attention_modes.cuh``) derives from the packed words."""
+    kv = kv_valid.bool()
+    sk = kv.shape[1]
+    keys = torch.arange(sk, device=kv.device)
+    first = torch.where(kv, keys, sk).amin(dim=1)
+    last = torch.where(kv, keys, -1).amax(dim=1)
+    return first, last
+
+
+def bwd_work_plan(bh: int, sq: int, sk: int, kv_group: int, causal: bool,
+                  window: int | None = None, kv_valid=None,
+                  skip: bool = True):
+    """The steps the backward's blocks run (a twin of
+    ``csrc/flash_attention_bwd.cu``'s ``kv_work`` and ``q_work``), as two
+    dicts. (b) ``{(kv head, k0): range of 32-row query tiles}``, the
+    block's 64 keys from k0 against those tiles of each of its kv_group
+    heads: the rows from the block's first key (``causal``) to its last
+    key's window; with ``kv_valid`` its live keys stand for its keys, and
+    a block with none runs nothing. (c) ``{(head, q0): [32-key tiles]}``,
+    the block's 64 rows from q0: keys up to its last row (``causal``) from
+    its first row's window; with ``kv_valid`` also within the batch row's
+    first and last live key (:func:`kv_bounds`), without the tiles whose
+    packed word is 0. ``skip=False`` runs every step (the kernel's
+    ``skip_tiles=False``)."""
+    g = kv_group
+    win = window or 0
+    kv = None if kv_valid is None else kv_valid.bool().cpu()
+    hq = 1 if kv is None else bh // kv.shape[0]
+    if kv is not None:
+        first, last = (t.tolist() for t in kv_bounds(kv))
+    dkdv, dq = {}, {}
+    for kvh in range(bh // g):
+        for k0 in range(0, sk, BWD_TILE):
+            lo, hi = 0, sq
+            if skip:
+                lo_key, hi_key = k0, min(k0 + BWD_TILE, sk) - 1
+                if kv is not None:
+                    live = kv[kvh * g // hq, k0:k0 + BWD_TILE].nonzero()
+                    if not len(live):
+                        dkdv[kvh, k0] = range(0)
+                        continue
+                    lo_key, hi_key = k0 + int(live[0]), k0 + int(live[-1])
+                if causal:
+                    lo = lo_key
+                if win > 0:
+                    hi = min(hi, hi_key + win)
+            t0 = lo // BWD_STEP
+            dkdv[kvh, k0] = range(t0, -(-hi // BWD_STEP) if hi > lo else t0)
+    for h in range(bh):
+        for q0 in range(0, sq, BWD_TILE):
+            lo, hi = 0, sk
+            if skip:
+                if causal:
+                    hi = min(hi, min(q0 + BWD_TILE, sq))
+                if win > 0:
+                    lo = max(lo, q0 - win + 1)
+                if kv is not None:
+                    lo = max(lo, first[h // hq])
+                    hi = min(hi, last[h // hq] + 1)
+            t0 = lo // BWD_STEP
+            tiles = range(t0, -(-hi // BWD_STEP) if hi > lo else t0)
+            if skip and kv is not None:
+                row = kv[h // hq]
+                tiles = [t for t in tiles
+                         if bool(row[t * BWD_STEP:(t + 1) * BWD_STEP].any())]
+            dq[h, q0] = list(tiles)
+    return dkdv, dq
 
 
 def check_bwd_shape(bh: int, d: int, sq: int = 1, sk: int = 1,
@@ -344,9 +417,15 @@ def _bwd_lib():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# the backward's passes, as the C entry's ``only`` numbers them: the
+# kv_valid mask's packing and bounds, dead_rows (both kv_valid only), the
+# prepare pass, dK / dV (b) and dQ (c), which with probs_bf16 runs first
+BWD_PASSES = ("mask", "dead_rows", "prepare", "dkdv", "dq")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -364,10 +443,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk and dv hold BH / kv_group heads, each the sum over its query heads.
 
     CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (a prepare pass,
-    then dK and dV, then dQ: three device kernels; with ``probs_bf16`` a
-    delta pass before dK and dV) on the current stream
-    and count one launch in ``flash_attention_bwd.launches``; without
-    ``lse`` it first runs K5 for it (not counted as a K5 launch). CPU
+    then dK and dV, then dQ: three device kernels; with ``probs_bf16`` dQ
+    first, which also makes the delta dK and dV read) on the current
+    stream and count one launch in ``flash_attention_bwd.launches``;
+    without ``lse`` it first runs K5 for it (not counted as a K5 launch). CPU
     tensors run :func:`flash_attention_bwd_ref`. ``skip_tiles=False`` runs
     the steps whose pairs are all masked (same result; for tests).
     ``kv_valid`` and ``probs_bf16`` as the forward's (the module
@@ -407,6 +486,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         unsupported_device("flash_attention_bwd", q.device)
     no_grad_input("flash_attention_bwd",
                   "ops.flash_attention (FlashAttention)", q, k, v, o, do)
+    out, launch = _bwd_call(q, k, v, o, do, causal, window, scale, kv_group,
+                            skip_tiles, lse, kv_valid, hq, probs_bf16)
+    launch(-1)
+    flash_attention_bwd.launches += 1
+    _count_modes(flash_attention_bwd, kv_valid, probs_bf16)
+    return out
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.mode_launches = dict.fromkeys(MODES, 0)
+
+
+def _bwd_call(q, k, v, o, do, causal, window, scale, kv_group, skip_tiles,
+              lse, kv_valid, hq, probs_bf16):
+    """(dq, dk, dv), empty, and ``launch(only)``: the backward into them on
+    checked CUDA tensors (``only`` -1), or pass ``only`` of
+    :data:`BWD_PASSES` alone on the scratch an earlier launch left."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
     check_bwd_shape(bh, d, sq, sk, kv_group)
     q, k, v, o, do = (aligned16(t) for t in (q, k, v, o, do))
     if lse is None:
@@ -418,22 +516,42 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batches = 0 if kv_valid is None else kv_valid.shape[0]
     work = torch.empty(bwd_work_floats(bh, sq, sk, d, kv_group, batches),
                        dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        code = _bwd_lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
-                          ptr(dq), ptr(dk), ptr(dv), ptr(work),
-                          ptr(kv_valid), bh, kv_group, sq, sk, d,
-                          int(q.dtype == torch.bfloat16), hq, int(causal),
-                          0 if window is None else int(window), scale,
-                          int(skip_tiles), PROBS_BF16 if probs_bf16 else 0,
-                          stream_of(q.device))
-    raise_on_error("flash_attention_bwd", code)
-    flash_attention_bwd.launches += 1
-    _count_modes(flash_attention_bwd, kv_valid, probs_bf16)
-    return dq, dk, dv
+
+    def launch(only):
+        with torch.cuda.device(q.device):
+            code = _bwd_lib()(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do),
+                              ptr(lse), ptr(dq), ptr(dk), ptr(dv), ptr(work),
+                              ptr(kv_valid), bh, kv_group, sq, sk, d,
+                              int(q.dtype == torch.bfloat16), hq, int(causal),
+                              0 if window is None else int(window), scale,
+                              int(skip_tiles), PROBS_BF16 if probs_bf16 else 0,
+                              only, stream_of(q.device))
+        raise_on_error("flash_attention_bwd", code)
+    return (dq, dk, dv), launch
 
 
-flash_attention_bwd.launches = 0
-flash_attention_bwd.mode_launches = dict.fromkeys(MODES, 0)
+def flash_attention_bwd_passes(q, k, v, o, do, *, causal: bool = True,
+                               window: int | None = None,
+                               scale: float | None = None, kv_group: int = 1,
+                               lse: torch.Tensor, kv_valid=None,
+                               probs_bf16: bool = False):
+    """For timing each pass of the backward on its own (not a training
+    entry): runs one whole call on CUDA tensors (not counted in
+    ``flash_attention_bwd.launches``) and returns ``launch(k)``, which
+    launches pass k of :data:`BWD_PASSES` alone on that call's scratch and
+    outputs (a pass the call does not run launches nothing)."""
+    _check_args(q, k, v, window, kv_group)
+    if q.device.type != "cuda":
+        unsupported_device("flash_attention_bwd_passes", q.device)
+    if scale is None:
+        scale = float(q.shape[2]) ** -0.5
+    hq = 1
+    if kv_valid is not None:
+        kv_valid, hq = _check_kv_valid(kv_valid, q, k.shape[1])
+    _, launch = _bwd_call(q, k, v, o, do, causal, window, scale, kv_group,
+                          True, lse, kv_valid, hq, probs_bf16)
+    launch(-1)
+    return launch
 
 
 def _fold(info, in_dims, tensors):

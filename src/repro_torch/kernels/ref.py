@@ -13,6 +13,8 @@ the two agree where Sq == Sk and a window comes with ``causal``.
 ``flash_attention_bwd_ref`` is the gradient of ``flash_attention_ref``
 by the recomputation ``csrc/flash_attention_bwd.cu`` runs (P from each
 row's lse, delta, dP, dS), the function that kernel computes;
+``flash_attention_bwd_folded_ref`` the same gradient with probs_bf16's dq
+in the kernel's order of sums (its delta made in the dQ pass);
 ``flash_lse_ref`` is the per-row log-sum-exp K5 writes for it.
 
 ``ssd_chunked_ref`` is the function ``csrc/ssd_scan.cu`` computes, op for
@@ -213,6 +215,26 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
     and v transpose to casts of their cotangents), dS from the float32 P,
     and delta the reference's sum(P dP) of the rounded dP (rowsum(do o)
     is that sum only while P and dP are not rounded)."""
+    return _flash_bwd(q, k, v, o, do, causal, window, scale, kv_group, lse,
+                      kv_valid, probs_bf16, False)
+
+
+def flash_attention_bwd_folded_ref(q, k, v, o, do, *, causal: bool = True,
+                                   window=None, scale=None,
+                                   kv_group: int = 1, lse=None,
+                                   kv_valid=None, probs_bf16: bool = False):
+    """:func:`flash_attention_bwd_ref` with probs_bf16's dq in the order of
+    sums of ``csrc/flash_attention_bwd.cu``, whose dQ pass makes the delta
+    itself: dq = scale (A - delta B) with A = (P bf16(dP)) K, B = P K and
+    delta = sum_j P_j bf16(dP_j) a row, the same function as scale (dS K)
+    reassociated. dk and dv, and every gradient without probs_bf16, are
+    :func:`flash_attention_bwd_ref`'s."""
+    return _flash_bwd(q, k, v, o, do, causal, window, scale, kv_group, lse,
+                      kv_valid, probs_bf16, True)
+
+
+def _flash_bwd(q, k, v, o, do, causal, window, scale, kv_group, lse,
+               kv_valid, probs_bf16, folded):
     bh, sq, d = q.shape
     sk = k.shape[1]
     if scale is None:
@@ -241,7 +263,10 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
     else:
         delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
-    dq = scale * torch.bmm(ds, kf)
+    if folded and probs_bf16:
+        dq = scale * (torch.bmm(p * dp, kf) - delta * torch.bmm(p, kf))
+    else:
+        dq = scale * torch.bmm(ds, kf)
     dk = torch.bmm(ds.transpose(1, 2), qs)
     if kv_group > 1:
         dk = dk.unflatten(0, (-1, kv_group)).sum(1)

@@ -588,6 +588,92 @@ def test_flash_modes_match_grouped_attention_and_vjp(ref, masked, causal,
     assert np.all(np.abs(dvg - wv) <= ulp + 1e-4 * np.abs(wv).max())
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_bwd_folded_matches_vjp(ref, masked, causal):
+    """The backward's plain version in the kernel's order of sums with
+    probs_bf16 (``flash_attention_bwd_folded_ref``: dq = scale (A - delta
+    B), A = (P bf16(dP)) K, B = P K, the delta made beside A) against
+    ``jax.vjp`` of the reference's ``_grouped_attention(probs_bf16=True)``
+    at :func:`test_flash_modes_match_grouped_attention_and_vjp`'s sizes
+    and bounds (dq and dk within :func:`bf16_bounds` plus 1e-4 of their
+    largest |reference| entry, dv within a bfloat16 ulp plus that); and
+    the control: each gradient's distance to the reference (Frobenius) at
+    most a quarter of the reference's own distance to its float32
+    gradient (probs_bf16=False), as chip_smoke.py's FLASH_PB_CONTROL."""
+    jnp = ref.jnp
+    b, sq, hq, kvh, hd = 2, 37, 4, 2, 16
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((b, sq, hq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((b, sq, kvh, hd)).astype(np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((b, sq, hq, hd)).astype(np.float32)
+    kv = kv_masks(b, sq, 3) if masked else None
+
+    def vjp(probs_bf16):
+        def fn(q, k, v):
+            return ref.attention._grouped_attention(
+                q, k, v, causal=causal, window=None,
+                kv_valid=None if kv is None else jnp.asarray(kv),
+                probs_bf16=probs_bf16)
+
+        _, pull = ref.jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+        return [np.asarray(g) for g in pull(jnp.asarray(do))]
+
+    want, f32 = vjp(True), vjp(False)
+
+    def heads(a):
+        return torch.from_numpy(a).transpose(1, 2).reshape(-1, sq, hd)
+
+    def back(t, n):
+        return t.reshape(b, n, sq, hd).transpose(1, 2).numpy()
+
+    tkv = None if kv is None else torch.from_numpy(kv)
+    kw = dict(causal=causal, kv_group=hq // kvh, kv_valid=tkv,
+              probs_bf16=True)
+    tq, tk, tv, tdo = (heads(a) for a in (q, k, v, do))
+    o, lse = flash_attention_bhsd(tq, tk, tv, return_lse=True, **kw)
+    got = [back(t, n) for t, n in zip(tref.flash_attention_bwd_folded_ref(
+        tq, tk, tv, o, tdo, lse=lse, **kw), (hq, kvh, kvh))]
+    bq, bk = (back(t, n) for t, n in zip(
+        bf16_bounds(tq, tk, tv, tdo, tkv, causal, hq // kvh, hd ** -0.5),
+        (hq, kvh)))
+    bounds = (bq, bk, 2.0 ** -7 * np.abs(want[2]))
+    for name, g, w, f, bound in zip(("dq", "dk", "dv"), got, want, f32,
+                                    bounds):
+        assert np.all(np.abs(g - w) <= bound + 1e-4 * np.abs(w).max()), name
+        control = np.linalg.norm(g - w) / np.linalg.norm(f - w)
+        assert control <= 0.25, (name, control)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_bwd_folded_is_the_plain_gradient_reassociated(masked):
+    """``flash_attention_bwd_folded_ref`` against ``flash_attention_bwd_ref``
+    on the same inputs: with probs_bf16 dk and dv bit for bit and dq the
+    same sum reassociated (float32 noise: within 1e-5 of its largest
+    entry); without it every gradient bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    q, o, do = (torch.randn((8, 45, 32), generator=g) for _ in range(3))
+    k, v = (torch.randn((4, 45, 32), generator=g) for _ in range(2))
+    kv = None
+    if masked:
+        kv = torch.ones((2, 45), dtype=torch.bool)
+        kv[0, :11] = False
+        kv[1, 30:] = False
+    for pb in (True, False):
+        kw = dict(kv_group=2, kv_valid=kv, probs_bf16=pb)
+        plain = tref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        folded = tref.flash_attention_bwd_folded_ref(q, k, v, o, do, **kw)
+        assert torch.equal(plain[1], folded[1])
+        assert torch.equal(plain[2], folded[2])
+        if pb:
+            assert not torch.equal(plain[0], folded[0])
+            assert (float((plain[0] - folded[0]).abs().max())
+                    <= 1e-5 * float(plain[0].abs().max()))
+        else:
+            assert torch.equal(plain[0], folded[0])
+
+
 @pytest.mark.parametrize("cross", [False, True])
 @pytest.mark.parametrize("rank", [1, 2])
 def test_apply_attention_kv_valid_matches_reference(ref, cross, rank):

@@ -1302,48 +1302,67 @@ def test_sharded_paths_on_one_rank_equal_the_sequential(cuda, tmp_path):
 
 # ---------------------------------- launch planning (ROADMAP item 11)
 
-def mode_mask(batch, sk, device):
-    """Row 0 with its last 100 keys and every third key dead, the last row
-    with no live key."""
+def mode_mask(batch, sk, device, kind="right"):
+    """``right``: row 0 with its last 100 keys and every third key dead;
+    ``left``: row b's first 37 + 50 b keys dead (left padding). Either
+    way the last row has no live key."""
     kv = torch.ones((batch, sk), dtype=torch.bool)
-    kv[0, sk - 100:] = False
-    kv[0, 2::3] = False
+    if kind == "right":
+        kv[0, sk - 100:] = False
+        kv[0, 2::3] = False
+    else:
+        for b in range(batch):
+            kv[b, :37 + 50 * b] = False
     kv[-1] = False
     return kv.to(device)
 
 
-@pytest.mark.parametrize("modes", [("kv_valid",), ("probs_bf16",),
-                                   ("kv_valid", "probs_bf16")])
+# (modes, mask, input type) of the mode checks, as chip_smoke.py's
+# FLASH_MODE_CASES: both masks, bfloat16 inputs with probs_bf16
+MODE_CASES = [(("kv_valid",), "right", torch.float32),
+              (("kv_valid",), "left", torch.float32),
+              (("probs_bf16",), None, torch.float32),
+              (("probs_bf16",), None, torch.bfloat16),
+              (("kv_valid", "probs_bf16"), "right", torch.float32),
+              (("kv_valid", "probs_bf16"), "left", torch.bfloat16)]
+
+
+@pytest.mark.parametrize("modes,kind,dtype", MODE_CASES)
 @pytest.mark.parametrize("bh,sq,sk,d,causal,group,batch", [
     (8, 200, 200, 64, True, 2, 2), (6, 77, 150, 32, False, 3, 2),
     (16, 384, 384, 128, True, 4, 2)])
 def test_flash_attention_modes_match_plain(cuda, bh, sq, sk, d, causal,
-                                           group, batch, modes):
+                                           group, batch, modes, kind, dtype):
     """K5 and its backward in the kv_valid and probs_bf16 modes against
     their plain versions: lse +inf on exactly the rows with no live key,
-    the same bits with the masked tiles run. Tolerances as chip_smoke.py's
+    the same bits with the masked tiles and the backward's dead rows, keys
+    and words run (``skip_tiles=False``). Tolerances as chip_smoke.py's
     (FLASH_PB_TOL): float32 (2e-5 on o, 1e-4 of each gradient's largest
-    entry) with kv_valid; with probs_bf16 the kernel rounds where the plain
-    version rounds, so only a rounding tie landing apart moves a term, by
-    one bfloat16 ulp: 2^-8 of max |v| on o, and a gradient within 2^-6 of
-    its largest entry. Such ties are rare, so with probs_bf16 the kernel
-    also sits within a quarter of the plain version's distance from the
-    same call without the mode (FLASH_PB_CONTROL), on o and each
-    gradient: a kernel that skipped the roundings would not."""
+    entry; bfloat16 inputs 2e-2 on o, as FLASH_TOL) with kv_valid; with
+    probs_bf16 the kernel rounds where the plain version rounds, so only a
+    rounding tie landing apart moves a term, by one bfloat16 ulp: 2^-8 of
+    max |v| on o, and a gradient within 2^-6 of its largest entry. Such
+    ties are rare, so with probs_bf16 the kernel also sits within a
+    quarter of the plain version's distance from the same call without
+    the mode (FLASH_PB_CONTROL), on o and each gradient: a kernel that
+    skipped the roundings would not."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_lse_ref)
-    q, k, v, do = bwd_lanes(bh, sq, sk, d, group, cuda, seed=sq + d)
+    q, k, v, do = bwd_lanes(bh, sq, sk, d, group, cuda, dtype=dtype,
+                            seed=sq + d)
     pb = "probs_bf16" in modes
-    kv = mode_mask(batch, sk, cuda) if "kv_valid" in modes else None
+    kv = mode_mask(batch, sk, cuda, kind) if "kv_valid" in modes else None
     kw = dict(causal=causal, kv_group=group, kv_valid=kv, probs_bf16=pb)
     o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
     want = flash_attention_ref(q, k, v, **kw)
-    tol = 2e-5 + (2.0 ** -8 * float(v.abs().max()) if pb else 0.0)
-    assert float((o - want).abs().max()) <= tol
+    tol = (2e-2 if dtype == torch.bfloat16 else 2e-5) + (
+        2.0 ** -8 * float(v.float().abs().max()) if pb else 0.0)
+    assert float((o - want).float().abs().max()) <= tol
 
     def control(got, want, f32):
-        return float((got - want).norm()) / float((f32 - want).norm())
+        return (float((got - want).float().norm())
+                / float((f32 - want).float().norm()))
 
     if pb:
         assert control(o, want, flash_attention_ref(
@@ -1361,7 +1380,8 @@ def test_flash_attention_modes_match_plain(cuda, bh, sq, sk, d, causal,
     limit = 2.0 ** -6 if pb else 1e-4
     for g, w in zip(got, ref_g):
         assert bool(torch.isfinite(g).all())
-        assert float((g - w).abs().max()) <= limit * float(w.abs().max())
+        assert (float((g - w).float().abs().max())
+                <= limit * float(w.float().abs().max()))
     if pb:
         f32 = flash_attention_bwd_ref(q, k, v, o, do, lse=lse,
                                       **dict(kw, probs_bf16=False))
@@ -1369,6 +1389,9 @@ def test_flash_attention_modes_match_plain(cuda, bh, sq, sk, d, causal,
             assert control(g, w, f) <= 0.25
     for g, w in zip(flash_attention_bwd(q, k, v, o, do, skip_tiles=False,
                                         **kw), got):
+        assert torch.equal(g, w)
+    for g, w in zip(flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                        skip_tiles=False, **kw), got):
         assert torch.equal(g, w)
 
 
