@@ -4922,6 +4922,112 @@ def flash_bwd_variants(torch):
     return 0
 
 
+# Text variants of K5's forward (csrc/flash_attention.cu), timed against
+# the shipped build by ``--flash-fwd-variants``: the lse pass with none
+# of Q_lo's k steps in registers (all in the shipped build); the lse
+# pass with tile i + 1's scores waited before tile i's softmax (no
+# overlap); the lse pass's K tiles in the K halves only (2 in flight at
+# D = 128, not 4); a kv_valid block left no tile loading Q all the same
+FLASH_FWD_VARIANTS = {
+    "lse_ql_none": [("constexpr int kLseQlSteps = D / 8;",
+                     "constexpr int kLseQlSteps = 0;")],
+    "lse_no_overlap": [
+        ("    issue_scores<D, kLseQlSteps<D>>(nxt, qh, qlo, ns.tile, ql);\n",
+         "    issue_scores<D, kLseQlSteps<D>>(nxt, qh, qlo, ns.tile, ql);\n"
+         "    wgmma_wait<0>();\n")],
+    "lse_k_halves_only": [
+        ("    const int u = i % (2 * kS), s = u % kS;\n"
+         "    const bool vh = u >= kS;",
+         "    const int u = i % kS, s = u;\n    const bool vh = false;"),
+        ("    parity = (i / (2 * kS)) & 1;", "    parity = (i / kS) & 1;"),
+        ("    return n / (2 * kS) * kS + min(n % (2 * kS), kS);",
+         "    return n;"),
+        ("      if ((nk + nv) % (2 * kS) < kS)", "      if (true)")],
+    "kv_q_for_empty": [("  if (M == kModeNone || n_tiles > 0) {\n"
+                        "    for (int e = wt;",
+                        "  {\n    for (int e = wt;")],
+}
+
+
+def flash_fwd_variants(torch):
+    """K5 at yi-6b's shape in the masked and probs_bf16 cases of
+    ``FLASH_FWD_MODE_TIMES``: the shipped build and each of
+    ``FLASH_FWD_VARIANTS`` (built beside it under ``build/``, all at
+    once; ptxas's spill lines printed), whole calls by CUDA events in turns
+    (shipped, variant, variant, shipped) and whether o is the same bits.
+    Prints a JSON line a variant and case."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (PROBS_BF16, _lib,
+                                                     flash_attention_bhsd,
+                                                     fwd_work_floats)
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    (ROOT / "build").mkdir(exist_ok=True)
+    procs = {}
+    for name, reps in FLASH_FWD_VARIANTS.items():
+        text = src
+        for old, new in reps:
+            if text.count(old) != 1:
+                raise AssertionError(f"variant {name}: {old!r} not found once")
+            text = text.replace(old, new)
+        path = ROOT / "build" / f"flash_attention_{name}.cu"
+        path.write_text(text)
+        procs[name] = (path, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
+             "-o", str(path.with_suffix(".so")), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, spills = {"shipped": _lib()}, {}
+    for name, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name}: nvcc exited "
+                               f"{proc.returncode}\n{log}")
+        spills[name] = [line.strip() for line in log.splitlines()
+                        if "spill" in line and not line.strip().startswith(
+                            "0 bytes stack frame, 0 bytes spill")]
+        fn = ctypes.CDLL(str(path.with_suffix(".so"))).flash_attention_fwd
+        fn.argtypes, fn.restype = libs["shipped"].argtypes, ctypes.c_int
+        libs[name] = fn
+    _, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
+    q, k, v, _ = bwd_lanes(torch, bh, sq, sk, d, group, 6)
+    o = torch.empty_like(q)
+    for label, modes, kind in FLASH_FWD_MODE_TIMES:
+        if not modes:
+            continue
+        kv = case_mask(torch, kind, batch, sk, sk)
+        kv8 = None if kv is None else kv.to(torch.uint8).contiguous()
+        work = torch.empty(fwd_work_floats(bh, sk, d, group,
+                                           0 if kv is None else batch),
+                           device="cuda")
+        pb = "probs_bf16" in modes
+        want = flash_attention_bhsd(q, k, v, causal=causal, kv_group=group,
+                                    **mode_kw(modes, kv))
+
+        def call(fn):
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      None, work.data_ptr(),
+                      None if kv8 is None else kv8.data_ptr(), bh, group, sq,
+                      sk, d, 0, bh // batch, int(causal), 0, d ** -0.5, 1,
+                      PROBS_BF16 if pb else 0,
+                      torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"flash_attention_fwd variant: {code}")
+        for name in FLASH_FWD_VARIANTS:
+            call(libs[name])
+            same = bool(torch.equal(o, want))
+            turns = [time_device(torch, lambda: call(fn), False)
+                     for fn in (libs["shipped"], libs[name], libs[name],
+                                libs["shipped"])]
+            print(json.dumps({"flash_fwd_variants": dict(
+                variant=name, case=label, shape=[bh, sq, sk, d],
+                shipped_ms=[turns[0], turns[3]], variant_ms=turns[1:3],
+                same_bits=same, spills=spills[name])}), flush=True)
+        del work
+        torch.cuda.empty_cache()
+    return 0
+
+
 # --------------------------------------------------------------------------
 # Phase 17 (run right after phase 11): the sharded paths on one rank.
 # --------------------------------------------------------------------------
@@ -5238,8 +5344,9 @@ def check_flash_modes(torch):
     """K5 and its backward in the kv_valid and probs_bf16 modes and both,
     against their plain versions at ``FLASH_MODE_SHAPES`` in each of
     ``FLASH_MODE_CASES``: o, lse (+inf on exactly the rows with no live
-    key), the same bits with the masked tiles run (the backward's skips of
-    dead rows, keys and words included), and dq, dk, dv on the kernel's o
+    key), the same bits (o and lse) with the masked tiles run (the
+    forward's skips of dead blocks and tiles, the backward's of dead rows,
+    keys and words included), and dq, dk, dv on the kernel's o
     and lse; with probs_bf16 the control (FLASH_PB_CONTROL) on o and each
     gradient. Returns the largest |d| by kernel and mode (the modes of one
     check joined by +; and by kernel, mode, mask and input type) and the
@@ -5259,7 +5366,8 @@ def check_flash_modes(torch):
             tag = (f"{call} {(bh, sq, sk, d)} kv_group={group} "
                    f"{case_tag(modes, kind, dtype)}")
             o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
-            every = flash_attention_bhsd(q, k, v, skip_tiles=False, **kw)
+            every = flash_attention_bhsd(q, k, v, skip_tiles=False,
+                                         return_lse=True, **kw)
             want = flash_attention_ref(q, k, v, **kw)
             kw_lse = dict(kw)
             kw_lse.pop("probs_bf16")
@@ -5274,9 +5382,9 @@ def check_flash_modes(torch):
             if pb:
                 ctl.append(pb_control(o, want, flash_attention_ref(
                     q, k, v, **dict(kw, probs_bf16=False))))
-            if not torch.equal(o, every):
+            if not (torch.equal(o, every[0]) and torch.equal(lse, every[1])):
                 raise AssertionError(f"{tag}: running the masked tiles "
-                                     "changed the result")
+                                     "changed o or lse")
             dead = torch.isinf(want_lse)
             if not (torch.equal(torch.isinf(lse), dead)
                     and torch.isfinite(o).all()):
@@ -5411,20 +5519,18 @@ def flash_pass_ms(torch, fn, calls=10):
 
 def flash_mode_kernels(torch):
     """:func:`flash_pass_ms` of K5 at yi-6b's forward shape on
-    :func:`time_flash_modes`'s inputs: unmasked, with this run's kv_valid
-    mask, with probs_bf16, and with a mask that leaves every key live;
-    {variant: ms by kernel} (the backward's passes are timed alone by
-    CUDA events, :func:`bwd_pass_ms`)."""
+    :func:`time_flash_modes`'s inputs: each case of
+    ``FLASH_FWD_MODE_TIMES``, and (``all_live``) kv_valid with a mask
+    that leaves every key live; {label: ms by kernel} (the backward's
+    passes are timed alone by CUDA events, :func:`bwd_pass_ms`)."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     _, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
     q, k, v, _ = bwd_lanes(torch, bh, sq, sk, d, group, 6)
     live = torch.ones((batch, sk), dtype=torch.bool, device="cuda")
+    cases = [(label, mode_kw(modes, case_mask(torch, kind, batch, sk, sk)))
+             for label, modes, kind in FLASH_FWD_MODE_TIMES]
     out = {}
-    for name, kw in (("unmasked", {}),
-                     ("kv_valid", dict(kv_valid=kv_mask(torch, batch, sk,
-                                                        sk))),
-                     ("probs_bf16", dict(probs_bf16=True)),
-                     ("all_live", dict(kv_valid=live))):
+    for name, kw in cases + [("all_live", dict(kv_valid=live))]:
         kw = dict(kw, causal=causal, kv_group=group)
         out[name] = flash_pass_ms(torch, lambda: flash_attention_bhsd(
             q, k, v, **kw))
@@ -5584,6 +5690,158 @@ def earlier_flash_bwd(torch):
     return make
 
 
+# K5's forward timed at yi-6b's shape in phase 18: (label, modes, mask);
+# the unmasked call (the build without the modes) stands beside the
+# earlier design's to show that build unchanged
+FLASH_FWD_MODE_TIMES = (
+    ("unmasked", (), None),
+    ("kv_valid", ("kv_valid",), "right"),
+    ("kv_valid, left padding", ("kv_valid",), "left"),
+    ("probs_bf16", ("probs_bf16",), None),
+    ("kv_valid+probs_bf16", ("kv_valid", "probs_bf16"), "right"))
+
+
+def earlier_flash_fwd(torch):
+    """The K5 forward of commit 3a1a54f (every tile of the band run under
+    a kv_valid mask, probs_bf16's lse pass one score tile at a time), from
+    build/fwd_3a1a54f/flash_attention.cu with that commit's
+    attention_modes.cuh and hopper.cuh beside it, put there by hand (git
+    show 3a1a54f:<csrc file>), as ``make(q, k, v, kv, probs_bf16, causal,
+    group)`` returning ``launch()``, which runs the whole call into
+    outputs of its own and returns (o, lse); None when that source is
+    absent."""
+    import ctypes
+
+    from repro_torch.kernels.flash_attention import (PROBS_BF16,
+                                                     fwd_work_floats)
+    if not (ROOT / "build" / "fwd_3a1a54f" / "flash_attention.cu").is_file():
+        return None
+    fn = earlier_kernel("fwd_3a1a54f/flash_attention").flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def make(q, k, v, kv, pb, causal, group):
+        bh, sq, d = q.shape
+        sk = k.shape[1]
+        o = torch.empty_like(q)
+        lse = torch.empty((bh, sq), dtype=torch.float32, device="cuda")
+        kv8 = None if kv is None else kv.to(torch.uint8).contiguous()
+        # this design's scratch, which holds the earlier one's
+        work = torch.empty(fwd_work_floats(
+            bh, sk, d, group, 0 if kv is None else kv.shape[0]),
+            device="cuda")
+
+        def launch():
+            code = fn(*(t.data_ptr() for t in (q, k, v, o, lse, work)),
+                      None if kv8 is None else kv8.data_ptr(), bh, group, sq,
+                      sk, d, int(q.dtype == torch.bfloat16),
+                      bh // (1 if kv8 is None else kv8.shape[0]),
+                      int(causal), 0, d ** -0.5, 1, PROBS_BF16 if pb else 0,
+                      torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"3a1a54f flash_attention_fwd: {code}")
+            return o, lse
+        return launch
+    return make
+
+
+def two_pass_floor(live, d):
+    """The least time of a probs_bf16 forward that rounds the normalised
+    p, so needs every row's lse before its first P.V and computes q . k
+    twice: 2 D operations a live pair a product, q . k twice in 3xTF32
+    (6 TF32 products) and P.V once, as one bfloat16 product
+    (``bf16_pv``) or one TF32 product, as this kernel runs it
+    (``tf32_pv``); ms. :func:`flash_mode_bound` (q . k once) stays the
+    function's bound."""
+    ops = live * 2 * d
+    return dict(bf16_pv=ops * (6 / TF32_OPS_PER_S + 1 / BF16_OPS_PER_S) * 1e3,
+                tf32_pv=ops * 7 / TF32_OPS_PER_S * 1e3)
+
+
+def time_flash_fwd_modes(torch, lanes, split):
+    """K5 at yi-6b's shape in each of ``FLASH_FWD_MODE_TIMES`` on
+    ``lanes`` (q, k, v float32): device ms by CUDA events, its device
+    kernels from ``split`` (:func:`fresh_flash_mode_kernels`), its plain
+    version's ms, the bound on this run's mask (:func:`flash_mode_bound`;
+    with probs_bf16 also :func:`two_pass_floor`), with kv_valid the
+    library's call on the same inputs (:func:`sdpa_mask_calls`), and
+    where build/fwd_3a1a54f/ holds the earlier design
+    (:func:`earlier_flash_fwd`), that design in turns (earlier, this,
+    this, earlier), whether o and lse are its bits and o's largest
+    |difference|. It fails where they are not its bits, but for o with
+    probs_bf16: there P.V is a bfloat16 product summing 16 exact
+    products a tensor-core step, where the earlier design's TF32 product
+    summed 8. Returns {label: row}."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.ref import flash_attention_ref, flash_mask
+    _, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
+    q, k, v, do = lanes
+    old = earlier_flash_fwd(torch)
+    rows = {}
+    for label, modes, kind in FLASH_FWD_MODE_TIMES:
+        kv = case_mask(torch, kind, batch, sk, sk)
+        kw = dict(causal=causal, kv_group=group, **mode_kw(modes, kv))
+
+        def kernel():
+            return flash_attention_bhsd(q, k, v, **kw)
+
+        counts = read_counts()
+        live = (mode_live_pairs(torch, sq, sk, causal, kv, bh // batch)
+                if kv is not None else
+                bh * int(flash_mask(sq, sk, causal, None, "cpu").sum()))
+        row = dict(label=label, modes=list(modes), mask=kind,
+                   dtype="float32", shape=[bh, sq, sk, d], kv_group=group,
+                   ms=time_device(torch, kernel, False),
+                   kernels=split[label],
+                   plain_ms=time_device(torch, lambda: flash_attention_ref(
+                       q, k, v, **kw), False, iters=3),
+                   library_ms=None,
+                   **flash_mode_bound(bh, sq, sk, d, live, 4, group, batch,
+                                      modes, False))
+        if "probs_bf16" in modes:
+            row["two_pass_floor_ms"] = two_pass_floor(live, d)
+        if kv is not None:
+            row["library_ms"] = sdpa_mask_calls(torch, q, k, v, do, kv, group,
+                                                batch)[0]
+        if old is not None:
+            run = old(q, k, v, kv, "probs_bf16" in modes, causal, group)
+            was = [t.clone() for t in run()]
+            now = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+            turns = [time_device(torch, run, False),
+                     time_device(torch, kernel, False),
+                     time_device(torch, kernel, False),
+                     time_device(torch, run, False)]
+            same = [bool(torch.equal(a, b)) for a, b in zip(now, was)]
+            row["earlier"] = dict(
+                ms=[turns[0], turns[3]], new_ms=turns[1:3], same_bits=same,
+                o_max_abs_diff=float((now[0] - was[0]).abs().max()))
+            if not (all(same) or ("probs_bf16" in modes and same[1])):
+                raise AssertionError(
+                    f"flash_attention_bhsd ({label}): o, lse differ from "
+                    f"the earlier design's ({same})")
+            del run, was, now
+        set_counts(counts)
+        print(f"flash_attention_bhsd ({label}) at {row['shape']} ("
+              f"{row['live_pairs']} live pairs): {row['ms']:.4f} ms device ("
+              + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in split[label].items())
+              + f" ms, a fresh process's profiler), plain "
+              f"{row['plain_ms']:.3f} ms, library {row['library_ms']} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + (f", two-pass floor {row['two_pass_floor_ms']}"
+                 if "two_pass_floor_ms" in row else "")
+              + (f"; the earlier design {row['earlier']['ms']} ms against "
+                 f"{row['earlier']['new_ms']} in turns, o and lse its bits "
+                 f"{row['earlier']['same_bits']} (o max |d| "
+                 f"{row['earlier']['o_max_abs_diff']:.3g})"
+                 if "earlier" in row else ""),
+              flush=True)
+        rows[label] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
 # K5's backward timed at yi-6b's shape in phase 18: (label, modes, mask,
 # input type); the unmasked call (the build without the modes) stands
 # beside the earlier design's to show that build unchanged
@@ -5722,57 +5980,31 @@ def time_flash_bwd_modes(torch, lanes):
 
 
 def time_flash_modes(torch):
-    """K5 in each mode at yi-6b's forward shape, beside its plain version,
-    its bound on this run's mask and, for kv_valid, the library's call on
-    the same inputs (:func:`sdpa_mask_calls`); probs_bf16 has no single
-    library call (SDPA has no bfloat16 rounding of p alone). Each forward
-    row also splits the call into its device kernels
-    (:func:`fresh_flash_mode_kernels`); the backward's rows are
-    :func:`time_flash_bwd_modes`'. Returns {(kernel, label): row}, each
-    row with its ``mode``, the backward's unmasked row and
+    """K5 and its backward in each mode at yi-6b's shape: the forward's
+    rows (:func:`time_flash_fwd_modes`, each call split into its device
+    kernels by :func:`fresh_flash_mode_kernels`) and the backward's
+    (:func:`time_flash_bwd_modes`). Returns {(kernel, label): row} of the
+    mode rows, each with its ``mode``; the rows of the builds without a
+    mode and of both modes at once, by name; and
     :func:`mask_build_probe`'s record."""
-    from repro_torch.kernels.flash_attention import flash_attention_bhsd
-    from repro_torch.kernels.ref import flash_attention_ref, flash_mask
     call, bh, sq, sk, d, causal, group, batch = FLASH_MODE_SHAPES[-1]
     q, k, v, do = bwd_lanes(torch, bh, sq, sk, d, group, 6)
-    kv = kv_mask(torch, batch, sk, sk)
     torch.cuda.empty_cache()  # room on the card for the split's process
     split = fresh_flash_mode_kernels()
-    rows = {}
-    for modes in FLASH_MODES[:2]:
-        mode = modes[0]
-        kw = dict(causal=causal, kv_group=group, **mode_kw(modes, kv))
-        live = (mode_live_pairs(torch, sq, sk, causal, kv, bh // batch)
-                if mode == "kv_valid" else
-                bh * int(flash_mask(sq, sk, causal, None, "cpu").sum()))
-        fwd = dict(mode=mode, ms=time_device(torch, lambda: flash_attention_bhsd(
-                       q, k, v, **kw), False),
-                   kernels=split[mode],
-                   plain_ms=time_device(torch, lambda: flash_attention_ref(
-                       q, k, v, **kw), False, iters=3),
-                   library_ms=None,
-                   **flash_mode_bound(bh, sq, sk, d, live, 4, group, batch,
-                                      modes, False))
-        if mode == "kv_valid":
-            fwd["library_ms"] = sdpa_mask_calls(torch, q, k, v, do, kv,
-                                                group, batch)[0]
-        rows[("flash_attention_bhsd", mode)] = fwd
-        print(f"flash_attention_bhsd ({mode}) at {[bh, sq, sk, d]} ({call}, "
-              f"{fwd['live_pairs']} live pairs): {fwd['ms']:.3f} ms device, "
-              f"plain {fwd['plain_ms']:.3f} ms, library "
-              f"{fwd['library_ms'] if fwd['library_ms'] is None else round(fwd['library_ms'], 3)}"
-              f" ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); "
-              f"kernels {fwd['kernels']}", flush=True)
-        torch.cuda.empty_cache()
+    fwd = time_flash_fwd_modes(torch, (q, k, v, do), split)
     bwd = time_flash_bwd_modes(torch, (q, k, v, do))
-    for label, row in bwd.items():
-        if row["modes"]:
-            rows[("flash_attention_bwd", label)] = dict(row,
-                                                        mode=row["modes"][0])
+    rows, others = {}, {}
+    for name, table in (("flash_attention_bhsd", fwd),
+                        ("flash_attention_bwd", bwd)):
+        for label, row in table.items():
+            if len(row["modes"]) == 1:
+                rows[(name, label)] = dict(row, mode=row["modes"][0])
+            else:
+                others[f"{name} ({label})"] = row
     build = mask_build_probe(torch, q, k, v, do, group, batch, split)
     del q, k, v, do
     torch.cuda.empty_cache()
-    return rows, bwd["unmasked"], build
+    return rows, others, build
 
 
 # yi-6b's first 4 of 32 layers and mamba2-130m whole, at batch 4 x 2048,
@@ -6062,12 +6294,12 @@ def launch_path(torch):
     t0 = time.perf_counter()
     tally_agrees()
     err, ratios = check_flash_modes(torch)
-    rows, unmasked, build = time_flash_modes(torch)
+    rows, others, build = time_flash_modes(torch)
     torch.cuda.empty_cache()
     reset_counts()
     reset_mode_counts()
     summary = {"probs_bf16_control": ratios, "mask_build_probe": build,
-               "flash_attention_bwd (unmasked)": unmasked}
+               **others}
     for arch, layers in REMAT_RUNS:
         cfg, model, batch, out = remat_pair(torch, arch, layers)
         summary[arch] = out
@@ -6121,6 +6353,9 @@ def main() -> int:
     if "--flash-bwd-variants" in sys.argv[1:]:
         print(card_line(), flush=True)
         return flash_bwd_variants(torch)
+    if "--flash-fwd-variants" in sys.argv[1:]:
+        print(card_line(), flush=True)
+        return flash_fwd_variants(torch)
     from repro_torch.configs.cifar10_cnn import CONFIG
     from repro_torch.fl.decision import decision_coeffs
     from repro_torch.kernels import _build
@@ -6322,7 +6557,8 @@ def main() -> int:
             "shape": list(FLASH_MODE_SHAPES[-1][1:5]),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "live_pairs")},
-            **{k: row[k] for k in ("passes_ms", "earlier", "dtype", "mask")
+            **{k: row[k] for k in ("passes_ms", "kernels", "earlier",
+                                   "two_pass_floor_ms", "dtype", "mask")
                if k in row}})
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)

@@ -11,14 +11,18 @@
 //   mean of v over all Sk keys (kv_mean) and lse = +inf, and the backward,
 //   where exp(s - lse) is then 0 on the whole row, adds the row's do / Sk
 //   to dv at every key (dead_rows) and nothing else, as jax.vjp gives.
-//   The backward also reads each batch row's first and last live key
-//   (kv_bounds, from the packed words), so that its blocks skip the rows
-//   and keys that the mask leaves dead, not only those the band does.
+//   Both kernels also read each batch row's first and last live key
+//   (kv_bounds, from the packed words), so that their blocks skip the
+//   rows and keys that the mask leaves dead, not only those the band does:
+//   the forward's blocks run only the key tiles of that span whose packed
+//   word is not 0, and a block with none (a batch row with no live key,
+//   or rows all before its first live key) writes its rows from kv_mean
+//   at once; the backward's skip its dead rows, keys and words alike.
 // probs_bf16 (attn_probs_bf16): the normalised probabilities P and V
-//   rounded to bfloat16, their product summed in float32. A bfloat16 value
-//   is exact in TF32, so the kernels keep their TF32 wgmma path with the
-//   rounded value as the hi part: the forward's P.V is the one product
-//   P_hi V_hi; the backward drops every product of a zero lo part (V's,
+//   rounded to bfloat16, their product summed in float32. The forward's
+//   P.V is a bfloat16 wgmma with P in registers; the backward keeps its
+//   TF32 path with the rounded value as the hi part (a bfloat16 value is
+//   exact in TF32) and drops every product of a zero lo part (V's,
 //   bf16(P)'s in dV, and K's and dO's where the inputs are bfloat16).
 #pragma once
 
@@ -95,7 +99,7 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The packing, and with ``bounds`` (the backward) kv_bounds after it.
+// The packing, and with ``bounds`` kv_bounds after it.
 inline cudaError_t launch_pack(const uint8_t* kv, uint32_t* bits, int batch,
                                int sk, cudaStream_t stream,
                                int* bounds = nullptr) {

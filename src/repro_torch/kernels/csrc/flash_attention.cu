@@ -101,22 +101,37 @@
 //
 // The two modes of attention_modes.cuh (the reference's kv_valid masks and
 // attn_probs_bf16). kv_valid: the producer copies each K tile's packed
-// mask word beside it into its stage, and the softmax masks a dead key as
-// a causally masked one; the tile skip is unchanged, and a row that ends
-// the loop with m = -1e30 (no live key anywhere, so the tiles it ran
-// averaged v over those tiles only) is written kv_mean's mean of v over
-// all Sk keys, with lse = +inf. probs_bf16 rounds where the reference
-// rounds, the normalised softmax: a first pass over the block's tiles
-// (their K halves only, loaded once more for the second) runs the online
-// max and sum alone, giving each row's lse; the second pass writes p =
-// exp(s - lse), already normalised, as P_hi = bf16(p), and multiplies it
-// by V^T_hi = bf16(v) (the prepare pass's) in one product, P_hi V_hi,
-// summed in float32 (a bfloat16 value is exact in TF32, so that product is
-// exact), with no rescaling and no division at the end. The main kernel is
-// built three times (template M): without the modes (the unmasked
-// kernel's code, no word read; the kv_valid build runs an unmasked call
-// 4-6% slower on the H100), with kv_valid alone, and with probs_bf16
-// (kv_valid's words read there too, all ones without a mask).
+// mask word and its key tile beside it into its stage, and the softmax
+// masks a dead key as a causally masked one. The blocks skip what the mask
+// leaves dead, as the backward does: a block's keys are cut to its batch
+// row's first and last live key (kv_bounds, read from the packed words),
+// and the producer and both consumer warpgroups leave out, in the same
+// order, the tiles whose word is 0 (see Work: the bits stay those of
+// running them). A block left no tile (a batch row with no live key, or
+// rows that all come before its first live key) loads nothing and waits on
+// no barrier. A row that ends with m = -1e30 (no live key anywhere) is
+// written kv_mean's mean of v over all Sk keys, with lse = +inf.
+// probs_bf16 rounds where the reference rounds, the normalised softmax:
+// an lse pass over the block's tiles runs the online max and sum alone,
+// giving each row's lse; the second pass (pb_step) makes p = exp(s -
+// lse), already normalised, into bf16(p) in registers, as the A operand
+// of a bfloat16 wgmma (the scores' accumulator layout is that operand's,
+// so P never goes through shared memory), times V^T = bf16(v) (the
+// prepare pass's, in bfloat16, 64-byte rows): each product of two
+// bfloat16 values is exact, summed in float32 into O on the tensor cores
+// (no fresh sum a tile: see issue_pv_bf16), with no rescaling and no
+// division at the end. The lse pass holds no O, so it keeps two score
+// tiles in flight (lse_step: tile i + 1's scores run while tile i's exps
+// do), takes Q_lo from registers as well as Q_hi (see scores_from), and
+// its K tiles fill the
+// stages' K halves and their idle V halves in turn (LseSlot: 4 tiles in
+// flight at D = 128); its last step issues the second pass's first
+// scores.
+// The main kernel is built three times (template M): without the modes
+// (the unmasked kernel's code, no word read: the kv_valid build runs an
+// all-live mask a few percent slower than it on the H100), with kv_valid
+// alone, and with probs_bf16 (kv_valid's words read there too, all ones
+// without a mask).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,7 +165,8 @@ constexpr int kModeNone = 0, kModeMask = 1, kModePb = 2;
 // in its registers); each one's P_hi, P_lo as (64 rows x 128 B); the
 // stages, each K_hi, K_lo as D / 32 atoms of (32 rows x 128 B) and V^T_hi,
 // V^T_lo as (D rows x 128 B); then the mbarriers, per stage a full and an
-// empty one for its K half and for its V half.
+// empty one for its K half and for its V half, then per stage a full and
+// an empty one for its V half holding a K tile (probs_bf16's lse pass).
 template <int D>
 struct Layout {
   static constexpr int kStages = D == 128 ? 2 : 4;
@@ -162,9 +178,14 @@ struct Layout {
   static constexpr int kP0 = kGroups * kQBytes;
   static constexpr int kStage0 = kP0 + kGroups * 2 * kPBytes;
   static constexpr int kBar = kStage0 + kStages * kStageBytes;
-  // per stage its K tile's packed kv_valid word (all ones without a mask)
-  static constexpr int kWord = kBar + 4 * kStages * 8;
-  static constexpr int kBytes = kWord + 4 * kStages + 1024;  // + align
+  static constexpr int kBarStride = 4 * 8;
+  static constexpr int kVkBar = kBar + kStages * kBarStride;
+  // with the modes, per stage the (packed kv_valid word, key tile) of the
+  // K tile in its K half, then of the one in its V half (the lse pass);
+  // then the block's plan (first tile, end tile, tiles run)
+  static constexpr int kSlot = kVkBar + kStages * 2 * 8;
+  static constexpr int kPlan = kSlot + 2 * 8 * kStages;
+  static constexpr int kBytes = kPlan + 16 + 1024;  // + align
 };
 
 // ------------------------------------------------------------ loads, stores
@@ -200,8 +221,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 
 // Block (key tile, KV head): K's 32 rows split into K_hi, K_lo rows; V's
 // tile through shared memory into V^T_hi, V^T_lo columns (with pb,
-// probs_bf16, V^T_hi = bf16(v) and V^T_lo = 0). Keys at or past Sk are
-// zeros.
+// probs_bf16, V^T_hi = bf16(v) alone, stored as bfloat16 at the start of
+// V^T_hi's scratch). Keys at or past Sk are zeros.
 template <typename T>
 __global__ void __launch_bounds__(256)
     flash_attention_prepare_kv(const T* __restrict__ k,
@@ -231,10 +252,14 @@ __global__ void __launch_bounds__(256)
   for (int e = threadIdx.x; e < kBk * D; e += blockDim.x) {
     const int c = e / kBk, j = e % kBk;
     const float x = vs[j][c];
-    const float hi = pb ? modes::bf16_round(x) : to_tf32(x);
     const int64_t w = ((int64_t)h * D + c) * Skp + k0 + j;
-    vthi[w] = hi;
-    vtlo[w] = pb ? 0.0f : to_tf32(x - hi);
+    if (pb) {
+      reinterpret_cast<__nv_bfloat16*>(vthi)[w] = __float2bfloat16_rn(x);
+    } else {
+      const float hi = to_tf32(x);
+      vthi[w] = hi;
+      vtlo[w] = to_tf32(x - hi);
+    }
   }
 }
 
@@ -267,37 +292,80 @@ __global__ void __launch_bounds__(256)
 // ------------------------------------------------------------ main kernel
 
 // A block's work: head bh (KV head kvh), query rows q0 .. q0 + 127, key
-// tiles kt_begin .. kt_begin + n_tiles - 1 (the tiles some row of the
-// block sees; both warpgroups run them all, and a tile that none of a
-// warpgroup's rows sees leaves its bits alone). Blocks go KV head by KV
+// tiles kt_begin .. kt_end - 1 (the tiles some row of the block sees; both
+// warpgroups run them all, and a tile that none of a warpgroup's rows sees
+// leaves its bits alone), n_tiles of them run. Blocks go KV head by KV
 // head (its K/V tiles stay in L2 while its kv_group query heads read
-// them), query tiles longest first within one.
+// them), query tiles longest first within one. With kv_valid (M, and
+// ``bounds``, each batch row's first and last live key) the keys are also
+// cut to the batch row's live span: a batch row with no live key, or rows
+// that all come before its first live key under causal masking, leave the
+// block no tile (n_tiles 0); and the tiles whose packed word is 0 are not
+// run (live_tiles counts the others, next_tile walks them). The
+// producer's first warp plans that before the roles split, into shared
+// memory (Layout::kPlan), where the consumers' and the producer's
+// registers are not yet scarce. Every tile
+// left out adds exact zeros to the rows that have seen a live key (p =
+// exp(-1e30 - m) = 0, alpha = 1) and junk to the others that the first
+// live tile wipes out exactly (alpha = exp(-1e30 - m) = 0), or that
+// kv_mean overwrites (a row with no live key): so the skips keep the bits,
+// and skip = 0 (the wrapper's skip_tiles=False) shows it.
 struct Work {
-  int bh, kvh, q0, kt_begin, n_tiles;
+  int bh, kvh, q0, kt_begin, kt_end, n_tiles;
 };
 
+template <int M>
 __device__ __forceinline__ Work block_work(int Sq, int Sk, int kv_group,
-                                           int causal, int window,
-                                           int skip) {
+                                           int causal, int window, int skip,
+                                           const int* bounds, int hq) {
   Work wk;
   const int nqt = (Sq + kBlockRows - 1) / kBlockRows;
   wk.kvh = blockIdx.x / (nqt * kv_group);
   const int rem = blockIdx.x % (nqt * kv_group);
   wk.bh = wk.kvh * kv_group + rem % kv_group;
   wk.q0 = (nqt - 1 - rem / kv_group) * kBlockRows;
-  const int nk = (Sk + kBk - 1) / kBk;
-  int kt_begin = 0, kt_end = nk;
+  int lo = 0, hi = Sk;  // the keys to run
   if (skip) {
-    const int q_last = min(wk.q0 + kBlockRows, Sq) - 1;
-    if (causal) kt_end = min(nk, q_last / kBk + 1);
-    if (window > 0) kt_begin = max(0, wk.q0 - window + 1) / kBk;
+    if (causal) hi = min(hi, min(wk.q0 + kBlockRows, Sq));
+    if (window > 0) lo = max(lo, wk.q0 - window + 1);
+    if constexpr (M != kModeNone) {
+      if (bounds != nullptr) {
+        const int b = wk.bh / hq;
+        lo = max(lo, bounds[2 * b]);
+        hi = min(hi, bounds[2 * b + 1] + 1);
+      }
+    }
   }
-  wk.kt_begin = kt_begin;
-  wk.n_tiles = kt_end - kt_begin;
+  wk.kt_begin = lo / kBk;
+  wk.kt_end = hi > lo ? (hi + kBk - 1) / kBk : wk.kt_begin;
+  wk.n_tiles = wk.kt_end - wk.kt_begin;
   return wk;
 }
 
-// The stages' shared-memory addresses and barriers.
+// The tiles of [t0, t1) whose packed word is not 0, counted by every lane
+// of the calling warp (32 words a round by a ballot).
+__device__ __forceinline__ int live_tiles(const uint32_t* words, int t0,
+                                          int t1) {
+  const int lane = threadIdx.x % 32;
+  int n = 0;
+  for (int t = t0; t < t1; t += 32)
+    n += __popc(__ballot_sync(0xffffffffu,
+                              t + lane < t1 && words[t + lane] != 0u));
+  return n;
+}
+
+// The first tile at or after t, before t1, that the block runs: with
+// ``words`` (kv_valid and the skip) the next whose packed word is not 0.
+__device__ __forceinline__ int next_tile(const uint32_t* words, int t,
+                                         int t1) {
+  if (words != nullptr)
+    while (t < t1 && words[t] == 0u) ++t;
+  return t;
+}
+
+// The stages' shared-memory addresses and barriers. K loads and V loads
+// count on in their own sequences; probs_bf16's lse pass loads its K tiles
+// into the K halves and the V halves in turn (LseSlot).
 template <int D>
 struct Stages {
   using L = Layout<D>;
@@ -307,25 +375,72 @@ struct Stages {
   }
   __device__ uint32_t v(int it) const { return k(it) + 2 * L::kKBytes; }
   __device__ uint32_t k_full(int it) const {
-    return bars + 32 * (it % L::kStages);
+    return bars + L::kBarStride * (it % L::kStages);
   }
   __device__ uint32_t k_empty(int it) const { return k_full(it) + 8; }
   __device__ uint32_t v_full(int it) const { return k_full(it) + 16; }
   __device__ uint32_t v_empty(int it) const { return k_full(it) + 24; }
   __device__ int parity(int it) const { return (it / L::kStages) & 1; }
-  __device__ uint32_t word(int it) const {
-    return base + L::kWord + 4 * (it % L::kStages);
+  // K load it's (word, key tile)
+  __device__ uint32_t slot(int it) const {
+    return base + L::kSlot + 8 * (it % L::kStages);
   }
 };
 
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t x) {
-  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
-}
+// Where probs_bf16's lse pass finds its tile i: tiles go to the K halves
+// of stages 0 .. S - 1, then to their V halves (idle until the second
+// pass), and round again, so 2 S K tiles are in flight (4 at D = 128). A
+// K half's use is K load (i / 2S) S + i % 2S of the K sequence, which the
+// second pass's K loads continue (``k_loads``); a V half has barriers of
+// its own for it (Layout::kVkBar).
+template <int D>
+struct LseSlot {
+  using L = Layout<D>;
+  static constexpr int kS = L::kStages;
+  uint32_t tile, full, slot;
+  int parity;
+  __device__ LseSlot(uint32_t base, uint32_t bars, int i) {
+    const int u = i % (2 * kS), s = u % kS;
+    const bool vh = u >= kS;
+    tile = base + L::kStage0 + s * L::kStageBytes + (vh ? 2 * L::kKBytes : 0);
+    full = vh ? base + L::kVkBar + 16 * s : bars + L::kBarStride * s;
+    slot = base + L::kSlot + 8 * s + (vh ? 8 * kS : 0);
+    parity = (i / (2 * kS)) & 1;
+  }
+  __device__ uint32_t empty() const { return full + 8; }
+  // the K halves' loads among the pass's first n tiles
+  __device__ static int k_loads(int n) {
+    return n / (2 * kS) * kS + min(n % (2 * kS), kS);
+  }
+};
+
 __device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
   uint32_t x;
   asm volatile("ld.shared.u32 %0, [%1];" : "=r"(x) : "r"(addr) : "memory");
   return x;
 }
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
+}
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a,
+                                             uint32_t b) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};" ::"r"(addr), "r"(a),
+               "r"(b)
+               : "memory");
+}
+__device__ __forceinline__ uint2 ld_shared_v2(uint32_t addr) {
+  uint2 x;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+               : "=r"(x.x), "=r"(x.y)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+// The k steps of Q_lo that probs_bf16's lse pass takes from registers:
+// all of them (the other passes take Q_lo from shared memory).
+template <int D>
+constexpr int kLseQlSteps = D / 8;
 
 // What a consumer thread needs for the mask: its first row (the second is
 // row0 + 8), its key pair t, and the call's bounds.
@@ -350,38 +465,47 @@ __host__ __device__ constexpr int k_step(int kk, int rows) {
 
 // The k steps KK.. of S = Q_lo K_hi^T (both from shared memory) + Q_hi
 // K_lo^T + Q_hi K_hi^T (Q_hi as TF32 A fragments in registers, qh[4 kk ..]
-// for k step kk).
-template <int D, int KK>
+// for k step kk). With R > 0, Q_lo's first R k steps come from registers
+// too (ql, laid out as qh): the same products in the same order, so that
+// those read only K from shared memory (an SS product of N = 32 reads
+// more bytes a step than shared memory gives the tensor cores).
+// probs_bf16's lse pass, which holds no O, has room for all of them
+// (kLseQlSteps).
+template <int D, int R, int KK>
 __device__ __forceinline__ void scores_from(float* sc, const uint32_t* qh,
-                                            uint64_t qlo, uint64_t khi,
-                                            uint64_t klo) {
-  if constexpr (KK < D / 8) {
+                                            const uint32_t* ql, uint64_t qlo,
+                                            uint64_t khi, uint64_t klo) {
+  if constexpr (KK < R) {
+    wgmma_rs32<k_step(KK, kBk)>(sc, ql + 4 * KK, khi);
+    scores_from<D, R, KK + 1>(sc, qh, ql, qlo, khi, klo);
+  } else if constexpr (KK < D / 8) {
     WgmmaSS<32, k_step(KK, kBq), k_step(KK, kBk)>::run(sc, qlo, khi);
-    scores_from<D, KK + 1>(sc, qh, qlo, khi, klo);
+    scores_from<D, R, KK + 1>(sc, qh, ql, qlo, khi, klo);
   } else if constexpr (KK < 2 * (D / 8)) {
     constexpr int kk = KK - D / 8;
     wgmma_rs32<k_step(kk, kBk)>(sc, qh + 4 * kk, klo);
-    scores_from<D, KK + 1>(sc, qh, qlo, khi, klo);
+    scores_from<D, R, KK + 1>(sc, qh, ql, qlo, khi, klo);
   } else if constexpr (KK < 3 * (D / 8)) {
     constexpr int kk = KK - 2 * (D / 8);
     wgmma_rs32<k_step(kk, kBk)>(sc, qh + 4 * kk, khi);
-    scores_from<D, KK + 1>(sc, qh, qlo, khi, klo);
+    scores_from<D, R, KK + 1>(sc, qh, ql, qlo, khi, klo);
   }
 }
 
 // S into sc (zeroed here), committed as one group; small terms first, as
 // CUTLASS orders 3xTF32.
-template <int D>
+template <int D, int R = 0>
 __device__ __forceinline__ void issue_scores(float* sc, const uint32_t* qh,
-                                             uint32_t qlo, uint32_t k) {
+                                             uint32_t qlo, uint32_t k,
+                                             const uint32_t* ql = nullptr) {
   qlo = opaque(qlo);
   k = opaque(k);
 #pragma unroll
   for (int i = 0; i < 16; ++i) sc[i] = 0.0f;
   fence_regs<16>(sc);
   wgmma_fence();
-  scores_from<D, 0>(sc, qh, sw128_desc(qlo), sw128_desc(k),
-                    sw128_desc(k + Layout<D>::kKBytes));
+  scores_from<D, R, 0>(sc, qh, ql, sw128_desc(qlo), sw128_desc(k),
+                       sw128_desc(k + Layout<D>::kKBytes));
   wgmma_commit();
 }
 
@@ -400,14 +524,13 @@ __device__ __forceinline__ void pv_from(float* tmp, uint64_t ph,
 }
 
 // One tile's P.V in a fresh accumulator: tmp = P_lo V_hi + P_hi V_lo +
-// P_hi V_hi (P from shared memory at p, P_lo at p + kPBytes; B = V^T), or
-// with Pb (probs_bf16: P and V rounded to bfloat16, no lo parts) P_hi V_hi
-// alone; committed as one group. The tensor cores add with truncation, so a sum
+// P_hi V_hi (P from shared memory at p, P_lo at p + kPBytes; B = V^T);
+// committed as one group. The tensor cores add with truncation, so a sum
 // held on them across every tile would lose up to an ulp of O per product
 // step (768 steps a row at S = 2048: errors up to 8e-6); a fresh sum per
 // tile, added to O on the CUDA cores, keeps that to the 12 steps of one
 // tile.
-template <int D, bool Pb>
+template <int D>
 __device__ __forceinline__ void issue_pv(float* tmp, uint32_t p,
                                          uint32_t v) {
   p = opaque(p);
@@ -418,8 +541,27 @@ __device__ __forceinline__ void issue_pv(float* tmp, uint32_t p,
   for (int i = 0; i < D / 2; ++i) tmp[i] = 0.0f;
   fence_regs<D / 2>(tmp);
   wgmma_fence();
-  pv_from<D, Pb ? 8 : 0>(tmp, sw128_desc(p), sw128_desc(plo), sw128_desc(v),
-                         sw128_desc(vlo));
+  pv_from<D, 0>(tmp, sw128_desc(p), sw128_desc(plo), sw128_desc(v),
+                sw128_desc(vlo));
+  wgmma_commit();
+}
+
+// probs_bf16's P.V added to O on the tensor cores: P as bfloat16 A
+// fragments in registers (pa, from pack_p), V^T_hi = bf16(v) as bfloat16
+// (D rows x 32 keys, 64-byte rows) in shared memory at v; two bfloat16
+// products of 16 keys, each exact (bfloat16 values), summed in float32
+// into acc. Committed as one group. O held on the tensor cores across
+// the tiles loses up to an ulp a step (issue_pv), ~1e-6 over a 2,048-key
+// row: far inside the mode's own rounding of p and v (2^-9 of each), and
+// it leaves no fresh sum to hold in registers.
+template <int D>
+__device__ __forceinline__ void issue_pv_bf16(float* acc, const uint32_t* pa,
+                                              uint32_t v) {
+  const uint64_t vd = sw64_desc(opaque(v));
+  fence_regs<D / 2>(acc);
+  wgmma_fence();
+  WgmmaRsBf16<D, 0>::run(acc, pa, vd);
+  WgmmaRsBf16<D, 2>::run(acc, pa + 4, vd);  // keys 16.., 32 bytes in
   wgmma_commit();
 }
 
@@ -519,10 +661,8 @@ __device__ __forceinline__ void st_shared2(uint32_t addr, float a, float b) {
 // P (in sc) split into hi and lo and stored for wgmma: (64 rows x 32
 // keys) in one 128-byte swizzled atom each (row r's 16-byte chunk c at
 // c ^ (r % 8)); this thread's rows are lr and lr + 8 of the warpgroup's 64,
-// keys 8 j + 2 t and + 1 side by side; with Pb (probs_bf16) hi = bf16(p)
-// alone, as P_hi V_hi reads no lo part. The caller fences and syncs the
+// keys 8 j + 2 t and + 1 side by side. The caller fences and syncs the
 // warpgroup before the product reads them.
-template <bool Pb>
 __device__ __forceinline__ void store_p(const float* sc, uint32_t p, int lr,
                                         int t) {
 #pragma unroll
@@ -531,14 +671,12 @@ __device__ __forceinline__ void store_p(const float* sc, uint32_t p, int lr,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float x0 = sc[4 * j + 2 * i], x1 = sc[4 * j + 2 * i + 1];
-      const float h0 = Pb ? modes::bf16_round(x0) : to_tf32(x0);
-      const float h1 = Pb ? modes::bf16_round(x1) : to_tf32(x1);
+      const float h0 = to_tf32(x0), h1 = to_tf32(x1);
       const int off = r * kAtom + (((2 * j + t / 2) ^ (r % 8)) << 4) +
                       8 * (t % 2);
       st_shared2(p + off, h0, h1);
-      if constexpr (!Pb)
-        st_shared2(p + kBq * kBk * 4 + off, to_tf32(x0 - h0),
-                   to_tf32(x1 - h1));
+      st_shared2(p + kBq * kBk * 4 + off, to_tf32(x0 - h0),
+                 to_tf32(x1 - h1));
     }
   }
 }
@@ -555,25 +693,23 @@ __device__ __forceinline__ void smem_ready(int w) {
 // nothing in flight on entry or exit: issue tile it's P.V into a fresh
 // sum and (Next) tile it + 1's scores behind it; once P.V is done, release
 // tile it's V half and add the sum to O; once the scores are done,
-// read tile it + 1's kv_valid word and release its K half (which frees
-// the word's slot too), run its softmax, rescale O by its alpha and store
-// its P. While one warpgroup runs its softmax, the other's
-// products keep the tensor cores busy. Next is a template argument, so
-// every wait is static and ptxas keeps the products asynchronous. Tile
-// it's K half is the ring's K load it + ko (probs_bf16's first pass took
-// the first ko), its V half V load it. With probs_bf16 (M = kModePb) the
-// softmax is probs_step's, m holds each row's lse and l is not used.
+// read tile it + 1's kv_valid word and key tile (with kv_valid: the tile
+// skip leaves gaps) and release its K half (which frees its slot too), run
+// its softmax, rescale O by its alpha and store its P. While one
+// warpgroup runs its softmax, the other's products keep the tensor cores
+// busy. Next is a template argument, so every wait is static and ptxas
+// keeps the products asynchronous. Tile it's K half is K load it, its V
+// half V load it. (probs_bf16's second pass is pb_step.)
 template <int D, bool Next, int M>
-__device__ __forceinline__ void tile_step(int it, int ko, int kt_begin,
+__device__ __forceinline__ void tile_step(int it, int kt_begin,
                                           const Stages<D>& st,
                                           const uint32_t* qh, uint32_t qlo,
                                           uint32_t p, int w, const Tile& tl,
                                           float* acc, float* m, float* l) {
-  constexpr bool kPb = M == kModePb;
   float tmp[D / 2], sc[16];
-  const int kn = it + 1 + ko;  // tile it + 1's K load
+  const int kn = it + 1;  // tile it + 1's K load
   mbar_wait(st.v_full(it), st.parity(it));
-  issue_pv<D, kPb>(tmp, p, st.v(it));
+  issue_pv<D>(tmp, p, st.v(it));
   if (Next) {
     mbar_wait(st.k_full(kn), st.parity(kn));
     issue_scores<D>(sc, qh, qlo, st.k(kn));
@@ -588,49 +724,135 @@ __device__ __forceinline__ void tile_step(int it, int ko, int kt_begin,
   if (Next) {
     wgmma_wait<0>();
     fence_regs<16>(sc);
-    const uint32_t word = M != kModeNone ? ld_shared_u32(st.word(kn)) : ~0u;
+    uint32_t word = ~0u;
+    int key0 = (kt_begin + it + 1) * kBk;
+    if constexpr (M != kModeNone) {
+      const uint2 ws = ld_shared_v2(st.slot(kn));
+      word = ws.x;
+      key0 = ws.y * kBk;
+    }
     mbar_arrive(st.k_empty(kn));
-    const int key0 = (kt_begin + it + 1) * kBk;
-    if constexpr (kPb)
-      probs_step(sc, m, key0, word, tl);
-    else
-      softmax_step<D, M != kModeNone>(sc, m, l, acc, key0, word, tl);
-    store_p<kPb>(sc, p, tl.row0 - tl.r0, tl.t);
+    softmax_step<D, M != kModeNone>(sc, m, l, acc, key0, word, tl);
+    store_p(sc, p, tl.row0 - tl.r0, tl.t);
     smem_ready(w);
   }
 }
 
+// probs_bf16's P of one tile (in sc, laid out as softmax_step's) as the A
+// fragments of issue_pv_bf16: the score accumulator's layout is the
+// bfloat16 A operand's, so register i holds bf16(sc[2 i]), bf16(sc[2 i +
+// 1]) (k step i / 4: keys 16 (i / 4) + 2 t, + 1 and + 8, rows row0 and
+// row0 + 8), rounded to nearest even as the reference rounds p.
+__device__ __forceinline__ void pack_p(const float* sc, uint32_t* pa) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(sc[2 * i], sc[2 * i + 1]);
+    pa[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// probs_bf16's second pass, tile it (K load ko + it, V load it), its P in
+// registers (pa), with nothing in flight on entry or exit: issue tile
+// it's P.V into O (issue_pv_bf16; no rescaling: lse is fixed) and (Next)
+// tile it + 1's scores behind it; once P.V is done, release tile it's V
+// half; once the scores are done, release tile it + 1's K half and make
+// its normalised p into pa. P never goes through shared memory, so no
+// warpgroup barrier either.
+template <int D, bool Next>
+__device__ __forceinline__ void pb_step(int it, int ko, const Stages<D>& st,
+                                        const uint32_t* qh, uint32_t qlo,
+                                        const Tile& tl, float* acc,
+                                        const float* lse, uint32_t* pa) {
+  float sc[16];
+  const int kn = it + 1 + ko;  // tile it + 1's K load
+  mbar_wait(st.v_full(it), st.parity(it));
+  issue_pv_bf16<D>(acc, pa, st.v(it));
+  if (Next) {
+    mbar_wait(st.k_full(kn), st.parity(kn));
+    issue_scores<D>(sc, qh, qlo, st.k(kn));
+    wgmma_wait<1>();
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_regs<D / 2>(acc);
+  fence_regs<8>(pa);
+  mbar_arrive(st.v_empty(it));
+  if (Next) {
+    wgmma_wait<0>();
+    fence_regs<16>(sc);
+    const uint2 ws = ld_shared_v2(st.slot(kn));
+    mbar_arrive(st.k_empty(kn));
+    probs_step(sc, lse, ws.y * kBk, ws.x, tl);
+    pack_p(sc, pa);
+  }
+}
+
+// probs_bf16's lse pass, tile i (LseSlot i), its scores in flight in cur:
+// issue the next scores into nxt behind them (the pass's tile i + 1, or
+// with Last the second pass's first tile, K load ko), wait for cur, read
+// its word and key tile and release its slot, and run the online max and
+// sum on it (no O to rescale). Two score tiles in flight: the tensor
+// cores run tile i + 1's while the CUDA cores run tile i's exps. Q_lo's
+// first kLseQlSteps k steps from registers.
+template <int D, bool Last>
+__device__ __forceinline__ void lse_step(int i, int ko, const Stages<D>& st,
+                                         const uint32_t* ql,
+                                         const uint32_t* qh, uint32_t qlo,
+                                         const Tile& tl, float* cur,
+                                         float* nxt, float* m, float* l) {
+  if constexpr (Last) {
+    mbar_wait(st.k_full(ko), st.parity(ko));
+    issue_scores<D, kLseQlSteps<D>>(nxt, qh, qlo, st.k(ko), ql);
+  } else {
+    const LseSlot<D> ns(st.base, st.bars, i + 1);
+    mbar_wait(ns.full, ns.parity);
+    issue_scores<D, kLseQlSteps<D>>(nxt, qh, qlo, ns.tile, ql);
+  }
+  wgmma_wait<1>();
+  fence_regs<16>(cur);
+  const LseSlot<D> cs(st.base, st.bars, i);
+  const uint2 ws = ld_shared_v2(cs.slot);
+  mbar_arrive(cs.empty());
+  softmax_step<D, true, false>(cur, m, l, nullptr, ws.y * kBk, ws.x, tl);
+}
+
 // The producer (one thread): every box, K one tile ahead of V (K_0, K_1,
 // V_0, K_2, V_1, ...), since a tile's K half is free once its scores are
-// done and its V half only after P.V; with each K half, the tile's packed
-// kv_valid word from ``words`` (the block's batch row of them, null
-// without a mask: all ones), stored before the arrive that releases it.
-// With probs_bf16 the K halves of every tile go first, alone, for the
-// lse pass, and a V half is V^T_hi alone. K loads and V loads count on
-// in their own sequences (a stage's K half and V half have their own
-// barriers).
+// done and its V half only after P.V; with each K half, with the modes,
+// the tile's packed kv_valid word from ``words`` (the block's batch row of
+// them, null without a mask: all ones) and its key tile, stored before
+// the arrive that releases them. With kv_valid and the skip (``skip``
+// given) the tiles whose word is 0 are left out, as the consumers leave
+// them out. With probs_bf16 every tile's K half goes first, alone, for the
+// lse pass (LseSlot: into the K halves and the idle V halves in turn),
+// and a V half is V^T_hi alone; a stage's first V load of the second pass
+// waits for the release of the K tile its V half held last.
 template <int D, int M>
 __device__ __forceinline__ void produce(const CUtensorMap* tm_khi,
                                         const CUtensorMap* tm_klo,
                                         const CUtensorMap* tm_vthi,
                                         const CUtensorMap* tm_vtlo,
                                         const Work& wk, int Skp,
-                                        const uint32_t* words) {
+                                        const uint32_t* words,
+                                        const uint32_t* skip) {
   using L = Layout<D>;
   constexpr int kS = L::kStages;
   constexpr bool kPb = M == kModePb;
   const uint32_t base = smem_base(), bars = base + L::kBar;
-  // K load n: the K half of tile kt
-  auto load_k = [&](int n, int kt) {
+  // the n-th load of a K tile into a K half (vh = 0) or, in the lse pass,
+  // a V half (vh = 1): tile kt
+  auto load_k = [&](int n, int kt, int vh) {
     const int s = n % kS;
-    const uint32_t full = bars + 8 * (4 * s);
+    const uint32_t full = vh ? base + L::kVkBar + 16 * s
+                             : bars + L::kBarStride * s;
     if (n >= kS) mbar_wait(full + 8, ((n / kS) - 1) & 1);
     if constexpr (M != kModeNone)
-      st_shared_u32(base + L::kWord + 4 * s,
-                    words ? words[wk.kt_begin + kt] : ~0u);
+      st_shared_v2(base + L::kSlot + 8 * s + 8 * kS * vh,
+                   words ? words[kt] : ~0u, kt);
     mbar_expect_tx(full, 2 * L::kKBytes);
-    const int row = wk.kvh * Skp + (wk.kt_begin + kt) * kBk;
-    const uint32_t st = base + L::kStage0 + s * L::kStageBytes;
+    const int row = wk.kvh * Skp + kt * kBk;
+    const uint32_t st = base + L::kStage0 + s * L::kStageBytes +
+                        2 * L::kKBytes * vh;
 #pragma unroll
     for (int a = 0; a < D / 32; ++a) {
       tma_load(st + a * kBk * kAtom, tm_khi, full, 32 * a, row);
@@ -638,25 +860,40 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_khi,
                row);
     }
   };
-  int ko = 0;
+  int nk = 0, nv = 0;  // K tiles loaded into K halves, into V halves
   if constexpr (kPb) {
-    for (int kt = 0; kt < wk.n_tiles; ++kt) load_k(kt, kt);
-    ko = wk.n_tiles;
+    for (int kt = next_tile(skip, wk.kt_begin, wk.kt_end); kt < wk.kt_end;
+         kt = next_tile(skip, kt + 1, wk.kt_end)) {
+      if ((nk + nv) % (2 * kS) < kS)
+        load_k(nk++, kt, 0);
+      else
+        load_k(nv++, kt, 1);
+    }
   }
-  for (int it = -1; it < wk.n_tiles; ++it) {
-    const int kt = it + 1;  // the K half to load, then V of tile it
-    if (kt < wk.n_tiles) load_k(ko + kt, kt);
+  int kt = next_tile(skip, wk.kt_begin, wk.kt_end), vt = kt;
+  for (int it = -1; vt < wk.kt_end; ++it) {  // K of tile it + 1, V of it
+    if (kt < wk.kt_end) {
+      load_k(nk++, kt, 0);
+      kt = next_tile(skip, kt + 1, wk.kt_end);
+    }
     if (it >= 0) {
       const int s = it % kS;
-      const uint32_t full = bars + 8 * (4 * s + 2);
-      if (it >= kS) mbar_wait(full + 8, ((it / kS) - 1) & 1);
-      mbar_expect_tx(full, (kPb ? 1 : 2) * L::kVBytes);
-      const int key0 = (wk.kt_begin + it) * kBk;
+      const uint32_t full = bars + L::kBarStride * s + 16;
+      if (it >= kS) {
+        mbar_wait(full + 8, ((it / kS) - 1) & 1);
+      } else if (kPb) {
+        // the lse pass's loads into this V half
+        const int uses = (nv + kS - 1 - s) / kS;
+        if (uses > 0)
+          mbar_wait(base + L::kVkBar + 16 * s + 8, (uses - 1) & 1);
+      }
+      mbar_expect_tx(full, kPb ? D * kBk * 2 : 2 * L::kVBytes);
       const uint32_t st =
           base + L::kStage0 + s * L::kStageBytes + 2 * L::kKBytes;
-      tma_load(st, tm_vthi, full, key0, wk.kvh * D);
+      tma_load(st, tm_vthi, full, vt * kBk, wk.kvh * D);
       if constexpr (!kPb)
-        tma_load(st + L::kVBytes, tm_vtlo, full, key0, wk.kvh * D);
+        tma_load(st + L::kVBytes, tm_vtlo, full, vt * kBk, wk.kvh * D);
+      vt = next_tile(skip, vt + 1, wk.kt_end);
     }
   }
 }
@@ -671,104 +908,142 @@ __device__ __forceinline__ void consume(const T* __restrict__ q,
                                         int causal, int window, float scale,
                                         int skip) {
   using L = Layout<D>;
-  const Work wk = block_work(Sq, Sk, kv_group, causal, window, skip);
-  const int bh = wk.bh, q0 = wk.q0, kt_begin = wk.kt_begin,
-            n_tiles = wk.n_tiles;
+  const Work wk =
+      block_work<M>(Sq, Sk, kv_group, causal, window, skip, nullptr, 0);
+  const int bh = wk.bh, q0 = wk.q0, kt_begin = wk.kt_begin;
   const uint32_t base = smem_base(), bars = base + L::kBar;
+  const int n_tiles = M != kModeNone ? (int)ld_shared_u32(base + L::kPlan + 8)
+                                     : wk.n_tiles;
+  constexpr bool kPb = M == kModePb;
   // Q scaled and split: Q_lo into shared memory in the swizzled layout
   // (16-byte chunk c of row r at chunk c ^ (r % 8), as TMA's SWIZZLE_128B
-  // puts it), Q_hi straight into this thread's A fragments.
+  // puts it), Q_hi straight into this thread's A fragments (with
+  // probs_bf16 Q_lo too, for the lse pass). A block left no tile (kv_valid)
+  // loads no Q.
   const int tid = threadIdx.x, w = tid / 128, wt = tid % 128;
   const int lane = tid % 32, g = lane / 4, t = lane % 4;
   const int r0 = q0 + kBq * w;
   const int64_t qoff = ((int64_t)bh * Sq + r0) * D;
   const uint32_t qlo = base + w * L::kQBytes;
-  for (int e = wt; e < kBq * D / 4; e += 128) {
-    const int r = e / (D / 4), c4 = e % (D / 4);
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r0 + r < Sq) {
-      x = load4(q + qoff + (int64_t)r * D + 4 * c4);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-    }
-    const float4 lo = make_float4(
-        to_tf32(x.x - to_tf32(x.x)), to_tf32(x.y - to_tf32(x.y)),
-        to_tf32(x.z - to_tf32(x.z)), to_tf32(x.w - to_tf32(x.w)));
-    const int off = (c4 / 8) * kBq * kAtom + r * kAtom +
-                    (((c4 % 8) ^ (r % 8)) << 4);
-    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
-                     qlo + off),
-                 "f"(lo.x), "f"(lo.y), "f"(lo.z), "f"(lo.w)
-                 : "memory");
-  }
   const Tile tile{r0, r0 + 16 * (wt / 32) + g, t, Sk, causal, window};
   uint32_t qh[D / 2];  // k step kk: (row0, 8 kk + t), (row0 + 8, ..), + 4
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = tile.row0 + 8 * (r % 2);
-      const float x =
-          row < Sq ? to_float(q[((int64_t)bh * Sq + row) * D + 8 * kk + t +
-                                4 * (r / 2)]) * scale
-                   : 0.0f;
-      qh[4 * kk + r] = __float_as_uint(to_tf32(x));
+  uint32_t ql[kPb && kLseQlSteps<D> ? 4 * kLseQlSteps<D> : 1];
+  if (M == kModeNone || n_tiles > 0) {
+    for (int e = wt; e < kBq * D / 4; e += 128) {
+      const int r = e / (D / 4), c4 = e % (D / 4);
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r0 + r < Sq) {
+        x = load4(q + qoff + (int64_t)r * D + 4 * c4);
+        x.x *= scale;
+        x.y *= scale;
+        x.z *= scale;
+        x.w *= scale;
+      }
+      const float4 lo = make_float4(
+          to_tf32(x.x - to_tf32(x.x)), to_tf32(x.y - to_tf32(x.y)),
+          to_tf32(x.z - to_tf32(x.z)), to_tf32(x.w - to_tf32(x.w)));
+      const int off = (c4 / 8) * kBq * kAtom + r * kAtom +
+                      (((c4 % 8) ^ (r % 8)) << 4);
+      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                       qlo + off),
+                   "f"(lo.x), "f"(lo.y), "f"(lo.z), "f"(lo.w)
+                   : "memory");
     }
-  smem_ready(w);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = tile.row0 + 8 * (r % 2);
+        const float x =
+            row < Sq ? to_float(q[((int64_t)bh * Sq + row) * D + 8 * kk + t +
+                                  4 * (r / 2)]) * scale
+                     : 0.0f;
+        qh[4 * kk + r] = __float_as_uint(to_tf32(x));
+        if constexpr (kPb)
+          if (kk < kLseQlSteps<D>)
+            ql[4 * kk + r] = __float_as_uint(to_tf32(x - to_tf32(x)));
+      }
+    smem_ready(w);
+  }
 
-  constexpr bool kPb = M == kModePb;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
   const Stages<D> st{base, bars};
   const uint32_t p = base + L::kP0 + w * 2 * L::kPBytes;
-  // probs_bf16's first pass: each row's max and sum over all its tiles
-  // (K loads 0 .. n_tiles - 1), so that the second pass (K loads ko ..)
-  // normalises p before rounding it
-  int ko = 0;
-  float row_lse[2];
+  // O, zeroed where the tiles begin (a block left no tile reads none of
+  // it: every row of it is written from kv_mean)
+  float acc[D / 2];
   if constexpr (kPb) {
-    for (int it = 0; it < n_tiles; ++it) {
-      float sc[16];
-      mbar_wait(st.k_full(it), st.parity(it));
-      issue_scores<D>(sc, qh, qlo, st.k(it));
+    // the lse pass: each row's max and sum over all its tiles, two score
+    // tiles in flight, so that the second pass (K loads ko ..) normalises
+    // p before rounding it; its last step issues the second pass's first
+    // scores into the array it has just read
+    const int ko = LseSlot<D>::k_loads(n_tiles);
+    float s0[16], s1[16], row_lse[2];
+    uint32_t pa[8];  // a tile's P, bfloat16 pairs
+    // the second pass's first tile, its scores in sc
+    auto first = [&](float* sc) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) row_lse[r] = m[r] + logf(l[r]);
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) acc[r] = 0.0f;
       wgmma_wait<0>();
       fence_regs<16>(sc);
-      const uint32_t word = ld_shared_u32(st.word(it));
-      mbar_arrive(st.k_empty(it));
-      softmax_step<D, true, false>(sc, m, l, nullptr, (kt_begin + it) * kBk,
-                                   word, tile);
+      const uint2 ws = ld_shared_v2(st.slot(ko));
+      mbar_arrive(st.k_empty(ko));
+      probs_step(sc, row_lse, ws.y * kBk, ws.x, tile);
+      pack_p(sc, pa);
+    };
+    if (n_tiles > 0) {
+      {
+        const LseSlot<D> tile0(base, bars, 0);
+        mbar_wait(tile0.full, tile0.parity);
+        issue_scores<D, kLseQlSteps<D>>(s0, qh, qlo, tile0.tile, ql);
+      }
+      int i = 0;
+      for (; i + 2 < n_tiles; i += 2) {
+        lse_step<D, false>(i, ko, st, ql, qh, qlo, tile, s0, s1, m, l);
+        lse_step<D, false>(i + 1, ko, st, ql, qh, qlo, tile, s1, s0, m, l);
+      }
+      if (i + 2 == n_tiles) {
+        lse_step<D, false>(i, ko, st, ql, qh, qlo, tile, s0, s1, m, l);
+        lse_step<D, true>(i + 1, ko, st, ql, qh, qlo, tile, s1, s0, m, l);
+        first(s0);
+      } else {
+        lse_step<D, true>(i, ko, st, ql, qh, qlo, tile, s0, s1, m, l);
+        first(s1);
+      }
+      for (int it = 0; it + 1 < n_tiles; ++it)
+        pb_step<D, true>(it, ko, st, qh, qlo, tile, acc, row_lse, pa);
+      pb_step<D, false>(n_tiles - 1, ko, st, qh, qlo, tile, acc, row_lse,
+                        pa);
     }
-    ko = n_tiles;
+  } else if (M == kModeNone || n_tiles > 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) row_lse[i] = m[i] + logf(l[i]);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    {
+      float sc[16];
+      mbar_wait(st.k_full(0), st.parity(0));
+      issue_scores<D>(sc, qh, qlo, st.k(0));
+      wgmma_wait<0>();
+      fence_regs<16>(sc);
+      uint32_t word = ~0u;
+      int key0 = kt_begin * kBk;
+      if constexpr (M != kModeNone) {
+        const uint2 ws = ld_shared_v2(st.slot(0));
+        word = ws.x;
+        key0 = ws.y * kBk;
+      }
+      mbar_arrive(st.k_empty(0));
+      softmax_step<D, M != kModeNone>(sc, m, l, acc, key0, word, tile);
+      store_p(sc, p, tile.row0 - r0, t);
+      smem_ready(w);
+    }
+    for (int it = 0; it + 1 < n_tiles; ++it)
+      tile_step<D, true, M>(it, kt_begin, st, qh, qlo, p, w, tile, acc, m,
+                            l);
+    tile_step<D, false, M>(n_tiles - 1, kt_begin, st, qh, qlo, p, w, tile,
+                           acc, m, l);
   }
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-
-  {
-    float sc[16];
-    mbar_wait(st.k_full(ko), st.parity(ko));
-    issue_scores<D>(sc, qh, qlo, st.k(ko));
-    wgmma_wait<0>();
-    fence_regs<16>(sc);
-    const uint32_t word = M != kModeNone ? ld_shared_u32(st.word(ko)) : ~0u;
-    mbar_arrive(st.k_empty(ko));
-    if constexpr (kPb)
-      probs_step(sc, row_lse, kt_begin * kBk, word, tile);
-    else
-      softmax_step<D, M != kModeNone>(sc, m, l, acc, kt_begin * kBk, word,
-                                      tile);
-    store_p<kPb>(sc, p, tile.row0 - r0, t);
-    smem_ready(w);
-  }
-  float* mr = kPb ? row_lse : m;  // the second pass's row statistic
-  for (int it = 0; it + 1 < n_tiles; ++it)
-    tile_step<D, true, M>(it, ko, kt_begin, st, qh, qlo, p, w, tile, acc, mr,
-                          l);
-  tile_step<D, false, M>(n_tiles - 1, ko, kt_begin, st, qh, qlo, p, w, tile,
-                         acc, mr, l);
 
   // acc[4 c + 2 i + e] is row row0 + 8 i, column 8 c + 2 t + e (with
   // probs_bf16 already normalised); lse (when asked for) is the row's m +
@@ -810,6 +1085,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const T* __restrict__ q, T* __restrict__ o,
                            float* __restrict__ lse,
                            const uint32_t* __restrict__ bits,
+                           const int* __restrict__ bounds,
                            const float* __restrict__ vmean, int Sq, int Sk,
                            int Skp, int kv_group, int hq, int causal,
                            int window, float scale, int skip) {
@@ -817,13 +1093,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kS = L::kStages;
   if (threadIdx.x == 0) {
     const uint32_t bars = smem_base() + L::kBar;
-    for (int s = 0; s < kS; ++s) {
-      mbar_init(bars + 8 * (4 * s), 1);
-      mbar_init(bars + 8 * (4 * s + 1), kConsumers);
-      mbar_init(bars + 8 * (4 * s + 2), 1);
-      mbar_init(bars + 8 * (4 * s + 3), kConsumers);
+    // full (one arrive + the bytes) and empty (the consumers) pairs
+    for (int b = 0; b < 3 * kS; ++b) {
+      mbar_init(bars + 16 * b, 1);
+      mbar_init(bars + 16 * b + 8, kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if constexpr (M != kModeNone) {
+    // the block's plan (Work), by the producer's first warp
+    if (threadIdx.x / 32 == kConsumers / 32) {
+      const Work wk = block_work<M>(Sq, Sk, kv_group, causal, window, skip,
+                                    bounds, hq);
+      int n = wk.n_tiles;
+      if (skip && bits != nullptr)
+        n = live_tiles(bits + (int64_t)(wk.bh / hq) * modes::mask_words(Sk),
+                       wk.kt_begin, wk.kt_end);
+      if (threadIdx.x == kConsumers) {
+        st_shared_v2(smem_base() + L::kPlan, wk.kt_begin, wk.kt_end);
+        st_shared_u32(smem_base() + L::kPlan + 8, n);
+      }
+    }
   }
   __syncthreads();
 
@@ -832,11 +1122,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == kConsumers) {
-      const Work wk =
-          block_work(Sq, Sk, kv_group, causal, window, skip);
-      produce<D, M>(&tm_khi, &tm_klo, &tm_vthi, &tm_vtlo, wk, Skp,
-                 bits ? bits + (int64_t)(wk.bh / hq) * modes::mask_words(Sk)
-                      : nullptr);
+      Work wk =
+          block_work<M>(Sq, Sk, kv_group, causal, window, skip, nullptr, 0);
+      if constexpr (M != kModeNone) {
+        wk.kt_begin = (int)ld_shared_u32(smem_base() + L::kPlan);
+        wk.kt_end = (int)ld_shared_u32(smem_base() + L::kPlan + 4);
+      }
+      const uint32_t* words =
+          M != kModeNone && bits != nullptr
+              ? bits + (int64_t)(wk.bh / hq) * modes::mask_words(Sk)
+              : nullptr;
+      produce<D, M>(&tm_khi, &tm_klo, &tm_vthi, &tm_vtlo, wk, Skp, words,
+                    skip ? words : nullptr);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
@@ -848,7 +1145,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ------------------------------------------------------------------ host
 
 // The scratch after the split K and V: with kv_valid, kv_mean's (BHkv, D)
-// float32 means, then the (B, ceil(Sk / 32)) packed mask words.
+// float32 means, then the (B, ceil(Sk / 32)) packed mask words, then each
+// batch row's first and last live key (2 ints, kv_bounds).
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            float* work, const uint8_t* kv, int bh, int kv_group, int sq,
@@ -862,11 +1160,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const int pb = (mds & modes::kProbsBf16) ? 1 : 0;
   float* vmean = nullptr;
   uint32_t* bits = nullptr;
+  int* bounds = nullptr;
   cudaError_t err;
   if (kv != nullptr) {
     vmean = work + 4 * part;
     bits = reinterpret_cast<uint32_t*>(vmean + (int64_t)bhkv * D);
-    err = modes::launch_pack(kv, bits, bh / hq, sk, stream);
+    bounds = reinterpret_cast<int*>(bits + (int64_t)(bh / hq) *
+                                               modes::mask_words(sk));
+    err = modes::launch_pack(kv, bits, bh / hq, sk, stream, bounds);
     if (err != cudaSuccess) return (int)err;
     flash_attention_kv_mean<T><<<dim3(D / 32, bhkv), 256, 0, stream>>>(
         static_cast<const T*>(v), vmean, sk, D, pb);
@@ -885,7 +1186,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const uint64_t rows = (uint64_t)bhkv * skp, vrows = (uint64_t)bhkv * D;
   int r = tensor_map(encode, &maps[0], khi, D, rows, kBk);
   if (!r) r = tensor_map(encode, &maps[1], klo, D, rows, kBk);
-  if (!r) r = tensor_map(encode, &maps[2], vthi, skp, vrows, D);
+  if (!r)
+    r = pb ? tensor_map_bf16(encode, &maps[2], vthi, skp, vrows, D)
+           : tensor_map(encode, &maps[2], vthi, skp, vrows, D);
   if (!r) r = tensor_map(encode, &maps[3], vtlo, skp, vrows, D);
   if (r) return kMapError + r;
 
@@ -899,8 +1202,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const int grid = bh * ((sq + kBlockRows - 1) / kBlockRows);
   kernel<<<grid, kThreads, Layout<D>::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const T*>(q),
-      static_cast<T*>(o), lse, bits, vmean, sq, sk, skp, kv_group, hq, causal,
-      window, scale, skip);
+      static_cast<T*>(o), lse, bits, bounds, vmean, sq, sk, skp, kv_group, hq,
+      causal, window, scale, skip);
   return (int)cudaGetLastError();
 }
 
@@ -932,14 +1235,15 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
 // the device; lse: null, or (bh, sq) float32 for each row's log-sum-exp
 // (the backward's statistics; o is the same either way); work: 4 (bh /
 // kv_group) ceil(sk / 32) 32 d float32 scratch, and with kv_valid (bh /
-// kv_group) d + (bh / hq) ceil(sk / 32) more; kv_valid: null, or (bh /
-// hq, sk) uint8 live keys, row-block bh reading row bh / hq; modes: 0 or
-// kProbsBf16 (attention_modes.cuh); d in {32, 64, 128}; bh divisible by
-// kv_group and hq; window <= 0 for none; skip = 1 skips the tiles no row
-// of a query tile can see (kernels/flash_attention.py checks shapes, types
-// and shared memory before the launch, and refuses shapes with a row that
-// sees no key for want of a window). Launches the mask's packing and
-// kv_mean (with kv_valid), the prepare pass and the kernel on ``stream``
+// kv_group) d + (bh / hq) (ceil(sk / 32) + 2) more; kv_valid: null, or
+// (bh / hq, sk) uint8 live keys, row-block bh reading row bh / hq; modes:
+// 0 or kProbsBf16 (attention_modes.cuh); d in {32, 64, 128}; bh divisible
+// by kv_group and hq; window <= 0 for none; skip = 1 skips the tiles no
+// row of a query tile can see, and with kv_valid those with no live key
+// (kernels/flash_attention.py checks shapes, types and shared memory
+// before the launch, and refuses shapes with a row that sees no key for
+// want of a window). Launches the mask's packing and bounds and kv_mean
+// (with kv_valid), the prepare pass and the kernel on ``stream``
 // and returns cudaGetLastError() (or the error of raising the shared
 // memory limit, or 10000 + the CUresult of a tensor map the driver
 // refused).

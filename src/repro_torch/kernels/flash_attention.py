@@ -11,7 +11,8 @@ kernel's contract). Unlike the TPU kernel it does not pad q or o: the
 kernel bounds-checks the ragged edge of Sq, and its prepare pass writes
 the split K and V^T into scratch padded with zero keys to a multiple of
 the 32-key tile. With ``return_lse=True`` it also returns each row's
-log-sum-exp (BH, Sq), the statistics of the backward.
+log-sum-exp (BH, Sq), the statistics of the backward. Which key tiles
+its blocks run is :func:`fwd_work_plan`.
 
 ``flash_attention_bwd`` is its gradient: ``csrc/flash_attention_bwd.cu``
 (3xTF32 ``wgmma`` fed by TMA, three device kernels: a prepare pass, dK /
@@ -71,13 +72,15 @@ def smem_bytes(d: int) -> int:
     """Dynamic shared memory of one block (csrc/flash_attention.cu
     ``Layout``): Q_lo (128, D) (Q_hi lives in registers), P hi and lo
     (128, 32), per stage (2 at D = 128, else 4) K hi and lo (32, D) and
-    V^T hi and lo (D, 32), all float32; four mbarriers per stage (full
-    and empty, of its K half and of its V half), its K tile's kv_valid
-    word and 1 KB to align the base for the 128-byte swizzle."""
+    V^T hi and lo (D, 32), all float32; six mbarriers per stage (full
+    and empty, of its K half, of its V half and of its V half holding a
+    K tile in probs_bf16's lse pass), two (kv_valid word, key tile)
+    slots per stage (its K half's and its V half's), the block's tile plan
+    (16 bytes) and 1 KB to align the base for the 128-byte swizzle."""
     stages = 2 if d == 128 else 4
     return (4 * BLOCK_ROWS * d + 2 * 4 * BLOCK_ROWS * K_TILE
-            + stages * 4 * 4 * K_TILE * d + 4 * 8 * stages + 4 * stages
-            + 1024)
+            + stages * 4 * 4 * K_TILE * d + 6 * 8 * stages + 2 * 8 * stages
+            + 16 + 1024)
 
 
 def bwd_smem_bytes(d: int) -> int:
@@ -112,9 +115,10 @@ def fwd_work_floats(bh: int, sk: int, d: int, kv_group: int,
                     batches: int = 0) -> int:
     """K5's float32 scratch: K and V^T split into hi and lo (BH /
     kv_group heads of Sk padded to the 32-key tile); with a kv_valid mask
-    of ``batches`` rows, :func:`mode_work_floats` more."""
+    of ``batches`` rows, :func:`mode_work_floats` and each row's first
+    and last live key more."""
     return (4 * (bh // kv_group) * padded_keys(sk) * d
-            + (mode_work_floats(bh, sk, d, kv_group, batches)
+            + (mode_work_floats(bh, sk, d, kv_group, batches) + 2 * batches
                if batches else 0))
 
 
@@ -141,6 +145,46 @@ def kv_bounds(kv_valid: torch.Tensor):
     first = torch.where(kv, keys, sk).amin(dim=1)
     last = torch.where(kv, keys, -1).amax(dim=1)
     return first, last
+
+
+def fwd_work_plan(bh: int, sq: int, sk: int, kv_group: int, causal: bool,
+                  window: int | None = None, kv_valid=None,
+                  skip: bool = True):
+    """The key tiles K5's blocks run (a twin of ``csrc/flash_attention.cu``'s
+    ``block_work``, ``live_tiles`` and ``next_tile``): ``{(head, q0):
+    [32-key tiles]}``, the block's 128 rows from q0, keys up to its last
+    row (``causal``) from its first row's window; with ``kv_valid`` also
+    within the batch row's first and last live key (:func:`kv_bounds`;
+    none live, or rows all before the first, and the block runs no tile),
+    without the tiles whose packed word is 0. ``skip=False`` runs every
+    tile (the kernel's ``skip_tiles=False``). ``kv_group`` orders the
+    blocks (KV head by KV head) and changes no block's tiles."""
+    del kv_group
+    win = window or 0
+    kv = None if kv_valid is None else kv_valid.bool().cpu()
+    hq = 1 if kv is None else bh // kv.shape[0]
+    if kv is not None:
+        first, last = (t.tolist() for t in kv_bounds(kv))
+    plan = {}
+    for h in range(bh):
+        for q0 in range(0, sq, BLOCK_ROWS):
+            lo, hi = 0, sk
+            if skip:
+                if causal:
+                    hi = min(hi, min(q0 + BLOCK_ROWS, sq))
+                if win > 0:
+                    lo = max(lo, q0 - win + 1)
+                if kv is not None:
+                    lo = max(lo, first[h // hq])
+                    hi = min(hi, last[h // hq] + 1)
+            t0 = lo // K_TILE
+            tiles = range(t0, -(-hi // K_TILE) if hi > lo else t0)
+            if skip and kv is not None:
+                row = kv[h // hq]
+                tiles = [t for t in tiles
+                         if bool(row[t * K_TILE:(t + 1) * K_TILE].any())]
+            plan[h, q0] = list(tiles)
+    return plan
 
 
 def bwd_work_plan(bh: int, sq: int, sk: int, kv_group: int, causal: bool,

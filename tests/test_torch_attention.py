@@ -214,9 +214,10 @@ def test_flash_wrapper_checks():
     # Q_lo (128, D), P hi + lo (128, 32) and two stages of K hi + lo
     # (32, D) and V^T hi + lo (D, 32), float32, at D = 128: 224 KB and one
     # block per SM
-    # (and the stages' mbarriers and kv_valid words)
-    assert smem_bytes(128) == (2 * 32_768 + 32_768 + 2 * 65_536 + 64 + 8
-                               + 1024)
+    # (and the stages' six mbarriers and two (kv_valid word, key tile)
+    # slots each, and the block's tile plan)
+    assert smem_bytes(128) == (2 * 32_768 + 32_768 + 2 * 65_536 + 96 + 32
+                               + 16 + 1024)
     assert smem_bytes(128) < 227 << 10 < 2 * smem_bytes(128)
 
 

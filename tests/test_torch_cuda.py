@@ -1304,27 +1304,36 @@ def test_sharded_paths_on_one_rank_equal_the_sequential(cuda, tmp_path):
 
 def mode_mask(batch, sk, device, kind="right"):
     """``right``: row 0 with its last 100 keys and every third key dead;
-    ``left``: row b's first 37 + 50 b keys dead (left padding). Either
-    way the last row has no live key."""
+    ``left``: row b's first 37 + 50 b keys dead (left padding); ``lead``:
+    row b's first 130 + 10 b keys dead (under causal masking the first
+    128 query rows see no live key: a block left no tile). Each way the
+    last row has no live key. ``live``: every key live."""
     kv = torch.ones((batch, sk), dtype=torch.bool)
+    if kind == "live":
+        return kv.to(device)
     if kind == "right":
         kv[0, sk - 100:] = False
         kv[0, 2::3] = False
     else:
         for b in range(batch):
-            kv[b, :37 + 50 * b] = False
+            kv[b, :(37 + 50 * b if kind == "left" else 130 + 10 * b)] = False
     kv[-1] = False
     return kv.to(device)
 
 
 # (modes, mask, input type) of the mode checks, as chip_smoke.py's
-# FLASH_MODE_CASES: both masks, bfloat16 inputs with probs_bf16
+# FLASH_MODE_CASES: both masks, bfloat16 inputs with probs_bf16; and a
+# left padding that leaves whole blocks no tile and an all-live mask
 MODE_CASES = [(("kv_valid",), "right", torch.float32),
               (("kv_valid",), "left", torch.float32),
               (("probs_bf16",), None, torch.float32),
               (("probs_bf16",), None, torch.bfloat16),
               (("kv_valid", "probs_bf16"), "right", torch.float32),
-              (("kv_valid", "probs_bf16"), "left", torch.bfloat16)]
+              (("kv_valid", "probs_bf16"), "left", torch.bfloat16),
+              (("kv_valid",), "lead", torch.float32),
+              (("kv_valid",), "live", torch.float32),
+              (("kv_valid", "probs_bf16"), "lead", torch.float32),
+              (("kv_valid", "probs_bf16"), "live", torch.bfloat16)]
 
 
 @pytest.mark.parametrize("modes,kind,dtype", MODE_CASES)
@@ -1335,8 +1344,10 @@ def test_flash_attention_modes_match_plain(cuda, bh, sq, sk, d, causal,
                                            group, batch, modes, kind, dtype):
     """K5 and its backward in the kv_valid and probs_bf16 modes against
     their plain versions: lse +inf on exactly the rows with no live key,
-    the same bits with the masked tiles and the backward's dead rows, keys
-    and words run (``skip_tiles=False``). Tolerances as chip_smoke.py's
+    the same bits (o and lse) with the forward's dead blocks and tiles and
+    the backward's dead rows, keys and words run (``skip_tiles=False``),
+    and without a mask the bits of the all-live one. Tolerances as
+    chip_smoke.py's
     (FLASH_PB_TOL): float32 (2e-5 on o, 1e-4 of each gradient's largest
     entry; bfloat16 inputs 2e-2 on o, as FLASH_TOL) with kv_valid; with
     probs_bf16 the kernel rounds where the plain version rounds, so only a
@@ -1367,13 +1378,18 @@ def test_flash_attention_modes_match_plain(cuda, bh, sq, sk, d, causal,
     if pb:
         assert control(o, want, flash_attention_ref(
             q, k, v, **dict(kw, probs_bf16=False))) <= 0.25
-    assert torch.equal(o, flash_attention_bhsd(q, k, v, skip_tiles=False,
-                                               **kw))
+    for a, b in zip((o, lse), flash_attention_bhsd(
+            q, k, v, skip_tiles=False, return_lse=True, **kw)):
+        assert torch.equal(a, b)
+    if kind == "live":
+        for a, b in zip((o, lse), flash_attention_bhsd(
+                q, k, v, return_lse=True, **dict(kw, kv_valid=None))):
+            assert torch.equal(a, b)
     want_lse = flash_lse_ref(q, k, causal=causal, kv_group=group,
                              kv_valid=kv)
     dead = torch.isinf(want_lse)
     assert torch.equal(torch.isinf(lse), dead) and bool(dead.any()) == (
-        kv is not None)
+        kv is not None and kind != "live")
     assert float((lse[~dead] - want_lse[~dead]).abs().max()) <= 1e-4
     got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     ref_g = flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)

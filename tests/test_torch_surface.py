@@ -25,7 +25,7 @@ import torch
 REFERENCE = Path(__file__).resolve().parents[1] / "src" / "repro"
 
 # names of a reference __all__ the port does not have, by ROADMAP §A
-# item: 5 the legacy loop engine (left out on purpose); item 10's optim/,
+# item: 5 the legacy loop engine (queued, the next slice); item 10's optim/,
 # item 8's multi-device and item 11's launch planning (sharding/) are
 # ported
 OPEN = {
