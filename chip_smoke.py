@@ -371,6 +371,13 @@ SWEEP_LANES = len(SWEEP_SEEDS) * FEMNIST_N
 SOLVE_SIZES = CHECK_SIZES + (SWEEP_LANES,)
 # two solvers may select differently only where |u - q| is within this
 FLIP_GAP = 1e-6
+# the legacy loop engine against the scan engine on the same draws (phase
+# 4 and phase 15's FL leg): comm_time and avg_power rtol (float64 host
+# sums of per-round float32 sums against float32 device sums), and the
+# accuracy within 20 of phase 4's 2,000 eval images (the participants
+# train one after another in the loop, under vmap in the scan engine:
+# other cuDNN algorithms, other float32 sums)
+LOOP_RTOL, LOOP_ACC_TOL = 1e-5, 20 / 2000
 # The bucket-batched kernel's (B, N) checks; (1024, 32) and (512, 128) are
 # the service's proposed groups at full width, (64, 16384) a cold large one.
 BATCHED_SHAPES = ((1, 8), (7, 1029), (1024, 32), (512, 128), (64, 16384))
@@ -568,6 +575,7 @@ def main_path(torch):
     from repro_torch.configs.cifar10_cnn import CONFIG
     from repro_torch.core.channel import heterogeneous_sigmas
     from repro_torch.data.synthetic import make_cifar10_like
+    from repro_torch.fl.engine import default_draws
     from repro_torch.fl.simulation import (SimConfig, match_uniform_m,
                                            run_simulation)
     from repro_torch.models.registry import make_model
@@ -595,13 +603,15 @@ def main_path(torch):
                               ("conv2", CONFIG.cnn.conv2),
                               ("hidden", CONFIG.cnn.hidden)))
 
-    def run(label, **kw):
+    seconds = {}
+
+    def run(label, draws=None, **kw):
         reset_counts()
         t = time.perf_counter()
-        hist = run_simulation(None, params, ds, SimConfig(**base, **kw),
+        hist = run_simulation(draws, params, ds, SimConfig(**base, **kw),
                               scfg, ch, sig, keep_selection=True)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t
+        dt = seconds[label] = time.perf_counter() - t
         counts = read_counts()
         comm = hist["comm_time"]
         if not (comm.shape == (2,) and (comm > 0).all()
@@ -618,7 +628,9 @@ def main_path(torch):
               f"{hist['n_selected'].tolist()}", flush=True)
         return hist, counts
 
-    fused, c_fused = run("proposed/cuda_fused")
+    # the draws the fused run takes (sim.seed's), recorded for the loop
+    draws = RecordedDraws(default_draws(SimConfig(**base), ds))
+    fused, c_fused = run("proposed/cuda_fused", draws=draws)
     solve, c_solve = run("proposed/cuda", solver="cuda")
     plain, c_plain = run("proposed/stitched", solver="stitched")
     if not (c_fused == launch_counts(decision_fused=ROUNDS)
@@ -639,14 +651,85 @@ def main_path(torch):
           "round", flush=True)
     m = match_uniform_m(torch.Generator(device="cuda").manual_seed(3), sig,
                         scfg, ch, rounds=300)
-    uni, _ = run(f"uniform (M={m:.3f})", policy="uniform", uniform_m=m)
+    uni_label = f"uniform (M={m:.3f})"
+    uni, _ = run(uni_label, policy="uniform", uniform_m=m, draws=draws)
     saving = 1.0 - fused["comm_time"][-1] / uni["comm_time"][-1]
     print(f"comm-time saving of proposed vs M-matched uniform after "
           f"{ROUNDS} rounds: {saving:.1%}", flush=True)
+    # the scan engine's time a round for proposed: its fastest solver run
+    # (the first run also pays the vmapped convolutions' first calls)
+    warm = min(seconds[k] for k in seconds if k.startswith("proposed/"))
+    legs = (("proposed", fused, warm, {}),
+            ("uniform", uni, seconds[uni_label],
+             dict(policy="uniform", uniform_m=m)))
+    loop, loop_launches = {}, launch_counts()
+    for policy, scan, scan_s, kw in legs:
+        counts, loop[policy] = loop_leg(
+            torch, f"cifar10 {policy}", draws, params, ds,
+            SimConfig(**base, **kw), scfg, ch, sig, scan, scan_s,
+            launch_counts())
+        loop_launches = {k: v + counts[k] for k, v in loop_launches.items()}
     ctx = dict(ds=ds, params=params, sig=sig, scfg=scfg, ch=ch, m=m,
-               sim=SimConfig(**base), fused=fused)
+               sim=SimConfig(**base), fused=fused, loop=loop,
+               loop_launches=loop_launches)
     return ({"scheduler_solve": c_solve["scheduler_solve"],
              "decision_fused": c_fused["decision_fused"]}, run, ctx)
+
+
+def loop_leg(torch, tag, draws, params, ds, sim, scfg, ch, sig, scan,
+             scan_s, want, flips=0, acc_tol=LOOP_ACC_TOL, acc_points=None):
+    """``run_simulation_loop`` (the legacy engine) on a scan run's draws,
+    driven with the counts at 0: its launches must be ``want``; ``round``
+    and ``n_selected`` must equal the scan run's history ``scan``
+    (``n_selected`` within ``flips``, the scan run's lanes whose uniform
+    lies within FLIP_GAP of q), comm_time and avg_power within
+    ``LOOP_RTOL`` of it unless a count actually differs (a flip that
+    leaves every eval point's count as it was fails the leg: the check
+    errs strict), test_acc within ``acc_tol`` at the eval points
+    ``acc_points`` (a slice; None: all). ``scan_s`` is the scan run's
+    wall time. Returns the launches and the leg's summary."""
+    import numpy as np
+
+    from repro_torch.fl.simulation import run_simulation_loop
+    reset_counts()
+    t = time.perf_counter()
+    hist = run_simulation_loop(draws, params, ds, sim, scfg, ch, sig)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches = read_counts()
+    if launches != want:
+        raise AssertionError(f"{tag} loop engine: launches {launches}, want "
+                             f"{want}")
+    check_history(f"{tag} loop engine", hist)
+    rel = {k: float(abs(hist[k] / scan[k] - 1.0).max())
+           for k in ("comm_time", "avg_power")}
+    points = slice(None) if acc_points is None else acc_points
+    acc = float(abs(hist["test_acc"][points]
+                    - scan["test_acc"][points]).max())
+    nsel = int(abs(hist["n_selected"] - scan["n_selected"]).max())
+    if not (np.array_equal(hist["round"], scan["round"]) and nsel <= flips
+            and (nsel or max(rel.values()) <= LOOP_RTOL)
+            and acc <= acc_tol):
+        raise AssertionError(
+            f"{tag}: the loop engine's history {hist} against the scan "
+            f"engine's {scan}: n_selected off by {nsel} ({flips} lanes near "
+            f"q), rel {rel} (> {LOOP_RTOL}), test_acc off by {acc} (> "
+            f"{acc_tol})")
+    rounds = sim.rounds
+    summary = dict(loop_s_per_round=loop_s / rounds,
+                   scan_s_per_round=scan_s / rounds,
+                   launches={k: v for k, v in launches.items() if v},
+                   comm_time_rel=rel["comm_time"],
+                   avg_power_rel=rel["avg_power"], test_acc_diff=acc,
+                   n_selected=hist["n_selected"].tolist(),
+                   test_acc=hist["test_acc"].tolist())
+    print(f"{tag}: loop engine {loop_s / rounds:.3f} s a round, scan engine "
+          f"{scan_s / rounds:.3f} s a round; launches "
+          f"{summary['launches']}; round and n_selected equal, comm_time "
+          f"rel {rel['comm_time']:.3g}, avg_power rel "
+          f"{rel['avg_power']:.3g}, test_acc {hist['test_acc'].tolist()} "
+          f"(scan {scan['test_acc'].tolist()})", flush=True)
+    return launches, summary
 
 
 # --------------------------------------------------------------------------
@@ -4110,40 +4193,47 @@ def leaf_errors(card, cpu):
             for k, c in cpu.items()}
 
 
-def fl_lm_grads(torch, zoo, ds, params):
-    """The FL engine's participant gradient, vmap(grad(lm_loss)) over the
-    first ``m_cap`` clients' first batch at the initial weights, on the
-    card and on the CPU: one K5 forward and one backward launch per layer
-    for all participants (the vmap rules fold them into BH), each leaf
-    within ``FL_GRAD_TOL``. (The participants' updates y - x are not
-    compared: both sides round w - gamma g to float32, and a weight's ulp
-    is not small against a few steps' update at gamma 0.01.) Returns the
-    largest leaf error."""
+def fl_lm_grads(torch, zoo, ds, params, vmapped=True):
+    """A participant's gradient at the initial weights, on the card and on
+    the CPU, as each FL engine takes it: the scan engine's
+    vmap(grad(lm_loss)) over the first ``m_cap`` clients' first batch
+    (``vmapped``), or the loop engine's grad(lm_loss) of one participant,
+    client 0's first batch, as ``local_sgd`` takes it. One K5 forward and
+    one backward launch per layer either way (the vmap rules fold the
+    participants into BH), each leaf within ``FL_GRAD_TOL``. (The
+    participants' updates y - x are not compared: both sides round w -
+    gamma g to float32, and a weight's ulp is not small against a few
+    steps' update at gamma 0.01.) Returns the largest leaf error."""
     from repro_torch.models.registry import make_model
     m, b = zoo.BASE["m_cap"], zoo.BASE["batch"]
-    batch = (ds.client_images[:m, :b], ds.client_labels[:m, :b])
-    grad = torch.func.vmap(
-        torch.func.grad(make_model("transformer_lm", ds).loss_fn),
-        in_dims=(None, 0))
+    grad = torch.func.grad(make_model("transformer_lm", ds).loss_fn)
+    if vmapped:
+        batch = (ds.client_images[:m, :b], ds.client_labels[:m, :b])
+        grad = torch.func.vmap(grad, in_dims=(None, 0))
+        tag, what = "vmap(grad)", (f"vmap(grad(lm_loss)) over {m} "
+                                   f"participants x {b} sequences")
+    else:
+        batch = (ds.client_images[0, :b], ds.client_labels[0, :b])
+        tag, what = "grad", (f"grad(lm_loss) of one participant (the loop "
+                             f"engine's) x {b} sequences")
     reset_counts()
     card = grad(params, batch)
     torch.cuda.synchronize()
     launches = read_counts()
     want = launch_counts(flash_attention_bhsd=2, flash_attention_bwd=2)
     if launches != want:
-        raise AssertionError(f"FL transformer_lm vmap(grad): launches "
+        raise AssertionError(f"FL transformer_lm {tag}: launches "
                              f"{launches}, want {want}")
     cpu = grad({k: p.cpu() for k, p in params.items()},
                tuple(t.cpu() for t in batch))
     errs = leaf_errors(card, cpu)
     worst = max(errs, key=errs.get)
     if not errs[worst] <= FL_GRAD_TOL:
-        raise AssertionError(f"FL transformer_lm vmap(grad) over {m} "
-                             f"participants: {worst} off by {errs[worst]} "
-                             f"of its largest |CPU| (> {FL_GRAD_TOL})")
-    print(f"FL transformer_lm: vmap(grad(lm_loss)) over {m} participants "
-          f"x {b} sequences on the card vs the CPU: each leaf's max |d| / "
-          f"max |CPU| <= {errs[worst]:.3g} ({worst}); launches "
+        raise AssertionError(f"FL transformer_lm {what}: {worst} off by "
+                             f"{errs[worst]} of its largest |CPU| (> "
+                             f"{FL_GRAD_TOL})")
+    print(f"FL transformer_lm: {what} on the card vs the CPU: each leaf's "
+          f"max |d| / max |CPU| <= {errs[worst]:.3g} ({worst}); launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     return errs[worst]
 
@@ -4187,7 +4277,9 @@ def fl_lm_leg(torch):
     and backward inside vmap(grad) (D = 16 padded to 32) once per layer a
     local step and K5 once per layer an evaluation, the same selections
     but at lanes within FLIP_GAP of q, the final accuracy within
-    ``FL_ACC_TOL``; then the participants' gradients and the final global
+    ``FL_ACC_TOL``; then the legacy loop on the same draws
+    (:func:`loop_leg`), the participants' gradients as each engine takes
+    them (vmapped, and one participant at a time) and the final global
     params against the CPU (:func:`fl_lm_grads`,
     :func:`fl_lm_final_params`). Returns the launches and a summary."""
     import numpy as np
@@ -4233,10 +4325,24 @@ def fl_lm_leg(torch):
             and np.isfinite(hist["comm_time"]).all()):
         raise AssertionError(f"FL transformer_lm: accuracy {acc} on the "
                              f"card, {cpu_acc} on the CPU")
+    # the legacy loop on the same draws: the m_cap participants train one
+    # at a time, so K5 and its backward launch per participant and step
+    sim, scfg, ch, sig = zoo.configs("transformer_lm", (), ds.device)
+    m_cap = zoo.BASE["m_cap"]
+    near = int((abs(u - hist["q"]) <= FLIP_GAP).sum())
+    loop_launches, loop = loop_leg(
+        torch, "FL transformer_lm", ReplayedDraws(draws.log, "cuda"), params,
+        ds, sim, scfg, ch, sig, hist, card_s, launch_counts(
+            flash_attention_bhsd=layers * (rounds * m_cap * steps + evals),
+            flash_attention_bwd=layers * rounds * m_cap * steps),
+        flips=near, acc_tol=FL_ACC_TOL, acc_points=slice(-1, None))
     grad_err = fl_lm_grads(torch, zoo, ds, params)
+    loop_grad_err = fl_lm_grads(torch, zoo, ds, params, vmapped=False)
     param_err, moved = fl_lm_final_params(torch, zoo, ds, host, draws.log,
                                           params)
     summary = dict(rounds=rounds, card_s=card_s, cpu_s=cpu_s, flips=flips,
+                   loop=dict(loop, lanes_near_q=near,
+                             grad_rel_err=loop_grad_err),
                    vmap_grad_rel_err=grad_err, final_params_rel_err=param_err,
                    final_params_min_move=moved,
                    test_acc=hist["test_acc"].tolist(),
@@ -4248,7 +4354,7 @@ def fl_lm_leg(torch):
           f"equal but {flips} lanes within {FLIP_GAP} of q; accuracy "
           f"{hist['test_acc'].tolist()} (CPU {cpu_hist['test_acc'].tolist()})",
           flush=True)
-    return launches, summary
+    return launches, loop_launches, summary
 
 
 def train_path(torch):
@@ -4274,11 +4380,12 @@ def train_path(torch):
           + (f"; with the PR-23 backward {old_ms:.2f} ms of "
              f"{prof['with_pr23_bwd']['device_ms']:.1f} ms"
              if "pr23_kernel" in row else ""), flush=True)
-    fl_launches, fl = fl_lm_leg(torch)
+    fl_launches, loop_launches, fl = fl_lm_leg(torch)
     wall = time.perf_counter() - t0
     print(f"phase 15 took {wall:.1f} s", flush=True)
     return err, row, {"yi-6b train": yi_launches,
-                      "transformer_lm FL": fl_launches}, dict(
+                      "transformer_lm FL": fl_launches,
+                      "transformer_lm FL loop": loop_launches}, dict(
         yi=yi, fl=fl, wall_s=wall)
 
 
@@ -6390,7 +6497,10 @@ def main() -> int:
     err["ssd_scan"] = check_ssd(torch)
     err["flash_attention_bhsd"] = check_flash(torch)
     launches, run, cifar_ctx = main_path(torch)
-    by_path = {"cifar10": dict(launches)}
+    cifar_loop = cifar_ctx["loop"]
+    by_path = {"cifar10": dict(launches),
+               "cifar10 loop": {k: cifar_ctx["loop_launches"][k]
+                                for k in launches}}
     more, femnist, femnist_ctx = femnist_path(torch)
     by_path.update(more)
     more, scenarios = scenarios_path(torch, cifar_ctx, femnist_ctx)
@@ -6437,9 +6547,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mode_err, mode_rows, launch18, modes18, launch_summary = launch_path(
         torch)
-    by_path["transformer_lm FL"] = {
-        k: train_launches["transformer_lm FL"][k]
-        for k in ("scheduler_solve", "decision_fused")}
+    for path in ("transformer_lm FL", "transformer_lm FL loop"):
+        by_path[path] = {k: train_launches[path][k]
+                         for k in ("scheduler_solve", "decision_fused")}
     for name in ("scheduler_solve", "decision_fused"):
         launches[name] = sum(p[name] for p in by_path.values())
     flash_by_path = {arch: c["flash_attention_bhsd"] for arch, c in (
@@ -6563,6 +6673,7 @@ def main() -> int:
     print(json.dumps({"service": dict(svc_summary, profile=svc_profile)}),
           flush=True)
     print(json.dumps({"telemetry": telemetry}), flush=True)
+    print(json.dumps({"cifar10": {"loop_engine": cifar_loop}}), flush=True)
     print(json.dumps({"femnist": femnist}), flush=True)
     print(json.dumps({"scenarios": scenarios}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)

@@ -116,7 +116,6 @@ def _layer(p: dict, k: int | None, spec, cfg, device,
 def lm_params_from_jax(tree: dict, cfg, device="cuda") -> M.LM:
     """The reference's LM parameter tree (numpy leaves) -> the port's
     :class:`~repro_torch.models.model.LM` on ``device``."""
-    M.check_config(cfg)
     prefix, period, n_periods = cfg.period_decomposition()
     layers = [_layer(p, None, spec, cfg, device)
               for p, spec in zip(tree["prefix"], prefix, strict=True)]

@@ -21,6 +21,7 @@ from repro_torch.fl.round import (delta_aggregate, fl_round, local_sgd,
                                   make_sharded_round_update, make_train_step,
                                   weighted_aggregate)
 from repro_torch.fl.simulation import (match_uniform_m, run_simulation,
+                                       run_simulation_loop,
                                        time_to_accuracy)
 from repro_torch.fl.tournament import run_tournament
 
@@ -29,6 +30,7 @@ __all__ = ["fl_round", "local_sgd", "make_fl_train_step", "make_train_step",
            "Draws", "GeneratorDraws", "GeneratorSweepDraws", "SimConfig",
            "SweepDraws", "make_sweep_runner", "run_simulation_scan",
            "run_sweep", "GridSpec", "run_grid", "PopulationConfig",
-           "match_uniform_m", "run_simulation", "time_to_accuracy",
+           "match_uniform_m", "run_simulation", "run_simulation_loop",
+           "time_to_accuracy",
            "run_tournament", "make_sharded_round_update",
            "make_schedule_runner"]

@@ -12,6 +12,14 @@ reference compiles the rounds into one ``lax.scan``; here a Python loop
 enqueues them on the device. The accounting and the history points stay
 on the device, and the host reads them once, after the last round.
 
+``SimConfig.engine`` names this engine ``"scan"`` (the default); ``"loop"``
+is the reference's legacy engine, ``fl/simulation.py::run_simulation_loop``:
+a host loop that reads every round's accounting back and builds its round
+from the core functions, not from this module's round, so that the two
+engines stay independent implementations held against each other
+(tests/test_torch_loop_engine.py). :func:`check_engine` holds the loop to
+the paper's setup, as the reference's dispatcher does.
+
 The solve behind ``SimConfig.solver``:
 
     port           reference        what runs
@@ -87,6 +95,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.instrument import EngineInstruments, perf
 
 SOLVERS = ("stitched", "cuda", "cuda_fused")
+ENGINES = ("scan", "loop")
 
 
 @dataclasses.dataclass
@@ -105,7 +114,8 @@ class SimConfig:
     aggregation: str = "paper"   # paper (Alg.1 l.7) | delta (variance-reduced)
     uniform_m: float = 0.0       # matched M for the baseline policies
     seed: int = 0                # seeds the default GeneratorDraws
-    engine: str = "scan"         # the only engine of the port
+    engine: str = "scan"         # scan (this module) | loop (the legacy
+                                 # per-round loop, fl/simulation.py)
     solver: str = "cuda_fused"   # stitched | cuda | cuda_fused
     channel: str = "rayleigh"    # any core/channel.py CHANNEL_MODELS name
     channel_params: tuple = ()   # ((name, value), ...) model extras
@@ -123,13 +133,38 @@ class SimConfig:
                                  # population-free run
 
 
+def check_engine(sim: SimConfig, loop: bool = False):
+    """The engine guard, the reference's checks and messages, each a
+    ``ValueError``: ``sim.engine`` is ``"scan"`` or ``"loop"``, and a
+    config the legacy loop runs (``sim.engine == "loop"``, or ``loop``
+    for a direct call of ``run_simulation_loop``) holds to the paper's
+    setup: a Rayleigh channel, ``proposed`` or ``uniform``, no sharding,
+    no population."""
+    if sim.engine not in ENGINES:
+        raise ValueError(f"unknown engine {sim.engine!r} (want 'scan'|"
+                         "'loop')")
+    if not (loop or sim.engine == "loop"):
+        return
+    if sim.channel != "rayleigh" or sim.policy not in ("proposed",
+                                                       "uniform"):
+        raise ValueError(
+            "the legacy loop engine only knows the paper's setup "
+            "(channel='rayleigh', policy in {'proposed', 'uniform'}); use "
+            "engine='scan' for registry channels/policies")
+    if sim.participant_shards or sim.client_shards:
+        raise ValueError(
+            "the legacy loop engine is the sequential parity reference; "
+            "participant/client sharding needs engine='scan'")
+    if sim.population is not None:
+        raise ValueError(
+            "the legacy loop engine has no dynamic-population path; "
+            "sim.population needs engine='scan'")
+
+
 def check_sim_config(sim: SimConfig):
-    """Reject what the port does not run, naming the ROADMAP item that
-    will bring it, and names or parameters nobody knows."""
-    if sim.engine != "scan":
-        raise NotImplementedError(
-            f"engine={sim.engine!r}: the reference's legacy loop engine is "
-            "not ported (ROADMAP §A item 5); use engine='scan'")
+    """Reject names or parameters nobody knows and configurations the
+    engine cannot run (a loop config outside the paper's setup)."""
+    check_engine(sim)
     if sim.client_shards:
         from repro_torch.fl.client_shard import check_client_shards
         check_client_shards(sim.client_shards, sim.policy, sim.channel)

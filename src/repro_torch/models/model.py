@@ -39,10 +39,12 @@ a dict of parameters (``fl/round.py::make_train_step`` takes it).
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
 ``forward`` returns the MoE layers' load-balance losses summed,
 and ``loss_fn`` adds them, as the reference's ``_apply_layer`` does;
-``prefill`` and ``decode_step`` drop them. A layer outside
-``PORTED_LAYERS`` (a cross-attention mixer with an MoE mlp, an attention
-mixer without an mlp: no id of the zoo has one) raises
-``NotImplementedError``.
+``prefill`` and ``decode_step`` drop them. Any mixer (attn, mamba,
+cross_attn) takes any mlp (dense, moe, none), as the reference's four
+layer functions do: every ``LayerSpec`` that ``cfg.layer_specs()``
+yields builds, scores, serves and trains, also those no id of the zoo
+has (a cross-attention mixer with an MoE mlp, an attention mixer without
+an mlp).
 
 ``cfg.remat_layers`` recomputes each decoder layer in the backward, as
 the reference's ``jax.checkpoint`` of ``_apply_layer`` does (the encoder's
@@ -71,14 +73,6 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (_dtype, Dense, Embedding, RMSNorm,
                                        SwiGLU)
 
-PORTED_LAYERS = (LayerSpec(mixer="mamba", mlp="none"),
-                 LayerSpec(mixer="mamba", mlp="dense"),
-                 LayerSpec(mixer="mamba", mlp="moe"),
-                 LayerSpec(mixer="attn", mlp="dense"),
-                 LayerSpec(mixer="attn", mlp="moe"),
-                 LayerSpec(mixer="cross_attn", mlp="dense"))
-
-
 class Batch(NamedTuple):
     """One scoring / serving micro-batch. Unused fields are None."""
 
@@ -86,20 +80,6 @@ class Batch(NamedTuple):
     labels: Optional[torch.Tensor] = None    # (B, S) next-token targets
     media: Optional[torch.Tensor] = None     # (B, M, d) VLM patch embeddings
     frames: Optional[torch.Tensor] = None    # (B, Se, d) audio frames
-
-
-def _check_spec(spec: LayerSpec):
-    if spec not in PORTED_LAYERS:
-        raise NotImplementedError(
-            f"layer {spec} is not ported: the port runs the layers of the "
-            f"zoo's ids, {PORTED_LAYERS}")
-
-
-def check_config(cfg: ModelConfig):
-    """Raise for a configuration the port cannot run: a layer outside
-    ``PORTED_LAYERS``."""
-    for spec in cfg.layer_specs():
-        _check_spec(spec)
 
 
 class Layer(nn.Module):
@@ -263,7 +243,6 @@ def _init_layer(generator, spec: LayerSpec, cfg: ModelConfig, dtype,
                 causal: bool = True) -> Layer:
     """Drawn in the reference's order: the mixer, the cross block, the
     mlp. ``causal=False`` makes an encoder layer."""
-    _check_spec(spec)
     d, eps = cfg.d_model, cfg.rmsnorm_eps
     norm1 = RMSNorm.init(d, dtype, device, eps)
     if spec.mixer == "mamba":
@@ -293,7 +272,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     """Random weights drawn on ``generator`` (which lives on ``device``)
     with the reference's initializers, in its order: embedding, head,
     layers (the dense prefix first), encoder."""
-    check_config(cfg)
     dtype = _dtype(cfg.param_dtype)
     d, eps = cfg.d_model, cfg.rmsnorm_eps
     embed = Embedding.init(generator, cfg.vocab_size, d, dtype, device)
@@ -380,7 +358,6 @@ class ServeState(NamedTuple):
 
 def _layer_cache_init(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       cache_len: int, dtype, device="cuda"):
-    _check_spec(spec)
     if spec.mixer == "attn":
         return attn.init_cache(cfg, batch, attn.cache_slots(cfg, cache_len),
                                dtype, device)

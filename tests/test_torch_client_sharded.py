@@ -257,7 +257,7 @@ def test_guards_without_a_group():
     with pytest.raises(ValueError, match="m_avg"):
         make_schedule_runner(sig, scfg, ch, rounds=2, policy="uniform",
                              m_avg=0.0, client_shards=1)
-    with pytest.raises(NotImplementedError, match="loop engine"):
+    with pytest.raises(ValueError, match="loop engine"):
         run(client_shards=1, engine="loop")
     with pytest.raises(ValueError, match="CONFIG axis"):
         run_grid(None, {}, ds, SimConfig(**SIM, client_shards=1), scfg, ch,

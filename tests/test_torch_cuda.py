@@ -53,7 +53,8 @@ expanded KV heads (dq bit-equal; dk and dv summed back per group within
 instead of cutting it; a reduced train step of each id on the card equals
 the CPU's (loss rtol 1e-5, gradients 1e-4 of each leaf's largest |CPU|),
 launching K5's forward and backward once per attention call and K4's
-once per Mamba layer. K4's backward kernel (through ``ops.ssd``) against
+once per Mamba layer; so does a VLM with experts (cross-attention + MoE
+layers, K5 non-causal over 5 media tokens). K4's backward kernel (through ``ops.ssd``) against
 ``ssd_scan_bwd_ref`` with an initial state and the final state's
 cotangent, 1e-4 of each gradient's largest |plain| entry, the same bits
 on a rerun, and under ``vmap(grad)`` one launch each way, bit-equal to
@@ -1181,11 +1182,35 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     ``make_train_step``): the card's loss and gradients against the CPU's
     on the same weights; K5 and its backward launch once per attention
     call. Loss rtol 1e-5; gradients 1e-4 of each leaf's largest |CPU|."""
+    check_card_step(cuda, get_config(arch).reduced())
+
+
+# a VLM with experts (no id of the zoo has one): a cross-attention mixer
+# with an MoE mlp in every second layer
+VLM_MOE = dict(name="vlm-moe", arch_type="vlm", n_layers=4, d_model=32,
+               n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=64, n_experts=4,
+               top_k=2, cross_attn_every=2, n_media_tokens=5)
+
+
+def test_vlm_moe_step_on_the_card_matches_the_cpu(cuda):
+    """The cross-attention + MoE layers train on the card: the reduced
+    VLM-MoE's loss and gradients against the CPU's (tolerances of the
+    zoo's steps above), K5 non-causal over the 5 media tokens and its
+    backward launching once per attention call."""
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(**VLM_MOE).reduced(n_layers=4)
+    assert [(s.mixer, s.mlp) for s in cfg.layer_specs()] == [
+        ("attn", "moe"), ("cross_attn", "moe")] * 2
+    assert check_card_step(cuda, cfg) == (4, 4)
+
+
+def check_card_step(cuda, cfg):
+    """:func:`test_train_step_on_the_card_matches_the_cpu` on ``cfg``;
+    returns the card's K5 forward and backward launches."""
     import copy
 
     from repro_torch.fl.round import make_train_step
     from repro_torch.kernels.flash_attention import flash_attention_bwd
-    cfg = get_config(arch).reduced()
     host = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     card = copy.deepcopy(host).to(cuda)
     out = []
@@ -1210,6 +1235,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
         scale = float(c.abs().max())
         assert scale > 0, name
         assert float((gg[name].cpu() - c).abs().max()) <= 1e-4 * scale, name
+    return fwd, bwd
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])

@@ -37,7 +37,7 @@ from repro_torch.data.synthetic import make_token_stream  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import mamba as mam  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.models.config import LayerSpec, ModelConfig  # noqa: E402
 
 BLOCK_TOL = dict(rtol=1e-4, atol=2e-5)
 STATE_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -95,28 +95,35 @@ def test_configs_match_reference(ref):
         configs.get_config("no-such-arch")
 
 
-def test_unported_layers_raise():
-    """The MoE stacks and a hybrid's Mamba layers with an mlp run since
-    the MoE slice (tests/test_torch_moe.py), cross-attention layers and
-    the encoder-decoder since the zoo's second slice
-    (tests/test_torch_zoo.py); a layer no id of the zoo has, a
-    cross-attention mixer with an MoE mlp, still raises."""
+def test_every_layer_spec_builds():
+    """Nothing raises any more: the MoE stacks and a hybrid's Mamba layers
+    with an mlp run since the MoE slice (tests/test_torch_moe.py),
+    cross-attention layers and the encoder-decoder since the zoo's second
+    slice (tests/test_torch_zoo.py), and a layer no id of the zoo has, a
+    cross-attention mixer with an MoE mlp or an attention mixer without
+    an mlp, since the layer became generic over mixer x mlp
+    (tests/test_torch_layer_specs.py holds them against the reference).
+    Each builds, and its cache initialises as the reference's."""
     moe = ModelConfig(name="m", arch_type="moe", n_layers=2, d_model=64,
                       n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=32,
                       n_experts=4, top_k=2)
     hybrid = dataclasses.replace(moe, n_experts=0, top_k=0, attn_period=2,
                                  attn_offset=1)
     vlm = dataclasses.replace(moe, n_experts=0, top_k=0, cross_attn_every=2)
-    for cfg in (moe, hybrid, vlm):
-        M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     moe_vlm = dataclasses.replace(moe, cross_attn_every=2)
+    for cfg in (moe, hybrid, vlm, moe_vlm):
+        M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     spec = moe_vlm.layer_specs()[1]
     assert (spec.mixer, spec.mlp) == ("cross_attn", "moe")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_params(torch.Generator().manual_seed(0), moe_vlm,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M._layer_cache_init(spec, moe_vlm, 1, 8, torch.float32, "cpu")
+    assert M._layer_cache_init(spec, moe_vlm, 1, 8, torch.float32,
+                               "cpu") is None
+    bare = M._init_layer(torch.Generator().manual_seed(0),
+                         LayerSpec("attn", "none"), moe, torch.float32,
+                         "cpu")
+    assert bare.mlp is None and bare.norm2 is None
+    cache = M._layer_cache_init(LayerSpec("attn", "none"), moe, 1, 8,
+                                torch.float32, "cpu")
+    assert tuple(cache.k.shape[:2]) == (1, 8)
 
 
 def test_init_params_matches_reference_layout(ref, lm):

@@ -6,9 +6,8 @@ One id of each mixer family, reduced (Mamba, dense attention, the hybrid
 Mamba + attention + MoE stack), from the reference's ``init_params``
 carried across by ``convert.lm_params_from_jax``, on seeded numpy tokens:
 
-- every entry that builds a model takes the flag (``check_config``,
-  ``init_params``, ``lm_params_from_jax``), with the same leaves as
-  without it;
+- every entry that builds a model takes the flag (``init_params``,
+  ``lm_params_from_jax``), with the same leaves as without it;
 - the loss and every gradient leaf under ``torch.func.grad`` against
   ``jax.grad`` of the reference's ``loss_fn`` with ``remat_layers=True``
   (tolerances of ``tests/test_torch_train_dense.py``: the loss rtol 1e-5,
@@ -85,16 +84,12 @@ def loss_of(model, cfg):
     return loss
 
 
-@pytest.mark.parametrize("entry", ["check_config", "init_params",
-                                   "lm_params_from_jax"])
+@pytest.mark.parametrize("entry", ["init_params", "lm_params_from_jax"])
 @pytest.mark.parametrize("arch", IDS)
 def test_remat_layers_is_honoured(ref, arch, entry):
     """Every entry builds with the flag, the same leaves as without it."""
     cfg = remat(configs.get_config(arch).reduced())
     plain = configs.get_config(arch).reduced()
-    if entry == "check_config":
-        M.check_config(cfg)
-        return
     if entry == "init_params":
         own = M.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")

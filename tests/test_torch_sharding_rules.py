@@ -60,21 +60,16 @@ def port_names(ref, path, cfg):
     return [".".join(keys)], False
 
 
-def reference_specs(ref, arch):
-    rcfg = ref.configs.get_config(arch)
+def check_param_pspecs(ref, cfg, rcfg, fsdp) -> set:
+    """``param_pspecs`` of ``cfg``'s LM, built on meta, against the
+    reference's rules over ``jax.eval_shape`` of its ``init_params`` on
+    ``rcfg``, leaf for leaf at every ``AXIS_SIZES``; returns the port's
+    names seen (every parameter)."""
+    lm = M.init_params(torch.Generator(), cfg, device="meta")
+    assert all(p.device.type == "meta" for p in lm.parameters())
     shapes = ref.jax.eval_shape(
         lambda key: ref.model.init_params(key, rcfg),
         ref.jax.random.PRNGKey(0))
-    return shapes
-
-
-@pytest.mark.parametrize("fsdp", [False, True])
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
-def test_param_pspecs_match_reference(ref, arch, fsdp):
-    cfg = configs.get_config(arch)
-    lm = M.init_params(torch.Generator(), cfg, device="meta")
-    assert all(p.device.type == "meta" for p in lm.parameters())
-    shapes = reference_specs(ref, arch)
     flat, _ = ref.jax.tree_util.tree_flatten_with_path(shapes)
     own = dict(lm.named_parameters())
     seen = set()
@@ -101,6 +96,14 @@ def test_param_pspecs_match_reference(ref, arch, fsdp):
                                                   spec)
                 seen.add(name)
     assert seen == set(own)
+    return seen
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_param_pspecs_match_reference(ref, arch, fsdp):
+    check_param_pspecs(ref, configs.get_config(arch),
+                       ref.configs.get_config(arch), fsdp)
 
 
 def test_batch_pspec_matches_reference(ref):

@@ -201,9 +201,14 @@ def ndims(tree):
 @pytest.mark.parametrize("shape", list(S.INPUT_SHAPES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_pspecs_match_reference(ref, arch, shape):
-    cfg, rcfg = get_config(arch), ref.configs.get_config(arch)
-    case = S.INPUT_SHAPES[shape]
-    rcase = ref.specs.INPUT_SHAPES[shape]
+    check_pspecs(ref, get_config(arch), ref.configs.get_config(arch),
+                 S.INPUT_SHAPES[shape], ref.specs.INPUT_SHAPES[shape])
+
+
+def check_pspecs(ref, cfg, rcfg, case, rcase):
+    """Batch, token and serving-state specs of ``cfg`` at ``case`` against
+    the reference's on ``rcfg`` at ``rcase``, on every mesh of
+    ``MESHES``."""
     b = case.global_batch
     state, cache_len = port_state(cfg, case, b)
     rstate = ref_state(ref, rcfg, rcase, b, cache_len)

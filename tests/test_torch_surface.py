@@ -25,13 +25,10 @@ import torch
 REFERENCE = Path(__file__).resolve().parents[1] / "src" / "repro"
 
 # names of a reference __all__ the port does not have, by ROADMAP §A
-# item: 5 the legacy loop engine (queued, the next slice); item 10's optim/,
-# item 8's multi-device and item 11's launch planning (sharding/) are
-# ported
-OPEN = {
-    "repro_torch.fl": {"run_simulation_loop": 5},
-    "repro_torch.fl.simulation": {"run_simulation_loop": 5},
-}
+# item: none left since item 5's legacy loop engine (item 10's optim/,
+# item 8's multi-device and item 11's launch planning (sharding/) came
+# before it)
+OPEN: dict = {}
 
 
 def reference_alls():
