@@ -95,8 +95,6 @@ Phases; any failure exits non-zero before the result line is printed:
    ``proposed`` and ``uniform`` under each of the five other channels at
    their default params, M matched under each channel; ``proposed``
    must launch K1 100 times a sweep, the baselines nothing;
-5. profile one more fused run (``torch.profiler``): device time by op
-   and the device's busy share;
 6. the scheduler service at full width: the demo's deployment mix
    (``service/demo.py::DEFAULT_MIX``: 1,020 tenants, 92,400 clients,
    buckets 32/128/512) under ``solver="stitched"`` and ``"cuda_fused"`` on
@@ -260,11 +258,7 @@ Phases; any failure exits non-zero before the result line is printed:
    ``functional_call`` of the LM module) and one Adam step
    (``optim.adam``), K5 and its backward exactly 4 launches each a step,
    the losses finite; the step's seconds (median of the last 2) and
-   ``max_memory_allocated``; one more SGD step under ``torch.profiler``
-   (its launches not counted): device time by kernel, K5's and its
-   backward's shares, and the same step's device time with the PR-23
-   backward's time in place of this one's where that source is at hand;
-   then the
+   ``max_memory_allocated``; then the
    ``transformer_lm`` leg of ``examples/model_zoo_fl.py`` (N = 40, 10
    rounds, ``cuda_fused``) on the card, its draws recorded, and on the
    CPU from the same draws and weights: K2 once a round, K5's forward and
@@ -301,8 +295,7 @@ Phases; any failure exits non-zero before the result line is printed:
    backward 24 + 24 launches a step; jamba-v0.1-52b's first 2 of 32
    layers (Mamba + dense MLP, Mamba + MoE; 14.9 GB) at 2 x 2048, 2 + 2;
    the losses and weights finite, the step's seconds (median of the last
-   2) and peak memory, and one more step under ``torch.profiler`` (its
-   launches not counted): device time by kernel.
+   2) and peak memory.
 
 17. (run right after phase 11) the sharded paths (ROADMAP §A item 8) on
    one rank: a world-size-1 NCCL group through
@@ -2016,33 +2009,6 @@ def telemetry_path(torch, ctx):
     return launches, dict(wall_s=wall, service=service, small_flushes=story,
                           overhead=overhead, spans=spans, engine=engine,
                           tournament=tournament, launches=launches)
-
-
-# --------------------------------------------------------------------------
-# Phase 5: where a round's time goes.
-# --------------------------------------------------------------------------
-
-def profile_rounds(torch, run):
-    """One more fused run under torch.profiler: device time by op name and
-    the device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run("proposed/cuda_fused under the profiler")
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = []  # device-side kernel events only (host ops repeat them)
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((e.self_device_time_total / 1e3, e.count, e.key))
-    busy = sum(r[0] for r in rows)
-    print(f"profile of {ROUNDS} rounds: wall {wall_ms:.1f} ms, kernels "
-          f"{busy:.1f} ms ({busy / wall_ms:.1%} of wall); top kernels:",
-          flush=True)
-    for ms, count, key in sorted(rows, reverse=True)[:15]:
-        print(f"  {ms:10.3f} ms {count:7d}x  {key[:100]}", flush=True)
-    ours = [r for r in rows if "decision_fused" in r[2]]
-    print(f"  decision_fused kernel: {ours}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -3991,48 +3957,6 @@ def time_flash_bwd(torch):
     return dict(rows[0], shapes=rows[1:])
 
 
-# the port's kernels and the GEMMs in a profiled step, by the symbols of
-# their device kernels
-TRAIN_SYMBOLS = {"flash_attention_bhsd": ("flash_attention_kernel",
-                                          "flash_attention_prepare_kv"),
-                 "flash_attention_bwd": ("flash_bwd_",),
-                 "gemm": ("gemm", "Gemm")}
-
-
-def profile_train_step(torch, step, label="a yi-6b SGD step",
-                       symbols=TRAIN_SYMBOLS):
-    """One more SGD step under torch.profiler: wall ms, device ms by
-    kernel, the device's busy share, and the shares of each of
-    ``symbols``' kernels (K5: its prepare pass and attention kernel; its
-    backward: prepare, dK / dV, dQ; K4's four passes and its backward's
-    five), by their device kernels' symbols."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(r[0] for r in rows)
-    ours = {k: sum(r[0] for r in rows if any(x in r[2] for x in syms))
-            for k, syms in symbols.items()}
-    top = sorted(rows, reverse=True)[:12]
-    print(f"profile of {label}: wall {wall_ms:.1f} ms, kernels "
-          f"{busy:.1f} ms ({busy / wall_ms:.1%} of wall), "
-          + ", ".join(f"{k} {ms:.2f} ms ({ms / max(busy, 1e-9):.1%})"
-                      for k, ms in ours.items())
-          + f", {sum(r[1] for r in rows)} device ops; top:", flush=True)
-    for ms, count, key in top:
-        print(f"  {ms:10.3f} ms {count:6d}x  {key[:100]}", flush=True)
-    return dict(wall_ms=wall_ms, device_ms=busy, kernels_ms=ours,
-                device_ops=sum(r[1] for r in rows),
-                top=[[key[:80], ms, count] for ms, count, key in top])
-
-
 def train_yi(torch):
     """yi-6b at published widths, its first ``TRAIN_LAYERS`` of 32 layers,
     float32, at batch 4 x 2048 (phase 9's shape): a step's loss and
@@ -4113,11 +4037,6 @@ def train_yi(torch):
             raise AssertionError(f"yi-6b train: SGD step launched "
                                  f"{after} - {before}, want {per_layer}")
     sgd_peak = torch.cuda.max_memory_allocated()
-    # one more SGD step under the profiler (its launches not counted, its
-    # update dropped)
-    counts = read_counts()
-    profiled = profile_train_step(torch, lambda: step(params, batch))
-    set_counts(counts)
     torch.cuda.empty_cache()
     init, update = optim.adam()
     state = init(params)
@@ -4142,8 +4061,7 @@ def train_yi(torch):
                    sgd_peak_bytes=sgd_peak, adam_loss=adam_loss,
                    adam_step_s=adam_s,
                    peak_bytes=torch.cuda.max_memory_allocated(),
-                   check=dict(loss_rel=loss_rel, grad_rel=grad_rel),
-                   profile=profiled)
+                   check=dict(loss_rel=loss_rel, grad_rel=grad_rel))
     print(f"yi-6b train: SGD losses {losses}, step s {secs} (median of the "
           f"last {len(secs) - 1}: {summary['step_s']:.3f}), peak "
           f"{sgd_peak / 1e9:.2f} GB; Adam step {adam_s:.3f} s, loss "
@@ -4365,21 +4283,6 @@ def train_path(torch):
     row = time_flash_bwd(torch)
     torch.cuda.empty_cache()
     yi_launches, yi = train_yi(torch)
-    prof = yi["profile"]
-    bwd_ms = prof["kernels_ms"]["flash_attention_bwd"]
-    if "pr23_kernel" in row:
-        # the same step with the PR-23 backward: its kernel time at yi's
-        # shape in this run in place of the new kernel's profiled time
-        old_ms = TRAIN_LAYERS * statistics.mean(row["pr23_kernel"]["ms"])
-        prof["with_pr23_bwd"] = dict(
-            device_ms=prof["device_ms"] - bwd_ms + old_ms,
-            flash_attention_bwd_ms=old_ms)
-    print(f"yi-6b SGD step, device time: K5 "
-          f"{prof['kernels_ms']['flash_attention_bhsd']:.2f} ms, its "
-          f"backward {bwd_ms:.2f} ms of {prof['device_ms']:.1f} ms"
-          + (f"; with the PR-23 backward {old_ms:.2f} ms of "
-             f"{prof['with_pr23_bwd']['device_ms']:.1f} ms"
-             if "pr23_kernel" in row else ""), flush=True)
     fl_launches, loop_launches, fl = fl_lm_leg(torch)
     wall = time.perf_counter() - t0
     print(f"phase 15 took {wall:.1f} s", flush=True)
@@ -4733,8 +4636,7 @@ def train_ssd_model(torch, arch, layers, b, s):
     over ``functional_call`` of the LM module), K4 and its backward
     launching once per Mamba layer a step (K5 and its backward once per
     attention layer), the losses and the stepped weights finite; the
-    step's seconds and peak memory; one more step under the profiler (its
-    launches not counted). Returns the launches and a summary."""
+    step's seconds and peak memory. Returns the launches and a summary."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_token_stream
     from repro_torch.fl.round import make_train_step
@@ -4783,16 +4685,11 @@ def train_ssd_model(torch, arch, layers, b, s):
     if not (all(math.isfinite(x) for x in losses)
             and all(bool(torch.isfinite(w).all()) for w in params.values())):
         raise AssertionError(f"{arch} train: losses {losses}")
-    profiled = profile_train_step(
-        torch, lambda: step(params, batch), f"a {arch} SGD step",
-        dict(TRAIN_SYMBOLS, ssd_scan=SSD_PASSES,
-             ssd_scan_bwd=("ssd_bwd_",)))
-    set_counts(launches)
     summary = dict(layers=cfg.n_layers, mamba_layers=mamba,
                    attention_layers=attn, batch=[b, s], params=n_params,
                    sgd_losses=losses, sgd_step_s=secs,
                    step_s=statistics.median(secs[1:]), peak_bytes=peak,
-                   launches_per_step=per_step, profile=profiled)
+                   launches_per_step=per_step)
     print(f"{arch} train: SGD losses {losses}, step s {secs} (median of the "
           f"last {len(secs) - 1}: {summary['step_s']:.3f}), peak "
           f"{peak / 1e9:.2f} GB; launches {launches}", flush=True)
@@ -6492,11 +6389,11 @@ def main() -> int:
     err = check_kernels(torch, scfg, ch, ops)
     err["decision_fused_batched"] = check_batched(torch)
     # phase 7's K1-K3 timings run here, next to their checks and before
-    # phases 5 and 6 run torch.profiler in this process
+    # phase 6 runs torch.profiler in this process
     times = timings(torch, scfg, ch, ops)
     err["ssd_scan"] = check_ssd(torch)
     err["flash_attention_bhsd"] = check_flash(torch)
-    launches, run, cifar_ctx = main_path(torch)
+    launches, _, cifar_ctx = main_path(torch)
     cifar_loop = cifar_ctx["loop"]
     by_path = {"cifar10": dict(launches),
                "cifar10 loop": {k: cifar_ctx["loop_launches"][k]
@@ -6511,7 +6408,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name in launches:
         launches[name] = sum(p[name] for p in by_path.values())
-    profile_rounds(torch, run)
     (svc_counts, per_full, svc_summary,
      (svc, full_flushes)) = service_path(torch)
     svc_profile = dict(flush_split(svc, full_flushes),

@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.fl.sharding import Mesh2D, make_mesh2d, psum, require_group
+from repro_torch.obs.profile import trace_span
 
 WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -118,13 +119,27 @@ def make_fl_train_step(loss_fn: Callable, gamma: float, steps: int,
 
 def make_train_step(loss_fn: Callable, gamma: float):
     """Plain (non-federated) SGD step: ``train_step(params, batch) ->
-    (new_params, loss)``."""
-    grad_and_loss = torch.func.grad_and_value(loss_fn)
+    (new_params, loss)``.
+
+    With telemetry on (``repro_torch.obs.configure(True)``) each call opens
+    the profiler spans ``train_step``, and inside it ``train_step.forward``
+    around the loss and ``train_step.update`` around the SGD update; the
+    backward is ``train_step``'s self part (the autograd engine may launch
+    it from its own device thread while this thread waits inside
+    ``train_step``). Off, each span costs one flag check."""
+    def forward(params, batch):
+        with trace_span("train_step.forward"):
+            return loss_fn(params, batch)
+
+    grad_and_loss = torch.func.grad_and_value(forward)
 
     def train_step(params, batch):
-        g, loss = grad_and_loss(params, batch)
-        return {k: w - gamma * g[k].to(w.dtype)
-                for k, w in params.items()}, loss
+        with trace_span("train_step"):
+            g, loss = grad_and_loss(params, batch)
+            with trace_span("train_step.update"):
+                new = {k: w - gamma * g[k].to(w.dtype)
+                       for k, w in params.items()}
+        return new, loss
 
     return train_step
 

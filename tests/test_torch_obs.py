@@ -291,6 +291,88 @@ def test_trace_span_disabled_and_enabled():
 
 
 # --------------------------------------------------------------------------
+# The train step's spans (fl/round.py::make_train_step).
+# --------------------------------------------------------------------------
+
+STEP_SPANS = ("train_step", "train_step.forward", "train_step.update")
+
+
+def tiny_lm_step(arch, n_batches=3):
+    """``arch`` reduced: its SGD step (``make_train_step`` over
+    ``functional_call`` of the LM module), its parameters and seeded
+    (2, 16) token batches."""
+    from repro_torch import configs
+    from repro_torch.fl.round import make_train_step
+    from repro_torch.models import model as M
+    cfg = configs.get_config(arch).reduced()
+    model = M.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    tokens = torch.randint(0, cfg.vocab_size, (n_batches, 2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    batches = [M.Batch(tokens=t, labels=torch.roll(t, -1, dims=-1))
+               for t in tokens]
+    step = make_train_step(
+        lambda p, b: torch.func.functional_call(model, p, (b, cfg)), 0.01)
+    return step, params, batches
+
+
+def run_steps(step, params, batches):
+    losses = []
+    for b in batches:
+        params, loss = step(params, b)
+        losses.append(loss)
+    return params, losses
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-130m"])
+def test_train_step_telemetry_is_neutral_bitwise(arch):
+    """Three SGD steps with the step's spans on give the parameters and
+    losses of the same steps with them off, bit for bit."""
+    step, params, batches = tiny_lm_step(arch)
+    off_params, off_losses = run_steps(step, params, batches)
+    obs.configure(True)
+    on_params, on_losses = run_steps(step, params, batches)
+    assert off_params.keys() == on_params.keys()
+    for k, w in off_params.items():
+        assert torch.equal(w, on_params[k]), k
+    for a, b in zip(off_losses, on_losses):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_train_step_spans_nest_in_order(steps):
+    """With telemetry on, each step records ``train_step`` holding
+    ``train_step.forward`` and then ``train_step.update``, one of each."""
+    from torch.profiler import ProfilerActivity, profile
+    step, params, batches = tiny_lm_step("yi-6b", steps)
+    obs.configure(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run_steps(step, params, batches)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.name in STEP_SPANS)
+    assert [name for *_, name in spans] == list(STEP_SPANS) * steps
+    for i in range(steps):
+        (s0, e0, _), (s1, e1, _), (s2, e2, _) = spans[3 * i:3 * i + 3]
+        assert s0 <= s1 <= e1 <= s2 <= e2 <= e0
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-130m"])
+def test_train_step_opens_no_span_with_telemetry_off(arch):
+    """Off, the step records no span and every span of the step is the
+    shared null context."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import profile as obs_profile
+    step, params, batches = tiny_lm_step(arch, 1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run_steps(step, params, batches)
+    assert not {e.name for e in prof.events()} & set(STEP_SPANS)
+    assert all(obs.trace_span(name) is obs_profile._NULL
+               for name in STEP_SPANS)
+
+
+# --------------------------------------------------------------------------
 # The service: neutrality, and every counter against the reference's.
 # --------------------------------------------------------------------------
 
